@@ -16,3 +16,9 @@ import importlib.util
 collect_ignore = []
 if importlib.util.find_spec("hypothesis") is None:
     collect_ignore.append("test_properties.py")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (runs on the card, skips "
+        "without one)")
