@@ -10,23 +10,30 @@ when the pipeline reaches its depth limit, or at context exit.
 
 Ordering semantics are the plan contract: per-key program order,
 cross-key freedom.  The port of ``repro.api.session``: sessions run on
-the card unless the caller passes ``device="cpu"``, and only P-CLHT is
-ported so far.
+the card unless the caller passes ``device="cpu"``.  RECIPE's five
+converted indexes are ported; the three hand-crafted baselines are
+not yet.
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Optional, Tuple
 
-from ..core import PCLHT, PMem, Plan, PlanResult
+from ..core import (PART, PBwTree, PCLHT, PHOT, PMasstree, PMem, Plan,
+                    PlanResult)
 from ..core.conditions import PROBE_STAT_KEYS
 from ..obs import MetricsRegistry, MetricsView
 
 # public index kinds; aliases accept the paper's P-* names (any case)
-_KINDS = {"clht": PCLHT}
+_KINDS = {
+    "clht": PCLHT,
+    "art": PART,
+    "hot": PHOT,
+    "bwtree": PBwTree,
+    "masstree": PMasstree,
+}
 # kinds of the JAX package that this package does not have yet
-_NOT_PORTED = ("art", "hot", "bwtree", "masstree", "cceh", "fastfair",
-               "level", "levelhashing")
+_NOT_PORTED = ("cceh", "fastfair", "level", "levelhashing")
 
 
 def _resolve_kind(kind: str):
@@ -46,13 +53,13 @@ def open_index(kind: str, *, device=None, pmem: Optional[PMem] = None,
                **index_kwargs) -> "Session":
     """Open a converted PM index as a ``Session``.
 
-    ``kind`` is ``"clht"`` (or ``"P-CLHT"``).  ``device`` is where the
-    index's snapshots live and its batched reads run: ``"cuda"`` when
-    omitted, which raises without a card; ``"cpu"`` runs the plain
-    PyTorch versions of the kernels.  Pass an existing ``pmem`` to
+    ``kind`` is one of clht/art/hot/bwtree/masstree (or a P-* alias).
+    ``device`` is where the index's snapshots live and its batched
+    reads run: ``"cuda"`` when omitted, which raises without a card;
+    ``"cpu"`` runs the plain PyTorch versions of the kernels.  Pass an existing ``pmem`` to
     attach to a shared persistence domain (e.g. re-attaching after a
     crash); extra kwargs go to the index constructor
-    (``n_buckets=...``).  Sharded sessions are not ported yet.
+    (``n_buckets=...`` for clht).  Sharded sessions are not ported yet.
     """
     name, factory = _resolve_kind(kind)
     pmem = pmem or PMem()

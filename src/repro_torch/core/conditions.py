@@ -140,7 +140,7 @@ class RecipeIndex:
     SHARD_SCHEME = "hash"  # ordered indexes route by key prefix instead
 
     # fingerprint probe lanes: exports carry a 1-byte hash per slot
-    # (kernels/probe/fingerprint) and the probe kernel reads full
+    # (kernels/probe/fingerprint) and the probe kernels read full
     # keys only on fingerprint hits.  Results are bit-identical either
     # way; flipping this off switches the probe-traffic model to
     # full-key gathers for every lane (the A/B the benchmarks measure).
@@ -266,7 +266,7 @@ class RecipeIndex:
 
     def export_arrays(self) -> Any:
         """Dense-array export of the reachable state for batched
-        lookups.  Index-specific layout; see PCLHT."""
+        lookups.  Index-specific layout; see PCLHT/PART."""
         raise NotImplementedError(f"{type(self).__name__} has no array export")
 
     def build_export(self) -> IndexSnapshot:
@@ -621,17 +621,74 @@ class RecipeIndex:
                     break
         return out
 
+    def _scan_export(self, snapshot: IndexSnapshot
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Sorted (keys, vals) int64 run of the live entries — the
+        page export the shared kernels/scan engine probes.  The default
+        materializes the index's sorted iteration; P-Masstree/P-BwTree
+        override to reuse their (already sorted) lookup export.  Called
+        at most once per epoch: kernels/scan memoizes the prepared form
+        on the snapshot."""
+        items = list(self.items())  # type: ignore[attr-defined]
+        if not items:
+            return None
+        keys = np.fromiter((k for k, _ in items), np.int64, len(items))
+        vals = np.fromiter((v for _, v in items), np.int64, len(items))
+        return keys, vals
+
+    def _kernel_scan(self, snapshot: IndexSnapshot, starts: np.ndarray,
+                     counts: np.ndarray
+                     ) -> Optional[List[List[Tuple[int, int]]]]:
+        """Vectorized range scans of a snapshot, or None for an empty
+        structure.  Ordered indexes share one implementation: lower
+        bound + window gather over the sorted run from _scan_export
+        (kernels/scan), on the index's device.  Unordered indexes raise
+        so ``_scan_batch`` stays on the scalar path (which raises in
+        turn)."""
+        if not self.ORDERED:
+            raise NotImplementedError(f"{self.spec.name} is unordered")
+        from ..kernels.scan import snapshot_scan
+        return snapshot_scan(snapshot, starts, counts,
+                             lambda: self._scan_export(snapshot),
+                             device=self.device)
+
     def _scan_batch(self, start_keys: Sequence[int],
                     counts: Sequence[int], *, force_kernel: bool = False
                     ) -> List[List[Tuple[int, int]]]:
         """Per-wave scan primitive (private: callers outside core go
-        through ``execute``): one scalar ``scan`` per (start_key,
-        count), which unordered indexes refuse.  The batched scan
-        kernel (the JAX package's ``scan_window``) is not ported yet;
-        ``force_kernel`` is accepted for the plan executor's sake."""
+        through ``execute``).  Batched range scans; results are
+        bit-identical to calling ``scan`` once per (start_key, count).
+
+        Dispatch mirrors ``_lookup_batch`` with one twist: the floors
+        compare against the *total records requested* (sum of counts),
+        the unit the export cost actually amortizes over — a 64-scan
+        batch probing 100 records each is kernel-worthy even though 64
+        lookups would not be.  The stale-snapshot floor is 4x the
+        lookup rebuild floor (on the order of the structure's live
+        entry count): the sorted-run export walks every live entry, so
+        a batch requesting fewer records than that is cheaper as
+        scalar descend-and-walk scans.  Epoch semantics are identical
+        to lookups: any write or crash invalidates the snapshot and
+        small stale batches fall back to the scalar path."""
+        counts = [int(c) for c in counts]
         assert len(counts) == len(start_keys)
-        return [self.scan(int(k), int(c))
-                for k, c in zip(start_keys, counts)]
+        stale = (self._snapshot is None
+                 or self._snapshot.epoch != self._epoch_key())
+        floor = (4 * self._rebuild_floor() if stale
+                 else self._MIN_KERNEL_BATCH)
+        if sum(counts) < floor and not force_kernel:
+            return [self.scan(int(k), c)
+                    for k, c in zip(start_keys, counts)]
+        try:
+            res = self._kernel_scan(self.snapshot(),
+                                    np.asarray(start_keys, np.int64),
+                                    np.asarray(counts, np.int64))
+        except NotImplementedError:  # unordered / no sorted iteration
+            return [self.scan(int(k), c)
+                    for k, c in zip(start_keys, counts)]
+        if res is None:  # empty structure: every scan is empty
+            return [[] for _ in start_keys]
+        return res
 
     # -- recovery --------------------------------------------------------
     def recover(self) -> None:

@@ -19,9 +19,10 @@ plan into maximal conflict-free *waves* under that relation
 (kernels/conflict owns the pairwise rules and the peeling oracle);
 each wave then runs as ONE batched dispatch:
 
-* read wave  → ``_lookup_batch``  (the chained probe kernel),
-* scan wave  → ``_scan_batch``    (scalar scans until the scan kernel
-  is ported),
+* read wave  → ``_lookup_batch``  (the probe, radix-descent or
+  sorted-run search kernel of the index),
+* scan wave  → ``_scan_batch``    (the sorted-run search kernel:
+  lower bound + window gather),
 * write wave → ``_write_batch``   (kernels/partition shard routing +
   one ``PMem.group_commit`` persist epoch per shard run; same-key
   writes share a wave because the stable partition preserves their

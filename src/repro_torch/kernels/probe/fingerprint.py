@@ -1,19 +1,26 @@
 """Fingerprint lane primitives (Dash-style).
 
 A fingerprint is a 1-byte digest of a slot's key that rides the
-snapshot export next to the full 64-bit words.  The probe kernel
-compares the fingerprint lane first and reads (and full-compares) the
+snapshot export next to the full 64-bit words.  The probe kernels
+compare the fingerprint lane first and read (and full-compare) the
 64-bit key word only of slots whose fingerprint matches the query's.
 
-``fp64`` is the splitmix64 top byte.  Value 0 is reserved for *empty*
-(NULL-keyed) slots: a live key's fingerprint is remapped ``0 -> 1``.
+Two lanes exist:
+
+* ``fp64`` — the splitmix64 top byte, for hash-bucket and sorted-run
+  slot arrays (P-CLHT buckets, P-Masstree / P-BwTree sorted runs);
+* ``fp_partial`` — the low key byte, for radix node pages (P-ART /
+  P-HOT leaves): the partial-key byte a real radix node keeps inline.
+
+Value 0 is reserved for *empty* (an empty slot or a non-leaf node): a
+live key's fingerprint is remapped ``0 -> 1``.
 Query fingerprints use the same function, so a true hit always
 fingerprint-matches.  The one query whose fingerprint is 0 is key 0
 (the NULL word): it matches empty slots and the lanes past a chain's
 end, exactly as in the JAX package.
 
-``fp64`` runs in numpy ``uint64``: splitmix64 needs logical right
-shifts, and torch's int64 ``>>`` is arithmetic.
+Both run in numpy ``uint64``: splitmix64 needs logical right shifts,
+and torch's int64 ``>>`` is arithmetic.
 
 ``account`` is the shared probe-traffic model: a full-key candidate
 verification costs 2 PM words (key + value), the fingerprint lane
@@ -46,6 +53,13 @@ def fp64(keys: np.ndarray) -> np.ndarray:
     return np.where(k == 0, np.uint8(FP_EMPTY), fp).astype(np.uint8)
 
 
+def fp_partial(keys: np.ndarray) -> np.ndarray:
+    """1-byte partial-key fingerprints (the low key byte) for radix
+    leaf pages; the 0 -> 1 remap reserves 0 for non-leaf rows."""
+    b = (np.asarray(keys).astype(np.uint64) & _U64(0xFF)).astype(np.uint8)
+    return (b + (b == 0)).astype(np.uint8)
+
+
 def account(stats: Optional[dict], *, lanes: int, fp_candidates: int,
             fp_hits: int, fp_false: int, fingerprints: bool) -> None:
     """Fold one probe dispatch into a ``probe_stats`` dict.
@@ -72,4 +86,4 @@ def account(stats: Optional[dict], *, lanes: int, fp_candidates: int,
         stats["pm_load_words"] += 2 * int(lanes)
 
 
-__all__ = ["FP_EMPTY", "account", "fp64"]
+__all__ = ["FP_EMPTY", "account", "fp64", "fp_partial"]

@@ -42,19 +42,23 @@ def test_no_source_of_the_port_imports_jax_or_repro():
     assert len(sources) > 20  # the scan saw the package
 
 
-def test_open_index_defaults_to_the_card_and_never_falls_back(monkeypatch):
+@pytest.mark.parametrize("kind", ["clht", "P-ART", "hot", "masstree",
+                                  "P-BwTree"])
+def test_open_index_defaults_to_the_card_and_never_falls_back(monkeypatch,
+                                                              kind):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        open_index("clht")
+        open_index(kind)
     with pytest.raises(RuntimeError):
-        open_index("clht", device="cuda")
-    s = open_index("clht", device="cpu")
+        open_index(kind, device="cuda")
+    s = open_index(kind, device="cpu")
     assert s.device == torch.device("cpu")
+    assert s.index.device == torch.device("cpu")
     s.put(5, 6)
     assert s.get(5) == 6
 
 
-@pytest.mark.parametrize("kind", ["art", "P-HOT", "masstree", "cceh"])
+@pytest.mark.parametrize("kind", ["cceh", "fastfair", "level"])
 def test_unported_kinds_raise(kind):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         open_index(kind, device="cpu")
