@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py [--n-clht 1048576] [--n-art 1048576]
                           [--n-hot 262144] [--n-masstree 262144]
-                          [--n-bwtree 32768] [--seed 0]
+                          [--n-bwtree 32768] [--n-cceh 32768]
+                          [--n-fastfair 65536] [--n-level 16384]
+                          [--seed 0]
 
-Each path is a YCSB workload of 4096-op plans against one of RECIPE's
-five converted indexes, through ``repro_torch.api.open_index(kind)``:
+Each path is a YCSB workload of 4096-op plans through
+``repro_torch.api.open_index``.  Five paths drive one of RECIPE's
+converted indexes each:
 
 * P-CLHT, whose read waves run the chained probe kernel
   (``src/repro_torch/csrc/probe.cu``), and P-ART and P-HOT, whose read
@@ -24,11 +27,34 @@ five converted indexes, through ``repro_torch.api.open_index(kind)``:
   short YCSB-E (5% inserts; its scan waves mostly run scalar, below the
   stale-snapshot floor).
 
+The sixth, the scale-out path, drives ``open_index(kind, shards=S)``:
+every plan is routed by the shard-routing kernel
+(``csrc/shard_route.cu``):
+
+* P-CLHT in 8 shards (``--n-clht`` keys, hash routing): Load A, YCSB-C
+  through the mesh read path (all 8 shards' sorted runs searched in one
+  launch of ``csrc/scan_window.cu`` with a shard axis) and through the
+  per-shard path, the same plans on the unsharded P-CLHT of the first
+  path, YCSB-A, a crash injected inside one shard's group commit (the
+  siblings serve the plan's new values with no replay; the shard is
+  power-failed and its sub-plan replayed; every acknowledged key reads
+  back), and 4 client streams of overlapping YCSB-A plans through
+  ``StreamDriver``, whose admission runs the conflict kernel
+  (``csrc/conflict_any.cu``): some plans defer, and every ticket's
+  results equal a sequential oracle applied in tick order;
+* CCEH unsharded and in 8 shards (``--n-cceh``): Load A, YCSB-C and
+  YCSB-A, with the reference's two columns for P-CLHT and CCEH
+  (modeled ``critical_ns`` and wall kops/s, and 8-shard / 1-shard);
+* FAST&FAIR in 4 shards (``--n-fastfair``, prefix routing on key bits
+  59-58, since YCSB keys lie below 2^60): YCSB-E0 scans merged across
+  shards, each equal to the merge of every shard's scalar ``scan``;
+  Level hashing unsharded (``--n-level``): YCSB-C.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel;
-3. the five paths, each with every kernel's launch count set to 0 just
+3. the six paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched;
 4. each kernel against its plain PyTorch version on the card, on 4096
@@ -62,10 +88,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import build  # noqa: E402
 from repro_torch.api import Plan, open_index  # noqa: E402
+from repro_torch.core import CrashPoint  # noqa: E402
 from repro_torch.core.ycsb import PhaseExecutor, generate  # noqa: E402
+from repro_torch.distributed import streams as dstreams  # noqa: E402
 from repro_torch.kernels import art_probe as kart  # noqa: E402
+from repro_torch.kernels import conflict as kconf  # noqa: E402
+from repro_torch.kernels import partition as kpart  # noqa: E402
 from repro_torch.kernels import probe as kprobe  # noqa: E402
 from repro_torch.kernels import scan as kscan  # noqa: E402
+from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.kernels.clht_probe import mix64  # noqa: E402
 from repro_torch.kernels.probe import fp64, fp_partial  # noqa: E402
 
@@ -80,12 +111,26 @@ LANE_OPS_PER_S = 67e12
 SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "probe64": "src/repro_torch/csrc/probe.cu",
            "art_descend": "src/repro_torch/csrc/art_descend.cu",
-           "scan_window": "src/repro_torch/csrc/scan_window.cu"}
+           "scan_window": "src/repro_torch/csrc/scan_window.cu",
+           "scan_window_sharded": "src/repro_torch/csrc/scan_window.cu",
+           "shard_route": "src/repro_torch/csrc/shard_route.cu",
+           "conflict_any": "src/repro_torch/csrc/conflict_any.cu"}
+# the sharded search is scan_window with a shard axis; on the JAX
+# package's mesh path it takes the place of a vmapped lower bound
+# (src/repro/distributed/mesh.py:84), which is not a Pallas kernel
 REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "probe64": "src/repro/kernels/probe/kernel.py:108",
             "art_descend": "src/repro/kernels/art_probe/kernel.py:96",
-            "scan_window": "src/repro/kernels/scan/kernel.py:79"}
-COUNTERS = (kprobe.LAUNCHES, kart.LAUNCHES, kscan.LAUNCHES)
+            "scan_window": "src/repro/kernels/scan/kernel.py:79",
+            "scan_window_sharded": "src/repro/kernels/scan/kernel.py:79",
+            "shard_route": "src/repro/kernels/partition/kernel.py:102",
+            "conflict_any": "src/repro/kernels/conflict/kernel.py:64"}
+COUNTERS = (kprobe.LAUNCHES, kart.LAUNCHES, kscan.LAUNCHES, kpart.LAUNCHES,
+            kconf.LAUNCHES)
+SHARDS = 8
+STREAMS = 4
+STREAM_PLANS = 4  # plans per stream on the scale-out path
+C_PLANS = 64  # timed YCSB-C plans per column of the reporting model
 
 
 def check(ok: bool, what: str) -> None:
@@ -255,6 +300,294 @@ def sorted_path(session, n_load: int, seed: int, tag: str, *,
                    f"{tag} YCSB-E", check_all=False)
         say(f"{tag} YCSB-E: scan_window launches "
             f"{kscan.LAUNCHES['scan_window'] - before}")
+
+
+# -- the scale-out path -----------------------------------------------------
+
+def checked_results(res, want: np.ndarray, what: str) -> None:
+    check(None not in res.results, f"{what}: a key did not read back")
+    check(np.array_equal(np.asarray(res.results, np.int64), want),
+          f"{what}: a value differs from the acknowledged one")
+
+
+def c_columns(index, keys: np.ndarray, tag: str, **kw) -> tuple:
+    """YCSB-C plans of ``keys`` (every result must be ``value_of(key)``):
+    (wall kops/s, modeled kops/s) over all plans but the first, which
+    is forced onto the kernel path (a stale snapshot is re-exported)
+    and not timed.  Modeled is ``critical_ns`` (routing + the slowest
+    shard + merge) for a sharded index, the wall time otherwise."""
+    wall = crit = n = 0
+    for lo in range(0, keys.size, PLAN_OPS):
+        chunk = keys[lo:lo + PLAN_OPS]
+        t0 = time.perf_counter_ns()
+        res = index.execute(get_plan(chunk), force_kernel=lo == 0, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter_ns() - t0
+        checked_results(res, value_of(chunk), f"{tag} YCSB-C")
+        if lo:
+            wall += dt
+            crit += getattr(res, "critical_ns", dt)
+            n += chunk.size
+    check(n > 0, f"{tag} YCSB-C: fewer than two plans to time")
+    return n / wall * 1e6, n / crit * 1e6
+
+
+def report_columns(tag: str, one: tuple, many: tuple, shards: int) -> None:
+    say(f"{tag} YCSB-C, reporting model: 1 shard wall {one[0]:.3f} / "
+        f"modeled {one[1]:.3f} kops/s; {shards} shards wall "
+        f"{many[0]:.3f} / modeled {many[1]:.3f} kops/s; {shards}-shard / "
+        f"1-shard wall {many[0] / one[0]:.3f}x, modeled "
+        f"{many[1] / one[1]:.3f}x")
+
+
+def ycsb_a(index, n_load: int, seed: int, tag: str) -> np.ndarray:
+    """YCSB-A (a quarter of the load); returns the inserted keys."""
+    mix_a = generate("A", n_load, max(n_load // 4, PLAN_OPS), seed=seed)
+    done, secs = timed_run(index, mix_a.run_ops)
+    check(done["acked"] == done["insert"], f"{tag} YCSB-A: an insert of a "
+          "fresh key was not acknowledged")
+    check(done["found"] == done["lookup"], f"{tag} YCSB-A: a lookup of a "
+          "loaded key missed")
+    say(f"{tag} YCSB-A: {rate(len(mix_a.run_ops), secs)}, {done['acked']} "
+        f"acked of {done['insert']} inserts, {done['found']} found of "
+        f"{done['lookup']} lookups")
+    return op_keys(mix_a.run_ops, "insert")
+
+
+def shard_crash(session, loaded: np.ndarray, inserted: np.ndarray,
+                rng, tag: str) -> dict:
+    """A crash inside one shard's group commit during a cross-shard
+    update plan: the siblings finish and serve the new values with no
+    replay; the shard is power-failed, its sub-plan replayed, and then
+    every acknowledged key reads back.  Returns the updated values."""
+    idx = session.index
+    keys = rng.choice(loaded, PLAN_OPS, replace=False)
+    new = value_of(keys) ^ 2
+    routes = idx.route(keys)
+    victim = int(routes[0])
+    mine = routes == victim
+    idx.pmems[victim].arm_crash(after_stores=int(mine.sum()) // 2)
+    try:
+        session.execute(Plan.from_arrays(np.full(keys.size, 2, np.int32),
+                                         keys, new))
+        crashed = False
+    except CrashPoint:
+        crashed = True
+    check(crashed and idx.last_crashed_shard == victim,
+          f"{tag} crash: the armed shard did not crash")
+    check(all(pm.crashes == 0 for s, pm in enumerate(idx.pmems)
+              if s != victim), f"{tag} crash: a sibling shard crashed")
+    sib = idx.execute(get_plan(keys[~mine]), mesh=False)
+    checked_results(sib, new[~mine], f"{tag} crash: a sibling shard")
+    check(idx.stats["replayed_ops"] == 0, f"{tag} crash: a replay ran "
+          "before recovery")
+    t0 = time.perf_counter()
+    idx.crash_shard(victim)
+    replayed = idx.recover_shard(victim, replay=True)
+    check(replayed == int(mine.sum()), f"{tag} crash: the replay ran "
+          f"{replayed} ops, not the shard's {int(mine.sum())}")
+    acked = np.concatenate([loaded, inserted])
+    want = value_of(acked)
+    order = np.argsort(loaded)
+    want[order[np.searchsorted(loaded, keys, sorter=order)]] = new
+    for lo in range(0, acked.size, PLAN_OPS):
+        res = idx.execute(get_plan(acked[lo:lo + PLAN_OPS]),
+                          force_kernel=lo == 0, mesh=False)
+        checked_results(res, want[lo:lo + PLAN_OPS],
+                        f"{tag} crash: after the replay")
+    say(f"{tag} crash: shard {victim} crashed inside its group commit; "
+        f"{int((~mine).sum())} sibling ops served their new values with "
+        f"no replay; {replayed} ops replayed; all {acked.size} acked keys "
+        f"read back in {time.perf_counter() - t0:.3f} s")
+    return dict(zip(keys.tolist(), new.tolist()))
+
+
+def stream_phase(session, loaded: np.ndarray, updated: dict, rng,
+                 tag: str) -> dict:
+    """4 client streams of YCSB-A plans (lookups of loaded keys, inserts
+    of fresh keys above 2^61) over one shared op list, neighbouring
+    plans overlapping by half, so duplicate inserts conflict and some
+    plans defer.  Every ticket's results must equal a sequential oracle
+    applied in tick order (plans admitted in one tick are conflict-free,
+    so their order within it does not matter).  Returns the admission
+    checks' inputs, the largest reference set last."""
+    n_ops = (STREAMS * STREAM_PLANS + 1) * PLAN_OPS // 2
+    is_get = rng.random(n_ops) < 0.5
+    keys = np.where(is_get, rng.choice(loaded, n_ops),
+                    rng.integers(1 << 61, 1 << 62, size=n_ops))
+    ops = [("lookup", int(k), 0) if g else ("insert", int(k),
+                                            int(value_of(k)))
+           for g, k in zip(is_get, keys)]
+    hist = Histogram("streams")
+    drv = session.streams(STREAMS, lat_hist=hist)
+    tickets = []
+    for i in range(STREAMS * STREAM_PLANS):
+        lo = i * PLAN_OPS // 2
+        tickets.append(drv.streams[i % STREAMS].submit(
+            Plan.from_ops(ops[lo:lo + PLAN_OPS])))
+    checks = []
+    real = dstreams.conflict_any
+
+    def recorded(kinds_a, keys_a, kinds_b, keys_b, **kw):
+        checks.append((kinds_a, keys_a, kinds_b, keys_b))
+        return real(kinds_a, keys_a, kinds_b, keys_b, **kw)
+
+    dstreams.conflict_any = recorded
+    t0 = time.perf_counter()
+    try:
+        ticks = drv.run()
+    finally:
+        dstreams.conflict_any = real
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(not drv.pending(), f"{tag} streams: a plan was never admitted")
+    check(drv.stats["deferred_plans"] > 0, f"{tag} streams: no plan "
+          "deferred")
+    inserted = set()
+    for t in sorted(tickets, key=lambda t: t.tick):
+        want = []
+        for kind, k, _ in plan_ops(t.plan):
+            if kind == "lookup":
+                want.append(value_of(k) if k in inserted
+                            else updated.get(k, int(value_of(k))))
+            else:
+                want.append(k not in inserted)
+                inserted.add(k)
+        check(t.result == want, f"{tag} streams: a ticket's results "
+              "differ from the sequential oracle")
+    p50, p99 = (hist.percentile(q) / 1e3 for q in (50, 99))
+    say(f"{tag} streams: {STREAMS} streams, {len(tickets)} plans of "
+        f"{PLAN_OPS} YCSB-A ops in {ticks} ticks, {secs:.3f} s "
+        f"({len(tickets) * PLAN_OPS / secs / 1e3:.3f} kops/s wall); "
+        f"deferred_plans {drv.stats['deferred_plans']}, multi-stream "
+        f"ticks {drv.stats['multi_stream_ticks']}; tick-amortized "
+        f"latency p50 {p50:.3f} us, p99 {p99:.3f} us per op; "
+        f"{len(checks)} admission checks, reference sets of "
+        f"{min(c[2].size for c in checks)}-"
+        f"{max(c[2].size for c in checks)} ops; every ticket equals the "
+        "sequential oracle")
+    checks.sort(key=lambda c: c[2].size)
+    return checks
+
+
+def plan_ops(plan):
+    names = {0: "lookup", 1: "insert", 2: "update", 3: "delete", 4: "scan"}
+    kinds, keys, aux = plan.arrays()
+    return [(names[int(o)], int(k), int(a))
+            for o, k, a in zip(kinds, keys, aux)]
+
+
+def clht_scale_out(sessions, n_load: int, seed: int) -> dict:
+    tag = f"P-CLHT x{SHARDS}"
+    session = open_index("clht", shards=SHARDS, mesh_reads=True)
+    idx = session.index
+    check(session.device.type == "cuda" and all(
+        sh.device.type == "cuda" for sh in idx.shards),
+        f"{tag}: the shards are not on the card")
+    load = generate("C", n_load, n_load, seed=seed)
+    loaded = op_keys(load.load_ops)
+    done, secs = timed_run(idx, load.load_ops)
+    check(done["acked"] == loaded.size, f"{tag} Load A: an insert was not "
+          "acknowledged")
+    say(f"{tag} load: {rate(loaded.size, secs)}")
+    c_keys = op_keys(load.run_ops[:(C_PLANS + 1) * PLAN_OPS])
+    before = idx.stats["mesh_plans"]
+    t0 = time.perf_counter()
+    mesh = c_columns(idx, c_keys, f"{tag} mesh", mesh=True)
+    n_plans = -(-c_keys.size // PLAN_OPS)
+    check(idx.stats["mesh_plans"] - before == n_plans,
+          f"{tag}: a YCSB-C plan did not take the mesh path")
+    say(f"{tag} YCSB-C, mesh path: wall {mesh[0]:.3f} kops/s, modeled "
+        f"{mesh[1]:.3f} kops/s, all found ({n_plans} plans, the "
+        f"first re-exporting every shard's run; "
+        f"{time.perf_counter() - t0:.3f} s)")
+    per_shard = c_columns(idx, c_keys, f"{tag} per-shard", mesh=False)
+    one = c_columns(sessions["P-CLHT"].index, c_keys, "P-CLHT")
+    report_columns("P-CLHT", one, per_shard, SHARDS)
+    inserted = ycsb_a(idx, n_load, seed, tag)
+    rng = np.random.default_rng(seed + 7)
+    updated = shard_crash(session, loaded, inserted, rng, tag)
+    checks = stream_phase(session, loaded, updated, rng, tag)
+    return {"session": session, "c_keys": c_keys, "checks": checks}
+
+
+def cceh_columns(n_load: int, seed: int) -> None:
+    cols = {}
+    for shards in (1, SHARDS):
+        tag = "CCEH" if shards == 1 else f"CCEH x{shards}"
+        session = open_index("cceh", shards=shards)
+        load = generate("C", n_load, n_load, seed=seed)
+        done, secs = timed_run(session.index, load.load_ops)
+        check(done["acked"] == len(load.load_ops), f"{tag} Load A: an "
+              "insert was not acknowledged")
+        say(f"{tag} load: {rate(len(load.load_ops), secs)}")
+        kw = {"mesh": False} if shards > 1 else {}
+        cols[shards] = c_columns(session.index, op_keys(
+            load.run_ops[:(C_PLANS + 1) * PLAN_OPS]), tag, **kw)
+        say(f"{tag} YCSB-C: wall {cols[shards][0]:.3f} kops/s, modeled "
+            f"{cols[shards][1]:.3f} kops/s, all found")
+        ycsb_a(session.index, n_load, seed, tag)
+    report_columns("CCEH", cols[1], cols[SHARDS], SHARDS)
+
+
+def fastfair_scans(n_load: int, seed: int) -> None:
+    tag = "FAST&FAIR x4"
+    session = open_index("fastfair", shards=4, scheme="prefix@59")
+    idx = session.index
+    load = generate("E0", n_load, 2 * PLAN_OPS, seed=seed)
+    done, secs = timed_run(idx, load.load_ops)
+    check(done["acked"] == len(load.load_ops), f"{tag} Load A: an insert "
+          "was not acknowledged")
+    loaded = op_keys(load.load_ops)
+    per_shard = np.bincount(idx.route(loaded), minlength=4)
+    check((per_shard > 0).all(), f"{tag}: a shard holds no key")
+    say(f"{tag} load: {rate(loaded.size, secs)}; keys per shard "
+        f"{per_shard.tolist()}")
+    read_back(session, loaded[:PLAN_OPS], f"{tag} YCSB-C")
+    merges, launched = idx.stats["scan_merges"], kscan.LAUNCHES["scan_window"]
+    ops = load.run_ops
+    t0 = time.perf_counter()
+    results = []
+    for lo in range(0, len(ops), PLAN_OPS):
+        results.extend(session.execute(Plan.from_ops(
+            ops[lo:lo + PLAN_OPS])).results)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(idx.stats["scan_merges"] - merges == len(ops), f"{tag} YCSB-E0: "
+          "a scan was not merged across shards")
+    check(kscan.LAUNCHES["scan_window"] > launched, f"{tag} YCSB-E0: no "
+          "scan wave ran the kernel")
+    # the scalar walk of every shard's leaves, merged
+    items = sorted(kv for sh in idx.shards for kv in sh.items())
+    starts = np.fromiter((k for k, _ in items), np.int64, len(items))
+    for (_, k, n), got in zip(ops, results):
+        lo = int(np.searchsorted(starts, k))
+        check(got == items[lo:lo + n], f"{tag} YCSB-E0: a merged scan "
+              "differs from the shards' scalar items")
+    say(f"{tag} YCSB-E0: {rate(len(ops), secs)}, {len(ops)} scans merged "
+        "across shards, each equal to the scalar walk of every shard's "
+        "items")
+
+
+def level_reads(n_load: int, seed: int) -> None:
+    tag = "Level hashing"
+    session = open_index("level")
+    load = generate("C", n_load, n_load, seed=seed)
+    done, secs = timed_run(session.index, load.load_ops)
+    check(done["acked"] == len(load.load_ops), f"{tag} Load A: an insert "
+          "was not acknowledged")
+    say(f"{tag} load: {rate(len(load.load_ops), secs)}")
+    wall, _ = c_columns(session.index, op_keys(load.run_ops), tag)
+    say(f"{tag} YCSB-C: {wall:.3f} kops/s (the first plan re-exports), "
+        "every value equals value_of(key)")
+
+
+def scale_out_path(sessions, args) -> dict:
+    out = clht_scale_out(sessions, args.n_clht, args.seed)
+    cceh_columns(args.n_cceh, args.seed)
+    fastfair_scans(args.n_fastfair, args.seed)
+    level_reads(args.n_level, args.seed)
+    return out
 
 
 # -- kernels against their plain versions ---------------------------------
@@ -559,13 +892,16 @@ def radix_vs_plain(sessions, seed: int, launches: dict) -> list:
 
 
 def scan_bound(keys: np.ndarray, q: np.ndarray, counts: np.ndarray,
-               width: int):
+               width: int, base=None, length=None):
     """Least time for one search launch over this batch: the keys the
     lower-bound halvings visit, the window entries that are valid
-    (key and value), the queries and counts, and the [Q, C] outputs."""
+    (key and value), the queries and counts (and with a shard axis each
+    row's base and length), and the [Q, C] outputs."""
     n = keys.size
-    lo = np.zeros(q.size, np.int64)
-    hi = np.full(q.size, n, np.int64)
+    rows = base is not None
+    lo = base.copy() if rows else np.zeros(q.size, np.int64)
+    hi = base + length if rows else np.full(q.size, n, np.int64)
+    end = hi.copy()
     visited = []
     steps = 0
     while (lo < hi).any():
@@ -578,9 +914,10 @@ def scan_bound(keys: np.ndarray, q: np.ndarray, counts: np.ndarray,
         hi = np.where(act & ~less, mid, hi)
     off = np.arange(width)
     pos = lo[:, None] + off
-    ok = (off < counts[:, None]) & (pos < n)
+    ok = (off < counts[:, None]) & (pos < end[:, None])
     n_window = np.unique(pos[ok]).size
-    n_bytes = (q.size * 12 + np.unique(np.concatenate(visited)).size * 8
+    n_bytes = (q.size * (28 if rows else 12)
+               + np.unique(np.concatenate(visited)).size * 8
                + n_window * 16 + q.size * width * 17)
     return bound(n_bytes, steps * 6 + q.size * width * 3)
 
@@ -647,6 +984,202 @@ def scan_vs_plain(session, seed: int, launches: dict) -> list:
                 f"P-Masstree, Q={Q}, C=128, n={keys_np.size}")]
 
 
+def mesh_queries(stacked, c_keys: np.ndarray, n: int, rng) -> tuple:
+    """A mesh plan's queries (loaded keys, misses, key 0 and keys of
+    2^63 and above), each row's shard by the path's hash route, and its
+    run's base and length in the stacked runs."""
+    edge = np.array([0, HIGH, -1, (1 << 63) - 1], np.int64)
+    q = np.concatenate([rng.choice(c_keys, n // 2),
+                        rng.integers(1, 1 << 62, size=n - n // 2 - 4),
+                        edge])
+    rng.shuffle(q)
+    shard = kpart.route_ref(q, SHARDS, "hash")
+    base = stacked.offsets[:-1][shard]
+    return q, shard, base, stacked.n[shard]
+
+
+def sharded_scan_vs_plain(scale, seed: int, launches: dict) -> list:
+    """scan_window with the shard axis on the stacked runs the P-CLHT x8
+    mesh path searched, at windows of 1 (the mesh lookups) and 128;
+    ``torch.searchsorted`` over the runs as a 2-D [S, N] array (padded
+    to the longest run) is timed as the library call for the lower
+    bound."""
+    idx = scale["session"].index
+    check(idx._mesh_cache is not None, "the mesh path left no stacked "
+          "runs on the card")
+    stacked = idx._mesh_cache[1]
+    dev = stacked.keys.device
+    keys_np = stacked.keys.cpu().numpy()
+    say(f"P-CLHT x{SHARDS} stacked runs: {keys_np.size} entries, runs of "
+        f"{int(stacked.n.min())}-{int(stacked.n.max())}, "
+        f"{2 * stacked.keys.numel() * 8} bytes on {dev}")
+    rng = np.random.default_rng(seed + 5)
+    q, shard, base, length = mesh_queries(stacked, scale["c_keys"], Q, rng)
+
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    err = 0
+    out = {}
+    for width in (1, 128):
+        counts = (np.ones(Q, np.int32) if width == 1 else
+                  rng.integers(1, 101, size=Q).astype(np.int32))
+        qt, ct, bt, lt = on_card(q, counts, base, length)
+        got = kscan.scan_window_rows(qt, ct, bt, lt, stacked.keys,
+                                     stacked.vals, max_count=width)
+        torch.cuda.synchronize()
+        plain = kscan.scan_window_rows_plain(qt, ct, bt, lt, stacked.keys,
+                                             stacked.vals, max_count=width)
+        err = max(err, compare(f"scan_window_sharded (C={width})", got,
+                               plain))
+        found = int((got[0][:, 0] & (got[1][:, 0] == qt)).sum())
+        check(found >= Q // 2, "scan_window_sharded: drawn hits were not "
+              "found")
+        say(f"scan_window_sharded (C={width}): bit-identical to its plain "
+            f"version on {Q} queries over {SHARDS} runs ({found} found)")
+        if width == 1:
+            timing = []
+            for _ in range(64):
+                tq, _, tb, tl = mesh_queries(stacked, scale["c_keys"], Q,
+                                             rng)
+                timing.append(on_card(tq, counts, tb, tl))
+            timed = time_kernel(
+                "scan_window_sharded (C=1)",
+                lambda a, c, b, n: kscan.scan_window_rows(
+                    a, c, b, n, stacked.keys, stacked.vals, max_count=1),
+                lambda a, c, b, n: kscan.scan_window_rows_plain(
+                    a, c, b, n, stacked.keys, stacked.vals, max_count=1),
+                timing)
+            out = (timed, *scan_bound(keys_np, q, counts, 1, base, length))
+    n_max = int(stacked.n.max())
+    runs2d = torch.full((SHARDS, n_max), (1 << 63) - 1, dtype=torch.int64,
+                        device=dev)
+    for s in range(SHARDS):
+        lo, hi = stacked.offsets[s], stacked.offsets[s + 1]
+        runs2d[s, :hi - lo] = stacked.keys[lo:hi]
+    lib_batches = []
+    for tq, _, tb, _ in timing:
+        rows = torch.from_numpy(kpart.route_ref(tq.cpu().numpy(), SHARDS,
+                                                "hash")).to(dev)
+        width = int(torch.bincount(rows, minlength=SHARDS).max())
+        grid = torch.full((SHARDS, width), 0, dtype=torch.int64, device=dev)
+        order = torch.argsort(rows, stable=True)
+        slot = torch.arange(Q, device=dev) - torch.searchsorted(
+            rows[order], rows[order])
+        grid[rows[order], slot] = tq[order]
+        lib_batches.append((grid,))
+    lib_dev, lib_call = time_calls(
+        lambda g: torch.searchsorted(runs2d, g), lib_batches, 640)
+    library_ms = lib_dev if lib_dev is not None else lib_call
+    timed, bms, by = out
+    say(f"scan_window_sharded (C=1): bound {bms:.9f} ms ({by}) at Q={Q}; "
+        f"torch.searchsorted over [{SHARDS}, {n_max}] runs: device "
+        f"{lib_dev} ms, call {lib_call:.6f} ms; main-path launches "
+        f"{launches['scan_window_sharded']}")
+    return [row("scan_window_sharded", launches, err, timed, bms, by,
+                library_ms, f"P-CLHT x{SHARDS} mesh, Q={Q}, C=1, "
+                f"{keys_np.size} entries in {SHARDS} runs")]
+
+
+def route_vs_plain(scale, launches: dict) -> list:
+    """shard_route against its plain version and the numpy oracle on a
+    plan's keys plus key 0 and keys of 2^63 and above: hash, prefix and
+    prefix@58, 1 to 32 shards; timed at the path's shape (8 shards,
+    hash) on the keys of 16 YCSB-C plans."""
+    dev = scale["session"].device
+    c_keys = scale["c_keys"]
+    edge = np.array([0, 1, HIGH, -1, (1 << 63) - 1], np.int64)
+    q = np.concatenate([c_keys[:Q - edge.size], edge])
+    qt = torch.from_numpy(q).to(dev)
+    err = 0
+    for scheme in ("hash", "prefix", "prefix@58"):
+        for bits in range(6):
+            b, shift = kpart.route_params(1 << bits, scheme)
+            got = kpart.shard_route(qt, bits=b, shift=shift)
+            torch.cuda.synchronize()
+            plain = kpart.shard_route_plain(qt, bits=b, shift=shift)
+            err = max(err, compare("shard_route", [got], [plain]))
+            check(np.array_equal(got.cpu().numpy(), kpart.route_ref(
+                q, 1 << bits, scheme)), "shard_route: differs from the "
+                "numpy oracle")
+    say(f"shard_route: bit-identical to its plain version and to the numpy "
+        f"oracle on {Q} keys, hash, prefix and prefix@58, 1-32 shards")
+    b, shift = kpart.route_params(SHARDS, "hash")
+    timing = [(torch.from_numpy(c_keys[i * Q:(i + 1) * Q]).to(dev),)
+              for i in range(max(1, min(16, c_keys.size // Q)))]
+    timed = time_kernel(
+        "shard_route", lambda k: kpart.shard_route(k, bits=b, shift=shift),
+        lambda k: kpart.shard_route_plain(k, bits=b, shift=shift), timing)
+    # each key read once (8 bytes), each id written once (4); splitmix64
+    # and the shift are about 16 integer operations a key
+    bms, by = bound(Q * 12, Q * 16)
+    say(f"shard_route: bound {bms:.9f} ms ({by}) at Q={Q}; main-path "
+        f"launches {launches['shard_route']}")
+    return [row("shard_route", launches, err, timed, bms, by, None,
+                f"P-CLHT x{SHARDS}, Q={Q}, hash, {b} bits")]
+
+
+def conflict_vs_plain(scale, launches: dict) -> list:
+    """conflict_any against its plain version and the numpy oracle on
+    the admission checks the stream phase made (the largest reference
+    set last), writes_conflict both ways, for reference sets of 1 up
+    to the largest; timed on the checks of the largest reference set."""
+    dev = scale["session"].device
+    checks = scale["checks"]
+
+    def on_card(ka, xa, kb, xb):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (ka.astype(np.int32), xa,
+                               kb.astype(np.int32), xb))
+
+    ka, xa, kb, xb = checks[-1]
+    b_max = kb.size
+    err = 0
+    for wc in (False, True):
+        for nb in sorted({1, 7, 64, PLAN_OPS, b_max} & set(
+                range(1, b_max + 1))):
+            t = on_card(ka, xa, kb[:nb], xb[:nb])
+            got = kconf.kernel.conflict_any(*t, writes_conflict=wc)
+            torch.cuda.synchronize()
+            plain = kconf.conflict_any_plain(*t, writes_conflict=wc)
+            err = max(err, compare("conflict_any", [got], [plain]))
+            check(np.array_equal(got.cpu().numpy(), kconf.conflict_any_ref(
+                ka, xa, kb[:nb], xb[:nb], writes_conflict=wc)),
+                "conflict_any: differs from the numpy oracle")
+    n_conf = 0
+    for c in checks:  # every admission check of the path, as it ran
+        t = on_card(*c)
+        got = kconf.kernel.conflict_any(*t, writes_conflict=True)
+        torch.cuda.synchronize()
+        err = max(err, compare("conflict_any", [got], [
+            kconf.conflict_any_plain(*t, writes_conflict=True)]))
+        n_conf += int(got.sum())
+    check(n_conf > 0, "conflict_any: no admission check found a conflict")
+    say(f"conflict_any: bit-identical to its plain version and to the "
+        f"numpy oracle, A={ka.size}, B=1..{b_max}, writes_conflict both "
+        f"ways; and on all {len(checks)} admission checks of the path "
+        f"({n_conf} conflicting candidates)")
+    timing = [on_card(*c) for c in checks if c[2].size == b_max]
+    timed = time_kernel(
+        "conflict_any",
+        lambda *t: kconf.kernel.conflict_any(*t, writes_conflict=True),
+        lambda *t: kconf.conflict_any_plain(*t, writes_conflict=True),
+        timing, reps=320)
+    # the pair tests this check needs: each candidate up to its first
+    # conflict, or all of B; about 12 integer operations a pair
+    conf = kconf.conflict_matrix_ref(ka, xa, kb, xb, writes_conflict=True)
+    pairs = int(np.where(conf.any(axis=1), conf.argmax(axis=1) + 1,
+                         b_max).sum())
+    bms, by = bound((ka.size + b_max) * 12 + ka.size, pairs * 12)
+    say(f"conflict_any: bound {bms:.9f} ms ({by}) at A={ka.size}, "
+        f"B={b_max} ({pairs} pair tests, {int(conf.any(axis=1).sum())} "
+        f"candidates conflict); main-path launches "
+        f"{launches['conflict_any']}")
+    return [row("conflict_any", launches, err, timed, bms, by, None,
+                f"{STREAMS}-stream tick, A={ka.size}, B={b_max}")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-clht", type=int, default=1 << 20)
@@ -654,6 +1187,12 @@ def main(argv=None) -> int:
     ap.add_argument("--n-hot", type=int, default=1 << 18)
     ap.add_argument("--n-masstree", type=int, default=1 << 18)
     ap.add_argument("--n-bwtree", type=int, default=1 << 15)
+    # one CCEH directory and one Level hashing level must each fit an
+    # arena segment (65,528 words): a 2^16-key CCEH load and a
+    # 20,480-key Level hashing load overflow it
+    ap.add_argument("--n-cceh", type=int, default=1 << 15)
+    ap.add_argument("--n-fastfair", type=int, default=1 << 16)
+    ap.add_argument("--n-level", type=int, default=1 << 14)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -670,7 +1209,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build.build()
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.3f} s")
-    check(set(built) >= {"probe", "art_descend", "scan_window"},
+    check(set(built) >= {"probe", "art_descend", "scan_window",
+                         "shard_route", "conflict_any"},
           "a kernel source was not built")
     for name, b in built.items():
         for line in b.log.splitlines():
@@ -712,11 +1252,27 @@ def main(argv=None) -> int:
         for name in launches:
             launches[name] += counts[name]
 
+    reset_counts()
+    t0 = time.perf_counter()
+    scale = scale_out_path(sessions, args)
+    counts = read_counts()
+    say(f"scale-out path: {time.perf_counter() - t0:.3f} s; kernel "
+        f"launches {counts}")
+    for name in ("shard_route", "conflict_any", "scan_window_sharded",
+                 "probe64_fp", "scan_window"):
+        check(counts[name] > 0, f"{name} was not launched on the scale-out "
+              "path")
+    for name in launches:
+        launches[name] += counts[name]
+
     rows = probe_vs_plain(sessions["P-CLHT"].index, args.seed, launches)
     rows += radix_vs_plain([("P-ART", sessions["P-ART"]),
                             ("P-HOT", sessions["P-HOT"])], args.seed,
                            launches)
     rows += scan_vs_plain(sessions["P-Masstree"], args.seed, launches)
+    rows += sharded_scan_vs_plain(scale, args.seed, launches)
+    rows += route_vs_plain(scale, launches)
+    rows += conflict_vs_plain(scale, launches)
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
     say(f"whole run: {time.perf_counter() - t_start:.3f} s")

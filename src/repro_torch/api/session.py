@@ -10,9 +10,9 @@ when the pipeline reaches its depth limit, or at context exit.
 
 Ordering semantics are the plan contract: per-key program order,
 cross-key freedom.  The port of ``repro.api.session``: sessions run on
-the card unless the caller passes ``device="cpu"``.  RECIPE's five
-converted indexes are ported; the three hand-crafted baselines are
-not yet.
+the card unless the caller passes ``device="cpu"``.  All eight kinds of
+the JAX package are here: RECIPE's five converted indexes and the three
+hand-crafted PM baselines, unsharded or as a ``ShardedIndex``.
 """
 
 from __future__ import annotations
@@ -21,27 +21,29 @@ from typing import Any, List, Optional, Tuple
 
 from ..core import (PART, PBwTree, PCLHT, PHOT, PMasstree, PMem, Plan,
                     PlanResult)
+from ..core.baselines import CCEH, FastFair, LevelHashing
 from ..core.conditions import PROBE_STAT_KEYS
+from ..device import resolve_device
 from ..obs import MetricsRegistry, MetricsView
 
-# public index kinds; aliases accept the paper's P-* names (any case)
+# public index kinds; aliases accept the paper's P-* names (any case).
+# "cceh", "fastfair" and "level"/"levelhashing" are the hand-crafted
+# PM baselines on the same plan surface.
 _KINDS = {
     "clht": PCLHT,
     "art": PART,
     "hot": PHOT,
     "bwtree": PBwTree,
     "masstree": PMasstree,
+    "cceh": CCEH,
+    "fastfair": FastFair,
+    "level": LevelHashing,
+    "levelhashing": LevelHashing,
 }
-# kinds of the JAX package that this package does not have yet
-_NOT_PORTED = ("cceh", "fastfair", "level", "levelhashing")
 
 
 def _resolve_kind(kind: str):
     name = kind.lower().lstrip("p").lstrip("-").replace("_", "")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"index kind {kind!r} is not yet ported to repro_torch; "
-            f"ported kinds: {sorted(_KINDS)}")
     if name not in _KINDS:
         raise ValueError(
             f"unknown index kind {kind!r}; choose from "
@@ -50,18 +52,37 @@ def _resolve_kind(kind: str):
 
 
 def open_index(kind: str, *, device=None, pmem: Optional[PMem] = None,
-               **index_kwargs) -> "Session":
+               shards: int = 1, scheme: Optional[str] = None,
+               mesh_reads: bool = False, **index_kwargs) -> "Session":
     """Open a converted PM index as a ``Session``.
 
-    ``kind`` is one of clht/art/hot/bwtree/masstree (or a P-* alias).
-    ``device`` is where the index's snapshots live and its batched
-    reads run: ``"cuda"`` when omitted, which raises without a card;
-    ``"cpu"`` runs the plain PyTorch versions of the kernels.  Pass an existing ``pmem`` to
-    attach to a shared persistence domain (e.g. re-attaching after a
-    crash); extra kwargs go to the index constructor
-    (``n_buckets=...`` for clht).  Sharded sessions are not ported yet.
+    ``kind`` is one of clht/art/hot/bwtree/masstree/cceh/fastfair/level
+    (or a P-* alias).  ``device`` is where the index's snapshots live
+    and its batched reads run: ``"cuda"`` when omitted, which raises
+    without a card; ``"cpu"`` runs the plain PyTorch versions of the
+    kernels.  Pass an existing ``pmem`` to attach to a shared
+    persistence domain (e.g. re-attaching after a crash); extra kwargs
+    go to the index constructor (``n_buckets=...`` for clht).
+
+    ``shards=S`` (a power of two > 1) opens a ``ShardedIndex``
+    instead: S independent shards of the kind, each on its own PMem
+    and on ``device``, with plans routed per key and executed
+    shard-wise.  ``scheme`` overrides the routing (hash/prefix) and
+    ``mesh_reads=True`` turns on the one-launch mesh read path for
+    all-GET plans.  Sharded sessions own their persistence domains, so
+    ``pmem=`` cannot be combined with ``shards=``.
     """
     name, factory = _resolve_kind(kind)
+    if shards > 1:
+        if pmem is not None:
+            raise ValueError("shards= builds one PMem per shard; "
+                             "pmem= cannot be shared across them")
+        from ..distributed import ShardedIndex
+        dev = resolve_device(device)
+        index = ShardedIndex(
+            lambda pm: factory(pm, device=dev, **index_kwargs), shards,
+            scheme=scheme, mesh_reads=mesh_reads, device=dev)
+        return Session(index, kind=name)
     pmem = pmem or PMem()
     return Session(factory(pmem, device=device, **index_kwargs), kind=name)
 
@@ -192,6 +213,26 @@ class Session:
     def device(self):
         """Where the index's snapshots live and its batched reads run."""
         return self.index.device
+
+    @property
+    def shards(self) -> int:
+        """Shard count (1 for an unsharded session)."""
+        return getattr(self.index, "n_shards", 1)
+
+    def streams(self, n: int, *, collect_results: bool = True,
+                lat_hist=None) -> "StreamDriver":
+        """Multi-session harness: ``n`` independent client streams over
+        this session's index.  Each ``driver.streams[i]`` submits plans
+        independently; ``driver.tick()``/``driver.run()`` admit
+        non-conflicting head-of-queue plans per tick (the
+        ``conflict_any`` check on the index's device) and execute them
+        as one merged plan.  The driver mirrors its admission telemetry
+        (``stream_deferred_plans`` — the contention signal — plus
+        ticks/admitted/merged counters) into this session's ``stats``.
+        See ``repro_torch.distributed.streams``."""
+        from ..distributed import StreamDriver
+        return StreamDriver(self.index, n, collect_results=collect_results,
+                            lat_hist=lat_hist, metrics=self.metrics)
 
     # -- plan execution ---------------------------------------------------
     def execute(self, plan: Plan, *, force_kernel: bool = False

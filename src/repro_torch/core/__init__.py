@@ -2,15 +2,16 @@
 framework with its snapshot/epoch protocol, RECIPE's five converted
 indexes (P-CLHT, P-ART, P-HOT, P-Masstree, P-BwTree) on the segmented
 PM arena, the plan scheduler, the YCSB generator and the batched-plan
-crash sweep.  The three hand-crafted baselines of the JAX package are
-not ported yet."""
+crash sweep.  The three hand-crafted PM baselines (CCEH, FAST&FAIR,
+Level hashing) are in ``core.baselines``."""
 
 from .pmem import (CACHELINE_BYTES, WORD_BYTES, WORDS_PER_LINE, CrashPoint,
                    DeadlockError, NULL, OpCounters, PMem, Region)
 from .conditions import (CONVERSION_TABLE, PROBE_STAT_KEYS, Condition,
                          ConversionSpec, IndexSnapshot, RecipeIndex,
                          crash_detect_fix, register)
-from .plan import Op, OpKind, Plan, PlanResult, Wave, run_plan, schedule_waves
+from .plan import (Op, OpKind, Plan, PlanResult, Wave, run_plan,
+                   schedule_waves, split_by_shard)
 from .arena import Arena
 from .clht import PCLHT
 from .art import PART
@@ -27,7 +28,7 @@ __all__ = [
     "CONVERSION_TABLE", "PROBE_STAT_KEYS", "Condition", "ConversionSpec",
     "IndexSnapshot", "RecipeIndex", "crash_detect_fix", "register",
     "Op", "OpKind", "Plan", "PlanResult", "Wave", "run_plan",
-    "schedule_waves", "Arena", "PCLHT", "PART", "PHOT", "PMasstree",
+    "schedule_waves", "split_by_shard", "Arena", "PCLHT", "PART", "PHOT", "PMasstree",
     "PBwTree", "CrashReport", "PMSnapshot",
     "group_commit_boundaries", "plan_crash_sweep", "plan_prefix_states",
     "validation_points",

@@ -396,6 +396,41 @@ def schedule_waves(kinds: np.ndarray, keys: np.ndarray) -> List[Wave]:
     return waves
 
 
+# -- shard-aware scheduling ------------------------------------------------
+
+def split_by_shard(kinds: np.ndarray, shards: np.ndarray, n_shards: int, *,
+                   scan_suffix: bool = True) -> List[np.ndarray]:
+    """Per-shard sub-plan positions for scale-out execution
+    (``distributed.ShardedIndex``): op ``i`` belongs to shard
+    ``shards[i]`` (the route of its key — for scans, of its start key).
+
+    Point ops go to exactly their routed shard.  A SCAN may cross shard
+    boundaries, so it is *replicated*: under prefix routing shards are
+    ascending contiguous key ranges, so only shards >= the start key's
+    shard can hold matching entries (``scan_suffix=True``); under hash
+    routing every shard can (``scan_suffix=False``).  The caller merges
+    the per-shard scan rows back (ascending concatenation for prefix,
+    global merge-sort for hash) and truncates to the requested count —
+    exact, because each replica returns its shard's first ``count``
+    matches, and the true first ``count`` entries all live in some
+    shard's first ``count``.
+
+    Each returned index array is ascending, so per-key program order
+    survives into every sub-plan (a key routes to one shard), which is
+    all ``schedule_waves`` needs for the sub-plan to be independently
+    schedulable."""
+    shards = np.asarray(shards)
+    is_scan = kinds == SCAN
+    has_scan = bool(is_scan.any())
+    out: List[np.ndarray] = []
+    for s in range(n_shards):
+        mask = (shards == s) & ~is_scan
+        if has_scan:
+            mask |= is_scan & ((shards <= s) if scan_suffix else True)
+        out.append(np.nonzero(mask)[0])
+    return out
+
+
 # -- plan execution --------------------------------------------------------
 
 def _run_single(index, kind: int, key: int, aux: int,
@@ -509,4 +544,4 @@ def run_plan(index, plan: Plan, *, force_kernel: bool = False,
 
 
 __all__ = ["Op", "OpKind", "Plan", "PlanResult", "Wave", "run_plan",
-           "schedule_waves"]
+           "schedule_waves", "split_by_shard"]

@@ -26,6 +26,17 @@
 // the same addresses, served as broadcasts) and then copies its window
 // with its 32 lanes on consecutive entries, coalesced.
 //
+// The shard axis (scan_window_rows): the sharded mesh read path
+// (distributed/mesh.py) stacks every shard's sorted run end to end in one
+// array, each at its own length, and gives every query row the base
+// offset and live length of its own shard's run.  Row i then searches
+// keys[base[i], base[i] + length[i]) and its window stops at that run's
+// end, so one launch answers all S shards.  It replaces the JAX package's
+// vmapped lower bound in src/repro/distributed/mesh.py
+// (_probe_one_shard), which pads every run to a common power of two.
+// The single-run entry point (scan_window) is the same kernel with base
+// 0 and length n for every row.
+//
 // Left for later: a 32-way search (each lane reads one pivot, a ballot
 // picks the sub-range) would cut the dependent loads from log2(n) to
 // log32(n).
@@ -39,9 +50,14 @@ constexpr int kWarp = 32;
 constexpr int kBlock = 128;
 constexpr int kWarpsPerBlock = kBlock / kWarp;
 
+// kRows: row i searches keys[base[i], base[i] + length[i]); otherwise
+// every row searches keys[0, n).
+template <bool kRows>
 __global__ void __launch_bounds__(kBlock)
 scan_window_kernel(const int64_t* __restrict__ queries,
                    const int32_t* __restrict__ counts,
+                   const int64_t* __restrict__ base,
+                   const int64_t* __restrict__ length,
                    const int64_t* __restrict__ keys,
                    const int64_t* __restrict__ vals, int64_t n_queries,
                    int64_t n, int max_count, bool* __restrict__ valid,
@@ -51,7 +67,9 @@ scan_window_kernel(const int64_t* __restrict__ queries,
   const int lane = threadIdx.x % kWarp;
   if (i >= n_queries) return;
   const long long q = queries[i];
-  long long lo = 0, hi = n;
+  long long lo = kRows ? base[i] : 0;
+  long long hi = kRows ? lo + length[i] : n;
+  const long long end = hi;
   while (lo < hi) {
     const long long mid = lo + ((hi - lo) >> 1);
     if (static_cast<long long>(keys[mid]) < q) {
@@ -64,7 +82,7 @@ scan_window_kernel(const int64_t* __restrict__ queries,
   const int64_t row = i * max_count;
   for (int j = lane; j < max_count; j += kWarp) {
     const long long pos = lo + j;
-    const bool ok = j < count && pos < n;
+    const bool ok = j < count && pos < end;
     valid[row + j] = ok;
     okeys[row + j] = ok ? keys[pos] : 0;
     ovals[row + j] = ok ? vals[pos] : 0;
@@ -84,12 +102,39 @@ extern "C" int scan_window(const void* queries, const void* counts,
   if (max_count < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(
       (n_queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  scan_window_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(queries),
-      static_cast<const int32_t*>(counts), static_cast<const int64_t*>(keys),
-      static_cast<const int64_t*>(vals), n_queries, n, max_count,
-      static_cast<bool*>(valid), static_cast<int64_t*>(okeys),
-      static_cast<int64_t*>(ovals));
+  scan_window_kernel<false>
+      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int64_t*>(queries),
+          static_cast<const int32_t*>(counts), nullptr, nullptr,
+          static_cast<const int64_t*>(keys),
+          static_cast<const int64_t*>(vals), n_queries, n, max_count,
+          static_cast<bool*>(valid), static_cast<int64_t*>(okeys),
+          static_cast<int64_t*>(ovals));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard axis: row i searches keys[base[i], base[i] + length[i]),
+// which must lie within the n entries of keys and vals.
+extern "C" int scan_window_rows(const void* queries, const void* counts,
+                                const void* base, const void* length,
+                                const void* keys, const void* vals,
+                                long long n_queries, long long n,
+                                int max_count, void* valid, void* okeys,
+                                void* ovals, void* stream) {
+  if (n_queries <= 0) return 0;
+  if (max_count < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(
+      (n_queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  scan_window_kernel<true>
+      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int64_t*>(queries),
+          static_cast<const int32_t*>(counts),
+          static_cast<const int64_t*>(base),
+          static_cast<const int64_t*>(length),
+          static_cast<const int64_t*>(keys),
+          static_cast<const int64_t*>(vals), n_queries, n, max_count,
+          static_cast<bool*>(valid), static_cast<int64_t*>(okeys),
+          static_cast<int64_t*>(ovals));
   return static_cast<int>(cudaGetLastError());
 }
 

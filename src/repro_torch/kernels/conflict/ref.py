@@ -20,17 +20,19 @@ observable result.  The rules (see ``core/plan.py``):
   program order survives inside one wave.  ``writes_conflict=True``
   switches this off for callers that need the strict relation.
 
-``conflict_matrix_ref`` is the vectorized pairwise form;
-``wave_levels_ref`` is the O(n²) peeling oracle for wave scheduling —
-the ground truth ``core.plan.schedule_waves``'s fast paths are tested
-against.  Copied from the JAX package's ``kernels/conflict/ref.py``;
-the device form of the detector (its ``conflict_any_kernel``) is not
-ported yet.
+``conflict_matrix_ref``/``conflict_any_ref`` are the vectorized
+pairwise forms; ``wave_levels_ref`` is the O(n²) peeling oracle for
+wave scheduling — the ground truth ``core.plan.schedule_waves``'s fast
+paths are tested against.  Copied from the JAX package's
+``kernels/conflict/ref.py``.  ``conflict_any_plain`` is the plain
+PyTorch version of the CUDA kernel (``csrc/conflict_any.cu``): the same
+relation on tensors, reduced over the reference set.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # op kind codes — shared with core.plan (kept dependency-free here so
 # the kernel package imports nothing from core)
@@ -68,6 +70,42 @@ def conflict_matrix_ref(kinds_a: np.ndarray, keys_a: np.ndarray,
     if writes_conflict:
         out |= same_key & wa & wb
     return out
+
+
+def conflict_any_ref(kinds_a: np.ndarray, keys_a: np.ndarray,
+                     kinds_b: np.ndarray, keys_b: np.ndarray, *,
+                     writes_conflict: bool = False) -> np.ndarray:
+    """[A] bool: does ``a_i`` conflict with ANY op in the B set."""
+    if np.asarray(kinds_b).size == 0:
+        return np.zeros(np.asarray(kinds_a).shape, bool)
+    return conflict_matrix_ref(kinds_a, keys_a, kinds_b, keys_b,
+                               writes_conflict=writes_conflict).any(axis=1)
+
+
+def conflict_any_plain(kinds_a: torch.Tensor, keys_a: torch.Tensor,
+                       kinds_b: torch.Tensor, keys_b: torch.Tensor, *,
+                       writes_conflict: bool = False) -> torch.Tensor:
+    """kinds: int32, keys: int64 tensors, [A] and [B].  Returns [A]
+    bool, ``conflict_any_ref`` on tensors: the [A, B] relation of
+    ``conflict_matrix_ref`` (its ``>=`` the signed int64 order), then
+    any over B."""
+    if kinds_b.numel() == 0:
+        return torch.zeros(kinds_a.shape, dtype=torch.bool,
+                           device=kinds_a.device)
+
+    def is_write(k):
+        return (k == PUT) | (k == UPDATE) | (k == DELETE)
+
+    ka, kb = kinds_a.unsqueeze(1), kinds_b.unsqueeze(0)
+    a, b = keys_a.unsqueeze(1), keys_b.unsqueeze(0)
+    wa, wb = is_write(ka), is_write(kb)
+    same = a == b
+    out = same & (((ka == GET) & wb) | (wa & (kb == GET)))
+    out |= (ka == SCAN) & wb & (b >= a)
+    out |= wa & (kb == SCAN) & (a >= b)
+    if writes_conflict:
+        out |= same & wa & wb
+    return out.any(dim=1)
 
 
 def wave_levels_ref(kinds: np.ndarray, keys: np.ndarray) -> np.ndarray:

@@ -1,27 +1,40 @@
 """Host front-end for shard routing + stable sort-by-shard.
 
+``route_shards`` is what ``distributed.ShardedIndex.route`` calls for
+every plan.  With ``device=None`` it is the host oracle ``route_ref``,
+as the JAX package's default is; with a torch device it uploads the
+keys and runs ``kernel.shard_route`` there (the CUDA kernel on the
+card, its plain PyTorch version on the CPU), and the ids come back to
+the host, which splits the plan.
+
 ``partition_writes`` is what ``RecipeIndex._write_batch`` calls: route
 every op's key to a shard, then produce the stable sort-by-shard
-permutation and per-shard run offsets.  Routing runs on the host, as
-the JAX package's default path does: a write batch is consumed op by
-op by the numpy PM simulator anyway.  The device form of the router
-(the JAX package's ``shard_route`` kernel) is not ported yet.
+permutation and per-shard run offsets.  It stays on the host: a write
+batch is consumed op by op by the numpy PM simulator anyway.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ...obs import RECORDER as _OBS
-from .ref import mix64_ref, partition_ref, route_ref
+from .kernel import shard_route
+from .ref import mix64_ref, partition_ref, route_params, route_ref
 
 
-def route_shards(keys: np.ndarray, n_shards: int,
-                 scheme: str = "hash") -> np.ndarray:
+def route_shards(keys: np.ndarray, n_shards: int, scheme: str = "hash", *,
+                 device: Optional[torch.device] = None) -> np.ndarray:
     """Shard id per key: [Q] int32 in [0, n_shards)."""
-    return route_ref(np.asarray(keys, np.int64), n_shards, scheme)
+    keys = np.asarray(keys, np.int64)
+    if device is None:
+        return route_ref(keys, n_shards, scheme)
+    bits, shift = route_params(n_shards, scheme)
+    out = shard_route(torch.from_numpy(np.ascontiguousarray(keys))
+                      .to(device), bits=bits, shift=shift)
+    return out.cpu().numpy()
 
 
 def partition_writes(keys: np.ndarray, n_shards: int, scheme: str = "hash"

@@ -12,12 +12,16 @@ count:
   ``m`` downward instead.  Used by the ordered indexes.
 
 The routes run in numpy ``uint64``, which has the logical right shifts
-splitmix64 needs.
+splitmix64 needs.  ``shard_route_plain`` is the plain PyTorch version
+of the CUDA kernel (``csrc/shard_route.cu``): the same routes on int64
+tensors, where multiplies wrap modulo 2^64 and each right shift of the
+hash is masked to make it logical.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _U64 = np.uint64
 
@@ -72,3 +76,35 @@ def partition_ref(keys: np.ndarray, n_shards: int, scheme: str = "hash"):
     offsets = np.zeros(n_shards + 1, np.int64)
     np.cumsum(counts, out=offsets[1:])
     return shards, order, offsets
+
+
+def route_params(n_shards: int, scheme: str) -> tuple:
+    """(bits, shift) of a route: ``bits = log2(n_shards)``; ``shift`` is
+    -1 for ``hash`` and ``msb + 1 - bits`` for a prefix scheme."""
+    assert n_shards >= 1 and (n_shards & (n_shards - 1)) == 0, \
+        f"n_shards must be a power of two, got {n_shards}"
+    bits = n_shards.bit_length() - 1
+    if bits > 31:
+        raise ValueError(f"at most 2^31 shards, got {n_shards}")
+    if scheme == "hash":
+        return bits, -1
+    if scheme.startswith("prefix"):
+        shift = prefix_msb(scheme) + 1 - bits
+        assert shift >= 0, (scheme, n_shards)
+        return bits, shift
+    raise ValueError(f"unknown shard scheme {scheme!r}")
+
+
+def shard_route_plain(keys: torch.Tensor, *, bits: int, shift: int
+                      ) -> torch.Tensor:
+    """keys: [Q] int64.  Returns [Q] int32 shard ids: 0 when ``bits``
+    is 0, else the top ``bits`` of splitmix64 (``shift`` < 0) or key
+    bits [shift, shift + bits)."""
+    # the torch splitmix64 lives with the probe, whose fingerprints
+    # import this module's numpy hash: import it here, not at the top
+    from ..probe.ref import _shr, mix64
+    if bits == 0:
+        return torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    if shift < 0:
+        return _shr(mix64(keys), 64 - bits).to(torch.int32)
+    return (_shr(keys, shift) & ((1 << bits) - 1)).to(torch.int32)

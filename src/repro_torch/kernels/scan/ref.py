@@ -86,5 +86,32 @@ def scan_window_plain(queries: torch.Tensor, counts: torch.Tensor,
     return valid, okeys, ovals
 
 
+def scan_window_rows_plain(queries: torch.Tensor, counts: torch.Tensor,
+                           base: torch.Tensor, length: torch.Tensor,
+                           keys: torch.Tensor, vals: torch.Tensor, *,
+                           max_count: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """``scan_window_plain`` per run: row ``i`` searches
+    ``keys[base[i]:base[i] + length[i]]``, and its window stops at that
+    run's end.  Rows that share a run go through one call."""
+    n_q = queries.shape[0]
+    dev = queries.device
+    valid = torch.zeros((n_q, max_count), dtype=torch.bool, device=dev)
+    okeys = torch.zeros((n_q, max_count), dtype=torch.int64, device=dev)
+    ovals = torch.zeros((n_q, max_count), dtype=torch.int64, device=dev)
+    if n_q == 0:
+        return valid, okeys, ovals
+    runs = torch.unique(torch.stack([base, length], dim=1), dim=0)
+    for b, n in runs.tolist():
+        rows = torch.nonzero((base == b) & (length == n)).squeeze(1)
+        got = scan_window_plain(queries[rows], counts[rows],
+                                keys[b:b + n], vals[b:b + n],
+                                max_count=max_count)
+        for out, part in zip((valid, okeys, ovals), got):
+            out[rows] = part
+    return valid, okeys, ovals
+
+
 __all__ = ["lookup_ref", "lower_bound_plain", "scan_ref",
-           "scan_window_plain"]
+           "scan_window_plain", "scan_window_rows_plain"]

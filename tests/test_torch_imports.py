@@ -1,6 +1,7 @@
 """Guards of the port's boundary: repro_torch imports neither JAX nor
-the JAX package, and its entry points run on the card unless the caller
-asks for the CPU, never falling back on their own."""
+the JAX package (its scale-out layer and baselines included), and its
+entry points run on the card unless the caller asks for the CPU, never
+falling back on their own."""
 
 import pathlib
 import re
@@ -19,7 +20,10 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch.api, repro_torch.convert, "
-            "repro_torch.build\n"
+            "repro_torch.build, repro_torch.core.baselines, "
+            "repro_torch.distributed.sharded, "
+            "repro_torch.distributed.streams, "
+            "repro_torch.distributed.mesh\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(repr(bad))\n")
@@ -43,7 +47,7 @@ def test_no_source_of_the_port_imports_jax_or_repro():
 
 
 @pytest.mark.parametrize("kind", ["clht", "P-ART", "hot", "masstree",
-                                  "P-BwTree"])
+                                  "P-BwTree", "cceh", "fastfair", "level"])
 def test_open_index_defaults_to_the_card_and_never_falls_back(monkeypatch,
                                                               kind):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -59,6 +63,16 @@ def test_open_index_defaults_to_the_card_and_never_falls_back(monkeypatch,
 
 
 @pytest.mark.parametrize("kind", ["cceh", "fastfair", "level"])
-def test_unported_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        open_index(kind, device="cpu")
+def test_unported_kinds_raise(kind, monkeypatch):
+    """The kinds that were still to port (the three baselines) are
+    ported: they open like the others, sharded too, and only a name
+    that is no kind of the JAX package raises."""
+    s = open_index(kind, device="cpu", shards=2)
+    assert s.shards == 2 and s.index.device == torch.device("cpu")
+    s.put(5, 6)
+    assert s.get(5) == 6
+    with pytest.raises(ValueError, match="unknown index kind"):
+        open_index(kind + "x", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        open_index(kind, shards=2)
