@@ -5,7 +5,7 @@
                           [--n-hot 262144] [--n-masstree 262144]
                           [--n-bwtree 32768] [--n-cceh 32768]
                           [--n-fastfair 65536] [--n-level 16384]
-                          [--seed 0]
+                          [--serve-arch qwen2-0.5b] [--seed 0]
 
 Each path is a YCSB workload of 4096-op plans through
 ``repro_torch.api.open_index``.  Five paths drive one of RECIPE's
@@ -50,21 +50,42 @@ every plan is routed by the shard-routing kernel
   shards, each equal to the merge of every shard's scalar ``scan``;
   Level hashing unsharded (``--n-level``): YCSB-C.
 
+The seventh, the serving path, runs ``repro_torch.serving.Server`` over
+the port's ``LM`` at the full width of ``--serve-arch`` (Qwen2-0.5B: 24
+layers, d_model 896, 14 heads over 2 KV heads, vocabulary 151,936,
+bf16 weights drawn from ``--seed``): prefill attention on the flash
+kernel (``csrc/flash_attention.cu``), decode attention on the paged
+kernel (``csrc/paged_attention.cu``), block-table translations on the
+probe kernel, prefix probes on the radix-descent kernel and the
+post-crash prefix warmup on the sorted-run search kernel.  16 requests
+of 256-512 tokens sharing a 128-token prefix, in 2 client sessions,
+32 new tokens each, at most 8 running: the first 8 drain, the server
+power-fails and recovers (warm prefixes restored and hit), the last 8
+drain; then the same workload on a fresh server with pipelined ticks
+(tokens equal to the blocking run's).  Steady decode ticks move no PMem
+loads, the plain attention versions are never called on the path, and
+one request's prefill logits and 4 decode steps are recomputed on the
+CPU with the plain versions and the same weights.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel;
-3. the six paths, each with every kernel's launch count set to 0 just
+3. the seven paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
-   not launched;
+   not launched; after the serving path, its CPU check and the device
+   busy share of a decode step (host clock against profiled device
+   time);
 4. each kernel against its plain PyTorch version on the card, on 4096
    queries made from ``--seed`` over a table a path loaded (hits,
    misses, fingerprint near-misses, key 0, and keys of 2^63 and above
-   where the index takes them): outputs must be bit-identical; then
-   per-launch times at the main path's shape (device time from the
-   profiler, call time from CUDA events), beside the plain version's,
-   a library call's where one computes the same function, and the
-   least time the card could take (``bound_ms``).
+   where the index takes them): outputs must be bit-identical; the two
+   attention kernels on inputs drawn from ``--seed`` at the serving
+   path's shapes, within ``ATTN_TOL``; then per-launch times at the main
+   path's shape (device time from the profiler, call time from CUDA
+   events), beside the plain version's, a library call's where one
+   computes the same function, and the least time the card could take
+   (``bound_ms``).
 
 The last two lines are the ``kernels`` JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -75,6 +96,7 @@ either.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -92,29 +114,39 @@ from repro_torch.core import CrashPoint  # noqa: E402
 from repro_torch.core.ycsb import PhaseExecutor, generate  # noqa: E402
 from repro_torch.distributed import streams as dstreams  # noqa: E402
 from repro_torch.kernels import art_probe as kart  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import conflict as kconf  # noqa: E402
+from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import paged_attention as kpaged  # noqa: E402
 from repro_torch.kernels import partition as kpart  # noqa: E402
 from repro_torch.kernels import probe as kprobe  # noqa: E402
 from repro_torch.kernels import scan as kscan  # noqa: E402
 from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.kernels.clht_probe import mix64  # noqa: E402
 from repro_torch.kernels.probe import fp64, fp_partial  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.obs import RECORDER  # noqa: E402
+from repro_torch.serving import Server  # noqa: E402
 
 PLAN_OPS = 4096
 Q = 4096  # queries per launch on the main path (one full read wave)
 SLOTS = 3
 HIGH = -(1 << 63)  # 2^63 as an int64 bit pattern
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate
-# outside the tensor cores standing in for 32-bit integer lanes
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the float32 rate outside
+# the tensor cores standing in for 32-bit integer lanes, and the dense
+# bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "probe64": "src/repro_torch/csrc/probe.cu",
            "art_descend": "src/repro_torch/csrc/art_descend.cu",
            "scan_window": "src/repro_torch/csrc/scan_window.cu",
            "scan_window_sharded": "src/repro_torch/csrc/scan_window.cu",
            "shard_route": "src/repro_torch/csrc/shard_route.cu",
-           "conflict_any": "src/repro_torch/csrc/conflict_any.cu"}
+           "conflict_any": "src/repro_torch/csrc/conflict_any.cu",
+           "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 # the sharded search is scan_window with a shard axis; on the JAX
 # package's mesh path it takes the place of a vmapped lower bound
 # (src/repro/distributed/mesh.py:84), which is not a Pallas kernel
@@ -124,13 +156,34 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "scan_window": "src/repro/kernels/scan/kernel.py:79",
             "scan_window_sharded": "src/repro/kernels/scan/kernel.py:79",
             "shard_route": "src/repro/kernels/partition/kernel.py:102",
-            "conflict_any": "src/repro/kernels/conflict/kernel.py:64"}
+            "conflict_any": "src/repro/kernels/conflict/kernel.py:64",
+            "paged_attention":
+                "src/repro/kernels/paged_attention/kernel.py:68",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/kernel.py:90"}
 COUNTERS = (kprobe.LAUNCHES, kart.LAUNCHES, kscan.LAUNCHES, kpart.LAUNCHES,
-            kconf.LAUNCHES)
+            kconf.LAUNCHES, kpaged.LAUNCHES, kflash.LAUNCHES)
 SHARDS = 8
 STREAMS = 4
 STREAM_PLANS = 4  # plans per stream on the scale-out path
 C_PLANS = 64  # timed YCSB-C plans per column of the reporting model
+# the serving path
+SERVE_REQUESTS = 16
+SERVE_SESSIONS = 2
+SERVE_PREFIX = 128
+SERVE_PROMPT = (256, 512)
+SERVE_NEW = 32
+SERVE_BATCH = 8
+SERVE_PAGE = 16
+SERVE_PAGES = 1024
+SERVE_MAX_LEN = SERVE_PROMPT[1] + SERVE_NEW + 2
+# bf16 kernel against its plain version: the same fp32 arithmetic in
+# another order, rounded once to bf16 (one step is 2^-7 of the value)
+ATTN_TOL = 2e-2
+# the card against the CPU, full width, bf16: 24 layers of products
+# rounded to bf16 at different points by cuBLAS and the CPU's kernels;
+# held to 5% of the largest logit
+LOGIT_REL_TOL = 5e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -1180,6 +1233,373 @@ def conflict_vs_plain(scale, launches: dict) -> list:
                 f"{STREAMS}-stream tick, A={ka.size}, B={b_max}")]
 
 
+# -- the serving path -------------------------------------------------------
+
+def serve_prompts(vocab: int, seed: int) -> list:
+    """16 prompts of 256-512 tokens sharing a 128-token prefix."""
+    rng = np.random.default_rng(seed + 11)
+    prefix = rng.integers(1, vocab, SERVE_PREFIX).tolist()
+    return [prefix + rng.integers(1, vocab, int(rng.integers(
+        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)) - SERVE_PREFIX).tolist()
+        for _ in range(SERVE_REQUESTS)]
+
+
+def drive_server(server, prompts: list, *, pipelined: bool, tag: str):
+    """Submit through 2 sessions; the first half drains, the server
+    power-fails and recovers, the second half drains.  Returns the
+    requests, per-phase measurements and the PMem-load check."""
+    sessions = [server.connect() for _ in range(SERVE_SESSIONS)]
+    half = len(prompts) // 2
+    reqs, first_tok, phases = [], {}, []
+    steady = 0
+    for phase, batch in enumerate((prompts[:half], prompts[half:])):
+        if phase:
+            hits_before = server.stats["prefix_hits"]
+            server.crash_and_recover()
+            restored = server.stats["warm_prefixes_restored"]
+            check(restored > 0, f"{tag}: no warm prefix survived the crash")
+        for i, p in enumerate(batch):
+            sessions[i % SERVE_SESSIONS].submit(p, max_new=SERVE_NEW)
+            reqs.append(server.queue[-1])
+        RECORDER.reset()
+        t0 = time.perf_counter()
+        while server.queue or server.running:
+            admitting = bool(server.queue)
+            loads = server.pmem.counters.loads
+            server.step(SERVE_MAX_LEN, pipelined=pipelined)
+            now = time.perf_counter()
+            if not admitting:
+                steady += 1
+                check(server.pmem.counters.loads == loads,
+                      f"{tag}: a steady decode tick loaded PMem words")
+            for r in reqs:
+                if r.out and r.rid not in first_tok:
+                    first_tok[r.rid] = now - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        admit_ns = sum(sp.dur for sp in RECORDER.find("serve.admit"))
+        decode_ns = sum(sp.dur for sp in RECORDER.find("serve.decode"))
+        phases.append({"wall": wall, "admit_s": admit_ns / 1e9,
+                       "decode_s": decode_ns / 1e9})
+        if phase:
+            check(server.stats["prefix_hits"] > hits_before,
+                  f"{tag}: the recovered server hit no warm prefix")
+    check(all(r.done and len(r.out) == SERVE_NEW for r in reqs),
+          f"{tag}: a request did not finish with {SERVE_NEW} tokens")
+    check(steady > 0, f"{tag}: no steady decode tick ran")
+    return reqs, first_tok, phases, steady
+
+
+def cpu_check(lm, prompt: list) -> float:
+    """One request's prefill logits and 4 decode steps on the card and
+    on the CPU (plain attention versions, the same weights, the card's
+    tokens); returns the largest difference over the largest logit."""
+    cpu_lm = copy.deepcopy(lm).cpu()
+    slots = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
+    worst = 0.0
+    runs = []
+    for model in (lm, cpu_lm):
+        dev = model.device
+        logits, caches = model.prefill(
+            {"tokens": torch.tensor([prompt], device=dev)}, len(prompt))
+        group = caches["blocks"]["l0"]
+        padded = model.init_caches(1, slots)
+        for name in ("k", "v"):
+            padded["blocks"]["l0"][name][:, :, :len(prompt)] = group[name]
+        runs.append((model, [logits.float().cpu()], padded))
+    tokens = [int(torch.argmax(runs[0][1][0][0]))]
+    for step in range(4):
+        pos = len(prompt) + step
+        for model, out, caches in runs:
+            dev = model.device
+            logits, _ = model.decode_step(
+                torch.tensor([tokens[-1]], device=dev), caches,
+                torch.tensor([pos], device=dev), page_size=SERVE_PAGE)
+            out.append(logits.float().cpu())
+        tokens.append(int(torch.argmax(runs[0][1][-1][0])))
+    for card, cpu in zip(runs[0][1], runs[1][1]):
+        check(bool(torch.isfinite(card).all()), "serving: non-finite logits "
+              "on the card")
+        worst = max(worst, float((card - cpu).abs().max()
+                                 / cpu.abs().max()))
+    return worst
+
+
+def serving_path(args) -> dict:
+    cfg = get_arch(args.serve_arch)
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    say(f"serving: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, "
+        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): "
+        f"{n_params} parameters, {n_bytes} bytes on {lm.device}, drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    prompts = serve_prompts(cfg.vocab, args.seed)
+    plain_calls = {"attention_plain": 0, "paged_attention_plain": 0}
+
+    def counted(mod, name):
+        real = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            plain_calls[name] += 1
+            return real(*a, **kw)
+        return real, wrapper
+
+    real_f, wrap_f = counted(kflash.kernel, "attention_plain")
+    real_p, wrap_p = counted(kpaged.kernel, "paged_attention_plain")
+    kflash.kernel.attention_plain = wrap_f
+    kpaged.kernel.paged_attention_plain = wrap_p
+    RECORDER.enable()
+    runs = {}
+    try:
+        for mode in ("blocking", "pipelined"):
+            server = Server(lm, max_batch=SERVE_BATCH, page_size=SERVE_PAGE,
+                            n_pages=SERVE_PAGES)
+            check(server.kv.table.device == lm.device ==
+                  server.kv.prefix.device, "serving: the block table or "
+                  "prefix cache is not on the model's device")
+            tag = f"serving ({mode})"
+            runs[mode] = (server,) + drive_server(
+                server, prompts, pipelined=mode == "pipelined", tag=tag)
+    finally:
+        RECORDER.disable()
+        kflash.kernel.attention_plain = real_f
+        kpaged.kernel.paged_attention_plain = real_p
+    check(plain_calls == {"attention_plain": 0, "paged_attention_plain": 0},
+          f"serving: a plain attention version ran on the path: "
+          f"{plain_calls}")
+    blocking, pipelined = runs["blocking"], runs["pipelined"]
+    check([r.out for r in pipelined[1]] == [r.out for r in blocking[1]],
+          "serving: pipelined tokens differ from blocking tokens")
+    check(all(0 <= t < cfg.vocab for r in blocking[1] for t in r.out),
+          "serving: a token outside the vocabulary")
+    check(blocking[0].stats["decode_steps"] ==
+          SERVE_REQUESTS * (SERVE_NEW - 1), "serving: decode steps "
+          "differ from 31 per request")
+    for mode, (server, reqs, first_tok, phases, steady) in runs.items():
+        st = server.stats
+        admit_s = sum(p["admit_s"] for p in phases)
+        decode_s = sum(p["decode_s"] for p in phases)
+        ttft = np.array([first_tok[r.rid] for r in reqs]) * 1e3
+        say(f"serving ({mode}): {len(reqs)} requests, "
+            f"{sum(len(r.prompt) for r in reqs)} prompt tokens, "
+            f"{st['prefill_tokens']} prefilled, {st['prefix_hits']} prefix "
+            f"hits, {st['decode_steps']} decode steps in "
+            f"{sum(p['wall'] for p in phases):.3f} s wall; prefill "
+            f"{st['prefill_tokens'] / admit_s:.1f} tokens/s "
+            f"(serve.admit spans, {admit_s:.3f} s); decode "
+            f"{st['decode_steps'] / decode_s:.1f} tokens/s (serve.decode "
+            f"spans, {decode_s:.3f} s); time to first token p50 "
+            f"{np.percentile(ttft, 50):.3f} ms, max {ttft.max():.3f} ms "
+            f"(tick granularity); warm_prefixes_restored "
+            f"{st['warm_prefixes_restored']}, "
+            f"recovery_time_to_first_served_us "
+            f"{st['recovery_time_to_first_served_us']}; page_translations "
+            f"{st['page_translations']} in {st['translation_batches']} "
+            f"batches; {steady} steady decode ticks moved no PMem loads; "
+            f"PMem {server.pmem.counters}")
+    say("serving: pipelined tokens equal blocking tokens for all "
+        f"{len(blocking[1])} requests")
+    lens = [r.pos for r in blocking[1]]
+    return {"cfg": cfg, "lm": lm, "prompts": prompts,
+            "decode_lens": (min(lens), max(lens))}
+
+
+def serving_cpu_check(serve: dict) -> None:
+    t0 = time.perf_counter()
+    short = min(serve["prompts"], key=len)
+    rel = cpu_check(serve["lm"], short)
+    check(rel <= LOGIT_REL_TOL, f"serving: card logits differ from the "
+          f"CPU's by {rel:.4f} of the largest logit")
+    say(f"serving: prefill ({len(short)} tokens) and 4 decode steps on the "
+        f"card against the CPU's plain versions: max |diff| / max |logit| "
+        f"= {rel:.6f} (tolerance {LOGIT_REL_TOL}); "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def decode_busy(serve: dict, steps: int = 16) -> None:
+    """Where a decode step's time goes: ``steps`` steps of one request
+    at B = 1, as the engine runs them, timed on the host clock (each
+    step ends in the argmax that syncs), then the same steps under the
+    profiler for the summed device time and the count of CUDA kernels a
+    step.  Busy share = device time over host time."""
+    lm = serve["lm"]
+    prompt = max(serve["prompts"], key=len)
+    slots = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
+    dev = lm.device
+    logits, caches = lm.prefill({"tokens": torch.tensor([prompt],
+                                                        device=dev)},
+                                len(prompt))
+    padded = lm.init_caches(1, slots)
+    for name in ("k", "v"):
+        padded["blocks"]["l0"][name][:, :, :len(prompt)] = \
+            caches["blocks"]["l0"][name]
+    tok = int(torch.argmax(logits[0]))
+
+    def run(first: int) -> int:
+        t = tok
+        for pos in range(first, first + steps):
+            out, _ = lm.decode_step(torch.tensor([t], device=dev), padded,
+                                    torch.tensor([pos], device=dev),
+                                    page_size=SERVE_PAGE)
+            t = int(torch.argmax(out[0]))
+        return t
+
+    run(len(prompt))  # warm-up
+    t0 = time.perf_counter()
+    run(len(prompt))
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(len(prompt))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    n = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:4]
+    say(f"serving decode, B=1, position {len(prompt)}: {host_ms:.3f} ms a "
+        f"step on the host clock, {dev_ms:.3f} ms of device time in "
+        f"{n:.0f} CUDA kernels a step; device busy share "
+        f"{dev_ms / host_ms:.4f}; top kernels: " + "; ".join(
+            f"{e.key[:50]} {e.device_time_total / 1e3 / steps:.4f} ms"
+            for e in top))
+
+
+def attn_bound(n_bytes: float, flops: float):
+    """Least time in ms: bytes over HBM bandwidth against FLOPs over the
+    bf16 tensor-core rate, and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def close(name: str, got, plain, tol: float) -> float:
+    err = float((got.float() - plain.float()).abs().max())
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite "
+          "output")
+    check(err <= tol, f"{name}: kernel differs from its plain version by "
+          f"{err} (tolerance {tol})")
+    return err
+
+
+def flash_vs_plain(serve: dict, seed: int, launches: dict) -> list:
+    """flash_attention at the prefill shapes (T = S = 256 and 512, the
+    full width's heads, bf16); ``scaled_dot_product_attention`` on the
+    same inputs (kv heads repeated beforehand) is the library call."""
+    cfg = serve["cfg"]
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = serve["lm"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    out = None
+    err = 0.0
+    for T in SERVE_PROMPT:
+        batches = [tuple(torch.randn(shape, generator=gen, device=dev)
+                         .to(torch.bfloat16)
+                         for shape in ((1, T, H, dh), (1, T, Hk, dh),
+                                       (1, T, Hk, dh)))
+                   for _ in range(8)]
+        q, k, v = batches[0]
+        got = kflash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = max(err, close(f"flash_attention (T={T})", got,
+                             kflash.attention_plain(q, k, v), ATTN_TOL))
+        say(f"flash_attention (T={T}): within {ATTN_TOL} of its plain "
+            f"version (max abs err {err:.6f})")
+        timed = time_kernel(f"flash_attention (T={T})",
+                            lambda a, b, c: kflash.flash_attention(a, b, c),
+                            lambda a, b, c: kflash.attention_plain(a, b, c),
+                            batches, reps=64)
+        lib = [(a.transpose(1, 2).contiguous(),
+                b.repeat_interleave(H // Hk, dim=2).transpose(1, 2)
+                .contiguous(),
+                c.repeat_interleave(H // Hk, dim=2).transpose(1, 2)
+                .contiguous()) for a, b, c in batches]
+        lib_dev, lib_call = time_calls(
+            lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+                a, b, c, is_causal=True), lib, 64)
+        library_ms = lib_dev if lib_dev is not None else lib_call
+        n_bytes = 2 * (2 * T * H * dh + 2 * T * Hk * dh)
+        bms, by = attn_bound(n_bytes, 2 * 2 * T * T * dh * H / 2)
+        say(f"flash_attention (T={T}): bound {bms:.9f} ms ({by}); "
+            f"scaled_dot_product_attention: device {lib_dev} ms, call "
+            f"{lib_call:.6f} ms")
+        out = (timed, bms, by, library_ms, T)
+    timed, bms, by, library_ms, T = out
+    say(f"flash_attention: main-path launches {launches['flash_attention']}")
+    return [row("flash_attention", launches, err, timed, bms, by, library_ms,
+                f"{cfg.name} prefill, T=S={T}, H={H}, Hk={Hk}, dh={dh}, "
+                "bf16")]
+
+
+def paged_vs_plain(serve: dict, seed: int, launches: dict) -> list:
+    """paged_attention at the decode shapes: one sequence, the full
+    width's heads, the path's dense cache of S_pad slots read as pages
+    through the identity table, at the shortest and longest length a
+    request reached; ``scaled_dot_product_attention`` over the live
+    keys (kv heads repeated beforehand) is the library call."""
+    cfg = serve["cfg"]
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    slots = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
+    n_pages = slots // SERVE_PAGE
+    dev = serve["lm"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
+    err = 0.0
+    out = None
+    for length in serve["decode_lens"]:
+        lens = torch.tensor([length], dtype=torch.int32, device=dev)
+        batches = [tuple(torch.randn(shape, generator=gen, device=dev)
+                         .to(torch.bfloat16)
+                         for shape in ((1, H, dh), (n_pages, SERVE_PAGE, Hk,
+                                                    dh),
+                                       (n_pages, SERVE_PAGE, Hk, dh)))
+                   for _ in range(8)]
+        q, pk, pv = batches[0]
+        got = kpaged.paged_mqa(q, pk, pv, table, lens)
+        torch.cuda.synchronize()
+        err = max(err, close(f"paged_attention (len={length})", got,
+                             kpaged.paged_attention_plain(q, pk, pv, table,
+                                                          lens), ATTN_TOL))
+        say(f"paged_attention (len={length}, {slots} slots): within "
+            f"{ATTN_TOL} of its plain version (max abs err {err:.6f})")
+        timed = time_kernel(
+            f"paged_attention (len={length})",
+            lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens),
+            lambda a, b, c: kpaged.paged_attention_plain(a, b, c, table,
+                                                         lens),
+            batches, reps=256)
+        lib = [(a[:, :, None],
+                b.reshape(1, slots, Hk, dh)[:, :length]
+                .repeat_interleave(H // Hk, dim=2).transpose(1, 2)
+                .contiguous(),
+                c.reshape(1, slots, Hk, dh)[:, :length]
+                .repeat_interleave(H // Hk, dim=2).transpose(1, 2)
+                .contiguous()) for a, b, c in batches]
+        lib_dev, lib_call = time_calls(
+            lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+                a, b, c), lib, 256)
+        library_ms = lib_dev if lib_dev is not None else lib_call
+        # the live keys and values once, q, the table row, the output
+        n_bytes = 2 * (2 * length * Hk * dh + 2 * H * dh) + 4 * n_pages + 4
+        bms, by = attn_bound(n_bytes, 4 * length * H * dh)
+        say(f"paged_attention (len={length}): bound {bms:.9f} ms ({by}); "
+            f"scaled_dot_product_attention: device {lib_dev} ms, call "
+            f"{lib_call:.6f} ms")
+        out = (timed, bms, by, library_ms, length)
+    timed, bms, by, library_ms, length = out
+    say(f"paged_attention: main-path launches {launches['paged_attention']}")
+    return [row("paged_attention", launches, err, timed, bms, by, library_ms,
+                f"{cfg.name} decode, B=1, H={H}, Hk={Hk}, dh={dh}, "
+                f"len={length}, {slots} slots, bf16")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-clht", type=int, default=1 << 20)
@@ -1193,6 +1613,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n-cceh", type=int, default=1 << 15)
     ap.add_argument("--n-fastfair", type=int, default=1 << 16)
     ap.add_argument("--n-level", type=int, default=1 << 14)
+    ap.add_argument("--serve-arch", default="qwen2-0.5b")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -1210,7 +1631,8 @@ def main(argv=None) -> int:
     built = build.build()
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.3f} s")
     check(set(built) >= {"probe", "art_descend", "scan_window",
-                         "shard_route", "conflict_any"},
+                         "shard_route", "conflict_any", "flash_attention",
+                         "paged_attention"},
           "a kernel source was not built")
     for name, b in built.items():
         for line in b.log.splitlines():
@@ -1265,6 +1687,23 @@ def main(argv=None) -> int:
     for name in launches:
         launches[name] += counts[name]
 
+    reset_counts()
+    t0 = time.perf_counter()
+    serve = serving_path(args)
+    counts = read_counts()
+    check(serve["lm"].device.type == "cuda", "the serving path's model is "
+          "not on the card")
+    say(f"serving path: {time.perf_counter() - t0:.3f} s; kernel launches "
+        f"{counts}")
+    for name in ("flash_attention", "paged_attention", "probe64_fp",
+                 "art_descend", "scan_window"):
+        check(counts[name] > 0, f"{name} was not launched on the serving "
+              "path")
+    for name in launches:
+        launches[name] += counts[name]
+    serving_cpu_check(serve)
+    decode_busy(serve)
+
     rows = probe_vs_plain(sessions["P-CLHT"].index, args.seed, launches)
     rows += radix_vs_plain([("P-ART", sessions["P-ART"]),
                             ("P-HOT", sessions["P-HOT"])], args.seed,
@@ -1273,6 +1712,8 @@ def main(argv=None) -> int:
     rows += sharded_scan_vs_plain(scale, args.seed, launches)
     rows += route_vs_plain(scale, launches)
     rows += conflict_vs_plain(scale, launches)
+    rows += paged_vs_plain(serve, args.seed, launches)
+    rows += flash_vs_plain(serve, args.seed, launches)
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
     say(f"whole run: {time.perf_counter() - t_start:.3f} s")

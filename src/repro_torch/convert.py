@@ -1,4 +1,5 @@
-"""Carry a persistence domain across from plain arrays.
+"""Carry state across from plain arrays: a persistence domain, and a
+model's parameters.
 
 The state of this system is its PM image, so carrying a table over
 from another process or package is what carrying weights over is for a
@@ -7,13 +8,19 @@ arrays, and ``PCLHT(pmem, name=...)`` then attaches to the table it
 holds through the index's ordinary restart path.  The tests build the
 arrays from the JAX package's ``PMem`` regions and hold both packages
 to the same table.
+
+``lm_params_from_arrays`` turns the JAX package's ``LM`` parameter tree
+(as numpy arrays: per-layer leaves stacked on axis 0 under
+``blocks.l0``) into the port ``LM``'s state dict, so both packages run
+the same weights.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
+import torch
 
 from .core.pmem import WORDS_PER_LINE, OpCounters, PMem, Region
 
@@ -54,4 +61,40 @@ def pmem_from_arrays(regions: Iterable[Mapping], next_rid: int, *,
     return pmem
 
 
-__all__ = ["pmem_from_arrays"]
+def _tensor(a, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:                           # cannot take from numpy directly
+        t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def lm_params_from_arrays(params: Mapping, n_layers: int, *,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """The port ``LM``'s state dict from the JAX package's dense-family
+    parameter tree.
+
+    ``params`` is the JAX ``LM.init_params`` tree with numpy leaves:
+    ``embed``, ``final_norm.w``, optionally ``lm_head``, and
+    ``blocks.l0.{ln1,attn,ln2,ffn}.<name>`` stacked on axis 0 over the
+    ``n_layers`` layers (unstacked when there is one layer, as the JAX
+    package builds it).  Each leaf keeps its dtype unless ``dtype`` is
+    given.  Load the result with ``LM.load_state_dict(sd, assign=True)``
+    so the dtypes carry over."""
+    out = {"embed": _tensor(params["embed"], dtype),
+           "final_norm.w": _tensor(params["final_norm"]["w"], dtype)}
+    if "lm_head" in params:
+        out["lm_head"] = _tensor(params["lm_head"], dtype)
+    block = params["blocks"]["l0"]
+    for part in ("ln1", "attn", "ln2", "ffn"):
+        for name, leaf in block[part].items():
+            leaf = np.asarray(leaf)
+            for i in range(n_layers):
+                out[f"layers.{i}.{part}.{name}"] = _tensor(
+                    leaf[i] if n_layers > 1 else leaf, dtype)
+    return out
+
+
+__all__ = ["lm_params_from_arrays", "pmem_from_arrays"]

@@ -31,8 +31,8 @@ admitted set by the ``conflict_any`` kernel on the card (its plain
 PyTorch version on the CPU), where the JAX package's default is the
 host oracle; the admitted sets, ticks and results are the same.  The
 pipelined ticks (``tick_pipelined``, ``collect_ready``,
-``run_pipelined``) feed the serving layer's ``PlanPipeline`` and come
-with it.
+``run_pipelined``) feed the serving layer's ``PlanPipeline``: admission
+stays on the submitting thread, execution on the pipeline's worker.
 """
 
 from __future__ import annotations
@@ -97,6 +97,10 @@ class StreamDriver:
         self.streams = [ClientStream(self, i) for i in range(n_streams)]
         self.collect_results = collect_results
         self.lat_hist = lat_hist
+        # pipelined mode: (ticket, admitted, tick) per in-flight plan
+        self._inflight: List[Tuple[Any, List[Tuple["ClientStream",
+                                                   StreamTicket]],
+                                   int]] = []
         self.stats = {"ticks": 0, "admitted_plans": 0, "deferred_plans": 0,
                       "merged_ops": 0, "multi_stream_ticks": 0,
                       "wall_ns": 0, "critical_ns": 0,
@@ -207,6 +211,50 @@ class StreamDriver:
         while self.pending() and ticks < max_ticks:
             self.tick(**execute_kw)
             ticks += 1
+        return ticks
+
+    # -- pipelined execution ----------------------------------------------
+    def tick_pipelined(self, pipeline) -> bool:
+        """One admission round feeding a ``serving.pipeline
+        .PlanPipeline`` instead of executing inline: the merged plan is
+        submitted (build + wave schedule on this thread) and executes
+        FIFO on the pipeline worker while the next round admits.
+
+        Correctness is unchanged from the blocking tick: admission uses
+        the same cross-stream conflict rule (``_admit_tick``), so
+        conflicting streams still defer within a round — and *across*
+        rounds the pipeline's strict submission-order execution
+        serializes merged plans exactly as blocking ticks did.  A
+        stream's plan k+1 is never admitted before plan k was (heads
+        pop at admission), so per-stream program order survives into
+        the FIFO and results are bit-identical to ``tick()``."""
+        admitted, merged = self._admit_tick()
+        if not admitted:
+            return False
+        ticket = pipeline.submit(merged)
+        self._inflight.append((ticket, admitted, self.stats["ticks"]))
+        self.collect_ready()
+        return True
+
+    def collect_ready(self) -> int:
+        """Scatter every completed in-flight merged plan (FIFO prefix);
+        returns how many were booked."""
+        n = 0
+        while self._inflight and self._inflight[0][0].done:
+            ticket, admitted, tick_no = self._inflight.pop(0)
+            self._scatter(admitted, ticket.wait(), ticket.exec_ns, tick_no)
+            n += 1
+        return n
+
+    def run_pipelined(self, pipeline, max_ticks: int = 100_000) -> int:
+        """Pipelined dual of ``run``: admit until every stream drains,
+        then drain the pipeline and book the stragglers."""
+        ticks = 0
+        while self.pending() and ticks < max_ticks:
+            self.tick_pipelined(pipeline)
+            ticks += 1
+        pipeline.drain()
+        self.collect_ready()
         return ticks
 
 

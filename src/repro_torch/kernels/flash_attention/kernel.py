@@ -1,0 +1,124 @@
+"""The flash-attention kernel's wrapper (``csrc/flash_attention.cu``).
+
+``flash_attention`` is the port's form of the JAX package's
+``kernels/flash_attention/kernel.py`` ``flash_attention``, in the
+model's layout: q [B, T, H, dh], k and v [B, S, Hk, dh] (the Pallas
+kernel takes [B*H, T, dh] with the kv heads already repeated; here the
+kernel reads kv head h // (H // Hk) for query head h).  On CUDA tensors
+it launches the CUDA kernel on the current stream, or raises; on CPU
+tensors it runs ``ref.attention_plain``.  Nothing else selects between
+the two.
+
+``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
+on CPU tensors launches nothing and counts nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Optional
+
+import torch
+
+from ... import build
+from .ref import attention_plain
+
+#: CUDA launches since the last ``reset_launches``
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+
+HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    lib.flash_attention.argtypes = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
+    lib.flash_attention.restype = _I
+    lib.flash_attention_error_string.argtypes = [_I]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q must be [B, T, H, dh] and k, v [B, S, Hk, dh]")
+    B, _, H, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"k and v must be [B={B}, S, Hk, dh={dh}] alike, "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    Hk = k.shape[2]
+    if Hk < 1 or H % Hk:
+        raise ValueError(f"{H} query heads are not a multiple of {Hk} kv "
+                         "heads")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive width, got {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Attention forward with online softmax over tiles of keys.
+
+    q: [B, T, H, dh]; k, v: [B, S, Hk, dh], H % Hk == 0; float32 or
+    bfloat16, accumulated in fp32.  Causal masking right-aligns the
+    queries (query i at position i + S - T); ``window`` limits each
+    query to its last ``window`` keys (causal only, as in the Pallas
+    kernel).  Returns [B, T, H, dh] in q's dtype; rows that see no key
+    are 0."""
+    _check(q, k, v, window)
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention takes CUDA or CPU tensors, "
+                         f"not {dev}")
+    B, T, H, dh = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if B * H > 65535:
+        raise ValueError(f"batch * heads = {B * H} exceeds the grid's 65535")
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
+            S, H, Hk, dh, int(causal), int(window or 0), DTYPES[q.dtype],
+            1.0 / math.sqrt(dh), stream)
+    if err:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "flash_attention",
+           "reset_launches"]

@@ -1,0 +1,134 @@
+"""The paged decode-attention kernel's wrapper (``csrc/paged_attention.cu``).
+
+``paged_attention`` is the port's form of the JAX package's
+``kernels/paged_attention/kernel.py`` ``paged_attention``.  The pages
+may hold fewer kv heads than q has heads (the Pallas kernel needs them
+repeated by its caller): query head h reads kv head h // (H // Hk).  On
+CUDA tensors it launches the CUDA kernel on the current stream, or
+raises; on CPU tensors it runs ``ref.paged_attention_plain``.  Nothing
+else selects between the two.
+
+``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
+on CPU tensors launches nothing and counts nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict
+
+import torch
+
+from ... import build
+from .ref import paged_attention_plain
+
+#: CUDA launches since the last ``reset_launches``
+LAUNCHES: Dict[str, int] = {"paged_attention": 0}
+
+HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("paged_attention")
+    lib.paged_attention.argtypes = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
+    lib.paged_attention.restype = _I
+    lib.paged_attention_error_string.argtypes = [_I]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, pages_k, pages_v, block_table, seq_lens) -> None:
+    if q.dim() != 3 or pages_k.dim() != 4:
+        raise ValueError("q must be [B, H, dh] and the pages [NP, PS, Hk, dh]")
+    B, H, dh = q.shape
+    if pages_v.shape != pages_k.shape or pages_k.shape[3] != dh:
+        raise ValueError(f"pages_k and pages_v must be [NP, PS, Hk, dh={dh}] "
+                         f"alike, got {tuple(pages_k.shape)} and "
+                         f"{tuple(pages_v.shape)}")
+    Hk = pages_k.shape[2]
+    if Hk < 1 or H % Hk:
+        raise ValueError(f"{H} query heads are not a multiple of {Hk} kv "
+                         "heads")
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError(f"block_table must be [B={B}, MAXP]")
+    if tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"seq_lens must be [B={B}]")
+    for name, t in (("pages_k", pages_k), ("pages_v", pages_v),
+                    ("block_table", block_table), ("seq_lens", seq_lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("pages_k", pages_k), ("pages_v", pages_v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("block_table", block_table), ("seq_lens", seq_lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    for name, t in (("q", q), ("pages_k", pages_k), ("pages_v", pages_v),
+                    ("block_table", block_table), ("seq_lens", seq_lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
+                    pages_v: torch.Tensor, block_table: torch.Tensor,
+                    seq_lens: torch.Tensor) -> torch.Tensor:
+    """One-token decode attention over block-table pages.
+
+    q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh], H % Hk == 0,
+    float32 or bfloat16; block_table: [B, MAXP] int32, entries below 0
+    read page 0; seq_lens: [B] int32.  Keys j < seq_lens[b] (at most
+    MAXP * PS) are live.  fp32 accumulation; returns [B, H, dh] in q's
+    dtype, zeros for a sequence of length 0."""
+    _check(q, pages_k, pages_v, block_table, seq_lens)
+    dev = q.device
+    if dev.type == "cpu":
+        return paged_attention_plain(q, pages_k, pages_v, block_table,
+                                     seq_lens)
+    if dev.type != "cuda":
+        raise ValueError(f"paged_attention takes CUDA or CPU tensors, "
+                         f"not {dev}")
+    B, H, dh = q.shape
+    _, PS, Hk, _ = pages_k.shape
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    for name, t in (("pages_k", pages_k), ("pages_v", pages_v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the kernel "
+                             "reads key rows 16 bytes at a time")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paged_attention(
+            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B,
+            H, Hk, dh, PS, block_table.shape[1], DTYPES[q.dtype],
+            1.0 / math.sqrt(dh), stream)
+    if err:
+        raise RuntimeError("paged_attention kernel launch failed: "
+                           + lib.paged_attention_error_string(err).decode())
+    LAUNCHES["paged_attention"] += 1
+    return out
+
+
+__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "paged_attention",
+           "reset_launches"]

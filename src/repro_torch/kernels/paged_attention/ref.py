@@ -1,0 +1,42 @@
+"""Plain PyTorch version of the paged decode-attention kernel.
+
+``paged_attention_plain`` computes what ``csrc/paged_attention.cu``
+computes: for each sequence b and query head h, attention of q[b, h]
+over the keys j < seq_lens[b] (at most MAXP * PS), key j read from slot
+j % PS of page max(block_table[b, j // PS], 0), kv head h // (H // Hk).
+fp32 throughout, output in q's dtype, as in the JAX package's Pallas
+kernel (``kernels/paged_attention/kernel.py``); a sequence of length 0
+gives zeros, where the JAX package's ``paged_attention_ref`` gives NaN.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def paged_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
+                          pages_v: torch.Tensor, block_table: torch.Tensor,
+                          seq_lens: torch.Tensor) -> torch.Tensor:
+    """q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh] with H % Hk == 0;
+    block_table: [B, MAXP] int32 (physical page per logical page, -1
+    unused); seq_lens: [B] int32.  Returns [B, H, dh] in q's dtype."""
+    B, H, dh = q.shape
+    _, PS, Hk, _ = pages_k.shape
+    MAXP = block_table.shape[1]
+    safe = block_table.long().clamp_min(0)
+    head = torch.arange(H, device=q.device) // (H // Hk)
+    k = pages_k[safe].reshape(B, MAXP * PS, Hk, dh).float()[:, :, head]
+    v = pages_v[safe].reshape(B, MAXP * PS, Hk, dh).float()[:, :, head]
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k) * (1.0 / math.sqrt(dh))
+    pos = torch.arange(MAXP * PS, device=q.device)[None, :]
+    valid = pos < seq_lens.long()[:, None]
+    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(s - m)
+    out = torch.einsum("bhs,bshd->bhd", p, v)
+    return (out / p.sum(dim=-1)[..., None].clamp_min(1e-30)).to(q.dtype)
+
+
+__all__ = ["paged_attention_plain"]

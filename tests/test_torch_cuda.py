@@ -6,8 +6,12 @@ machine with a card:
 
 This file imports no JAX: the kernels are held against their plain
 PyTorch versions, which tests/test_torch_{probe,art,scan,partition,
-conflict,sharded}.py hold against the JAX package on the CPU.  No tolerance: every output is an
-integer.
+conflict,sharded,attention}.py hold against the JAX package on the CPU.
+The index kernels have no tolerance: every output is an integer.  The
+two attention kernels and their plain versions do the same fp32
+arithmetic in another order: float32 outputs agree within 1e-5, and
+bfloat16 outputs (the same fp32 value rounded once) within 2e-2, one
+bf16 step at the outputs' magnitude.
 """
 
 import numpy as np
@@ -15,14 +19,19 @@ import pytest
 import torch
 
 from repro_torch.api import Plan, open_index
+from repro_torch.configs import get_arch
 from repro_torch.core.ycsb import generate
 from repro_torch.core import PART, PHOT, PMem
 from repro_torch.kernels import art_probe as kart
 from repro_torch.kernels import conflict as kconf
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import partition as kpart
 from repro_torch.kernels import probe as kprobe
 from repro_torch.kernels import scan as kscan
 from repro_torch.kernels.probe import fp64
+from repro_torch.models import LM
+from repro_torch.serving import Server
 
 pytestmark = pytest.mark.cuda
 
@@ -288,3 +297,118 @@ def test_sharded_session_on_card_equals_cpu(card):
     after = {**kpart.LAUNCHES, **kconf.LAUNCHES, **kscan.LAUNCHES}
     for name in ("shard_route", "conflict_any", "scan_window_sharded"):
         assert after[name] > before[name], name
+
+
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def normal(rng, shape, dtype, device):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,S,H,Hk,dh,causal,window", [
+    (1, 256, 256, 14, 2, 64, True, None),   # Qwen2-0.5B prefill
+    (1, 512, 512, 14, 2, 64, True, None),
+    (2, 37, 37, 4, 2, 32, True, None),      # ragged T, reduced widths
+    (2, 100, 300, 8, 8, 128, True, None),   # right-aligned queries
+    (1, 200, 200, 4, 1, 64, True, 48),      # sliding window
+    (1, 70, 90, 4, 2, 64, False, None),
+])
+def test_flash_attention_matches_plain_version(card, B, T, S, H, Hk, dh,
+                                               causal, window, dtype):
+    rng = np.random.default_rng(T + S + dh)
+    q = normal(rng, (B, T, H, dh), dtype, card)
+    k, v = (normal(rng, (B, S, Hk, dh), dtype, card) for _ in range(2))
+    before = kflash.LAUNCHES["flash_attention"]
+    got = kflash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kflash.LAUNCHES["flash_attention"] == before + 1
+    plain = kflash.attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = float((got.float() - plain.float()).abs().max())
+    assert err < ATTN_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,Hk,dh,NP,PS,MAXP", [
+    (1, 14, 2, 64, 40, 16, 34),   # Qwen2-0.5B decode over 544 slots
+    (3, 4, 4, 64, 16, 32, 4),
+    (2, 4, 2, 32, 9, 16, 4),      # reduced widths
+    (4, 8, 2, 128, 32, 64, 8),
+])
+def test_paged_attention_matches_plain_version(card, B, H, Hk, dh, NP, PS,
+                                               MAXP, dtype):
+    """Pages out of order, -1 entries past the live pages, a sequence of
+    length 0 (zeros) and one at MAXP * PS."""
+    rng = np.random.default_rng(B * H + dh)
+    q = normal(rng, (B, H, dh), dtype, card)
+    pk, pv = (normal(rng, (NP, PS, Hk, dh), dtype, card) for _ in range(2))
+    table = rng.integers(0, NP, size=(B, MAXP)).astype(np.int32)
+    if NP >= MAXP:
+        table[0] = rng.permutation(NP)[:MAXP]
+    lens = rng.integers(1, PS * MAXP, size=B).astype(np.int32)
+    lens[0] = PS * MAXP
+    if B > 1:
+        lens[1] = 0
+        table[1:, -1] = -1
+        lens[2:] = np.minimum(lens[2:], PS * (MAXP - 1))
+    tt, lt = (torch.from_numpy(a).to(card) for a in (table, lens))
+    before = kpaged.LAUNCHES["paged_attention"]
+    got = kpaged.paged_mqa(q, pk, pv, tt, lt)
+    torch.cuda.synchronize()
+    assert kpaged.LAUNCHES["paged_attention"] == before + 1
+    plain = kpaged.paged_attention_plain(q, pk, pv, tt, lt)
+    err = float((got.float() - plain.float()).abs().max())
+    assert err < ATTN_TOL[dtype], err
+    if B > 1:
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+def test_attention_kernels_raise_and_never_fall_back(card):
+    """A head width the kernels are not built for raises on the card
+    (the plain versions take any width, on the CPU only)."""
+    q = torch.zeros(1, 8, 2, 48, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        kflash.flash_attention(q, q, q)
+    qd = torch.zeros(1, 2, 48, device=card)
+    pages = torch.zeros(2, 16, 2, 48, device=card)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=card)
+    lens = torch.ones(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        kpaged.paged_attention(qd, pages, pages, table, lens)
+
+
+def test_full_width_server_on_card(card):
+    """Qwen2-0.5B at full width serves two requests sharing a prefix on
+    the card, blocking and pipelined alike, through both attention
+    kernels and never through their plain versions."""
+    cfg = get_arch("qwen2-0.5b")
+    lm = LM(cfg, seed=0)
+    assert lm.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, cfg.vocab, 32).tolist()
+    prompts = [prefix + rng.integers(1, cfg.vocab, n).tolist()
+               for n in (40, 75)]
+    before = {**kflash.LAUNCHES, **kpaged.LAUNCHES}
+    outs = []
+    for pipelined in (False, True):
+        server = Server(lm, page_size=16, n_pages=64)
+        assert server.kv.table.device.type == "cuda"
+        for p in prompts:
+            server.submit(p, max_new=6)
+        reqs = list(server.queue)
+        server.run_until_drained(max_len=128, pipelined=pipelined)
+        assert all(r.done and len(r.out) == 6 for r in reqs)
+        assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
+        assert server.stats["prefix_hits"] == 32
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    assert kflash.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 2 * 2 * cfg.n_layers
+    assert kpaged.LAUNCHES["paged_attention"] == \
+        before["paged_attention"] + 2 * 2 * 5 * cfg.n_layers

@@ -1,7 +1,8 @@
 """Guards of the port's boundary: repro_torch imports neither JAX nor
-the JAX package (its scale-out layer and baselines included), and its
-entry points run on the card unless the caller asks for the CPU, never
-falling back on their own."""
+the JAX package (its scale-out layer, baselines, configs, models,
+serving runtime and launch drivers included), and its entry points run
+on the card unless the caller asks for the CPU, never falling back on
+their own."""
 
 import pathlib
 import re
@@ -23,7 +24,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.build, repro_torch.core.baselines, "
             "repro_torch.distributed.sharded, "
             "repro_torch.distributed.streams, "
-            "repro_torch.distributed.mesh\n"
+            "repro_torch.distributed.mesh, repro_torch.configs, "
+            "repro_torch.models, repro_torch.models.model, "
+            "repro_torch.serving, repro_torch.serving.engine, "
+            "repro_torch.launch, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.paged_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(repr(bad))\n")
@@ -76,3 +82,21 @@ def test_unported_kinds_raise(kind, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         open_index(kind, shards=2)
+
+
+@pytest.mark.parametrize("package", ["models", "serving", "configs",
+                                     "launch"])
+def test_the_serving_slice_imports_no_jax(package):
+    """Each package of the serving slice, imported alone in a fresh
+    process, with the engine and the model stack it pulls in."""
+    extra = {"serving": ", repro_torch.serving.engine",
+             "launch": ", repro_torch.launch.serve"}.get(package, "")
+    code = (f"import sys, repro_torch.{package}{extra}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[]", out.stdout
