@@ -56,11 +56,9 @@ def main() -> None:
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--crash-midway", action="store_true")
-    ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--device", default=None)
     args = ap.parse_args()
-    serve(args.arch, device=args.device, reduced=args.reduced,
-          n_requests=args.requests, crash_midway=args.crash_midway)
+    serve(args.arch, n_requests=args.requests,
+          crash_midway=args.crash_midway)
 
 
 if __name__ == "__main__":

@@ -82,21 +82,3 @@ def test_unported_kinds_raise(kind, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         open_index(kind, shards=2)
-
-
-@pytest.mark.parametrize("package", ["models", "serving", "configs",
-                                     "launch"])
-def test_the_serving_slice_imports_no_jax(package):
-    """Each package of the serving slice, imported alone in a fresh
-    process, with the engine and the model stack it pulls in."""
-    extra = {"serving": ", repro_torch.serving.engine",
-             "launch": ", repro_torch.launch.serve"}.get(package, "")
-    code = (f"import sys, repro_torch.{package}{extra}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
-            "print(repr(bad))\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, check=True,
-                         env={"PYTHONPATH": str(ROOT / "src"),
-                              "PATH": "/usr/bin:/bin"})
-    assert out.stdout.strip() == "[]", out.stdout
