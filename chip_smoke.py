@@ -67,13 +67,27 @@ loads, the plain attention versions are never called on the path, and
 one request's prefill logits and 4 decode steps are recomputed on the
 CPU with the plain versions and the same weights.
 
+The eighth, the RWKV serving path, runs the same workload on RWKV6-7B at
+full width (32 layers, d_model 4096, 64 heads of 64, d_ff 14336,
+vocabulary 65,536, bf16 from ``--seed``), plus prompts of exactly 32 and
+64 tokens (its layer and head counts) in the last phase: time mixing on
+the WKV6 kernel (``csrc/wkv6.cu``), 32 launches per prefill and per
+decode step, the index kernels as above, no plain version on the path.
+Its CPU check takes the 32-token prompt.
+
+The ninth, the tag path, drives the 32-bit tag data plane
+(``kernels/clht_probe`` ``tag_lookup``): 2^19 keys in a chained table of
+2^18 buckets built from ``--seed``, one wave of 4096 queries (hits,
+misses, query 0 and two keys whose tags collide) through the tag probe
+kernel (``csrc/clht_probe.cu``), every answer equal to a numpy reading.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel;
-3. the seven paths, each with every kernel's launch count set to 0 just
+3. the nine paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
-   not launched; after the serving path, its CPU check and the device
+   not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
    time);
 4. each kernel against its plain PyTorch version on the card, on 4096
@@ -82,7 +96,12 @@ Phases, each of which exits non-zero on failure:
    where the index takes them): outputs must be bit-identical; the two
    attention kernels on inputs drawn from ``--seed`` at the serving
    path's shapes, elementwise within ``ATTN_STEPS`` bf16 unit
-   roundoffs, a limit that a dropped newest key breaks; then per-launch
+   roundoffs, a limit that a dropped newest key breaks; the tag probe
+   bit-identical to its plain version and the numpy reading on the tag
+   path's windows; the WKV6 kernel at RWKV6-7B's prefill (T = 512) and
+   decode (T = 1, carried state) shapes, with decays down to logw = -8,
+   within the same limit, which the plain version without the bonus u or
+   without the carried state breaks; then per-launch
    times at the main path's shape (device time from the profiler, call
    time from CUDA events), beside the plain version's, a library call's
    where one computes the same function, and the least time the card
@@ -115,12 +134,14 @@ from repro_torch.core import CrashPoint  # noqa: E402
 from repro_torch.core.ycsb import PhaseExecutor, generate  # noqa: E402
 from repro_torch.distributed import streams as dstreams  # noqa: E402
 from repro_torch.kernels import art_probe as kart  # noqa: E402
+from repro_torch.kernels import clht_probe as ktag  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import conflict as kconf  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import paged_attention as kpaged  # noqa: E402
 from repro_torch.kernels import partition as kpart  # noqa: E402
 from repro_torch.kernels import probe as kprobe  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as kwkv  # noqa: E402
 from repro_torch.kernels import scan as kscan  # noqa: E402
 from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.kernels.clht_probe import mix64  # noqa: E402
@@ -147,7 +168,9 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "shard_route": "src/repro_torch/csrc/shard_route.cu",
            "conflict_any": "src/repro_torch/csrc/conflict_any.cu",
            "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
-           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "clht_probe": "src/repro_torch/csrc/clht_probe.cu",
+           "wkv6": "src/repro_torch/csrc/wkv6.cu"}
 # the sharded search is scan_window with a shard axis; on the JAX
 # package's mesh path it takes the place of a vmapped lower bound
 # (src/repro/distributed/mesh.py:84), which is not a Pallas kernel
@@ -161,15 +184,19 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "paged_attention":
                 "src/repro/kernels/paged_attention/kernel.py:68",
             "flash_attention":
-                "src/repro/kernels/flash_attention/kernel.py:90"}
+                "src/repro/kernels/flash_attention/kernel.py:90",
+            "clht_probe": "src/repro/kernels/clht_probe/kernel.py:38",
+            "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:60"}
 COUNTERS = (kprobe.LAUNCHES, kart.LAUNCHES, kscan.LAUNCHES, kpart.LAUNCHES,
-            kconf.LAUNCHES, kpaged.LAUNCHES, kflash.LAUNCHES)
+            kconf.LAUNCHES, kpaged.LAUNCHES, kflash.LAUNCHES,
+            ktag.LAUNCHES, kwkv.LAUNCHES)
 SHARDS = 8
 STREAMS = 4
 STREAM_PLANS = 4  # plans per stream on the scale-out path
 C_PLANS = 64  # timed YCSB-C plans per column of the reporting model
-# the serving path
+# the serving paths
 SERVE_ARCH = "qwen2-0.5b"
+RWKV_ARCH = "rwkv6-7b"
 SERVE_REQUESTS = 16
 SERVE_SESSIONS = 2
 SERVE_PREFIX = 128
@@ -179,6 +206,14 @@ SERVE_BATCH = 8
 SERVE_PAGE = 16
 SERVE_PAGES = 1024
 SERVE_MAX_LEN = SERVE_PROMPT[1] + SERVE_NEW + 2
+SERVE_SLOTS = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
+# RWKV6-7B's layer count (32) and head count (64): prompts of these
+# lengths broke the reference's cache padding (ROADMAP Queue 3, item 6)
+RWKV_EXTRA_PROMPTS = (32, 64)
+# the tag path: a chained table of 2^18 buckets at two tags a bucket,
+# probed by one read wave
+TAG_BUCKETS = 1 << 18
+TAG_KEYS = 1 << 19
 # bf16 attention kernel against its plain version: the same fp32
 # arithmetic in another order, each rounded once to bf16, so two outputs
 # differ by up to 2 unit roundoffs (2^-8) of the value.  Each element is
@@ -187,10 +222,18 @@ SERVE_MAX_LEN = SERVE_PROMPT[1] + SERVE_NEW + 2
 # dropped newest key moves hundreds of elements past that limit, and
 # the check shows it does on the same inputs.
 ATTN_STEPS = 4
-# the card against the CPU, full width, bf16: 24 layers of products
-# rounded to bf16 at different points by cuBLAS and the CPU's kernels;
-# held to 5% of the largest logit
+# the card against the CPU, full width, bf16: 24 layers of Qwen2's
+# products rounded to bf16 at different points by cuBLAS and the CPU's
+# kernels; held to 5% of the largest logit
 LOGIT_REL_TOL = 5e-2
+# RWKV6-7B's 32 layers of random weights amplify bf16 rounding: on an
+# H100 its bf16 logits differed from the CPU's bf16 run by 8.07% of the
+# largest logit at a 32-token prompt, and they differ from an fp32 run of
+# the same weights by a like amount (printed).  Its check runs the
+# served weights upcast to fp32 (exactly) on both sides, fp32 products
+# in full fp32 (no TF32): the same arithmetic in another order, held to
+# 1e-3 of the largest logit
+FP32_LOGIT_REL_TOL = 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -657,8 +700,11 @@ def time_calls(fn, batches, reps: int):
     most rows the batches touch are not in L2 (the main path's plans
     probe different keys each time).  Call ms: CUDA events around
     ``reps`` back-to-back calls, host launch cost included.  Device ms:
-    the summed duration of the CUDA kernels the profiler records over
-    ``reps`` calls, or None when it records none."""
+    for each CUDA kernel the profiler records over ``reps`` calls, its
+    mean duration times its launches a call, summed; or None when it
+    records none.  (The profiler may miss a window's first launches: 50
+    of 64 were recorded in one H100 run, so the recorded total over
+    ``reps`` would read low.)"""
     for b in batches[-4:]:
         fn(*b)
     torch.cuda.synchronize()
@@ -678,12 +724,13 @@ def time_calls(fn, batches, reps: int):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.device_time_total for e in kernels)
+    dev_us = sum(e.device_time_total / e.count * max(1, round(e.count / reps))
+                 for e in kernels if e.count)
     names = sorted(kernels, key=lambda e: -e.device_time_total)[:3]
     say("  profiler: " + ("; ".join(
         f"{e.key[:60]} x{e.count} {e.device_time_total:.1f} us"
         for e in names) or "no device kernels recorded"))
-    return (dev_us / 1e3 / reps if dev_us > 0 else None), call_ms
+    return (dev_us / 1e3 if dev_us > 0 else None), call_ms
 
 
 def bound(n_bytes: float, ops: float):
@@ -716,12 +763,13 @@ def row(name: str, launches: dict, err: int, timed: dict, bms: float,
             "library_ms": library_ms, "shape": shape}
 
 
-def time_kernel(name: str, fn, plain_fn, batches, reps: int = 640) -> dict:
+def time_kernel(name: str, fn, plain_fn, batches, reps: int = 640,
+                plain_reps: int = 32) -> dict:
     """The kernel's and the plain version's time per call: the card's
     time where the profiler saw the kernels, else the event time per
     call (which then includes the host's launch cost)."""
     dev_ms, call_ms = time_calls(fn, batches, reps)
-    plain_dev, plain_call = time_calls(plain_fn, batches, 32)
+    plain_dev, plain_call = time_calls(plain_fn, batches, plain_reps)
     say(f"{name}: device {dev_ms} ms, call {call_ms:.6f} ms per launch; "
         f"plain: device {plain_dev} ms, call {plain_call:.6f} ms")
     return {"ms": dev_ms if dev_ms is not None else call_ms,
@@ -1251,15 +1299,15 @@ def serve_prompts(vocab: int, seed: int) -> list:
         for _ in range(SERVE_REQUESTS)]
 
 
-def drive_server(server, prompts: list, *, pipelined: bool, tag: str):
-    """Submit through 2 sessions; the first half drains, the server
-    power-fails and recovers, the second half drains.  Returns the
-    requests, per-phase measurements and the PMem-load check."""
+def drive_server(server, phases: list, *, pipelined: bool, tag: str):
+    """Submit each phase's prompts through 2 sessions and drain; before
+    every phase but the first the server power-fails and recovers.
+    Returns the requests, per-phase measurements and the PMem-load
+    check."""
     sessions = [server.connect() for _ in range(SERVE_SESSIONS)]
-    half = len(prompts) // 2
-    reqs, first_tok, phases = [], {}, []
+    reqs, first_tok, phases_out = [], {}, []
     steady = 0
-    for phase, batch in enumerate((prompts[:half], prompts[half:])):
+    for phase, batch in enumerate(phases):
         if phase:
             hits_before = server.stats["prefix_hits"]
             server.crash_and_recover()
@@ -1286,34 +1334,41 @@ def drive_server(server, prompts: list, *, pipelined: bool, tag: str):
         wall = time.perf_counter() - t0
         admit_ns = sum(sp.dur for sp in RECORDER.find("serve.admit"))
         decode_ns = sum(sp.dur for sp in RECORDER.find("serve.decode"))
-        phases.append({"wall": wall, "admit_s": admit_ns / 1e9,
-                       "decode_s": decode_ns / 1e9})
+        phases_out.append({"wall": wall, "admit_s": admit_ns / 1e9,
+                           "decode_s": decode_ns / 1e9})
         if phase:
             check(server.stats["prefix_hits"] > hits_before,
                   f"{tag}: the recovered server hit no warm prefix")
     check(all(r.done and len(r.out) == SERVE_NEW for r in reqs),
           f"{tag}: a request did not finish with {SERVE_NEW} tokens")
     check(steady > 0, f"{tag}: no steady decode tick ran")
-    return reqs, first_tok, phases, steady
+    return reqs, first_tok, phases_out, steady
 
 
-def cpu_check(lm, prompt: list) -> float:
-    """One request's prefill logits and 4 decode steps on the card and
-    on the CPU (plain attention versions, the same weights, the card's
-    tokens); returns the largest difference over the largest logit."""
-    cpu_lm = copy.deepcopy(lm).cpu()
-    slots = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
-    worst = 0.0
+def prefilled(model, prompt: list):
+    """One request's prefill on ``model``: the logits and the caches
+    ``decode_step`` continues from (the dense family's k and v padded to
+    the serving path's slots, as the engine pads them; RWKV6's recurrent
+    state as it comes)."""
+    dev = model.device
+    logits, caches = model.prefill(
+        {"tokens": torch.tensor([prompt], device=dev)}, len(prompt))
+    if model.cfg.rwkv is not None:
+        return logits, caches
+    padded = model.init_caches(1, SERVE_SLOTS)
+    for name in ("k", "v"):
+        padded["blocks"]["l0"][name][:, :, :len(prompt)] = \
+            caches["blocks"]["l0"][name]
+    return logits, padded
+
+
+def logit_runs(models: list, prompt: list) -> list:
+    """One request's prefill logits and 4 decode steps on each model (the
+    first model's greedy tokens fed to all), as fp32 CPU tensors."""
     runs = []
-    for model in (lm, cpu_lm):
-        dev = model.device
-        logits, caches = model.prefill(
-            {"tokens": torch.tensor([prompt], device=dev)}, len(prompt))
-        group = caches["blocks"]["l0"]
-        padded = model.init_caches(1, slots)
-        for name in ("k", "v"):
-            padded["blocks"]["l0"][name][:, :, :len(prompt)] = group[name]
-        runs.append((model, [logits.float().cpu()], padded))
+    for model in models:
+        logits, caches = prefilled(model, prompt)
+        runs.append((model, [logits.float().cpu()], caches))
     tokens = [int(torch.argmax(runs[0][1][0][0]))]
     for step in range(4):
         pos = len(prompt) + step
@@ -1324,18 +1379,24 @@ def cpu_check(lm, prompt: list) -> float:
                 torch.tensor([pos], device=dev), page_size=SERVE_PAGE)
             out.append(logits.float().cpu())
         tokens.append(int(torch.argmax(runs[0][1][-1][0])))
-    for card, cpu in zip(runs[0][1], runs[1][1]):
-        check(bool(torch.isfinite(card).all()), "serving: non-finite logits "
-              "on the card")
-        worst = max(worst, float((card - cpu).abs().max()
-                                 / cpu.abs().max()))
-    return worst
+    for out in runs:
+        check(all(bool(torch.isfinite(x).all()) for x in out[1]),
+              "serving: non-finite logits")
+    return [out for _, out, _ in runs]
 
 
-def serving_path(args) -> dict:
-    cfg = get_arch(SERVE_ARCH)
+def worst_rel(got: list, want: list) -> float:
+    """The largest difference over the largest logit, over every step."""
+    return max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+def serving_path(arch: str, seed: int, extra: tuple = ()) -> dict:
+    """The serving workload on ``arch`` at full width; ``extra`` prompt
+    lengths join the last phase."""
+    cfg = get_arch(arch)
     t0 = time.perf_counter()
-    lm = LM(cfg, seed=args.seed)
+    lm = LM(cfg, seed=seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in lm.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
@@ -1344,21 +1405,26 @@ def serving_path(args) -> dict:
         f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): "
         f"{n_params} parameters, {n_bytes} bytes on {lm.device}, drawn in "
         f"{time.perf_counter() - t0:.3f} s")
-    prompts = serve_prompts(cfg.vocab, args.seed)
-    plain_calls = {"attention_plain": 0, "paged_attention_plain": 0}
+    prompts = serve_prompts(cfg.vocab, seed)
+    rng = np.random.default_rng(seed + 14)
+    extra_prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in extra]
+    half = len(prompts) // 2
+    phases = [prompts[:half], prompts[half:] + extra_prompts]
+    n_reqs = len(prompts) + len(extra_prompts)
+    plain = ((kflash.kernel, "attention_plain"),
+             (kpaged.kernel, "paged_attention_plain"),
+             (kwkv.kernel, "wkv6_plain"))
+    plain_calls = {name: 0 for _, name in plain}
+    real = {name: getattr(mod, name) for mod, name in plain}
 
-    def counted(mod, name):
-        real = getattr(mod, name)
-
+    def counted(name):
         def wrapper(*a, **kw):
             plain_calls[name] += 1
-            return real(*a, **kw)
-        return real, wrapper
+            return real[name](*a, **kw)
+        return wrapper
 
-    real_f, wrap_f = counted(kflash.kernel, "attention_plain")
-    real_p, wrap_p = counted(kpaged.kernel, "paged_attention_plain")
-    kflash.kernel.attention_plain = wrap_f
-    kpaged.kernel.paged_attention_plain = wrap_p
+    for mod, name in plain:
+        setattr(mod, name, counted(name))
     RECORDER.enable()
     runs = {}
     try:
@@ -1368,34 +1434,33 @@ def serving_path(args) -> dict:
             check(server.kv.table.device == lm.device ==
                   server.kv.prefix.device, "serving: the block table or "
                   "prefix cache is not on the model's device")
-            tag = f"serving ({mode})"
+            tag = f"serving {cfg.name} ({mode})"
             runs[mode] = (server,) + drive_server(
-                server, prompts, pipelined=mode == "pipelined", tag=tag)
+                server, phases, pipelined=mode == "pipelined", tag=tag)
     finally:
         RECORDER.disable()
-        kflash.kernel.attention_plain = real_f
-        kpaged.kernel.paged_attention_plain = real_p
-    check(plain_calls == {"attention_plain": 0, "paged_attention_plain": 0},
-          f"serving: a plain attention version ran on the path: "
-          f"{plain_calls}")
+        for mod, name in plain:
+            setattr(mod, name, real[name])
+    check(not any(plain_calls.values()), f"serving {cfg.name}: a plain "
+          f"kernel version ran on the path: {plain_calls}")
     blocking, pipelined = runs["blocking"], runs["pipelined"]
     check([r.out for r in pipelined[1]] == [r.out for r in blocking[1]],
-          "serving: pipelined tokens differ from blocking tokens")
+          f"serving {cfg.name}: pipelined tokens differ from blocking tokens")
     check(all(0 <= t < cfg.vocab for r in blocking[1] for t in r.out),
-          "serving: a token outside the vocabulary")
-    check(blocking[0].stats["decode_steps"] ==
-          SERVE_REQUESTS * (SERVE_NEW - 1), "serving: decode steps "
-          "differ from 31 per request")
-    for mode, (server, reqs, first_tok, phases, steady) in runs.items():
+          f"serving {cfg.name}: a token outside the vocabulary")
+    check(blocking[0].stats["decode_steps"] == n_reqs * (SERVE_NEW - 1),
+          f"serving {cfg.name}: decode steps differ from "
+          f"{SERVE_NEW - 1} per request")
+    for mode, (server, reqs, first_tok, phases_out, steady) in runs.items():
         st = server.stats
-        admit_s = sum(p["admit_s"] for p in phases)
-        decode_s = sum(p["decode_s"] for p in phases)
+        admit_s = sum(p["admit_s"] for p in phases_out)
+        decode_s = sum(p["decode_s"] for p in phases_out)
         ttft = np.array([first_tok[r.rid] for r in reqs]) * 1e3
-        say(f"serving ({mode}): {len(reqs)} requests, "
+        say(f"serving {cfg.name} ({mode}): {len(reqs)} requests, "
             f"{sum(len(r.prompt) for r in reqs)} prompt tokens, "
             f"{st['prefill_tokens']} prefilled, {st['prefix_hits']} prefix "
             f"hits, {st['decode_steps']} decode steps in "
-            f"{sum(p['wall'] for p in phases):.3f} s wall; prefill "
+            f"{sum(p['wall'] for p in phases_out):.3f} s wall; prefill "
             f"{st['prefill_tokens'] / admit_s:.1f} tokens/s "
             f"(serve.admit spans, {admit_s:.3f} s); decode "
             f"{st['decode_steps'] / decode_s:.1f} tokens/s (serve.decode "
@@ -1408,22 +1473,39 @@ def serving_path(args) -> dict:
             f"{st['page_translations']} in {st['translation_batches']} "
             f"batches; {steady} steady decode ticks moved no PMem loads; "
             f"PMem {server.pmem.counters}")
-    say("serving: pipelined tokens equal blocking tokens for all "
-        f"{len(blocking[1])} requests")
+    say(f"serving {cfg.name}: pipelined tokens equal blocking tokens for "
+        f"all {len(blocking[1])} requests")
     lens = [r.pos for r in blocking[1]]
-    return {"cfg": cfg, "lm": lm, "prompts": prompts,
-            "decode_lens": (min(lens), max(lens))}
+    return {"cfg": cfg, "lm": lm, "prompts": prompts + extra_prompts,
+            "decode_lens": (min(lens), max(lens)),
+            "prefills": 2 * n_reqs,
+            "decode_steps": sum(run[0].stats["decode_steps"]
+                                for run in runs.values())}
 
 
-def serving_cpu_check(serve: dict) -> None:
+def serving_cpu_check(serve: dict, prompt: list) -> None:
+    """The card against the CPU's plain versions on the same weights.
+    Qwen2-0.5B: the served bf16 model on both.  RWKV6-7B: the weights
+    upcast to fp32 on both, and the served bf16 card run beside them."""
     t0 = time.perf_counter()
-    short = min(serve["prompts"], key=len)
-    rel = cpu_check(serve["lm"], short)
-    check(rel <= LOGIT_REL_TOL, f"serving: card logits differ from the "
-          f"CPU's by {rel:.4f} of the largest logit")
-    say(f"serving: prefill ({len(short)} tokens) and 4 decode steps on the "
-        f"card against the CPU's plain versions: max |diff| / max |logit| "
-        f"= {rel:.6f} (tolerance {LOGIT_REL_TOL}); "
+    lm, name = serve["lm"], serve["cfg"].name
+    if lm.cfg.rwkv is None:
+        card, cpu = logit_runs([lm, copy.deepcopy(lm).cpu()], prompt)
+        rel, tol, what = worst_rel(card, cpu), LOGIT_REL_TOL, "bf16"
+        extra = ""
+    else:
+        card16, card, cpu = logit_runs(
+            [lm, copy.deepcopy(lm).float(), copy.deepcopy(lm).cpu().float()],
+            prompt)
+        rel, tol, what = worst_rel(card, cpu), FP32_LOGIT_REL_TOL, "fp32"
+        extra = (f"; the served bf16 card run against the fp32 CPU run: "
+                 f"{worst_rel(card16, cpu):.6f} (bf16 rounding, not gated)")
+        torch.cuda.empty_cache()
+    check(rel <= tol, f"serving {name}: card logits differ from the CPU's "
+          f"by {rel:.6f} of the largest logit ({what}, tolerance {tol})")
+    say(f"serving {name}: prefill ({len(prompt)} tokens) and 4 decode steps "
+        f"on the card against the CPU's plain versions, {what}: max |diff| "
+        f"/ max |logit| = {rel:.6f} (tolerance {tol}){extra}; "
         f"{time.perf_counter() - t0:.3f} s")
 
 
@@ -1435,21 +1517,14 @@ def decode_busy(serve: dict, steps: int = 16) -> None:
     step.  Busy share = device time over host time."""
     lm = serve["lm"]
     prompt = max(serve["prompts"], key=len)
-    slots = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
     dev = lm.device
-    logits, caches = lm.prefill({"tokens": torch.tensor([prompt],
-                                                        device=dev)},
-                                len(prompt))
-    padded = lm.init_caches(1, slots)
-    for name in ("k", "v"):
-        padded["blocks"]["l0"][name][:, :, :len(prompt)] = \
-            caches["blocks"]["l0"][name]
+    logits, caches = prefilled(lm, prompt)
     tok = int(torch.argmax(logits[0]))
 
     def run(first: int) -> int:
         t = tok
         for pos in range(first, first + steps):
-            out, _ = lm.decode_step(torch.tensor([t], device=dev), padded,
+            out, _ = lm.decode_step(torch.tensor([t], device=dev), caches,
                                     torch.tensor([pos], device=dev),
                                     page_size=SERVE_PAGE)
             t = int(torch.argmax(out[0]))
@@ -1469,9 +1544,9 @@ def decode_busy(serve: dict, steps: int = 16) -> None:
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
     n = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:4]
-    say(f"serving decode, B=1, position {len(prompt)}: {host_ms:.3f} ms a "
-        f"step on the host clock, {dev_ms:.3f} ms of device time in "
-        f"{n:.0f} CUDA kernels a step; device busy share "
+    say(f"serving {serve['cfg'].name} decode, B=1, position {len(prompt)}: "
+        f"{host_ms:.3f} ms a step on the host clock, {dev_ms:.3f} ms of "
+        f"device time in {n:.0f} CUDA kernels a step; device busy share "
         f"{dev_ms / host_ms:.4f}; top kernels: " + "; ".join(
             f"{e.key[:50]} {e.device_time_total / 1e3 / steps:.4f} ms"
             for e in top))
@@ -1491,10 +1566,11 @@ def attn_limit(plain: torch.Tensor) -> torch.Tensor:
     return ATTN_STEPS * 2.0 ** -8 * (p + 2.0 ** -8 * p.max())
 
 
-def close(name: str, got, plain, dropped) -> float:
+def close(name: str, got, plain, dropped,
+          variant: str = "a dropped newest key") -> float:
     """Max abs error of ``got`` against ``plain`` within ``attn_limit``;
-    ``dropped`` is the plain version without each row's newest key,
-    which must break the limit."""
+    ``dropped`` is a broken plain version (by default without each row's
+    newest key), which must break the limit."""
     limit = attn_limit(plain)
     diff = (got.float() - plain.float()).abs()
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite "
@@ -1503,11 +1579,11 @@ def close(name: str, got, plain, dropped) -> float:
           f"plain version by up to {float((diff / limit).max())} times the "
           f"limit of {ATTN_STEPS} bf16 unit roundoffs")
     caught = int(((dropped.float() - plain.float()).abs() > limit).sum())
-    check(caught > 0, f"{name}: the limit does not see a dropped key")
+    check(caught > 0, f"{name}: the limit does not see {variant}")
     err = float(diff.max())
     say(f"{name}: within {ATTN_STEPS} bf16 unit roundoffs of its plain "
         f"version elementwise (max abs err {err:.6f}, largest |plain| "
-        f"{float(plain.float().abs().max()):.6f}); a dropped newest key "
+        f"{float(plain.float().abs().max()):.6f}); {variant} "
         f"breaks the limit at {caught} of {plain.numel()} elements (max "
         f"abs {float((dropped.float() - plain.float()).abs().max()):.6f})")
     return err
@@ -1573,7 +1649,7 @@ def paged_vs_plain(serve: dict, seed: int, launches: dict) -> list:
     keys (kv heads repeated beforehand) is the library call."""
     cfg = serve["cfg"]
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    slots = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
+    slots = SERVE_SLOTS
     n_pages = slots // SERVE_PAGE
     dev = serve["lm"].device
     gen = torch.Generator(device=dev)
@@ -1627,6 +1703,184 @@ def paged_vs_plain(serve: dict, seed: int, launches: dict) -> list:
                 f"len={length}, {slots} slots, bf16")]
 
 
+# -- the tag path and its kernel --------------------------------------------
+
+def tag_queries(tags: np.ndarray, rng) -> np.ndarray:
+    """Q queries: stored tags, random int32 (mostly misses), query 0 and
+    the two colliding keys' shared tag."""
+    hits = tags[rng.integers(0, tags.shape[0], Q - 1024)]
+    misses = rng.integers(-(1 << 31), 1 << 31, 1024 - 8).astype(np.int32)
+    return np.concatenate([hits, misses, np.zeros(4, np.int32),
+                           np.repeat(tags[[0, -1]], 2)]).astype(np.int32)
+
+
+def tag_path(seed: int) -> dict:
+    """The 32-bit tag data plane (``kernels/clht_probe`` ``tag_lookup``):
+    ``TAG_KEYS`` 64-bit keys drawn from the seed, stored under their low
+    32 bits as int32 tags in a chained table of ``TAG_BUCKETS`` buckets
+    built on the host and uploaded to the card; the last key shares its
+    tag with the first (a tag collision).  One wave of Q queries: every
+    answer equals the numpy reading, query 0 is found with value 0, both
+    colliding keys read the first key's value, and every stored tag reads
+    back its first value."""
+    rng = np.random.default_rng(seed + 15)
+    keys64 = rng.integers(1, 1 << 62, size=TAG_KEYS, dtype=np.int64)
+    keys64[-1] = keys64[0] ^ (1 << 40)
+    tags = (keys64 & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    values = rng.integers(1, 1 << 31, size=TAG_KEYS).astype(np.int32)
+    t0 = time.perf_counter()
+    host = ktag.tag_table_np(tags, values, TAG_BUCKETS)
+    table = [torch.from_numpy(a).cuda() for a in host]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = tag_queries(tags, rng)
+    qd = torch.from_numpy(q).cuda()
+    t0 = time.perf_counter()
+    found, got = ktag.tag_lookup(qd, *table, n_buckets=TAG_BUCKETS)
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    found, got = found.cpu().numpy(), got.cpu().numpy()
+    nf, nv = ktag.tag_lookup_np(q, *host, TAG_BUCKETS)
+    check(np.array_equal(found, nf) and np.array_equal(got, nv),
+          "tag path: tag_lookup differs from its numpy reading")
+    zero = q == 0
+    check(bool(found[zero].all()) and not got[zero].any(),
+          "tag path: query 0 is not found with value 0")
+    pair = q == tags[0]
+    check(bool(found[pair].all()) and bool((got[pair] == values[0]).all()),
+          "tag path: a colliding key does not read the first key's value")
+    uniq, first = np.unique(tags, return_index=True)
+    n_hit = Q - 1024
+    want = values[first[np.searchsorted(uniq, q[:n_hit])]]
+    check(bool(found[:n_hit].all()) and np.array_equal(got[:n_hit], want),
+          "tag path: a stored tag does not read back its first value")
+    say(f"tag path: {TAG_KEYS} keys in {TAG_BUCKETS} buckets "
+        f"({host[0].shape[0]} rows, {TAG_KEYS - uniq.shape[0]} tags stored "
+        f"twice), built and uploaded in {build_s:.3f} s; a wave of {Q} "
+        f"queries in {wave_ms:.3f} ms (first call); {int(found.sum())} "
+        f"found ({int(found[n_hit:].sum())} of the {Q - n_hit} misses, "
+        f"zeros and collisions), every answer equal to the numpy reading")
+    return {"table": table, "host": host, "tags": tags, "rng": rng,
+            "q": qd, "numpy": (nf, nv)}
+
+
+def clht_vs_plain(tag: dict, launches: dict) -> list:
+    """clht_probe on the tag path's windows (Q queries of 128 lanes)
+    against its plain version and the numpy reading, then timed over 8
+    waves of queries."""
+    table = tag["table"]
+    waves = [tag["q"]] + [torch.from_numpy(tag_queries(tag["tags"],
+                                                       tag["rng"])).cuda()
+                          for _ in range(7)]
+    batches = [(q,) + ktag.tag_windows(q, *table, n_buckets=TAG_BUCKETS)
+               for q in waves]
+    q, bk, bv = batches[0]
+    got = ktag.clht_probe(q, bk, bv)
+    torch.cuda.synchronize()
+    err = compare("clht_probe", got, ktag.probe_plain(q, bk, bv))
+    check(np.array_equal(got[0].cpu().numpy(), tag["numpy"][0]) and
+          np.array_equal(got[1].cpu().numpy(), tag["numpy"][1]),
+          "clht_probe: kernel differs from tag_lookup's numpy reading")
+    say("clht_probe: bit-identical to its plain version and to the numpy "
+        f"reading on {Q} queries")
+    timed = time_kernel("clht_probe",
+                        lambda a, b, c: ktag.clht_probe(a, b, c),
+                        lambda a, b, c: ktag.probe_plain(a, b, c), batches)
+    # what these queries need: each key lane up to the first hit (all 128
+    # on a miss), the hit's value, the query and the two outputs
+    hit = bk == q[:, None]
+    lanes = torch.where(hit.any(1), hit.to(torch.int8).argmax(1) + 1,
+                        bk.shape[1])
+    n_lanes = int(lanes.sum())
+    n_bytes = 4 * n_lanes + 4 * int(hit.any(1).sum()) + Q * (4 + 1 + 4)
+    bms, by = bound(n_bytes, n_lanes)
+    say(f"clht_probe: bound {bms:.9f} ms ({by}, {n_bytes} bytes, {n_lanes} "
+        f"lane compares); main-path launches {launches['clht_probe']}")
+    return [row("clht_probe", launches, err, timed, bms, by, None,
+                f"tag path, Q={Q}, W=128, {TAG_BUCKETS} buckets")]
+
+
+# -- the WKV6 kernel ----------------------------------------------------------
+
+def wkv_draw(gen, T: int, H: int, dh: int, carried: bool) -> tuple:
+    """r, k, v [1, T, H, dh] bf16, logw fp32 log-uniform in [-8, -0.001]
+    (strong decays included), u [H, dh] and a carried state fp32."""
+    dev = gen.device
+    r, k, v = (torch.randn((1, T, H, dh), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    lo, hi = np.log(1e-3), np.log(8.0)
+    logw = -torch.exp(lo + (hi - lo) * torch.rand(
+        (1, T, H, dh), generator=gen, device=dev))
+    u = torch.randn((H, dh), generator=gen, device=dev)
+    state = torch.randn((1, H, dh, dh), generator=gen, device=dev) \
+        if carried else None
+    return r, k, v, logw, u, state
+
+
+def wkv6_vs_plain(serve: dict, seed: int, launches: dict) -> list:
+    """wkv6 at RWKV6-7B's shapes: a prefill of T = 512 from a zero state
+    and a decode step (T = 1) from a carried state, on inputs drawn from
+    the seed; elementwise within ``ATTN_STEPS`` bf16 unit roundoffs of
+    the plain version, a limit that the plain version without the bonus
+    u (prefill) or without the carried state (decode) breaks; the final
+    state within 2e-5 of its largest magnitude.  No PyTorch op computes a
+    WKV scan: no library call."""
+    cfg = serve["cfg"]
+    dh = cfg.rwkv.head_dim
+    H = cfg.d_model // dh
+    dev = serve["lm"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 16)
+    err = 0.0
+    out = None
+    for T, carried in ((SERVE_PROMPT[1], False), (1, True)):
+        batches = [wkv_draw(gen, T, H, dh, carried) for _ in range(8)]
+        r, k, v, logw, u, state = batches[0]
+        got, got_state = kwkv.wkv6(r, k, v, logw, u, state)
+        torch.cuda.synchronize()
+        plain, plain_state = kwkv.wkv6_plain(r, k, v, logw, u, state)
+        if carried:
+            broken, _ = kwkv.wkv6_plain(r, k, v, logw, u)
+            variant = "the plain version without the carried state"
+        else:
+            broken, _ = kwkv.wkv6_plain(r, k, v, logw, torch.zeros_like(u))
+            variant = "the plain version without the bonus u"
+        name = f"wkv6 (T={T})"
+        err = max(err, close(name, got, plain, broken, variant))
+        s_err = float((got_state - plain_state).abs().max())
+        s_max = float(plain_state.abs().max())
+        check(bool(torch.isfinite(got_state).all()) and
+              s_err <= 2e-5 * s_max, f"{name}: the final state differs from "
+              f"the plain version's by {s_err} (largest {s_max})")
+        say(f"{name}: final state max abs err {s_err:.3e} (largest "
+            f"{s_max:.3f}); logw in [{float(logw.min()):.4f}, "
+            f"{float(logw.max()):.6f}]")
+        if T >= 256:
+            sums = logw[0, :T - T % 256].reshape(-1, 256, H, dh).sum(1)
+            say(f"{name}: a factored exp(-cum) over chunks of 256 would "
+                f"overflow fp32 in {int((sums < -88.7).sum())} of "
+                f"{sums.numel()} (chunk, head, channel) columns")
+        # the plain recurrence launches some 3,000 small kernels a call
+        # at T = 512; the profiler's bookkeeping of 32 such calls takes
+        # minutes, and 4 give its device time as well
+        timed = time_kernel(name, lambda *a: kwkv.wkv6(*a),
+                            lambda *a: kwkv.wkv6_plain(*a), batches,
+                            reps=64 if T > 1 else 640,
+                            plain_reps=4 if T > 1 else 32)
+        n = T * H * dh
+        n_bytes = 2 * 4 * n + 4 * n + 4 * H * dh \
+            + 4 * H * dh * dh * (2 if carried else 1)
+        # the state terms: one FMA a state element for r.S and one for
+        # the update, per token and head, at the fp32 rate
+        bms, by = bound(n_bytes, 4 * dh * dh * T * H)
+        say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes)")
+        out = out or (timed, bms, by, T)
+    timed, bms, by, T = out
+    say(f"wkv6: main-path launches {launches['wkv6']}")
+    return [row("wkv6", launches, err, timed, bms, by, None,
+                f"{cfg.name} prefill, B=1, T={T}, H={H}, dh={dh}, bf16")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-clht", type=int, default=1 << 20)
@@ -1645,6 +1899,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     check(torch.cuda.is_available(), "no CUDA device")
+    # fp32 products in full fp32 (PyTorch's default), for the fp32 check
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1658,7 +1914,7 @@ def main(argv=None) -> int:
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.3f} s")
     check(set(built) >= {"probe", "art_descend", "scan_window",
                          "shard_route", "conflict_any", "flash_attention",
-                         "paged_attention"},
+                         "paged_attention", "clht_probe", "wkv6"},
           "a kernel source was not built")
     for name, b in built.items():
         for line in b.log.splitlines():
@@ -1715,7 +1971,7 @@ def main(argv=None) -> int:
 
     reset_counts()
     t0 = time.perf_counter()
-    serve = serving_path(args)
+    serve = serving_path(SERVE_ARCH, args.seed)
     counts = read_counts()
     check(serve["lm"].device.type == "cuda", "the serving path's model is "
           "not on the card")
@@ -1727,8 +1983,43 @@ def main(argv=None) -> int:
               "path")
     for name in launches:
         launches[name] += counts[name]
-    serving_cpu_check(serve)
+    serving_cpu_check(serve, min(serve["prompts"], key=len))
     decode_busy(serve)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rwkv = serving_path(RWKV_ARCH, args.seed, RWKV_EXTRA_PROMPTS)
+    counts = read_counts()
+    check(rwkv["lm"].device.type == "cuda", "the RWKV serving path's model "
+          "is not on the card")
+    say(f"RWKV serving path: {time.perf_counter() - t0:.3f} s; kernel "
+        f"launches {counts}")
+    n_layers = rwkv["cfg"].n_layers
+    want = n_layers * (rwkv["prefills"] + rwkv["decode_steps"])
+    check(counts["wkv6"] == want, f"wkv6 was launched {counts['wkv6']} "
+          f"times on the RWKV serving path, not {n_layers} per prefill "
+          f"({rwkv['prefills']}) and per decode step "
+          f"({rwkv['decode_steps']}): {want}")
+    for name in ("probe64_fp", "art_descend", "scan_window"):
+        check(counts[name] > 0, f"{name} was not launched on the RWKV "
+              "serving path")
+    for name in launches:
+        launches[name] += counts[name]
+    # a full-width CPU run of a 512-token prompt is slow: the check takes
+    # the path's 32-token prompt (the width is not cut)
+    serving_cpu_check(rwkv, min(rwkv["prompts"], key=len))
+    decode_busy(rwkv)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    tag = tag_path(args.seed)
+    counts = read_counts()
+    say(f"tag path: {time.perf_counter() - t0:.3f} s; kernel launches "
+        f"{counts}")
+    check(counts["clht_probe"] > 0, "clht_probe was not launched on the "
+          "tag path")
+    for name in launches:
+        launches[name] += counts[name]
 
     rows = probe_vs_plain(sessions["P-CLHT"].index, args.seed, launches)
     rows += radix_vs_plain([("P-ART", sessions["P-ART"]),
@@ -1740,6 +2031,8 @@ def main(argv=None) -> int:
     rows += conflict_vs_plain(scale, launches)
     rows += paged_vs_plain(serve, args.seed, launches)
     rows += flash_vs_plain(serve, args.seed, launches)
+    rows += clht_vs_plain(tag, launches)
+    rows += wkv6_vs_plain(rwkv, args.seed, launches)
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
     say(f"whole run: {time.perf_counter() - t_start:.3f} s")

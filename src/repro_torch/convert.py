@@ -11,8 +11,8 @@ to the same table.
 
 ``lm_params_from_arrays`` turns the JAX package's ``LM`` parameter tree
 (as numpy arrays: per-layer leaves stacked on axis 0 under
-``blocks.l0``) into the port ``LM``'s state dict, so both packages run
-the same weights.
+``blocks.l0``, dense or RWKV6) into the port ``LM``'s state dict, so
+both packages run the same weights.
 """
 
 from __future__ import annotations
@@ -73,23 +73,24 @@ def _tensor(a, dtype: Optional[torch.dtype]) -> torch.Tensor:
 def lm_params_from_arrays(params: Mapping, n_layers: int, *,
                           dtype: Optional[torch.dtype] = None
                           ) -> Dict[str, torch.Tensor]:
-    """The port ``LM``'s state dict from the JAX package's dense-family
-    parameter tree.
+    """The port ``LM``'s state dict from the JAX package's parameter
+    tree for the dense family or RWKV6.
 
     ``params`` is the JAX ``LM.init_params`` tree with numpy leaves:
     ``embed``, ``final_norm.w``, optionally ``lm_head``, and
-    ``blocks.l0.{ln1,attn,ln2,ffn}.<name>`` stacked on axis 0 over the
-    ``n_layers`` layers (unstacked when there is one layer, as the JAX
-    package builds it).  Each leaf keeps its dtype unless ``dtype`` is
-    given.  Load the result with ``LM.load_state_dict(sd, assign=True)``
+    ``blocks.l0.<part>.<name>`` stacked on axis 0 over the ``n_layers``
+    layers (unstacked when there is one layer, as the JAX package builds
+    it), the parts being ``ln1``, ``attn``, ``ln2``, ``ffn`` (dense) or
+    ``ln1``, ``rwkv``, ``ln2`` (RWKV6).  Each leaf keeps its dtype unless
+    ``dtype`` is given.  Load the result with ``LM.load_state_dict(sd, assign=True)``
     so the dtypes carry over."""
     out = {"embed": _tensor(params["embed"], dtype),
            "final_norm.w": _tensor(params["final_norm"]["w"], dtype)}
     if "lm_head" in params:
         out["lm_head"] = _tensor(params["lm_head"], dtype)
     block = params["blocks"]["l0"]
-    for part in ("ln1", "attn", "ln2", "ffn"):
-        for name, leaf in block[part].items():
+    for part, leaves in block.items():
+        for name, leaf in leaves.items():
             leaf = np.asarray(leaf)
             for i in range(n_layers):
                 out[f"layers.{i}.{part}.{name}"] = _tensor(

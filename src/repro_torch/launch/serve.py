@@ -3,9 +3,9 @@ crash/restart demonstration of the persistent prefix cache.  The port
 of ``repro.launch.serve``.
 
 The JAX driver always serves the reduced configuration on the CPU; the
-port serves the named architecture at full width on the card by
-default, with weights drawn at random from ``seed`` (no checkpoint
-exists to load).  ``reduced=True, device="cpu"`` gives the JAX
+port serves the named architecture (a dense config or ``rwkv6-7b``)
+at full width on the card by default, with weights drawn at random
+from ``seed`` (no checkpoint exists to load).  ``reduced=True, device="cpu"`` gives the JAX
 driver's setting.  Run ``python -m repro_torch.launch.serve`` with
 ``PYTHONPATH=src``.
 """

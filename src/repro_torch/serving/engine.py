@@ -44,7 +44,9 @@ keeps a dense KV cache padded to the tick's ``max_len`` (here rounded
 up to whole pages, ``ceil(max_len / page_size) * page_size`` slots),
 and decode reads it through an identity block table: the pages the
 block table grants (prompt pages only) carry the metadata plane's
-crash consistency, not the tensors.  The index kernels run on the same
+crash consistency, not the tensors.  An RWKV6 model's requests carry
+its recurrent state (``wkv``, ``shift_tm``, ``shift_cm``) instead, which
+is not padded.  The index kernels run on the same
 device: the block-table translations on the probe kernel, prefix probes
 on the radix-descent kernel and the post-crash warmup on the sorted-run
 search kernel.  Stats, spans and PMem traffic are the JAX package's.
@@ -313,18 +315,35 @@ class PagedKVManager:
             start = rows[-1][0] + 1
 
 
-def _pad_caches(caches: Any, n: int, slots: int) -> Any:
-    """Pad every cache tensor whose token axis (-3) has length ``n`` with
-    zeros to ``slots``, as the JAX engine pads its dense caches."""
-    if isinstance(caches, dict):
-        return {k: _pad_caches(v, n, slots) for k, v in caches.items()}
-    if caches.dim() >= 3 and caches.shape[-3] == n:
-        shape = list(caches.shape)
-        shape[-3] = slots
-        out = caches.new_zeros(shape)
-        out[..., :n, :, :] = caches
-        return out
-    return caches
+#: the cache leaves that hold one entry per token on axis -3
+TOKEN_AXIS_CACHES = ("k", "v")
+
+
+def _pad_caches(caches: Dict[str, Any], n: int, slots: int
+                ) -> Dict[str, Any]:
+    """Pad the attention caches' ``k`` and ``v`` along their token axis
+    (-3) from the prompt's ``n`` tokens with zeros to ``slots``; every
+    other leaf (RWKV's ``wkv``, ``shift_tm``, ``shift_cm``) is recurrent
+    state and passes through.
+
+    The JAX engine pads every leaf whose axis -3 equals ``n``: an RWKV
+    state's axis -3 is its head count (``wkv`` [L, B, H, dh, dh]) or
+    its layer count (the shifts [L, B, D]), so a prompt of exactly H or
+    L tokens fails there (ROADMAP Queue 3, item 6).  Selecting by the
+    leaf's key serves those prompts; on every other prompt, and on
+    every dense-family cache, the two rules pad the same tensors."""
+    out = {}
+    for key, c in caches.items():
+        if isinstance(c, dict):
+            out[key] = _pad_caches(c, n, slots)
+        elif key in TOKEN_AXIS_CACHES:
+            shape = list(c.shape)
+            shape[-3] = slots
+            out[key] = c.new_zeros(shape)
+            out[key][..., :n, :, :] = c
+        else:
+            out[key] = c
+    return out
 
 
 class Server:

@@ -11,7 +11,11 @@ The index kernels have no tolerance: every output is an integer.  The
 two attention kernels and their plain versions do the same fp32
 arithmetic in another order: float32 outputs agree within 1e-5, and
 bfloat16 outputs (the same fp32 value rounded once) within 2e-2, one
-bf16 step at the outputs' magnitude.
+bf16 step at the outputs' magnitude.  The WKV6 kernel sums its chunked
+form in fp32 where the plain version runs the step-by-step recurrence:
+float32 outputs and every final state agree within 2e-5 of their
+largest magnitude, and bfloat16 outputs elementwise within 4 bf16 unit
+roundoffs (2^-8) of the plain value plus 4 * 2^-16 of the largest.
 """
 
 import numpy as np
@@ -23,11 +27,13 @@ from repro_torch.configs import get_arch
 from repro_torch.core.ycsb import generate
 from repro_torch.core import PART, PHOT, PMem
 from repro_torch.kernels import art_probe as kart
+from repro_torch.kernels import clht_probe as ktag
 from repro_torch.kernels import conflict as kconf
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import partition as kpart
 from repro_torch.kernels import probe as kprobe
+from repro_torch.kernels import rwkv6_scan as kwkv
 from repro_torch.kernels import scan as kscan
 from repro_torch.kernels.probe import fp64
 from repro_torch.models import LM
@@ -412,3 +418,126 @@ def test_full_width_server_on_card(card):
         before["flash_attention"] + 2 * 2 * cfg.n_layers
     assert kpaged.LAUNCHES["paged_attention"] == \
         before["paged_attention"] + 2 * 2 * 5 * cfg.n_layers
+
+
+def wkv_inputs(rng, B, T, H, dh, dtype, device, strong=False):
+    """r, k, v in ``dtype``, logw fp32 (down to -8 when ``strong``), u
+    and a carried state fp32."""
+    r, k, v = (normal(rng, (B, T, H, dh), dtype, device) for _ in range(3))
+    lo, hi = (0.5, 8.0) if strong else (0.001, 0.15)
+    logw = -torch.from_numpy(rng.uniform(lo, hi, size=(B, T, H, dh))
+                             .astype(np.float32)).to(device)
+    u = normal(rng, (H, dh), torch.float32, device)
+    state = normal(rng, (B, H, dh, dh), torch.float32, device)
+    return r, k, v, logw, u, state
+
+
+@pytest.mark.parametrize("B,T,H,dh,dtype,strong,carried", [
+    (1, 512, 64, 64, torch.bfloat16, False, False),  # RWKV6-7B prefill
+    (1, 1, 64, 64, torch.bfloat16, False, True),     # RWKV6-7B decode
+    (1, 512, 64, 64, torch.bfloat16, True, False),
+    (2, 37, 4, 32, torch.float32, False, True),      # ragged T, reduced
+    (1, 300, 2, 128, torch.float32, True, True),
+    (3, 16, 3, 64, torch.float32, False, False),
+])
+def test_wkv6_matches_plain_version(card, B, T, H, dh, dtype, strong,
+                                    carried):
+    rng = np.random.default_rng(T + H + dh)
+    r, k, v, logw, u, state = wkv_inputs(rng, B, T, H, dh, dtype, card,
+                                         strong)
+    state = state if carried else None
+    before = kwkv.LAUNCHES["wkv6"]
+    got, got_state = kwkv.wkv6(r, k, v, logw, u, state)
+    torch.cuda.synchronize()
+    assert kwkv.LAUNCHES["wkv6"] == before + 1
+    plain, plain_state = kwkv.wkv6_plain(r, k, v, logw, u, state)
+    assert got.dtype == dtype and got.shape == r.shape
+    assert torch.isfinite(got.float()).all()
+    assert torch.isfinite(got_state).all()
+    scale = float(plain_state.abs().max())
+    assert float((got_state - plain_state).abs().max()) <= 2e-5 * scale
+    diff = (got.float() - plain.float()).abs()
+    p = plain.float().abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5 * float(p.max())
+    else:
+        limit = 4 * 2.0 ** -8 * (p + 2.0 ** -8 * p.max())
+        assert bool((diff <= limit).all())
+    if carried:  # the state is read: dropping it breaks the limit
+        dropped, _ = kwkv.wkv6_plain(r, k, v, logw, u)
+        assert float((dropped.float() - plain.float()).abs().max()) > \
+            1e-2 * float(p.max())
+
+
+def test_wkv6_raises_and_never_falls_back(card):
+    rng = np.random.default_rng(0)
+    r, k, v, logw, u, _ = wkv_inputs(rng, 1, 4, 2, 48, torch.float32, card)
+    with pytest.raises(ValueError, match="head_dim"):
+        kwkv.wkv6(r, k, v, logw, u)
+    r, k, v, logw, u, _ = wkv_inputs(rng, 1, 4, 2, 32, torch.float32, card)
+    with pytest.raises(TypeError, match="float32 logw"):
+        kwkv.wkv6(r, k, v, logw.double(), u)
+
+
+@pytest.mark.parametrize("Q,W", [(4096, 128), (4099, 128), (1, 128),
+                                 (300, 12), (77, 37), (5, 1)])
+def test_clht_probe_matches_plain_version(card, Q, W):
+    """Repeated keys (the first hit wins), zero lanes and query 0."""
+    rng = np.random.default_rng(Q + W)
+    bk = rng.integers(0, 50, size=(Q, W)).astype(np.int32)
+    bv = rng.integers(-(1 << 31), 1 << 31, size=(Q, W)).astype(np.int32)
+    q = rng.integers(0, 60, size=Q).astype(np.int32)
+    args = [torch.from_numpy(a).to(card) for a in (q, bk, bv)]
+    before = ktag.LAUNCHES["clht_probe"]
+    found, vals = ktag.clht_probe(*args)
+    torch.cuda.synchronize()
+    assert ktag.LAUNCHES["clht_probe"] == before + 1
+    pf, pv = ktag.probe_plain(*args)
+    assert torch.equal(found, pf) and torch.equal(vals, pv)
+    assert found.dtype == torch.bool and vals.dtype == torch.int32
+
+
+def test_tag_lookup_on_card_equals_numpy(card):
+    """A chained table of 2^12 buckets, hits, misses, colliding tags and
+    query 0, through the card's front end and kernel."""
+    rng = np.random.default_rng(3)
+    n_buckets = 1 << 12
+    tags = rng.integers(-(1 << 31), 1 << 31, size=3 * n_buckets)
+    tags = tags.astype(np.int32)
+    tags[-100:] = tags[:100]
+    values = rng.integers(1, 1 << 31, size=tags.shape[0]).astype(np.int32)
+    keys, vals, nxt = ktag.tag_table_np(tags, values, n_buckets)
+    q = np.concatenate([tags[:3000], rng.integers(
+        -(1 << 31), 1 << 31, size=1000).astype(np.int32), [0, 0, 0]])
+    q = q.astype(np.int32)
+    found, got = ktag.tag_lookup(*(torch.from_numpy(a).to(card)
+                                   for a in (q, keys, vals, nxt)),
+                                 n_buckets=n_buckets)
+    nf, nv = ktag.tag_lookup_np(q, keys, vals, nxt, n_buckets)
+    assert np.array_equal(found.cpu().numpy(), nf)
+    assert np.array_equal(got.cpu().numpy(), nv)
+    assert nf[-3:].all() and not nv[-3:].any()
+
+
+def test_full_width_rwkv_server_on_card(card):
+    """RWKV6-7B at full width (32 layers, 64 heads of 64) serves prompts
+    of 32 (L) and 64 (H) tokens and one of 75 on the card, blocking and
+    pipelined alike, through the WKV6 kernel: 32 launches per prefill and
+    per decode step, and never its plain version."""
+    cfg = get_arch("rwkv6-7b")
+    lm = LM(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (32, 64, 75)]
+    before = kwkv.LAUNCHES["wkv6"]
+    outs = []
+    for pipelined in (False, True):
+        server = Server(lm, page_size=16, n_pages=64)
+        for p in prompts:
+            server.submit(p, max_new=4)
+        reqs = list(server.queue)
+        server.run_until_drained(max_len=128, pipelined=pipelined)
+        assert all(r.done and len(r.out) == 4 for r in reqs)
+        assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    assert kwkv.LAUNCHES["wkv6"] == before + 2 * (3 + 3 * 3) * cfg.n_layers

@@ -185,9 +185,8 @@ def test_configs_equal_the_jax_package():
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-moe-16b",
-                                  "jamba-1.5-large-398b", "rwkv6-7b",
-                                  "whisper-tiny", "internvl2-76b",
-                                  "starcoder2-15b"])
+                                  "jamba-1.5-large-398b", "whisper-tiny",
+                                  "internvl2-76b", "starcoder2-15b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(get_arch(arch).reduced(), device="cpu")
@@ -203,6 +202,20 @@ def test_dense_archs_build_reduced(arch):
     assert torch.isfinite(logits.float()).all()
     assert caches["blocks"]["l0"]["k"].shape == (
         cfg.n_layers, 1, 5, cfg.n_kv_heads, cfg.head_dim)
+
+
+def test_rwkv_builds_reduced():
+    """RWKV6 runs in the port (tests/test_torch_rwkv.py holds it to the
+    JAX package): its prefill carries state, not a KV cache."""
+    cfg = get_arch("rwkv6-7b").reduced()
+    lm = build_model(cfg, device="cpu")
+    logits, caches = lm.prefill({"tokens": torch.arange(5)[None]}, 5)
+    assert logits.shape == (1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()
+    H, dh = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    assert caches["blocks"]["l0"]["wkv"].shape == (cfg.n_layers, 1, H, dh,
+                                                   dh)
+    assert set(caches["blocks"]["l0"]) == {"wkv", "shift_tm", "shift_cm"}
 
 
 def test_lm_defaults_to_the_card(monkeypatch):
