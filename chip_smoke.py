@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--n-clht 1048576] [--n-art 1048576]
+    python3 chip_smoke.py [--n-clht 1048576] [--n-art 524288]
                           [--n-hot 262144] [--n-masstree 262144]
                           [--n-bwtree 32768] [--n-cceh 32768]
                           [--n-fastfair 65536] [--n-level 16384]
@@ -75,7 +75,26 @@ the WKV6 kernel (``csrc/wkv6.cu``), 32 launches per prefill and per
 decode step, the index kernels as above, no plain version on the path.
 Its CPU check takes the 32-token prompt.
 
-The ninth, the tag path, drives the 32-bit tag data plane
+The ninth, the Mamba path, runs Jamba-1.5-Large's Mamba mixers at full
+width (d_model 8192, d_in 16384, 256 heads of 64, d_state 16, bf16 from
+``--seed``): the mixer half of the block (norm, mixer, residual) for the
+7 Mamba sublayers of one superblock, a prefill at B = 1, T = 4096 and
+one at B = 2, T = 3001 (per-batch B_ and C_, a ragged last chunk), then
+32 decode steps from the carried states: the SSD scan on its kernel
+(``csrc/ssd.cu``), 7 launches per prefill and per decode step, no plain
+version on the path.  Its CPU check runs one layer in fp32 on both
+sides over a 256-token prompt and 4 decode steps.
+
+The tenth, the hybrid serving path, runs the serving workload on
+Jamba-1.5-Large at ``reduced()`` (8 sublayers: Mamba, attention, MLP and
+MoE; one full-width superblock is 90 GB in bf16, more than the card),
+plus prompts of 1 and 8 tokens (the lengths at which the reference's
+cache padding breaks on Mamba state): the SSD kernel 7 times per
+prefill and per decode step, both attention kernels, the index kernels,
+no plain version on the path.  Its CPU check takes the longest prompt,
+in fp32 on both sides.
+
+The eleventh, the tag path, drives the 32-bit tag data plane
 (``kernels/clht_probe`` ``tag_lookup``): 2^19 keys in a chained table of
 2^18 buckets built from ``--seed``, one wave of 4096 queries (hits,
 misses, query 0 and two keys whose tags collide) through the tag probe
@@ -85,11 +104,11 @@ Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel;
-3. the nine paths, each with every kernel's launch count set to 0 just
+3. the eleven paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
-   time);
+   time); after the Mamba path, its CPU check;
 4. each kernel against its plain PyTorch version on the card, on 4096
    queries made from ``--seed`` over a table a path loaded (hits,
    misses, fingerprint near-misses, key 0, and keys of 2^63 and above
@@ -101,7 +120,10 @@ Phases, each of which exits non-zero on failure:
    path's windows; the WKV6 kernel at RWKV6-7B's prefill (T = 512) and
    decode (T = 1, carried state) shapes, with decays down to logw = -8,
    within the same limit, which the plain version without the bonus u or
-   without the carried state breaks; then per-launch
+   without the carried state breaks; the SSD kernel at Jamba's prefill
+   (T = 4096) and decode (T = 1, carried state) shapes within the same
+   limit, which the plain version without the s = t term or without the
+   carried state breaks; then per-launch
    times at the main path's shape (device time from the profiler, call
    time from CUDA events), beside the plain version's, a library call's
    where one computes the same function, and the least time the card
@@ -116,6 +138,7 @@ either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import subprocess
@@ -135,9 +158,10 @@ from repro_torch.core.ycsb import PhaseExecutor, generate  # noqa: E402
 from repro_torch.distributed import streams as dstreams  # noqa: E402
 from repro_torch.kernels import art_probe as kart  # noqa: E402
 from repro_torch.kernels import clht_probe as ktag  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import get_arch, layer_kinds  # noqa: E402
 from repro_torch.kernels import conflict as kconf  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import mamba_scan as kssd  # noqa: E402
 from repro_torch.kernels import paged_attention as kpaged  # noqa: E402
 from repro_torch.kernels import partition as kpart  # noqa: E402
 from repro_torch.kernels import probe as kprobe  # noqa: E402
@@ -147,8 +171,11 @@ from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.kernels.clht_probe import mix64  # noqa: E402
 from repro_torch.kernels.probe import fp64, fp_partial  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models.common import norm, norm_params  # noqa: E402
 from repro_torch.obs import RECORDER  # noqa: E402
 from repro_torch.serving import Server  # noqa: E402
+from repro_torch.serving.engine import _pad_caches  # noqa: E402
 
 PLAN_OPS = 4096
 Q = 4096  # queries per launch on the main path (one full read wave)
@@ -170,7 +197,8 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "clht_probe": "src/repro_torch/csrc/clht_probe.cu",
-           "wkv6": "src/repro_torch/csrc/wkv6.cu"}
+           "wkv6": "src/repro_torch/csrc/wkv6.cu",
+           "ssd": "src/repro_torch/csrc/ssd.cu"}
 # the sharded search is scan_window with a shard axis; on the JAX
 # package's mesh path it takes the place of a vmapped lower bound
 # (src/repro/distributed/mesh.py:84), which is not a Pallas kernel
@@ -186,10 +214,11 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "flash_attention":
                 "src/repro/kernels/flash_attention/kernel.py:90",
             "clht_probe": "src/repro/kernels/clht_probe/kernel.py:38",
-            "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:60"}
+            "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:60",
+            "ssd": "src/repro/kernels/mamba_scan/kernel.py:58"}
 COUNTERS = (kprobe.LAUNCHES, kart.LAUNCHES, kscan.LAUNCHES, kpart.LAUNCHES,
             kconf.LAUNCHES, kpaged.LAUNCHES, kflash.LAUNCHES,
-            ktag.LAUNCHES, kwkv.LAUNCHES)
+            ktag.LAUNCHES, kwkv.LAUNCHES, kssd.LAUNCHES)
 SHARDS = 8
 STREAMS = 4
 STREAM_PLANS = 4  # plans per stream on the scale-out path
@@ -210,6 +239,27 @@ SERVE_SLOTS = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
 # RWKV6-7B's layer count (32) and head count (64): prompts of these
 # lengths broke the reference's cache padding (ROADMAP Queue 3, item 6)
 RWKV_EXTRA_PROMPTS = (32, 64)
+# the hybrid: one superblock of Jamba-1.5-Large is 45.1 B parameters,
+# 90 GB in bf16, more than the card holds, so it serves at reduced();
+# prompts of 1 token and of its H = 8 heads broke the reference's cache
+# padding on Mamba state (ROADMAP Queue 3, item 7)
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_EXTRA_PROMPTS = (1, 8)
+# the full-width Mamba path: the 7 Mamba sublayers of one Jamba
+# superblock, prefills of (B, T) (a whole number of Jamba's 256-token
+# chunks, and a ragged T over two batch rows), then decode steps from
+# the second prefill's states; its CPU check runs one layer in fp32 over
+# a prompt of MAMBA_CPU_PROMPT tokens and MAMBA_CPU_STEPS decode steps
+MAMBA_PREFILLS = ((1, 4096), (2, 3001))
+MAMBA_DECODE = 32
+MAMBA_CPU_PROMPT = 256
+MAMBA_CPU_STEPS = 4
+# every plain kernel version a model path could call in place of its
+# kernel; the model paths count their calls and fail on any
+PLAIN_VERSIONS = ((kflash.kernel, "attention_plain"),
+                  (kpaged.kernel, "paged_attention_plain"),
+                  (kwkv.kernel, "wkv6_plain"),
+                  (kssd.kernel, "ssd_plain"))
 # the tag path: a chained table of 2^18 buckets at two tags a bucket,
 # probed by one read wave
 TAG_BUCKETS = 1 << 18
@@ -232,13 +282,37 @@ LOGIT_REL_TOL = 5e-2
 # the same weights by a like amount (printed).  Its check runs the
 # served weights upcast to fp32 (exactly) on both sides, fp32 products
 # in full fp32 (no TF32): the same arithmetic in another order, held to
-# 1e-3 of the largest logit
+# 1e-3 of the largest logit.  The hybrid (8 layers with MoE routing, which
+# a bf16 rounding can flip) and the full-width Mamba layer are checked the
+# same way, within the same share of their largest output
 FP32_LOGIT_REL_TOL = 1e-3
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Count every call of a plain kernel version (``PLAIN_VERSIONS``)
+    inside the block: yields the counts by name."""
+    calls = {name: 0 for _, name in PLAIN_VERSIONS}
+    real = {name: getattr(mod, name) for mod, name in PLAIN_VERSIONS}
+
+    def counted(name):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return wrapper
+
+    for mod, name in PLAIN_VERSIONS:
+        setattr(mod, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for mod, name in PLAIN_VERSIONS:
+            setattr(mod, name, real[name])
 
 
 def say(msg: str) -> None:
@@ -1347,19 +1421,12 @@ def drive_server(server, phases: list, *, pipelined: bool, tag: str):
 
 def prefilled(model, prompt: list):
     """One request's prefill on ``model``: the logits and the caches
-    ``decode_step`` continues from (the dense family's k and v padded to
-    the serving path's slots, as the engine pads them; RWKV6's recurrent
-    state as it comes)."""
+    ``decode_step`` continues from (k and v padded to the serving path's
+    slots, as the engine pads them; recurrent state as it comes)."""
     dev = model.device
     logits, caches = model.prefill(
         {"tokens": torch.tensor([prompt], device=dev)}, len(prompt))
-    if model.cfg.rwkv is not None:
-        return logits, caches
-    padded = model.init_caches(1, SERVE_SLOTS)
-    for name in ("k", "v"):
-        padded["blocks"]["l0"][name][:, :, :len(prompt)] = \
-            caches["blocks"]["l0"][name]
-    return logits, padded
+    return logits, _pad_caches(caches, len(prompt), SERVE_SLOTS)
 
 
 def logit_runs(models: list, prompt: list) -> list:
@@ -1391,56 +1458,47 @@ def worst_rel(got: list, want: list) -> float:
                for g, w in zip(got, want))
 
 
-def serving_path(arch: str, seed: int, extra: tuple = ()) -> dict:
-    """The serving workload on ``arch`` at full width; ``extra`` prompt
-    lengths join the last phase."""
+def serving_path(arch: str, seed: int, extra: tuple = (), *,
+                 reduced: bool = False) -> dict:
+    """The serving workload on ``arch`` at full width (or at its
+    ``reduced()`` widths); ``extra`` prompt lengths join the last
+    phase."""
     cfg = get_arch(arch)
+    if reduced:
+        cfg = cfg.reduced()
     t0 = time.perf_counter()
     lm = LM(cfg, seed=seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in lm.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    say(f"serving: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, "
-        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): "
-        f"{n_params} parameters, {n_bytes} bytes on {lm.device}, drawn in "
-        f"{time.perf_counter() - t0:.3f} s")
+    say(f"serving: {cfg.name} at {'reduced' if reduced else 'full'} width "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"/ {cfg.n_kv_heads} KV heads, head_dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}"
+        + (f"; layers {layer_kinds(cfg)}" if cfg.family == "hybrid" else "")
+        + f"): {n_params} parameters, {n_bytes} bytes on {lm.device}, drawn "
+        f"in {time.perf_counter() - t0:.3f} s")
     prompts = serve_prompts(cfg.vocab, seed)
     rng = np.random.default_rng(seed + 14)
     extra_prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in extra]
     half = len(prompts) // 2
     phases = [prompts[:half], prompts[half:] + extra_prompts]
     n_reqs = len(prompts) + len(extra_prompts)
-    plain = ((kflash.kernel, "attention_plain"),
-             (kpaged.kernel, "paged_attention_plain"),
-             (kwkv.kernel, "wkv6_plain"))
-    plain_calls = {name: 0 for _, name in plain}
-    real = {name: getattr(mod, name) for mod, name in plain}
-
-    def counted(name):
-        def wrapper(*a, **kw):
-            plain_calls[name] += 1
-            return real[name](*a, **kw)
-        return wrapper
-
-    for mod, name in plain:
-        setattr(mod, name, counted(name))
     RECORDER.enable()
     runs = {}
     try:
-        for mode in ("blocking", "pipelined"):
-            server = Server(lm, max_batch=SERVE_BATCH, page_size=SERVE_PAGE,
-                            n_pages=SERVE_PAGES)
-            check(server.kv.table.device == lm.device ==
-                  server.kv.prefix.device, "serving: the block table or "
-                  "prefix cache is not on the model's device")
-            tag = f"serving {cfg.name} ({mode})"
-            runs[mode] = (server,) + drive_server(
-                server, phases, pipelined=mode == "pipelined", tag=tag)
+        with counting_plain() as plain_calls:
+            for mode in ("blocking", "pipelined"):
+                server = Server(lm, max_batch=SERVE_BATCH,
+                                page_size=SERVE_PAGE, n_pages=SERVE_PAGES)
+                check(server.kv.table.device == lm.device ==
+                      server.kv.prefix.device, "serving: the block table or "
+                      "prefix cache is not on the model's device")
+                tag = f"serving {cfg.name} ({mode})"
+                runs[mode] = (server,) + drive_server(
+                    server, phases, pipelined=mode == "pipelined", tag=tag)
     finally:
         RECORDER.disable()
-        for mod, name in plain:
-            setattr(mod, name, real[name])
     check(not any(plain_calls.values()), f"serving {cfg.name}: a plain "
           f"kernel version ran on the path: {plain_calls}")
     blocking, pipelined = runs["blocking"], runs["pipelined"]
@@ -1485,11 +1543,12 @@ def serving_path(arch: str, seed: int, extra: tuple = ()) -> dict:
 
 def serving_cpu_check(serve: dict, prompt: list) -> None:
     """The card against the CPU's plain versions on the same weights.
-    Qwen2-0.5B: the served bf16 model on both.  RWKV6-7B: the weights
-    upcast to fp32 on both, and the served bf16 card run beside them."""
+    Qwen2-0.5B (dense): the served bf16 model on both.  RWKV6-7B and the
+    hybrid: the weights upcast to fp32 on both, and the served bf16 card
+    run beside them."""
     t0 = time.perf_counter()
     lm, name = serve["lm"], serve["cfg"].name
-    if lm.cfg.rwkv is None:
+    if lm.cfg.family == "dense":
         card, cpu = logit_runs([lm, copy.deepcopy(lm).cpu()], prompt)
         rel, tol, what = worst_rel(card, cpu), LOGIT_REL_TOL, "bf16"
         extra = ""
@@ -1881,10 +1940,231 @@ def wkv6_vs_plain(serve: dict, seed: int, launches: dict) -> list:
                 f"{cfg.name} prefill, B=1, T={T}, H={H}, dh={dh}, bf16")]
 
 
+# -- the full-width Mamba path and the SSD kernel ---------------------------
+
+def mamba_mixers(cfg, gen) -> list:
+    """The mixer half of each Mamba sublayer of one superblock: (norm
+    weights, ``init_mamba`` parameters) drawn from ``gen``."""
+    n = sum(m == "mamba" for m, _ in layer_kinds(cfg)[:cfg.attn_every])
+    return [(norm_params(cfg.d_model, cfg.norm, gen.device),
+             mamba_mod.init_mamba(gen, cfg)) for _ in range(n)]
+
+
+def mixers_prefill(cfg, layers: list, x: torch.Tensor) -> tuple:
+    """x [B, T, D] through each layer's norm, Mamba mixer and residual
+    from a zero state: (x, the carried states)."""
+    states = []
+    for ln, p in layers:
+        y, st = mamba_mod.mamba_forward(p, norm(x, ln, cfg.norm,
+                                                cfg.norm_eps), cfg,
+                                        return_state=True)
+        x = x + y
+        states.append(st)
+    return x, states
+
+
+def mixers_decode(cfg, layers: list, x: torch.Tensor, states: list):
+    """One token x [B, 1, D] through every layer from ``states``, which
+    take the new states."""
+    for i, (ln, p) in enumerate(layers):
+        y, states[i] = mamba_mod.mamba_decode(p, norm(x, ln, cfg.norm,
+                                                      cfg.norm_eps),
+                                              states[i], cfg)
+        x = x + y
+    return x
+
+
+def mamba_path(seed: int) -> dict:
+    """Jamba-1.5-Large's Mamba mixers at full width (d_model 8192, d_in
+    16384, 256 heads of 64, d_state 16): the mixer half of the block
+    (norm, ``mamba_forward`` / ``mamba_decode``, residual) for the 7
+    Mamba sublayers of one superblock, bf16 weights from the seed.  The
+    prefills of ``MAMBA_PREFILLS`` from a zero state, then
+    ``MAMBA_DECODE`` steps from the last prefill's states; every output
+    and state finite and of its shape, and no plain kernel version
+    called."""
+    cfg = get_arch(HYBRID_ARCH)
+    m = cfg.mamba
+    H = m.expand * cfg.d_model // m.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 17)
+    t0 = time.perf_counter()
+    layers = mamba_mixers(cfg, gen)
+    torch.cuda.synchronize()
+    tensors = [t for ln, p in layers for t in (*ln.values(), *p.values())]
+    n_params = sum(t.numel() for t in tensors)
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    say(f"Mamba path: {cfg.name}'s {len(layers)} Mamba sublayers at full "
+        f"width (d_model {cfg.d_model}, d_in {m.expand * cfg.d_model}, {H} "
+        f"heads of {m.head_dim}, d_state {m.d_state}, d_conv {m.d_conv}): "
+        f"{n_params} parameters, {n_bytes} bytes, drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    with counting_plain() as plain_calls:
+        for B, T in MAMBA_PREFILLS:
+            x = torch.randn((B, T, cfg.d_model), generator=gen,
+                            device=gen.device).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, states = mixers_prefill(cfg, layers, x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(out.shape == x.shape and bool(torch.isfinite(
+                out.float()).all()), f"Mamba path: prefill B={B}, T={T} "
+                "gave a non-finite output or another shape")
+            check(all(st["ssm"].shape == (B, H, m.head_dim, m.d_state) and
+                      st["conv"].shape == (B, m.d_conv - 1,
+                                           m.expand * cfg.d_model) and
+                      bool(torch.isfinite(st["ssm"]).all())
+                      for st in states), f"Mamba path: prefill B={B}, "
+                  f"T={T} left a non-finite state or another shape")
+            say(f"Mamba path: prefill B={B}, T={T} through {len(layers)} "
+                f"layers in {secs * 1e3:.3f} ms ({B * T / secs:.1f} "
+                "tokens/s)")
+        B = MAMBA_PREFILLS[-1][0]
+        xs = torch.randn((MAMBA_DECODE, B, 1, cfg.d_model), generator=gen,
+                         device=gen.device).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [mixers_decode(cfg, layers, x, states) for x in xs]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    check(not any(plain_calls.values()), "Mamba path: a plain kernel "
+          f"version ran on the path: {plain_calls}")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs) and
+          all(bool(torch.isfinite(st["ssm"]).all()) for st in states),
+          "Mamba path: a decode step gave a non-finite output or state")
+    say(f"Mamba path: {MAMBA_DECODE} decode steps at B={B} from the "
+        f"carried states, {secs * 1e3 / MAMBA_DECODE:.3f} ms a step "
+        f"through {len(layers)} layers ({B * MAMBA_DECODE / secs:.1f} "
+        "tokens/s)")
+    return {"cfg": cfg, "layers": layers, "gen": gen,
+            "prefills": len(MAMBA_PREFILLS), "decode_steps": MAMBA_DECODE}
+
+
+def mamba_cpu_check(mp: dict) -> None:
+    """The first Mamba layer at full width on the card against the CPU's
+    plain versions: its weights upcast to fp32 (exactly) on both sides,
+    fp32 products in full fp32 (no TF32); a prompt of
+    ``MAMBA_CPU_PROMPT`` tokens, then ``MAMBA_CPU_STEPS`` decode steps;
+    every output and the final ssm state within ``FP32_LOGIT_REL_TOL``
+    of its largest magnitude."""
+    t0 = time.perf_counter()
+    cfg = mp["cfg"]
+    ln, p = mp["layers"][0]
+    xs = torch.randn((1, MAMBA_CPU_PROMPT + MAMBA_CPU_STEPS, cfg.d_model),
+                     generator=mp["gen"], device=mp["gen"].device)
+    runs = []
+    for dev in (xs.device, torch.device("cpu")):
+        layers = [({k: v.to(dev) for k, v in ln.items()},
+                   {k: v.float().to(dev) for k, v in p.items()})]
+        x = xs.to(dev)
+        out, states = mixers_prefill(cfg, layers, x[:, :MAMBA_CPU_PROMPT])
+        outs = [out]
+        for t in range(MAMBA_CPU_PROMPT, x.shape[1]):
+            outs.append(mixers_decode(cfg, layers, x[:, t:t + 1], states))
+        runs.append([o.cpu() for o in outs] + [states[0]["ssm"].cpu()])
+        del layers
+    torch.cuda.empty_cache()
+    rel = worst_rel(*runs)
+    check(all(bool(torch.isfinite(o).all()) for o in runs[0]),
+          "Mamba CPU check: non-finite output on the card")
+    check(rel <= FP32_LOGIT_REL_TOL, f"Mamba CPU check: the card's fp32 "
+          f"layer differs from the CPU's by {rel:.6f} of the largest output "
+          f"(tolerance {FP32_LOGIT_REL_TOL})")
+    say(f"Mamba CPU check: one full-width layer, fp32, a prompt of "
+        f"{MAMBA_CPU_PROMPT} tokens and {MAMBA_CPU_STEPS} decode steps on the "
+        f"card against the CPU's plain versions: max |diff| / max |output| "
+        f"= {rel:.6f} (tolerance {FP32_LOGIT_REL_TOL}); "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def ssd_draw(gen, T: int, H: int, dh: int, N: int, carried: bool) -> tuple:
+    """x [1, T, H, dh], B_ and C_ [1, T, N] bf16; dt fp32 in [0.001,
+    0.4], A fp32 in [-1.5, -0.3] (tests/test_kernels.py's ranges) and a
+    carried state fp32."""
+    dev = gen.device
+    x = torch.randn((1, T, H, dh), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    Bm, Cm = (torch.randn((1, T, N), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    dt = 0.001 + 0.399 * torch.rand((1, T, H), generator=gen, device=dev)
+    A = -(0.3 + 1.2 * torch.rand((H,), generator=gen, device=dev))
+    state = torch.randn((1, H, dh, N), generator=gen, device=dev) \
+        if carried else None
+    return x, dt, Bm, Cm, A, state
+
+
+def ssd_vs_plain(mp: dict, seed: int, launches: dict) -> list:
+    """ssd at Jamba's full width (H = 256, dh = 64, N = 16): a prefill
+    of T = 4096 from a zero state and a decode step (T = 1) from a
+    carried state, on inputs drawn from the seed; elementwise within
+    ``ATTN_STEPS`` bf16 unit roundoffs of the plain version, a limit that
+    the plain version without the s = t term (prefill) or without the
+    carried state (decode) breaks; the final state within 2e-5 of its
+    largest magnitude.  No PyTorch op computes an SSD scan: no library
+    call."""
+    cfg = mp["cfg"]
+    m = cfg.mamba
+    dh, N = m.head_dim, m.d_state
+    H = m.expand * cfg.d_model // dh
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 18)
+    err = 0.0
+    out = None
+    for T, carried in ((MAMBA_PREFILLS[0][1], False), (1, True)):
+        batches = [ssd_draw(gen, T, H, dh, N, carried) for _ in range(8)]
+        x, dt, Bm, Cm, A, state = batches[0]
+        got, got_state = kssd.ssd(x, dt, Bm, Cm, A, state)
+        torch.cuda.synchronize()
+        plain, plain_state = kssd.ssd_plain(x, dt, Bm, Cm, A, state)
+        if carried:
+            broken, _ = kssd.ssd_plain(x, dt, Bm, Cm, A)
+            variant = "the plain version without the carried state"
+        else:
+            # y_t less its own step's term (C_t . B_t) dt_t x_t
+            diag = (Cm.float() * Bm.float()).sum(-1)
+            broken = plain.float() - diag[:, :, None, None] \
+                * dt[..., None] * x.float()
+            variant = "the plain version without the s = t term"
+        name = f"ssd (T={T})"
+        err = max(err, close(name, got, plain, broken, variant))
+        s_err = float((got_state - plain_state).abs().max())
+        s_max = float(plain_state.abs().max())
+        check(bool(torch.isfinite(got_state).all()) and
+              s_err <= 2e-5 * s_max, f"{name}: the final state differs from "
+              f"the plain version's by {s_err} (largest {s_max})")
+        say(f"{name}: final state max abs err {s_err:.3e} (largest "
+            f"{s_max:.3f})")
+        # the plain recurrence launches some 25,000 small kernels a call
+        # at T = 4096 (1.4 s): one call gives its device time
+        timed = time_kernel(name, lambda *a: kssd.ssd(*a),
+                            lambda *a: kssd.ssd_plain(*a), batches,
+                            reps=64 if T > 1 else 640,
+                            plain_reps=1 if T > 1 else 32)
+        n = T * H * dh
+        # x and y in bf16, dt fp32, B_ and C_ bf16, A, the state in (when
+        # carried) and out in fp32
+        n_bytes = 2 * 2 * n + 4 * T * H + 2 * 2 * T * N + 4 * H \
+            + 4 * H * dh * N * (2 if carried else 1)
+        # the state terms: one FMA a state element for the update and one
+        # for y, per token and head, at the fp32 rate
+        bms, by = bound(n_bytes, 4 * dh * N * T * H)
+        say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes); library "
+            "call: none, no single op computes an SSD scan")
+        out = out or (timed, bms, by, T)
+    timed, bms, by, T = out
+    say(f"ssd: main-path launches {launches['ssd']}")
+    return [row("ssd", launches, err, timed, bms, by, None,
+                f"{cfg.name} Mamba prefill, B=1, T={T}, H={H}, dh={dh}, "
+                f"N={N}, bf16")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-clht", type=int, default=1 << 20)
-    ap.add_argument("--n-art", type=int, default=1 << 20)
+    # P-ART's load is the longest of the index paths (some 14 kops/s):
+    # 2^19 keys keep the whole run within two thirds of its time limit
+    ap.add_argument("--n-art", type=int, default=1 << 19)
     ap.add_argument("--n-hot", type=int, default=1 << 18)
     ap.add_argument("--n-masstree", type=int, default=1 << 18)
     ap.add_argument("--n-bwtree", type=int, default=1 << 15)
@@ -1914,7 +2194,7 @@ def main(argv=None) -> int:
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.3f} s")
     check(set(built) >= {"probe", "art_descend", "scan_window",
                          "shard_route", "conflict_any", "flash_attention",
-                         "paged_attention", "clht_probe", "wkv6"},
+                         "paged_attention", "clht_probe", "wkv6", "ssd"},
           "a kernel source was not built")
     for name, b in built.items():
         for line in b.log.splitlines():
@@ -2012,6 +2292,48 @@ def main(argv=None) -> int:
 
     reset_counts()
     t0 = time.perf_counter()
+    mamba = mamba_path(args.seed)
+    counts = read_counts()
+    say(f"Mamba path: {time.perf_counter() - t0:.3f} s; kernel launches "
+        f"{counts}")
+    n_mixers = len(mamba["layers"])
+    want = n_mixers * (mamba["prefills"] + mamba["decode_steps"])
+    check(counts["ssd"] == want, f"ssd was launched {counts['ssd']} times "
+          f"on the Mamba path, not {n_mixers} per prefill "
+          f"({mamba['prefills']}) and per decode step "
+          f"({mamba['decode_steps']}): {want}")
+    for name in launches:
+        launches[name] += counts[name]
+    mamba_cpu_check(mamba)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    hybrid = serving_path(HYBRID_ARCH, args.seed, HYBRID_EXTRA_PROMPTS,
+                          reduced=True)
+    counts = read_counts()
+    check(hybrid["lm"].device.type == "cuda", "the hybrid serving path's "
+          "model is not on the card")
+    say(f"hybrid serving path: {time.perf_counter() - t0:.3f} s; kernel "
+        f"launches {counts}")
+    kinds = layer_kinds(hybrid["cfg"])
+    n_mixers = sum(mixer == "mamba" for mixer, _ in kinds)
+    want = n_mixers * (hybrid["prefills"] + hybrid["decode_steps"])
+    check(counts["ssd"] == want, f"ssd was launched {counts['ssd']} times "
+          f"on the hybrid serving path, not {n_mixers} per prefill "
+          f"({hybrid['prefills']}) and per decode step "
+          f"({hybrid['decode_steps']}): {want}")
+    for name in ("flash_attention", "paged_attention", "probe64_fp",
+                 "art_descend", "scan_window"):
+        check(counts[name] > 0, f"{name} was not launched on the hybrid "
+              "serving path")
+    for name in launches:
+        launches[name] += counts[name]
+    # the reduced model is small: the check takes the longest prompt
+    serving_cpu_check(hybrid, max(hybrid["prompts"], key=len))
+    decode_busy(hybrid)
+
+    reset_counts()
+    t0 = time.perf_counter()
     tag = tag_path(args.seed)
     counts = read_counts()
     say(f"tag path: {time.perf_counter() - t0:.3f} s; kernel launches "
@@ -2021,6 +2343,7 @@ def main(argv=None) -> int:
     for name in launches:
         launches[name] += counts[name]
 
+    say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = probe_vs_plain(sessions["P-CLHT"].index, args.seed, launches)
     rows += radix_vs_plain([("P-ART", sessions["P-ART"]),
                             ("P-HOT", sessions["P-HOT"])], args.seed,
@@ -2033,6 +2356,7 @@ def main(argv=None) -> int:
     rows += flash_vs_plain(serve, args.seed, launches)
     rows += clht_vs_plain(tag, launches)
     rows += wkv6_vs_plain(rwkv, args.seed, launches)
+    rows += ssd_vs_plain(mamba, args.seed, launches)
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
     say(f"whole run: {time.perf_counter() - t_start:.3f} s")

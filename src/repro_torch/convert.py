@@ -10,9 +10,10 @@ arrays from the JAX package's ``PMem`` regions and hold both packages
 to the same table.
 
 ``lm_params_from_arrays`` turns the JAX package's ``LM`` parameter tree
-(as numpy arrays: per-layer leaves stacked on axis 0 under
-``blocks.l0``, dense or RWKV6) into the port ``LM``'s state dict, so
-both packages run the same weights.
+(as numpy arrays: each pattern position's leaves under ``blocks.l<i>``,
+stacked on axis 0 over the group's repeats; dense, RWKV6 or hybrid)
+into the port ``LM``'s state dict, so both packages run the same
+weights.
 """
 
 from __future__ import annotations
@@ -74,27 +75,32 @@ def lm_params_from_arrays(params: Mapping, n_layers: int, *,
                           dtype: Optional[torch.dtype] = None
                           ) -> Dict[str, torch.Tensor]:
     """The port ``LM``'s state dict from the JAX package's parameter
-    tree for the dense family or RWKV6.
+    tree for the dense family, RWKV6 or the hybrid.
 
     ``params`` is the JAX ``LM.init_params`` tree with numpy leaves:
     ``embed``, ``final_norm.w``, optionally ``lm_head``, and
-    ``blocks.l0.<part>.<name>`` stacked on axis 0 over the ``n_layers``
-    layers (unstacked when there is one layer, as the JAX package builds
-    it), the parts being ``ln1``, ``attn``, ``ln2``, ``ffn`` (dense) or
-    ``ln1``, ``rwkv``, ``ln2`` (RWKV6).  Each leaf keeps its dtype unless
-    ``dtype`` is given.  Load the result with ``LM.load_state_dict(sd, assign=True)``
-    so the dtypes carry over."""
+    ``blocks.l<i>.<part>.<name>`` for each of the group pattern's P
+    positions, stacked on axis 0 over the group's ``n_layers / P``
+    repeats (unstacked when the group runs once, as the JAX package
+    builds it).  The parts are ``ln1``, a mixer (``attn``, ``mamba`` or
+    ``rwkv``), ``ln2`` and an FFN (``ffn`` or ``moe``; RWKV6 has none).
+    Position i at repeat r is the port's layer ``r * P + i``.  Each leaf
+    keeps its dtype unless ``dtype`` is given.  Load the result with
+    ``LM.load_state_dict(sd, assign=True)`` so the dtypes carry over."""
     out = {"embed": _tensor(params["embed"], dtype),
            "final_norm.w": _tensor(params["final_norm"]["w"], dtype)}
     if "lm_head" in params:
         out["lm_head"] = _tensor(params["lm_head"], dtype)
-    block = params["blocks"]["l0"]
-    for part, leaves in block.items():
-        for name, leaf in leaves.items():
-            leaf = np.asarray(leaf)
-            for i in range(n_layers):
-                out[f"layers.{i}.{part}.{name}"] = _tensor(
-                    leaf[i] if n_layers > 1 else leaf, dtype)
+    group = params["blocks"]
+    P = len(group)
+    repeat = n_layers // P
+    for i in range(P):
+        for part, leaves in group[f"l{i}"].items():
+            for name, leaf in leaves.items():
+                leaf = np.asarray(leaf)
+                for r in range(repeat):
+                    out[f"layers.{r * P + i}.{part}.{name}"] = _tensor(
+                        leaf[r] if repeat > 1 else leaf, dtype)
     return out
 
 

@@ -1,0 +1,144 @@
+"""The SSD kernel's wrapper (``csrc/ssd.cu``).
+
+``ssd`` is the port's form of the JAX package's
+``kernels/mamba_scan/kernel.py`` ``ssd``, in the model's layout: x
+[B, T, H, dh], dt [B, T, H], B_ and C_ [B, T, N] shared by every head,
+A [H] (the Pallas kernel takes [B*H, T, ...] rows with B_ and C_ copied
+per head), with the state carried in and out, and any T (the Pallas
+kernel asserts T % chunk == 0).  On CUDA tensors it launches the CUDA
+kernel on the current stream, or raises; on CPU tensors it runs
+``ref.ssd_plain``.  Nothing else selects between the two.
+
+``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
+on CPU tensors launches nothing and counts nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ... import build
+from .ref import ssd_plain
+
+#: CUDA launches since the last ``reset_launches``
+LAUNCHES: Dict[str, int] = {"ssd": 0}
+
+HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
+STATE_DIMS = (8, 16)       # and the state widths
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("ssd")
+    lib.ssd.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.ssd.restype = _I
+    lib.ssd_error_string.argtypes = [_I]
+    lib.ssd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+           C_: torch.Tensor, A: torch.Tensor,
+           state: Optional[torch.Tensor]) -> None:
+    if x.dim() != 4:
+        raise ValueError("x must be [B, T, H, dh]")
+    Bsz, T, H, dh = x.shape
+    if dt.shape != (Bsz, T, H):
+        raise ValueError(f"dt must be [B={Bsz}, T={T}, H={H}], got "
+                         f"{tuple(dt.shape)}")
+    if B_.dim() != 3 or B_.shape[:2] != (Bsz, T) or C_.shape != B_.shape:
+        raise ValueError(f"B_ and C_ must be [B={Bsz}, T={T}, N] alike, got "
+                         f"{tuple(B_.shape)} and {tuple(C_.shape)}")
+    if A.shape != (H,):
+        raise ValueError(f"A must be [H={H}], got {tuple(A.shape)}")
+    N = B_.shape[-1]
+    if state is not None and state.shape != (Bsz, H, dh, N):
+        raise ValueError(f"state must be [B={Bsz}, H={H}, dh={dh}, N={N}], "
+                         f"got {tuple(state.shape)}")
+    for name, t in (("B_", B_), ("C_", C_)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
+    named = (("dt", dt), ("B_", B_), ("C_", C_), ("A", A))
+    if state is not None:
+        named += (("state", state),)
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+        C_: torch.Tensor, A: torch.Tensor,
+        state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan over T steps from ``state`` (zeros when None).
+
+    x: [B, T, H, dh], float32 or bfloat16; dt: [B, T, H] float32, each
+    entry 0 or more; B_, C_: [B, T, N] in x's dtype; A: [H] float32,
+    each entry below 0; state: [B, H, dh, N] float32.  Returns
+    (y [B, T, H, dh] in x's dtype, the final state [B, H, dh, N]
+    float32); the input state is not written."""
+    _check(x, dt, B_, C_, A, state)
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_plain(x, dt, B_, C_, A, state)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd takes CUDA or CPU tensors, not {dev}")
+    Bsz, T, H, dh = x.shape
+    N = B_.shape[-1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if N not in STATE_DIMS:
+        raise ValueError(f"the CUDA kernel takes d_state in {STATE_DIMS}, "
+                         f"got {N}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 x, B_, "
+                        f"C_, got {x.dtype}")
+    for name, t in (("dt", dt), ("A", A)) + (
+            (("state", state),) if state is not None else ()):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes float32 {name}, got "
+                            f"{t.dtype}")
+    for name, t in (("x", x), ("dt", dt), ("B_", B_), ("C_", C_), ("A", A),
+                    ("state", state)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    y = torch.empty_like(x)
+    state_out = torch.empty(Bsz, H, dh, N, dtype=torch.float32, device=dev)
+    if Bsz == 0 or H == 0:
+        return y, state_out
+    if T == 0:
+        if state is None:
+            return y, state_out.zero_()
+        return y, state_out.copy_(state)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd(x.data_ptr(), dt.data_ptr(), B_.data_ptr(),
+                      C_.data_ptr(), A.data_ptr(),
+                      state.data_ptr() if state is not None else None,
+                      y.data_ptr(), state_out.data_ptr(), Bsz, T, H, dh, N,
+                      DTYPES[x.dtype], stream)
+    if err:
+        raise RuntimeError("ssd kernel launch failed: "
+                           + lib.ssd_error_string(err).decode())
+    LAUNCHES["ssd"] += 1
+    return y, state_out
+
+
+__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "STATE_DIMS", "reset_launches",
+           "ssd"]

@@ -5,20 +5,44 @@ of ``repro.launch.serve``.
 The JAX driver always serves the reduced configuration on the CPU; the
 port serves the named architecture (a dense config or ``rwkv6-7b``)
 at full width on the card by default, with weights drawn at random
-from ``seed`` (no checkpoint exists to load).  ``reduced=True, device="cpu"`` gives the JAX
-driver's setting.  Run ``python -m repro_torch.launch.serve`` with
+from ``seed`` (no checkpoint exists to load).  The hybrid
+(``jamba-1.5-large-398b``) serves only with ``reduced=True``: the least
+depth its layer grouping takes, one superblock, holds more bf16 weights
+than one card.  ``reduced=True, device="cpu"`` gives the JAX driver's
+setting.  Run ``python -m repro_torch.launch.serve`` with
 ``PYTHONPATH=src``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
 from ..configs.base import get_arch
 from ..models.model import build_model
 from ..serving.engine import Server
+
+CARD_BYTES = 80e9  # device memory of the one H100 the port targets
+
+
+def check_fits(cfg) -> None:
+    """Raise for a configuration whose least servable depth does not
+    fit one card in bf16.  For the hybrid that depth is one superblock
+    (``attn_every`` layers, the unit ``group_plan`` repeats):
+    Jamba-1.5-Large's holds 45.1 B parameters, 90 GB."""
+    if cfg.family != "hybrid":
+        return
+    one = dataclasses.replace(cfg, n_layers=cfg.attn_every)
+    need = 2 * one.param_count()
+    if need > CARD_BYTES:
+        raise NotImplementedError(
+            f"{cfg.name} at full width does not fit one card: one "
+            f"superblock of {cfg.attn_every} layers, the least depth its "
+            f"layer grouping takes, holds {one.param_count():,} parameters, "
+            f"{need / 1e9:.1f} GB in bf16, against the card's "
+            f"{CARD_BYTES / 1e9:.0f} GB; serve it with reduced=True")
 
 
 def serve(arch: str = "qwen2-0.5b", *, device=None, reduced: bool = False,
@@ -27,6 +51,7 @@ def serve(arch: str = "qwen2-0.5b", *, device=None, reduced: bool = False,
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
+    check_fits(cfg)
     model = build_model(cfg, seed=seed, device=device)
     server = Server(model, page_size=16, n_pages=256)
     rng = np.random.default_rng(seed)

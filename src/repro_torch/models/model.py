@@ -1,16 +1,26 @@
 """Model assembly: the port of ``repro.models.model``'s ``LM`` for the
 dense family (every layer attention + MLP with full causal attention:
-Qwen2, CodeQwen1.5, MiniCPM) and for RWKV6 (every layer RWKV time mix +
-channel mix).  A Python loop over layers takes the place of
+Qwen2, CodeQwen1.5, MiniCPM), for RWKV6 (every layer RWKV time mix +
+channel mix) and for the hybrid family (Jamba: superblocks of
+``attn_every`` sublayers, Mamba mixers around one attention mixer in
+the middle, MoE on every ``moe.every``-th sublayer and a dense MLP on
+the others).  A Python loop over layers takes the place of
 ``lax.scan``.
+
+``group_plan`` gives the layers' pattern as the JAX package groups
+them: one group ``blocks`` of a pattern of (mixer, ffn) pairs repeated
+``n_layers / len(pattern)`` times; the pattern is one layer for the
+dense family and RWKV6, one superblock for the hybrid.
 
 ``LM`` is an ``nn.Module`` holding its parameters under the JAX
 package's names: ``embed``, ``final_norm.w``, ``lm_head`` (untied
-only), and per layer ``layers.<i>.{ln1,attn,ln2,ffn}.<name>`` (dense)
-or ``layers.<i>.{ln1,rwkv,ln2}.<name>`` (RWKV6) for the JAX package's
-``blocks.l0.<...>`` leaf stacked on axis 0
-(``convert.lm_params_from_arrays`` carries them across).  Its serving
-surface is the JAX package's without ``params``:
+only), and per layer ``layers.<l>.{ln1,<mixer>,ln2,<ffn>}.<name>``
+with the mixer ``attn``, ``mamba`` or ``rwkv`` and the ffn ``ffn``
+(dense MLP) or ``moe`` (RWKV6 keeps its channel mix in ``rwkv``).
+Layer l is the JAX package's ``blocks.l<i>.<...>`` leaf at pattern
+position i = l mod P, repeat r = l div P (``convert.lm_params_from_arrays``
+carries them across).  Its serving surface is the JAX package's
+without ``params``:
 
 * ``prefill(batch, seq_len)``: forward over ``batch["tokens"]``,
   returning the last position's logits and the caches;
@@ -18,18 +28,20 @@ surface is the JAX package's without ``params``:
   written in place;
 * ``init_caches(batch, seq_len)``: zeroed caches.
 
-Caches are the JAX package's layout: ``{"blocks": {"l0": {"k", "v"}}}``
-with [L, B, S, Hk, dh] tensors for the dense family, and
-``{"blocks": {"l0": {"wkv", "shift_tm", "shift_cm"}}}`` with wkv
-[L, B, H, dh, dh] fp32 and the two token shifts [L, B, D] for RWKV6
-(its state has no token axis; ``seq_len`` and ``page_size`` are taken
-and ignored).  Other families (MoE, hybrid, encoder-decoder, VLM) and
-configurations with a sliding window raise "not yet ported".
+Caches are the JAX package's layout: ``{"blocks": {"l<i>": ...}}``, one
+entry per pattern position, each leaf stacked on a leading repeat axis
+when the group repeats more than once (as ``lax.scan`` stacks them).
+Attention positions hold ``{"k", "v"}`` [B, S, Hk, dh], Mamba positions
+``{"ssm", "conv"}`` (ssm [B, H, dh, N] fp32, conv [B, d_conv - 1,
+d_in]), RWKV6 ``{"wkv", "shift_tm", "shift_cm"}`` (wkv [B, H, dh, dh]
+fp32, the two token shifts [B, D]).  Recurrent state has no token axis.
+Other families (MoE, the dense-first-layer grouping, encoder-decoder,
+VLM) and configurations with a sliding window raise "not yet ported".
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,6 +50,7 @@ from ..configs.base import ArchConfig, layer_kinds
 from ..device import resolve_device
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
 from .common import dense_init, norm, norm_params
 
@@ -49,7 +62,8 @@ def _frozen(params: Params) -> nn.ParameterDict:
                              for k, v in params.items()})
 
 
-PORTED_KINDS = ({("attn", "mlp")}, {("rwkv", "channelmix")})
+PORTED_KINDS = ({("attn", "mlp")}, {("rwkv", "channelmix")},
+                {("mamba", "mlp"), ("mamba", "moe"), ("attn", "mlp")})
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -58,40 +72,63 @@ def check_ported(cfg: ArchConfig) -> None:
             getattr(cfg, f) is not None for f in ("encdec", "vision")):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not yet ported: the port runs "
-            "dense attention + MLP models and RWKV6")
+            "dense attention + MLP models, RWKV6 and the Mamba + attention "
+            "+ MoE hybrid")
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not yet ported")
 
 
-class Block(nn.Module):
-    """One layer's parameters: attention + MLP, or for RWKV6 the time
-    and channel mix (one ``rwkv`` tree, as in the JAX package)."""
+def group_plan(cfg: ArchConfig) -> List[Tuple[str, List[Tuple[str, str]],
+                                              int]]:
+    """(group name, [(mixer, ffn), ...] pattern, repeat), as the JAX
+    package's ``group_plan`` gives it for the ported families."""
+    kinds = layer_kinds(cfg)
+    if cfg.family == "hybrid":
+        block = cfg.attn_every  # one superblock: 7 mamba + 1 attn
+        pattern = kinds[:block]
+        assert kinds == pattern * (cfg.n_layers // block)
+        return [("blocks", pattern, cfg.n_layers // block)]
+    return [("blocks", [kinds[0]], cfg.n_layers)]
 
-    def __init__(self, gen: torch.Generator, cfg: ArchConfig):
+
+class Block(nn.Module):
+    """One layer's parameters for its (mixer, ffn) pair: attention,
+    Mamba or RWKV6 (whose channel mix lives in the same ``rwkv`` tree,
+    as in the JAX package), then a dense MLP or MoE."""
+
+    def __init__(self, gen: torch.Generator, cfg: ArchConfig, mixer: str,
+                 ffn: str):
         super().__init__()
+        self.kind = (mixer, ffn)
         self.ln1 = _frozen(norm_params(cfg.d_model, cfg.norm, gen.device))
-        if cfg.rwkv is not None:
+        if mixer == "rwkv":
             self.rwkv = _frozen(rwkv_mod.init_rwkv(gen, cfg))
+        elif mixer == "mamba":
+            self.mamba = _frozen(mamba_mod.init_mamba(gen, cfg))
         else:
             self.attn = _frozen(attn.init_attn(gen, cfg))
         self.ln2 = _frozen(norm_params(cfg.d_model, cfg.norm, gen.device))
-        if cfg.rwkv is None:
+        if ffn == "moe":
+            self.moe = _frozen(ffn_mod.init_moe(gen, cfg))
+        elif ffn == "mlp":
             self.ffn = _frozen(ffn_mod.init_mlp(gen, cfg.d_model, cfg.d_ff,
                                                 cfg.mlp))
 
 
 class LM(nn.Module):
-    """Decoder LM for the dense family and RWKV6, initialised at random
-    from ``seed`` with a ``torch.Generator`` on ``device`` (the card
-    unless the caller passes ``device="cpu"``): weights bf16, norms,
-    biases and RWKV's decay, bonus and mix vectors fp32, as the JAX
-    package's ``init_params`` makes them."""
+    """Decoder LM for the dense family, RWKV6 and the hybrid, initialised
+    at random from ``seed`` with a ``torch.Generator`` on ``device`` (the
+    card unless the caller passes ``device="cpu"``): weights bf16; norms,
+    biases, RWKV's decay, bonus and mix vectors and Mamba's ``dt_bias``,
+    ``A_log`` and ``D`` fp32, as the JAX package's ``init_params`` makes
+    them."""
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
+        ((_, self.pattern, self.repeat),) = group_plan(cfg)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -103,8 +140,8 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(
                 dense_init(gen, (cfg.d_model, cfg.vocab)),
                 requires_grad=False)
-        self.layers = nn.ModuleList(Block(gen, cfg)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(gen, cfg, *kind)
+                                    for kind in layer_kinds(cfg))
 
     @property
     def device(self) -> torch.device:
@@ -121,49 +158,100 @@ class LM(nn.Module):
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         return torch.matmul(x, head)
 
-    def _mlp(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
+        """The residual FFN half of a non-RWKV block (MoE's aux loss is
+        a training term, dropped here as the JAX decode drops it)."""
         cfg = self.cfg
         h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
+        if blk.kind[1] == "moe":
+            y, _ = ffn_mod.moe_forward(blk.moe, h2, cfg)
+            return x + y
         return x + ffn_mod.mlp_forward(blk.ffn, h2, cfg.mlp)
 
     # ------------------------------------------------------------------
-    # serving: prefill + one-token decode
+    # caches: one entry per pattern position, stacked over the repeats
     # ------------------------------------------------------------------
+    def _stack(self, per_layer: List[Params]) -> Params:
+        """Layer l's cache leaves -> ``{"blocks": {"l<i>": ...}}``."""
+        P, R = len(self.pattern), self.repeat
+        group = {}
+        for i in range(P):
+            caches = per_layer[i::P]
+            group[f"l{i}"] = {name: torch.stack([c[name] for c in caches])
+                              if R > 1 else caches[0][name]
+                              for name in caches[0]}
+        return {"blocks": group}
+
+    def _layer_cache(self, caches: Params, layer: int) -> Params:
+        P = len(self.pattern)
+        group = caches["blocks"][f"l{layer % P}"]
+        if self.repeat == 1:
+            return dict(group)
+        return {name: t[layer // P] for name, t in group.items()}
+
+    def _store(self, caches: Params, layer: int, new: Params) -> None:
+        """Write a layer's new recurrent state into ``caches``."""
+        P = len(self.pattern)
+        group = caches["blocks"][f"l{layer % P}"]
+        for name, t in new.items():
+            if self.repeat == 1:
+                group[name] = t
+            else:
+                group[name][layer // P] = t
+
     def init_caches(self, batch: int, seq_len: int,
                     dtype: Optional[torch.dtype] = None) -> Params:
         cfg = self.cfg
         dtype = dtype if dtype is not None else self.dtype
-        if cfg.rwkv is not None:
-            state = rwkv_mod.init_rwkv_state(cfg, batch, dtype, self.device)
-            return {"blocks": {"l0": {
-                name: t.expand(cfg.n_layers, *t.shape).contiguous()
-                for name, t in state.items()}}}
-        shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"blocks": {"l0": {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device)}}}
+        per_layer = []
+        for mixer, _ in self.pattern:
+            if mixer == "rwkv":
+                c = rwkv_mod.init_rwkv_state(cfg, batch, dtype, self.device)
+            elif mixer == "mamba":
+                c = mamba_mod.init_mamba_state(cfg, batch, dtype,
+                                               self.device)
+            else:
+                shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+                c = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                     "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+            per_layer.append(c)
+        return self._stack(per_layer * self.repeat)
 
+    # ------------------------------------------------------------------
+    # serving: prefill + one-token decode
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], seq_len: int
                 ) -> Tuple[torch.Tensor, Params]:
         """Run the full prompt (``batch["tokens"]``: [B, T] int64),
-        returning the last position's logits [B, V] and the caches
-        (k, v [L, B, T, Hk, dh] in the activations' dtype, or the RWKV6
-        state after the prompt)."""
+        returning the last position's logits [B, V] and the caches (k, v
+        [B, T, Hk, dh] in the activations' dtype, or the recurrent state
+        after the prompt)."""
         cfg = self.cfg
         x = self.embed[batch["tokens"].to(self.device)]
-        if cfg.rwkv is not None:
-            return self._prefill_rwkv(x)
-        ks, vs = [], []
+        per_layer = []
         for blk in self.layers:
             h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            y, cache = attn.attn_prefill(blk.attn, h, cfg)
-            ks.append(cache["k"].to(x.dtype))
-            vs.append(cache["v"].to(x.dtype))
-            x = self._mlp(blk, x + y)
-        logits = self._logits(x[:, -1])
-        return logits, {"blocks": {"l0": {"k": torch.stack(ks),
-                                          "v": torch.stack(vs)}}}
+            mixer = blk.kind[0]
+            if mixer == "rwkv":
+                y, tm = rwkv_mod.rwkv_forward(blk.rwkv, h, cfg,
+                                              return_state=True)
+                x = x + y
+                h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
+                x = x + rwkv_mod.channel_mix(blk.rwkv, h2)
+                per_layer.append({"wkv": tm["wkv"],
+                                  "shift_tm": tm["shift"].to(x.dtype),
+                                  "shift_cm": h2[:, -1].to(x.dtype)})
+                continue
+            if mixer == "mamba":
+                y, cache = mamba_mod.mamba_forward(blk.mamba, h, cfg,
+                                                   return_state=True)
+            else:
+                y, cache = attn.attn_prefill(blk.attn, h, cfg)
+                cache = {k: v.to(x.dtype) for k, v in cache.items()}
+            per_layer.append(cache)
+            x = self._ffn(blk, x + y)
+        return self._logits(x[:, -1]), self._stack(per_layer)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches: Params,
@@ -172,69 +260,40 @@ class LM(nn.Module):
                     ) -> Tuple[torch.Tensor, Params]:
         """token: [B] int64; pos: [B] int64 absolute positions; caches as
         from ``init_caches`` (or a padded prefill) with a slot count that
-        is a multiple of ``page_size``.  Writes each layer's new key and
-        value in place; returns (logits [B, V], caches).  For RWKV6 the
-        state advances in place and ``pos`` and ``page_size`` are not
-        read."""
+        is a multiple of ``page_size``.  Writes each attention layer's
+        new key and value in place and each recurrent layer's new state
+        into ``caches``; returns (logits [B, V], caches).  A model
+        without attention does not read ``pos`` or ``page_size``."""
         cfg = self.cfg
-        token = token.to(self.device)
-        x = self.embed[token][:, None]
-        if cfg.rwkv is not None:
-            return self._decode_rwkv(x, caches)
-        group = caches["blocks"]["l0"]
+        x = self.embed[token.to(self.device)][:, None]
         pos = pos.to(self.device, torch.int64)
-        B, S = group["k"].shape[1:3]
-        table = attn.identity_pages(B, S, page_size, self.device)
-        lens = (pos + 1).to(torch.int32)
-        for i, blk in enumerate(self.layers):
+        table = lens = None
+        for layer, blk in enumerate(self.layers):
+            cache = self._layer_cache(caches, layer)
             h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            y, _ = attn.attn_decode(
-                blk.attn, h, {"k": group["k"][i], "v": group["v"][i]}, cfg,
-                pos=pos, page_size=page_size, block_table=table,
-                seq_lens=lens)
-            x = self._mlp(blk, x + y)
-        return self._logits(x)[:, 0], caches
-
-    # ------------------------------------------------------------------
-    # RWKV6: the state carried from prefill into decode
-    # ------------------------------------------------------------------
-    def _prefill_rwkv(self, x: torch.Tensor) -> Tuple[torch.Tensor, Params]:
-        cfg = self.cfg
-        states = {"wkv": [], "shift_tm": [], "shift_cm": []}
-        for blk in self.layers:
-            h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            y, tm = rwkv_mod.rwkv_forward(blk.rwkv, h, cfg,
-                                          return_state=True)
-            x = x + y
-            h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
-            x = x + rwkv_mod.channel_mix(blk.rwkv, h2)
-            states["wkv"].append(tm["wkv"])
-            states["shift_tm"].append(tm["shift"].to(x.dtype))
-            states["shift_cm"].append(h2[:, -1].to(x.dtype))
-        logits = self._logits(x[:, -1])
-        return logits, {"blocks": {"l0": {
-            name: torch.stack(ts) for name, ts in states.items()}}}
-
-    def _decode_rwkv(self, x: torch.Tensor, caches: Params
-                     ) -> Tuple[torch.Tensor, Params]:
-        """One token through every layer from the carried state: the
-        WKV kernel at T = 1 per layer; the new state is written into
-        ``caches`` in place."""
-        cfg = self.cfg
-        group = caches["blocks"]["l0"]
-        for i, blk in enumerate(self.layers):
-            h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            y, tm = rwkv_mod.rwkv_decode(
-                blk.rwkv, h, {"wkv": group["wkv"][i],
-                              "shift_tm": group["shift_tm"][i]}, cfg)
-            x = x + y
-            h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
-            y2, shift_cm = rwkv_mod.channel_mix_decode(
-                blk.rwkv, h2, group["shift_cm"][i])
-            x = x + y2
-            group["wkv"][i] = tm["wkv"]
-            group["shift_tm"][i] = tm["shift_tm"]
-            group["shift_cm"][i] = shift_cm
+            mixer = blk.kind[0]
+            if mixer == "rwkv":
+                y, tm = rwkv_mod.rwkv_decode(blk.rwkv, h, cache, cfg)
+                x = x + y
+                h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
+                y2, shift_cm = rwkv_mod.channel_mix_decode(
+                    blk.rwkv, h2, cache["shift_cm"])
+                x = x + y2
+                self._store(caches, layer, {**tm, "shift_cm": shift_cm})
+                continue
+            if mixer == "mamba":
+                y, state = mamba_mod.mamba_decode(blk.mamba, h, cache, cfg)
+                self._store(caches, layer, state)
+            else:
+                if table is None:  # every attention layer shares them
+                    B, S = cache["k"].shape[:2]
+                    table = attn.identity_pages(B, S, page_size,
+                                                self.device)
+                    lens = (pos + 1).to(torch.int32)
+                y, _ = attn.attn_decode(blk.attn, h, cache, cfg, pos=pos,
+                                        page_size=page_size,
+                                        block_table=table, seq_lens=lens)
+            x = self._ffn(blk, x + y)
         return self._logits(x)[:, 0], caches
 
 
@@ -242,4 +301,4 @@ def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:
     return LM(cfg, seed=seed, device=device)
 
 
-__all__ = ["Block", "LM", "build_model", "check_ported"]
+__all__ = ["Block", "LM", "build_model", "check_ported", "group_plan"]

@@ -15,7 +15,9 @@ bf16 step at the outputs' magnitude.  The WKV6 kernel sums its chunked
 form in fp32 where the plain version runs the step-by-step recurrence:
 float32 outputs and every final state agree within 2e-5 of their
 largest magnitude, and bfloat16 outputs elementwise within 4 bf16 unit
-roundoffs (2^-8) of the plain value plus 4 * 2^-16 of the largest.
+roundoffs (2^-8) of the plain value plus 4 * 2^-16 of the largest.  The
+SSD kernel does the same for the Mamba-2 scan (its chunked form against
+the step-by-step recurrence), held to the same limits.
 """
 
 import numpy as np
@@ -30,6 +32,7 @@ from repro_torch.kernels import art_probe as kart
 from repro_torch.kernels import clht_probe as ktag
 from repro_torch.kernels import conflict as kconf
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mamba_scan as kssd
 from repro_torch.kernels import paged_attention as kpaged
 from repro_torch.kernels import partition as kpart
 from repro_torch.kernels import probe as kprobe
@@ -541,3 +544,140 @@ def test_full_width_rwkv_server_on_card(card):
         outs.append([r.out for r in reqs])
     assert outs[0] == outs[1]
     assert kwkv.LAUNCHES["wkv6"] == before + 2 * (3 + 3 * 3) * cfg.n_layers
+
+
+def ssd_inputs(rng, B, T, H, dh, N, dtype, device):
+    """x, B_, C_ in ``dtype``; dt in [0.001, 0.4], A in [-1.5, -0.3] and a
+    carried state fp32 (tests/test_kernels.py's ranges)."""
+    x = normal(rng, (B, T, H, dh), dtype, device)
+    Bm, Cm = (normal(rng, (B, T, N), dtype, device) for _ in range(2))
+    dt = torch.from_numpy(rng.uniform(0.001, 0.4, size=(B, T, H))
+                          .astype(np.float32)).to(device)
+    A = -torch.from_numpy(rng.uniform(0.3, 1.5, size=(H,))
+                          .astype(np.float32)).to(device)
+    state = normal(rng, (B, H, dh, N), torch.float32, device)
+    return x, dt, Bm, Cm, A, state
+
+
+@pytest.mark.parametrize("B,T,H,dh,N,dtype,carried", [
+    (1, 4096, 256, 64, 16, torch.bfloat16, False),  # Jamba prefill
+    (1, 1, 256, 64, 16, torch.bfloat16, True),      # Jamba decode
+    (2, 3001, 16, 64, 16, torch.bfloat16, True),    # ragged T, per batch
+    (2, 37, 8, 32, 8, torch.float32, True),         # reduced, ragged
+    (3, 256, 2, 128, 16, torch.float32, False),     # test_kernels' width
+    (1, 64, 4, 64, 8, torch.float32, True),
+    (4, 1, 8, 32, 8, torch.float32, True),          # reduced decode
+])
+def test_ssd_matches_plain_version(card, B, T, H, dh, N, dtype, carried):
+    rng = np.random.default_rng(T + H + dh + N)
+    x, dt, Bm, Cm, A, state = ssd_inputs(rng, B, T, H, dh, N, dtype, card)
+    state = state if carried else None
+    before = kssd.LAUNCHES["ssd"]
+    got, got_state = kssd.ssd(x, dt, Bm, Cm, A, state)
+    torch.cuda.synchronize()
+    assert kssd.LAUNCHES["ssd"] == before + 1
+    plain, plain_state = kssd.ssd_plain(x, dt, Bm, Cm, A, state)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    assert torch.isfinite(got_state).all()
+    scale = float(plain_state.abs().max())
+    assert float((got_state - plain_state).abs().max()) <= 2e-5 * scale
+    diff = (got.float() - plain.float()).abs()
+    p = plain.float().abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5 * float(p.max())
+    else:
+        limit = 4 * 2.0 ** -8 * (p + 2.0 ** -8 * p.max())
+        assert bool((diff <= limit).all())
+    if carried:  # the state is read: dropping it breaks the limit
+        dropped, _ = kssd.ssd_plain(x, dt, Bm, Cm, A)
+        assert float((dropped.float() - plain.float()).abs().max()) > \
+            1e-2 * float(p.max())
+
+
+def test_ssd_state_chains_on_card(card):
+    """Two halves chained through the state equal the whole sequence."""
+    rng = np.random.default_rng(5)
+    x, dt, Bm, Cm, A, _ = ssd_inputs(rng, 2, 300, 4, 64, 16, torch.float32,
+                                     card)
+    whole, s_whole = kssd.ssd(x, dt, Bm, Cm, A)
+    head, s = kssd.ssd(*(t[:, :123].contiguous() for t in (x, dt, Bm, Cm)),
+                       A)
+    tail, s = kssd.ssd_heads(*(t[:, 123:].contiguous()
+                               for t in (x, dt, Bm, Cm)), A, s)
+    scale = float(whole.abs().max())
+    assert float((torch.cat([head, tail], 1) - whole).abs().max()) <= \
+        2e-5 * scale
+    assert float((s - s_whole).abs().max()) <= 2e-5 * float(
+        s_whole.abs().max())
+
+
+def test_ssd_raises_and_never_falls_back(card):
+    rng = np.random.default_rng(0)
+    x, dt, Bm, Cm, A, _ = ssd_inputs(rng, 1, 4, 2, 48, 16, torch.float32,
+                                     card)
+    with pytest.raises(ValueError, match="head_dim"):
+        kssd.ssd(x, dt, Bm, Cm, A)
+    x, dt, Bm, Cm, A, _ = ssd_inputs(rng, 1, 4, 2, 32, 12, torch.float32,
+                                     card)
+    with pytest.raises(ValueError, match="d_state"):
+        kssd.ssd(x, dt, Bm, Cm, A)
+    x, dt, Bm, Cm, A, _ = ssd_inputs(rng, 1, 4, 2, 32, 16, torch.float32,
+                                     card)
+    with pytest.raises(TypeError, match="float32 dt"):
+        kssd.ssd(x, dt.double(), Bm, Cm, A)
+
+
+def test_reduced_hybrid_server_on_card(card):
+    """Jamba-1.5-Large at reduced() serves prompts of 1 and 8 (H) tokens
+    and one of 40 on the card, blocking and pipelined alike, through the
+    SSD kernel (7 launches per prefill and per decode step: the Mamba
+    sublayers of its one superblock) and both attention kernels, never
+    their plain versions."""
+    cfg = get_arch("jamba-1.5-large-398b").reduced()
+    lm = LM(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (1, 8, 40)]
+    before = {**kssd.LAUNCHES, **kflash.LAUNCHES, **kpaged.LAUNCHES}
+    outs = []
+    for pipelined in (False, True):
+        server = Server(lm, page_size=16, n_pages=64)
+        for p in prompts:
+            server.submit(p, max_new=4)
+        reqs = list(server.queue)
+        server.run_until_drained(max_len=128, pipelined=pipelined)
+        assert all(r.done and len(r.out) == 4 for r in reqs)
+        assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    assert kssd.LAUNCHES["ssd"] == before["ssd"] + 2 * (3 + 3 * 3) * 7
+    assert kflash.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 2 * 3
+    assert kpaged.LAUNCHES["paged_attention"] == \
+        before["paged_attention"] + 2 * 3 * 3
+
+
+def test_mamba_mixer_on_card_equals_cpu(card):
+    """Jamba's reduced Mamba mixer in fp32 over a ragged prompt of two
+    batch rows and three decode steps, on the card (the SSD kernel, with
+    the conv output laid out as the card's einsum leaves it) and on the
+    CPU (the plain version): within 2e-5 of the largest magnitude."""
+    from repro_torch.models import mamba as mamba_mod
+    cfg = get_arch("jamba-1.5-large-398b").reduced()
+    p = mamba_mod.init_mamba(torch.Generator().manual_seed(0), cfg)
+    p = {k: v.float() for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 40, cfg.d_model)).astype(np.float32))
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        w = {k: v.to(dev) for k, v in p.items()}
+        xd = x.to(dev)
+        out, state = mamba_mod.mamba_forward(w, xd[:, :37], cfg,
+                                             return_state=True)
+        outs = [out]
+        for t in range(37, 40):
+            o, state = mamba_mod.mamba_decode(w, xd[:, t:t + 1], state, cfg)
+            outs.append(o)
+        runs.append(torch.cat([o.cpu() for o in outs], 1))
+    scale = float(runs[1].abs().max())
+    assert float((runs[0] - runs[1]).abs().max()) <= 2e-5 * scale

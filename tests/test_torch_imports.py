@@ -31,7 +31,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.paged_attention, "
             "repro_torch.kernels.rwkv6_scan, "
-            "repro_torch.kernels.clht_probe, repro_torch.models.rwkv\n"
+            "repro_torch.kernels.clht_probe, repro_torch.models.rwkv, "
+            "repro_torch.kernels.mamba_scan, repro_torch.models.mamba, "
+            "repro_torch.models.ffn\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(repr(bad))\n")

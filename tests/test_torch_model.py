@@ -185,8 +185,8 @@ def test_configs_equal_the_jax_package():
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-moe-16b",
-                                  "jamba-1.5-large-398b", "whisper-tiny",
-                                  "internvl2-76b", "starcoder2-15b"])
+                                  "whisper-tiny", "internvl2-76b",
+                                  "starcoder2-15b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(get_arch(arch).reduced(), device="cpu")
@@ -216,6 +216,22 @@ def test_rwkv_builds_reduced():
     assert caches["blocks"]["l0"]["wkv"].shape == (cfg.n_layers, 1, H, dh,
                                                    dh)
     assert set(caches["blocks"]["l0"]) == {"wkv", "shift_tm", "shift_cm"}
+
+
+def test_hybrid_builds_reduced():
+    """The hybrid runs in the port (tests/test_torch_hybrid.py holds it
+    to the JAX package): one superblock of 8 sublayers, its prefill
+    carrying Mamba state at 7 positions and a KV cache at the 5th."""
+    cfg = get_arch("jamba-1.5-large-398b").reduced()
+    lm = build_model(cfg, device="cpu")
+    logits, caches = lm.prefill({"tokens": torch.arange(5)[None]}, 5)
+    assert logits.shape == (1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()
+    group = caches["blocks"]
+    assert sorted(group) == [f"l{i}" for i in range(8)]
+    assert group["l4"]["k"].shape == (1, 5, cfg.n_kv_heads, cfg.head_dim)
+    assert all(set(group[f"l{i}"]) == {"ssm", "conv"}
+               for i in (0, 1, 2, 3, 5, 6, 7))
 
 
 def test_lm_defaults_to_the_card(monkeypatch):
