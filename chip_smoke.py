@@ -1714,6 +1714,11 @@ def paged_vs_plain(serve: dict, seed: int, launches: dict) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 13)
     table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
+    pages, n_splits = kpaged.split_plan(
+        n_pages, 1, H, Hk, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    say(f"paged_attention: {n_splits} splits of {pages} pages (one cluster "
+        f"a kv head), {n_splits * Hk} blocks")
     err = 0.0
     out = None
     for length in serve["decode_lens"]:

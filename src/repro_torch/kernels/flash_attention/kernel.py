@@ -7,7 +7,9 @@ kernel takes [B*H, T, dh] with the kv heads already repeated; here the
 kernel reads kv head h // (H // Hk) for query head h).  On CUDA tensors
 it launches the CUDA kernel on the current stream, or raises; on CPU
 tensors it runs ``ref.attention_plain``.  Nothing else selects between
-the two.
+the two.  The CUDA source holds one kernel per dtype: bfloat16 runs on
+the tensor cores (wgmma, its tiles loaded by TMA), float32 on the CUDA
+cores in exact fp32.
 
 ``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
 on CPU tensors launches nothing and counts nothing.
@@ -103,6 +105,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{q.dtype}")
     if B * H > 65535:
         raise ValueError(f"batch * heads = {B * H} exceeds the grid's 65535")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned: the bf16 "
+                                 "kernel loads its tiles by TMA")
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out

@@ -8,6 +8,13 @@ CUDA tensors it launches the CUDA kernel on the current stream, or
 raises; on CPU tensors it runs ``ref.paged_attention_plain``.  Nothing
 else selects between the two.
 
+The kernel cuts each sequence's keys into splits of whole pages that
+run in parallel, one thread-block cluster a (sequence, kv head), and
+merges them on chip (``ref.merge_partials`` is the merge's plain form).
+``split_plan`` chooses the splits from the block table's shape and the
+SM count alone, never from ``seq_lens``, so the wrapper reads nothing
+from the device and allocates nothing but the output.
+
 ``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
 on CPU tensors launches nothing and counts nothing.
 """
@@ -17,7 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,6 +36,42 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 
 HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SPLITS = 8  # splits of a sequence: one cluster, the portable size
+
+
+def heads_per_block(group_size: int) -> int:
+    """Query heads one block computes, of the ``group_size`` query heads
+    that share a kv head: the fewest of 4, 8 and 32 that hold the group
+    (a block's teams of 4 warps take 1, 2 or 8 heads a warp); a larger
+    group takes further blocks.  The CUDA kernel is built for these
+    three counts, takes the count from here and rejects any other."""
+    return 4 if group_size <= 4 else 8 if group_size <= 8 else 32
+
+
+def split_plan(max_pages: int, batch: int, heads: int, kv_heads: int,
+               sms: int = 132) -> Tuple[int, int]:
+    """(pages per split, splits) for a table of ``max_pages`` pages: the
+    largest power of two of splits, at most ``MAX_SPLITS`` and no more
+    than there are pages, that keeps batch x kv heads x head groups x
+    splits blocks within half of ``sms`` SMs (beyond that, clusters of 8
+    large blocks no longer all fit at once, and on an H100 8 splits ran
+    slower than 4 at 16 blocks), then the fewest whole pages a split
+    that cover the table.  Split s covers pages [s * pages, (s + 1) *
+    pages); the last splits may lie past the table.  Nothing depends on
+    the sequences' lengths."""
+    group_size = heads // kv_heads
+    groups = -(-group_size // heads_per_block(group_size))
+    blocks = batch * kv_heads * groups
+    n_splits = 1
+    while (n_splits < MAX_SPLITS and 2 * n_splits <= max_pages
+           and 4 * n_splits * blocks <= sms):
+        n_splits *= 2
+    return max(1, -(-max_pages // n_splits)), n_splits
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -43,7 +86,7 @@ _I = ctypes.c_int
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
-    lib.paged_attention.argtypes = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
+    lib.paged_attention.argtypes = [_P] * 6 + [_I] * 10 + [ctypes.c_float, _P]
     lib.paged_attention.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -116,13 +159,15 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
     if B == 0:
         return out
     lib = _library()
+    maxp = block_table.shape[1]
+    pages, n_splits = split_plan(maxp, B, H, Hk, _sm_count(dev.index))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attention(
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B,
-            H, Hk, dh, PS, block_table.shape[1], DTYPES[q.dtype],
-            1.0 / math.sqrt(dh), stream)
+            H, Hk, dh, PS, maxp, pages, n_splits, heads_per_block(H // Hk),
+            DTYPES[q.dtype], 1.0 / math.sqrt(dh), stream)
     if err:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.paged_attention_error_string(err).decode())
@@ -130,5 +175,5 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
     return out
 
 
-__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "paged_attention",
-           "reset_launches"]
+__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "MAX_SPLITS", "heads_per_block",
+           "paged_attention", "reset_launches", "split_plan"]

@@ -7,6 +7,10 @@ j % PS of page max(block_table[b, j // PS], 0), kv head h // (H // Hk).
 fp32 throughout, output in q's dtype, as in the JAX package's Pallas
 kernel (``kernels/paged_attention/kernel.py``); a sequence of length 0
 gives zeros, where the JAX package's ``paged_attention_ref`` gives NaN.
+
+``merge_partials`` is the plain form of the kernel's last step: the
+kernel cuts the keys into splits, each of which leaves its running max,
+sum and unnormalised output, and merges them.
 """
 
 from __future__ import annotations
@@ -39,4 +43,17 @@ def paged_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
     return (out / p.sum(dim=-1)[..., None].clamp_min(1e-30)).to(q.dtype)
 
 
-__all__ = ["paged_attention_plain"]
+def merge_partials(m: torch.Tensor, l: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """Merge per-split softmax partials over the split axis: m, l [...,
+    n_splits] (each split's max score, -1e30 for a split with no live
+    key, and its sum of exp(s - m)), acc [..., n_splits, dh] (its sum of
+    exp(s - m) v).  Returns sum_s e^(m_s - M) acc_s / max(sum_s
+    e^(m_s - M) l_s, 1e-30) with M the largest m_s, in fp32: zeros when
+    every split is empty."""
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    num = (w[..., None] * acc).sum(dim=-2)
+    return num / (w * l).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+__all__ = ["merge_partials", "paged_attention_plain"]

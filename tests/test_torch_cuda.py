@@ -34,6 +34,7 @@ from repro_torch.kernels import conflict as kconf
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import mamba_scan as kssd
 from repro_torch.kernels import paged_attention as kpaged
+from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels import partition as kpart
 from repro_torch.kernels import probe as kprobe
 from repro_torch.kernels import rwkv6_scan as kwkv
@@ -325,6 +326,17 @@ def normal(rng, shape, dtype, device):
     (2, 100, 300, 8, 8, 128, True, None),   # right-aligned queries
     (1, 200, 200, 4, 1, 64, True, 48),      # sliding window
     (1, 70, 90, 4, 2, 64, False, None),
+    (1, 1, 1, 4, 1, 32, True, None),        # the hybrid's prompts of 1
+    (1, 8, 8, 4, 1, 32, True, None),        # and 8 tokens
+    (1, 63, 63, 4, 2, 64, True, None),      # a query tile's edges
+    (1, 64, 64, 4, 2, 64, True, None),
+    (1, 65, 65, 4, 2, 64, True, None),
+    (2, 129, 129, 4, 2, 64, True, None),
+    (1, 129, 129, 4, 2, 128, True, None),
+    (2, 65, 200, 4, 1, 32, True, 70),       # window, ragged key tile
+    (1, 100, 40, 4, 2, 64, True, None),     # T > S: 60 rows see no key
+    (2, 150, 20, 2, 1, 128, True, None),
+    (1, 90, 30, 4, 4, 32, True, None),
 ])
 def test_flash_attention_matches_plain_version(card, B, T, S, H, Hk, dh,
                                                causal, window, dtype):
@@ -340,20 +352,57 @@ def test_flash_attention_matches_plain_version(card, B, T, S, H, Hk, dh,
     assert torch.isfinite(got.float()).all()
     err = float((got.float() - plain.float()).abs().max())
     assert err < ATTN_TOL[dtype], err
+    if causal and T > S:  # rows i < T - S see no key: exactly 0
+        assert torch.equal(got[:, :T - S], torch.zeros_like(got[:, :T - S]))
+
+
+# chip_smoke.py's elementwise limit for the bf16 attention kernels: each
+# element within ATTN_STEPS bf16 unit roundoffs (2^-8) of its plain
+# value, plus as many of 2^-8 of the largest magnitude
+ATTN_STEPS = 4
+
+
+def attn_limit(plain):
+    p = plain.float().abs()
+    return ATTN_STEPS * 2.0 ** -8 * (p + 2.0 ** -8 * p.max())
+
+
+def test_flash_attention_bf16_within_attn_steps(card):
+    """Qwen2-0.5B's prefill at T = 512 in bf16, held elementwise to
+    chip_smoke.py's limit: a P rounded once to bf16 before P.V would
+    not be the fp32 P.V of the plain version."""
+    rng = np.random.default_rng(512)
+    q = normal(rng, (1, 512, 14, 64), torch.bfloat16, card)
+    k, v = (normal(rng, (1, 512, 2, 64), torch.bfloat16, card)
+            for _ in range(2))
+    got = kflash.flash_attention(q, k, v)
+    plain = kflash.attention_plain(q, k, v)
+    diff = (got.float() - plain.float()).abs()
+    assert bool((diff <= attn_limit(plain)).all()), \
+        float((diff / attn_limit(plain)).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,H,Hk,dh,NP,PS,MAXP", [
-    (1, 14, 2, 64, 40, 16, 34),   # Qwen2-0.5B decode over 544 slots
-    (3, 4, 4, 64, 16, 32, 4),
-    (2, 4, 2, 32, 9, 16, 4),      # reduced widths
-    (4, 8, 2, 128, 32, 64, 8),
+@pytest.mark.parametrize("B,H,Hk,dh,NP,PS,MAXP,edges", [
+    (1, 14, 2, 64, 40, 16, 34, False),   # Qwen2-0.5B decode over 544 slots
+    (3, 4, 4, 64, 16, 32, 4, False),
+    (2, 4, 2, 32, 9, 16, 4, False),      # reduced widths
+    (4, 8, 2, 128, 32, 64, 8, False),
+    (1, 14, 2, 64, 40, 16, 34, True),    # Qwen2: G = 7, 8 splits of 5 pages
+    (1, 4, 1, 32, 40, 16, 34, True),     # the hybrid at reduced(): G = 4
+    (1, 8, 8, 128, 16, 64, 8, True),     # G = 1
+    (4, 14, 2, 64, 160, 16, 34, True),   # 4 sequences, different lens
+    (2, 64, 1, 64, 40, 16, 20, True),    # G = 64: two head groups
 ])
 def test_paged_attention_matches_plain_version(card, B, H, Hk, dh, NP, PS,
-                                               MAXP, dtype):
+                                               MAXP, edges, dtype):
     """Pages out of order, -1 entries past the live pages, a sequence of
-    length 0 (zeros) and one at MAXP * PS."""
+    length 0 (zeros) and one at MAXP * PS.  With ``edges`` the lens sit
+    at the kernel's split edges (``split_plan``): 0, 1, a split
+    boundary and one either side, MAXP * PS - 1 and MAXP * PS, each
+    sequence of the batch at one of them, over as many calls as that
+    takes."""
     rng = np.random.default_rng(B * H + dh)
     q = normal(rng, (B, H, dh), dtype, card)
     pk, pv = (normal(rng, (NP, PS, Hk, dh), dtype, card) for _ in range(2))
@@ -366,16 +415,71 @@ def test_paged_attention_matches_plain_version(card, B, H, Hk, dh, NP, PS,
         lens[1] = 0
         table[1:, -1] = -1
         lens[2:] = np.minimum(lens[2:], PS * (MAXP - 1))
-    tt, lt = (torch.from_numpy(a).to(card) for a in (table, lens))
-    before = kpaged.LAUNCHES["paged_attention"]
-    got = kpaged.paged_mqa(q, pk, pv, tt, lt)
-    torch.cuda.synchronize()
-    assert kpaged.LAUNCHES["paged_attention"] == before + 1
-    plain = kpaged.paged_attention_plain(q, pk, pv, tt, lt)
+    calls = [lens]
+    if edges:
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        pages, n_splits = kpaged.split_plan(MAXP, B, H, Hk, sms)
+        assert n_splits > 1
+        table[:, -1] = rng.integers(0, NP, size=B)  # every page live
+        edge = pages * PS
+        want = [0, 1, edge - 1, edge, edge + 1, PS * MAXP - 1, PS * MAXP]
+        want += [PS * MAXP] * (-len(want) % B)
+        calls = [np.array(want[i:i + B], np.int32)
+                 for i in range(0, len(want), B)]
+    tt = torch.from_numpy(table).to(card)
+    for lens in calls:
+        lt = torch.from_numpy(lens).to(card)
+        before = kpaged.LAUNCHES["paged_attention"]
+        got = kpaged.paged_mqa(q, pk, pv, tt, lt)
+        torch.cuda.synchronize()
+        assert kpaged.LAUNCHES["paged_attention"] == before + 1
+        plain = kpaged.paged_attention_plain(q, pk, pv, tt, lt)
+        assert torch.isfinite(got.float()).all()
+        err = float((got.float() - plain.float()).abs().max())
+        assert err < ATTN_TOL[dtype], (lens, err)
+        for b in np.flatnonzero(lens == 0):
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_paged_attention_every_split_count(card, monkeypatch, splits,
+                                           dtype):
+    """Qwen2-0.5B's decode shape at each split count the kernel takes
+    (the plan chosen by a patched ``split_plan``): the split plan
+    changes the order of the sums, not the result."""
+    rng = np.random.default_rng(splits)
+    q = normal(rng, (2, 14, 64), dtype, card)
+    pk, pv = (normal(rng, (68, 16, 2, 64), dtype, card) for _ in range(2))
+    table = torch.arange(68, dtype=torch.int32, device=card).reshape(2, 34)
+    lens = torch.tensor([529, 17], dtype=torch.int32, device=card)
+    monkeypatch.setattr(paged_kernel, "split_plan",
+                        lambda maxp, *_: (-(-maxp // splits), splits))
+    got = kpaged.paged_attention(q, pk, pv, table, lens)
+    plain = kpaged.paged_attention_plain(q, pk, pv, table, lens)
     err = float((got.float() - plain.float()).abs().max())
     assert err < ATTN_TOL[dtype], err
-    if B > 1:
-        assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+def test_paged_attention_long_table_in_one_split(card, monkeypatch):
+    """A table of 32768 pages in one split (fp32, dh 128, the most
+    shared memory a block takes): the kernel reads the table from
+    device memory, so its length has no limit."""
+    rng = np.random.default_rng(32768)
+    MAXP, PS = 32768, 16
+    q = normal(rng, (2, 4, 128), torch.float32, card)
+    pk, pv = (normal(rng, (64, PS, 1, 128), torch.float32, card)
+              for _ in range(2))
+    table = torch.from_numpy(
+        rng.integers(0, 64, size=(2, MAXP)).astype(np.int32)).to(card)
+    lens = torch.tensor([MAXP * PS, 1000], dtype=torch.int32, device=card)
+    monkeypatch.setattr(paged_kernel, "split_plan",
+                        lambda maxp, *_: (maxp, 1))
+    got = kpaged.paged_attention(q, pk, pv, table, lens)
+    plain = kpaged.paged_attention_plain(q, pk, pv, table, lens)
+    err = float((got - plain).abs().max())
+    assert err < ATTN_TOL[torch.float32], err
 
 
 def test_attention_kernels_raise_and_never_fall_back(card):
