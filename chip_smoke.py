@@ -103,12 +103,15 @@ kernel (``csrc/clht_probe.cu``), every answer equal to a numpy reading.
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
-2. build: every CUDA source of the port, compiled in parallel;
+2. build: every CUDA source of the port, compiled in parallel; each
+   kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
+   them;
 3. the eleven paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
-   time); after the Mamba path, its CPU check;
+   time); after the Mamba path, its CPU check; the two scans' launches
+   split into prefills and decode steps;
 4. each kernel against its plain PyTorch version on the card, on 4096
    queries made from ``--seed`` over a table a path loaded (hits,
    misses, fingerprint near-misses, key 0, and keys of 2^63 and above
@@ -121,8 +124,10 @@ Phases, each of which exits non-zero on failure:
    decode (T = 1, carried state) shapes, with decays down to logw = -8,
    within the same limit, which the plain version without the bonus u or
    without the carried state breaks; the SSD kernel at Jamba's prefill
-   (T = 4096) and decode (T = 1, carried state) shapes within the same
-   limit, which the plain version without the s = t term or without the
+   (T = 4096) and decode (T = 1, carried state; bf16, and fp32 as the
+   Mamba path runs it) shapes and at the hybrid's reduced decode (fp32),
+   within the same limit in bf16 and 2e-5 of the largest magnitude in
+   fp32, which the plain version without the s = t term or without the
    carried state breaks; then per-launch
    times at the main path's shape (device time from the profiler, call
    time from CUDA events), beside the plain version's, a library call's
@@ -141,6 +146,7 @@ import argparse
 import contextlib
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -286,6 +292,41 @@ LOGIT_REL_TOL = 5e-2
 # a bf16 rounding can flip) and the full-width Mamba layer are checked the
 # same way, within the same share of their largest output
 FP32_LOGIT_REL_TOL = 1e-3
+
+
+def kernel_name(mangled: str) -> str:
+    """A CUDA kernel's name and template arguments from its mangled name
+    (``decode_kernel<bf16,64>``), or the mangled name when it does not
+    parse."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled[:60]
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    args = re.match(r"I(.*?)EEv", mangled[start + len(name):])
+    if not args:
+        return name
+    words = re.findall(r"13__nv_bfloat16|Li(\d+)E|(f)", args.group(1))
+    return name + "<" + ",".join(
+        "bf16" if not n and not f else n or "float" for n, f in words) + ">"
+
+
+def ptxas_lines(log: str) -> list:
+    """Each kernel's registers, shared memory and spills from a build's
+    ``-Xptxas -v`` output, one line a kernel."""
+    out, name, info = [], None, []
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            if name:
+                out.append(f"{name}: {'; '.join(info)}")
+            name, info = kernel_name(m.group(1)), []
+        elif name and ("registers" in line or "spill" in line):
+            info.append(line.split(":", 1)[-1].strip()
+                        if "registers" in line else line.strip())
+    if name:
+        out.append(f"{name}: {'; '.join(info)}")
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -1881,7 +1922,8 @@ def wkv_draw(gen, T: int, H: int, dh: int, carried: bool) -> tuple:
     return r, k, v, logw, u, state
 
 
-def wkv6_vs_plain(serve: dict, seed: int, launches: dict) -> list:
+def wkv6_vs_plain(serve: dict, seed: int, launches: dict,
+                  split: dict) -> list:
     """wkv6 at RWKV6-7B's shapes: a prefill of T = 512 from a zero state
     and a decode step (T = 1) from a carried state, on inputs drawn from
     the seed; elementwise within ``ATTN_STEPS`` bf16 unit roundoffs of
@@ -1940,9 +1982,10 @@ def wkv6_vs_plain(serve: dict, seed: int, launches: dict) -> list:
         say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes)")
         out = out or (timed, bms, by, T)
     timed, bms, by, T = out
-    say(f"wkv6: main-path launches {launches['wkv6']}")
-    return [row("wkv6", launches, err, timed, bms, by, None,
-                f"{cfg.name} prefill, B=1, T={T}, H={H}, dh={dh}, bf16")]
+    say(f"wkv6: main-path launches {launches['wkv6']}: {split}")
+    return [dict(row("wkv6", launches, err, timed, bms, by, None,
+                     f"{cfg.name} prefill, B=1, T={T}, H={H}, dh={dh}, "
+                     "bf16"), launches_by_shape=split)]
 
 
 # -- the full-width Mamba path and the SSD kernel ---------------------------
@@ -2099,25 +2142,57 @@ def ssd_draw(gen, T: int, H: int, dh: int, N: int, carried: bool) -> tuple:
     return x, dt, Bm, Cm, A, state
 
 
-def ssd_vs_plain(mp: dict, seed: int, launches: dict) -> list:
+def close_fp32(name: str, got, plain, broken, variant: str) -> float:
+    """fp32 outputs within 2e-5 of the largest |plain|, a limit that
+    ``broken`` (a plain version without a term) must break."""
+    limit = 2e-5 * float(plain.abs().max())
+    err = float((got - plain).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= limit, f"{name}: "
+          f"kernel differs from its plain version by {err} (limit {limit})")
+    caught = int(((broken - plain).abs() > limit).sum())
+    check(caught > 0, f"{name}: the limit does not see {variant}")
+    say(f"{name}: within 2e-5 of the largest |plain| (max abs err "
+        f"{err:.3e}, largest |plain| {float(plain.abs().max()):.6f}); "
+        f"{variant} breaks the limit at {caught} of {plain.numel()} "
+        "elements")
+    return err
+
+
+def ssd_vs_plain(mp: dict, hybrid: dict, seed: int, launches: dict,
+                 split: dict) -> list:
     """ssd at Jamba's full width (H = 256, dh = 64, N = 16): a prefill
-    of T = 4096 from a zero state and a decode step (T = 1) from a
-    carried state, on inputs drawn from the seed; elementwise within
-    ``ATTN_STEPS`` bf16 unit roundoffs of the plain version, a limit that
-    the plain version without the s = t term (prefill) or without the
-    carried state (decode) breaks; the final state within 2e-5 of its
-    largest magnitude.  No PyTorch op computes an SSD scan: no library
-    call."""
+    of T = 4096 from a zero state and decode steps (T = 1) from a carried
+    state in bf16 and in fp32 (the Mamba path's decode hands the kernel
+    fp32), and at the hybrid's reduced decode (fp32, where 7 of every 8
+    of its launches are), on inputs drawn from the seed.  bf16 outputs
+    elementwise within ``ATTN_STEPS`` bf16 unit roundoffs of the plain
+    version, fp32 within 2e-5 of the largest, limits that the plain
+    version without the s = t term (prefill) or without the carried state
+    (decode) breaks; the final state within 2e-5 of its largest
+    magnitude.  No PyTorch op computes an SSD scan: no library call."""
+    def widths(cfg):
+        m = cfg.mamba
+        return m.expand * cfg.d_model // m.head_dim, m.head_dim, m.d_state
+
     cfg = mp["cfg"]
-    m = cfg.mamba
-    dh, N = m.head_dim, m.d_state
-    H = m.expand * cfg.d_model // dh
+    H, dh, N = widths(cfg)
+    cases = ((MAMBA_PREFILLS[0][1], (H, dh, N), torch.bfloat16, False,
+              f"{cfg.name} Mamba prefill"),
+             (1, (H, dh, N), torch.bfloat16, True, f"{cfg.name} decode"),
+             (1, (H, dh, N), torch.float32, True,
+              f"{cfg.name} decode as the Mamba path runs it"),
+             (1, widths(hybrid["cfg"]), torch.float32, True,
+              f"{hybrid['cfg'].name} at reduced() decode"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 18)
     err = 0.0
     out = None
-    for T, carried in ((MAMBA_PREFILLS[0][1], False), (1, True)):
-        batches = [ssd_draw(gen, T, H, dh, N, carried) for _ in range(8)]
+    for T, (H, dh, N), dtype, carried, what in cases:
+        batches = []
+        for _ in range(8):
+            x, dt, Bm, Cm, A, state = ssd_draw(gen, T, H, dh, N, carried)
+            batches.append((x.to(dtype), dt, Bm.to(dtype), Cm.to(dtype), A,
+                            state))
         x, dt, Bm, Cm, A, state = batches[0]
         got, got_state = kssd.ssd(x, dt, Bm, Cm, A, state)
         torch.cuda.synchronize()
@@ -2131,8 +2206,11 @@ def ssd_vs_plain(mp: dict, seed: int, launches: dict) -> list:
             broken = plain.float() - diag[:, :, None, None] \
                 * dt[..., None] * x.float()
             variant = "the plain version without the s = t term"
-        name = f"ssd (T={T})"
-        err = max(err, close(name, got, plain, broken, variant))
+        name = f"ssd (T={T}, H={H}, dh={dh}, N={N}, {str(dtype)[6:]})"
+        if dtype == torch.float32:
+            err = max(err, close_fp32(name, got, plain, broken, variant))
+        else:
+            err = max(err, close(name, got, plain, broken, variant))
         s_err = float((got_state - plain_state).abs().max())
         s_max = float(plain_state.abs().max())
         check(bool(torch.isfinite(got_state).all()) and
@@ -2146,22 +2224,22 @@ def ssd_vs_plain(mp: dict, seed: int, launches: dict) -> list:
                             lambda *a: kssd.ssd_plain(*a), batches,
                             reps=64 if T > 1 else 640,
                             plain_reps=1 if T > 1 else 32)
-        n = T * H * dh
-        # x and y in bf16, dt fp32, B_ and C_ bf16, A, the state in (when
-        # carried) and out in fp32
-        n_bytes = 2 * 2 * n + 4 * T * H + 2 * 2 * T * N + 4 * H \
+        n, es = T * H * dh, x.element_size()
+        # x and y, dt fp32, B_ and C_, A, the state in (when carried) and
+        # out in fp32
+        n_bytes = 2 * es * n + 4 * T * H + 2 * es * T * N + 4 * H \
             + 4 * H * dh * N * (2 if carried else 1)
         # the state terms: one FMA a state element for the update and one
         # for y, per token and head, at the fp32 rate
         bms, by = bound(n_bytes, 4 * dh * N * T * H)
-        say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes); library "
-            "call: none, no single op computes an SSD scan")
-        out = out or (timed, bms, by, T)
-    timed, bms, by, T = out
-    say(f"ssd: main-path launches {launches['ssd']}")
-    return [row("ssd", launches, err, timed, bms, by, None,
-                f"{cfg.name} Mamba prefill, B=1, T={T}, H={H}, dh={dh}, "
-                f"N={N}, bf16")]
+        say(f"{name} [{what}]: bound {bms:.9f} ms ({by}, {n_bytes} bytes); "
+            "library call: none, no single op computes an SSD scan")
+        out = out or (timed, bms, by, T, H, dh, N)
+    timed, bms, by, T, H, dh, N = out
+    say(f"ssd: main-path launches {launches['ssd']}: {split}")
+    return [dict(row("ssd", launches, err, timed, bms, by, None,
+                     f"{cfg.name} Mamba prefill, B=1, T={T}, H={H}, "
+                     f"dh={dh}, N={N}, bf16"), launches_by_shape=split)]
 
 
 def main(argv=None) -> int:
@@ -2202,9 +2280,8 @@ def main(argv=None) -> int:
                          "paged_attention", "clht_probe", "wkv6", "ssd"},
           "a kernel source was not built")
     for name, b in built.items():
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(b.log):
+            say(f"  {name}: {line}")
 
     paths = [
         ("P-CLHT", "clht", ("probe64_fp", "probe64"),
@@ -2225,6 +2302,9 @@ def main(argv=None) -> int:
     ]
     sessions = {}
     launches = {name: 0 for name in SOURCES}
+    # the scans' launches by shape: prefills (T > 1) and decode steps
+    split = {"wkv6": {"prefill": 0, "decode": 0},
+             "ssd": {"prefill": 0, "decode": 0}}
     for tag, kind, kernels, drive in paths:
         session = sessions[tag] = open_index(kind)
         check(session.device.type == "cuda", f"the {tag} session is not on "
@@ -2285,6 +2365,8 @@ def main(argv=None) -> int:
           f"times on the RWKV serving path, not {n_layers} per prefill "
           f"({rwkv['prefills']}) and per decode step "
           f"({rwkv['decode_steps']}): {want}")
+    split["wkv6"]["prefill"] += n_layers * rwkv["prefills"]
+    split["wkv6"]["decode"] += n_layers * rwkv["decode_steps"]
     for name in ("probe64_fp", "art_descend", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the RWKV "
               "serving path")
@@ -2307,6 +2389,8 @@ def main(argv=None) -> int:
           f"on the Mamba path, not {n_mixers} per prefill "
           f"({mamba['prefills']}) and per decode step "
           f"({mamba['decode_steps']}): {want}")
+    split["ssd"]["prefill"] += n_mixers * mamba["prefills"]
+    split["ssd"]["decode"] += n_mixers * mamba["decode_steps"]
     for name in launches:
         launches[name] += counts[name]
     mamba_cpu_check(mamba)
@@ -2327,6 +2411,8 @@ def main(argv=None) -> int:
           f"on the hybrid serving path, not {n_mixers} per prefill "
           f"({hybrid['prefills']}) and per decode step "
           f"({hybrid['decode_steps']}): {want}")
+    split["ssd"]["prefill"] += n_mixers * hybrid["prefills"]
+    split["ssd"]["decode"] += n_mixers * hybrid["decode_steps"]
     for name in ("flash_attention", "paged_attention", "probe64_fp",
                  "art_descend", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the hybrid "
@@ -2360,8 +2446,8 @@ def main(argv=None) -> int:
     rows += paged_vs_plain(serve, args.seed, launches)
     rows += flash_vs_plain(serve, args.seed, launches)
     rows += clht_vs_plain(tag, launches)
-    rows += wkv6_vs_plain(rwkv, args.seed, launches)
-    rows += ssd_vs_plain(mamba, args.seed, launches)
+    rows += wkv6_vs_plain(rwkv, args.seed, launches, split["wkv6"])
+    rows += ssd_vs_plain(mamba, hybrid, args.seed, launches, split["ssd"])
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
     say(f"whole run: {time.perf_counter() - t_start:.3f} s")

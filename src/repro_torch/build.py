@@ -7,8 +7,9 @@ process per source, all started together.  A library's file name
 carries a hash of its source and flags, so an edited source is rebuilt
 and a finished build is reused; each is written under a temporary name
 and renamed into place, so processes that build at once never load a
-half-written file.  ``load`` builds one source if needed and returns
-its ``ctypes.CDLL``.
+half-written file; the compiler's output is kept beside it, so a reused
+build still reports its registers and spills.  ``load`` builds one
+source if needed and returns its ``ctypes.CDLL``.
 
 Nothing here runs at import: the modules that launch kernels call
 ``load`` from inside their wrappers, so a machine without ``nvcc`` or a
@@ -39,7 +40,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 class Built:
     """One source's build: the library, the seconds ``nvcc`` took (0.0
     when an earlier build was reused) and the compiler's output (the
-    ``-Xptxas -v`` register and spill report)."""
+    ``-Xptxas -v`` register and spill report, kept from the build that
+    made the library)."""
 
     path: Path
     seconds: float
@@ -79,7 +81,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
         src = CSRC / f"{name}.cu"
         out = _target(src)
         if out.exists():
-            done[name] = Built(out, 0.0, "")
+            log = out.with_suffix(".log")
+            done[name] = Built(out, 0.0,
+                               log.read_text() if log.exists() else "")
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -94,6 +98,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
                           f"(exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         done[name] = Built(out, time.perf_counter() - t0, log)
     if failed:

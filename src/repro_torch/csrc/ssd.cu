@@ -1,5 +1,5 @@
 // Mamba-2 SSD scan (state-space duality, chunked form), with the state
-// carried in and out.  One block per (batch, head).
+// carried in and out.
 //
 // Replaces, in the JAX package, src/repro/kernels/mamba_scan/kernel.py
 // ssd (_ssd_kernel).  The TPU form takes [B*H, T, dh] rows with B_ and
@@ -11,42 +11,92 @@
 // of a batch row reads the same B_ and C_ rows, as the attention kernels
 // read a shared kv head under GQA.  The state comes in (or is zero) and
 // goes out, and the ragged last chunk is masked here, so T takes any
-// value; T = 1 with the carried state is a decode step.
+// value.
 //
 // What it computes, per (b, h), with the [dh, N] state S and A < 0:
 //   S_t = exp(dt_t A) S_{t-1} + dt_t x_t B_t^T;   y_t = S_t C_t
 // all in fp32, y stored in x's dtype, the final S in fp32.  Inside a
-// chunk of C steps, with cum_t the inclusive prefix sum of dt A and
-// total its last value:
+// chunk, with cum_t the inclusive prefix sum of dt A and total its last
+// value:
 //   y_t = sum_{s<=t} (C_t . B_s) exp(cum_t - cum_s) dt_s x_s
 //         + exp(cum_t) S_in C_t
 //   S_out = exp(total) S_in + sum_s exp(total - cum_s) dt_s x_s B_s^T
 //
+// What bounds it on an H100.  At Jamba's full width (B = 1, T = 4096,
+// H = 256, dh = 64, N = 16, bf16) the function moves about 272 MB (x and
+// y in bf16, dt in fp32, B_ and C_, the state) and its state terms are
+// 4 dh N FLOPs a token and head, 4.3 GFLOP: about 0.08 ms, bound by
+// bytes.  A chunk-serial walk (one block a (b, h) walking 128
+// chunks of 32 one after another, every product on the fp32 CUDA cores,
+// C_t . B_s recomputed for each of the 256 heads) is a latency chain of
+// some 10 us a chunk, 16.6x the bound.  At decode (T = 1) the bytes are
+// the state in and out, 2.1 MB (0.6 us); the floor is the kernel's fixed
+// cost.
+//
+// The design, picked from t_len and the dtype inside the C entry point:
+//
+// bfloat16 prefill (T > 1): chunk-parallel, three kernels over chunks of
+// kChunk = 64 steps, each a warp's strips of kSub = 16 rows.
+//  (a) increments_kernel, one block a (b, chunk, 4 heads), all at once,
+//      a warp a head: the chunk's state increment dS = X^T (B_ exp(total
+//      - cum) dt) and its decay exp(total), into a scratch of
+//      [B, H, NC, dh, N] (and [B, H, NC]) that the wrapper allocates.
+//      The group's x rows and dt lie side by side in memory, so a block
+//      reads rows of 512 bytes and its dt in whole sectors.
+//  (b) pass_kernel, one thread a float4 of state elements: the short
+//      sequential walk over the NC chunks, S_{c+1} = exp(total_c) S_c +
+//      dS_c, with 16 chunks' loads in flight, which writes the state
+//      entering each chunk over its increment and the final state.
+//  (c) outputs_kernel, one block a (b, chunk, kHeads = 8 heads): each
+//      output once, y = exp(cum_t) C_t S_c^T + ((C B^T) * L * dt) X,
+//      rounded once to bf16, with L the decay of s <= t only.  C B^T,
+//      which every head of a batch row shares, is formed from the block's
+//      one copy of C_ and B_ (two exact bf16 products a k step), and the
+//      group's dt is loaded once; each head's x tile and entering state
+//      are loaded by cp.async into one of two buffers while the head
+//      before computes.
+//  The chunk length decides the scratch: at Jamba's T = 4096 it is 67 MB
+//  at kChunk = 64 and 33.5 MB at 128, which would fit the 50 MB L2 beside
+//  nothing else; the kernels stream 402 MB of x and y past it, so
+//  neither keeps it there.  Measured on an H100 (PERF.md), 128 cut
+//  the pass from 60 to 24 us but made the outputs kernel 1.6x slower
+//  (twice the pairwise terms a row, eight strips a block): 64 it is.  So are 8 heads
+//  a block (4 and 16 no faster) and two buffers (a third slowed it).
+//  Every product of (a) and (c) runs on the tensor cores (mma.sync
+//  m16n8k16, fp32 sums; N = 8 pads the k axis with zeros).  x, B_, C_
+//  arrive in bf16 and go in as they are; an operand computed in fp32
+//  (B_ weighted to the chunk's end, the G = (C B^T) * L * dt matrix, the
+//  state) goes in as a bf16 pair hi = bf16(a), lo = bf16(a - hi), two
+//  products.  A single bf16 rounding of those operands breaks
+//  chip_smoke.py's limits (tests/test_torch_scan_design.py); the pairs
+//  hold them.  Decays are 2^x by the SFU (ex2.approx).
+//
+//  What bounds it now: bytes, at about 2 TB/s.  The three phases move
+//  some 670 MB (x twice, y once, the scratch four times), 2.4x the
+//  function's own; the outputs kernel's loads, prefix sums and stores
+//  alone take 171 of its 192 us.
+//
+// float32 prefill: the chunk-serial kernel on the fp32 CUDA cores
+// (serial_kernel), so that fp32 callers keep exact fp32 products.
+//
+// decode (T = 1), either dtype: decode_kernel, one thread a float4 of a
+// state row, no chunk staging: it reads its x, dt, A and B_, C_ entries,
+// writes the new state, and the row's N / 4 threads sum y by shuffles.
+// Mamba's decode hands it fp32 x, B_ and C_; the kernel is the same.
+//
 // No overflow.  The Pallas kernel exponentiates cum_t - cum_s for every
 // (t, s) and masks s > t afterwards; for s > t that exponent is
 // positive and reaches hundreds over a long chunk.  Here only s <= t is
-// computed, so every exponent is a sum of log decays, 0 or less: cum_t,
-// total - cum_s and cum_t - cum_s.
+// computed, and every exponent is a sum of log decays, 0 or less, each
+// formed from its own terms: strip-local prefix and suffix sums and
+// strip totals added in order.  The one difference is inside a strip,
+// cum_t - cum_s of two sums over at most 16 steps.  Decays are taken in
+// log2 units.
 //
-// Layout of the work.  256 threads.  A chunk's x, B_, C_ and dt are
-// staged in shared memory as fp32 (rows of N padded to N + 1 words, so
-// a warp reading one column of 32 rows hits 32 banks), beside the
-// state's [dh, N] fp32 slice, which lives there across chunks.  Warp 0
-// forms the prefix sums with shuffles; one thread a (t, s) pair forms
-// the decay-masked score G; then each thread owns outputs (t, j), j over
-// dh, so a warp reads one row of x coalesced while G and C_ are
-// broadcast; then each thread owns state elements (j, n).  C = 32: the
-// in-chunk product costs C / 2 multiply-adds a token and channel, the
-// state terms 2 N, so a longer chunk only adds work on CUDA cores.
-//
-// What bounds it on an H100: at Jamba's full width (B = 1, T = 4096,
-// H = 256, dh = 64, N = 16, bf16) the function moves about 272 MB (x and
-// y in bf16, dt in fp32, B_ and C_, the state) and its state terms are
-// 4 dh N fp32 FLOPs a token and head, 4.3 GFLOP: about 0.08 ms.  This
-// kernel does every product on the fp32 CUDA cores, three times the
-// state terms' FLOPs, and loads each chunk after the last one's update,
-// with no prefetch: it is right first.  Left for later: mma on the chunk
-// products, a second chunk in flight.
+// Aliasing: state_in may equal state_out.  Only decode_kernel, the
+// serial kernel and pass_kernel read state_in, and in each the thread
+// (or block) that writes an element of state_out has read it first;
+// outputs_kernel reads the entering states from the scratch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,8 +105,7 @@
 
 namespace {
 
-constexpr int kChunk = 32;    // timesteps per chunk: one warp's lanes
-constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -73,36 +122,47 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// ---- float32 prefill: chunk-serial on the CUDA cores -------------------
+
+constexpr int kSerialChunk = 32;  // timesteps per chunk: one warp's lanes
+constexpr int kSerialThreads = 256;
+
 template <int kDh, int kN>
-constexpr int smem_floats() {
-  return kDh * (kN + 1)                  // state S[j][n]
-         + kChunk * kDh                  // x
-         + 3 * kChunk * (kN + 1)         // B_, C_, B_ weighted to the end
-         + kChunk * (kChunk + 1)         // G
-         + 4 * kChunk                    // dt, cum, exp(cum), to-end weight
-         + 1;                            // exp(total)
+constexpr int serial_smem_floats() {
+  return kDh * (kN + 1)                       // state S[j][n]
+         + kSerialChunk * kDh                 // x
+         + 3 * kSerialChunk * (kN + 1)        // B_, C_, B_ weighted
+         + kSerialChunk * (kSerialChunk + 1)  // G
+         + 4 * kSerialChunk                   // dt, cum, exp(cum), weight
+         + 1;                                 // exp(total)
 }
 
+// One block per (batch, head) walks the chunks of 32 in order: x, B_,
+// C_ and dt staged as fp32, the state's [dh, N] slice in shared memory,
+// warp 0's shuffles form the prefix sums, one thread a (t, s) pair the
+// decay-masked score G, then each thread owns outputs (t, j) and state
+// elements (j, n).
 template <typename T, int kDh, int kN>
-__global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const T* __restrict__ bm, const T* __restrict__ cm,
-           const float* __restrict__ a_neg, const float* state_in, T* y,
-           float* state_out, int t_len, int heads) {
+__global__ void __launch_bounds__(kSerialThreads)
+serial_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+              const T* __restrict__ bm, const T* __restrict__ cm,
+              const float* __restrict__ a_neg, const float* state_in, T* y,
+              float* state_out, int t_len, int heads) {
+  constexpr int kC = kSerialChunk;
   constexpr int kNRow = kN + 1;
-  constexpr int kGRow = kChunk + 1;
+  constexpr int kGRow = kC + 1;
   extern __shared__ float smem[];
   float* S = smem;                         // [kDh][kNRow]
-  float* xs = S + kDh * kNRow;             // [kChunk][kDh]
-  float* bs = xs + kChunk * kDh;           // [kChunk][kNRow]
-  float* cs = bs + kChunk * kNRow;
-  float* bw = cs + kChunk * kNRow;         // B_s exp(total - cum_s) dt_s
-  float* g = bw + kChunk * kNRow;          // [kChunk][kGRow]
-  float* dts = g + kChunk * kGRow;         // [kChunk]
-  float* cum = dts + kChunk;
-  float* ecum = cum + kChunk;
-  float* wend = ecum + kChunk;
-  float* etot = wend + kChunk;
+  float* xs = S + kDh * kNRow;             // [kC][kDh]
+  float* bs = xs + kC * kDh;               // [kC][kNRow]
+  float* cs = bs + kC * kNRow;
+  float* bw = cs + kC * kNRow;             // B_s exp(total - cum_s) dt_s
+  float* g = bw + kC * kNRow;              // [kC][kGRow]
+  float* dts = g + kC * kGRow;             // [kC]
+  float* cum = dts + kC;
+  float* ecum = cum + kC;
+  float* wend = ecum + kC;
+  float* etot = wend + kC;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -118,34 +178,32 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const size_t dbase = static_cast<size_t>(b) * t_len * heads + h;
   const size_t sbase = static_cast<size_t>(bh) * kDh * kN;
 
-  for (int i = tid; i < kDh * kN; i += kThreads) {
+  for (int i = tid; i < kDh * kN; i += kSerialThreads) {
     const int j = i / kN, n = i % kN;
     S[j * kNRow + n] = state_in ? state_in[sbase + i] : 0.f;
   }
 
-  for (int t0 = 0; t0 < t_len; t0 += kChunk) {
-    const int live = min(kChunk, t_len - t0);
-    // stage the chunk; rows past T are x = B_ = C_ = 0 and dt = 0, which
-    // add nothing to the output or the state and decay nothing
-    for (int i = tid; i < kChunk * kDh; i += kThreads) {
+  for (int t0 = 0; t0 < t_len; t0 += kC) {
+    const int live = min(kC, t_len - t0);
+    // rows past T are x = B_ = C_ = 0 and dt = 0: they add nothing
+    for (int i = tid; i < kC * kDh; i += kSerialThreads) {
       const int t = i / kDh, j = i % kDh;
       xs[i] = t < live
                   ? to_f32(x[xbase + static_cast<size_t>(t0 + t) * row_stride +
                              j])
                   : 0.f;
     }
-    for (int i = tid; i < kChunk * kN; i += kThreads) {
+    for (int i = tid; i < kC * kN; i += kSerialThreads) {
       const int t = i / kN, n = i % kN;
       const size_t at = nbase + static_cast<size_t>(t0) * kN + i;
       bs[t * kNRow + n] = t < live ? to_f32(bm[at]) : 0.f;
       cs[t * kNRow + n] = t < live ? to_f32(cm[at]) : 0.f;
     }
-    if (tid < kChunk)
+    if (tid < kC)
       dts[tid] = tid < live ? dt[dbase + static_cast<size_t>(t0 + tid) * heads]
                             : 0.f;
     __syncthreads();
     if (tid < 32) {
-      // inclusive prefix sum of the log decay dt A over the chunk
       float run = dts[tid] * a;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
@@ -159,21 +217,20 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       if (tid == 0) *etot = expf(total);
     }
     __syncthreads();
-    // G[t][s] = (C_t . B_s) exp(cum_t - cum_s) dt_s for s <= t < live
-    for (int i = tid; i < kChunk * kChunk; i += kThreads) {
-      const int t = i / kChunk, s = i % kChunk;
+    for (int i = tid; i < kC * kC; i += kSerialThreads) {
+      const int t = i / kC, s = i % kC;
       if (t >= live || s > t) continue;
       float dot = 0.f;
 #pragma unroll
       for (int n = 0; n < kN; ++n) dot += cs[t * kNRow + n] * bs[s * kNRow + n];
       g[t * kGRow + s] = dot * expf(cum[t] - cum[s]) * dts[s];
     }
-    for (int i = tid; i < kChunk * kN; i += kThreads) {
+    for (int i = tid; i < kC * kN; i += kSerialThreads) {
       const int s = i / kN, n = i % kN;
       bw[s * kNRow + n] = bs[s * kNRow + n] * wend[s];
     }
     __syncthreads();
-    for (int i = tid; i < kChunk * kDh; i += kThreads) {
+    for (int i = tid; i < kC * kDh; i += kSerialThreads) {
       const int t = i / kDh, j = i % kDh;
       if (t >= live) continue;
       float o = 0.f;
@@ -186,7 +243,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
     const float decay = *etot;
-    for (int i = tid; i < kDh * kN; i += kThreads) {
+    for (int i = tid; i < kDh * kN; i += kSerialThreads) {
       const int j = i / kN, n = i % kN;
       float s_new = decay * S[j * kNRow + n];
       for (int s = 0; s < live; ++s) s_new += xs[s * kDh + j] * bw[s * kNRow + n];
@@ -194,47 +251,647 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
   }
-  for (int i = tid; i < kDh * kN; i += kThreads) {
+  for (int i = tid; i < kDh * kN; i += kSerialThreads) {
     const int j = i / kN, n = i % kN;
     state_out[sbase + i] = S[j * kNRow + n];
   }
 }
 
+// ---- decode (T = 1) -------------------------------------------------------
+
+constexpr int kDecodeThreads = 128;
+
+// thread i owns elements 4 i .. 4 i + 3 of the state [B, H, dh, N]
+template <typename T, int kDh, int kN>
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+              const T* __restrict__ bm, const T* __restrict__ cm,
+              const float* __restrict__ a_neg, const float* state_in, T* y,
+              float* state_out, int heads, int quads) {
+  constexpr int kQ = kN / 4;  // threads a state row
+  const int i = blockIdx.x * kDecodeThreads + threadIdx.x;
+  if (i >= quads) return;  // whole warps: quads is a multiple of 32
+  const int row = i / kQ;  // (b * H + h) * dh + j
+  const int n0 = (i % kQ) * 4;
+  const int bh = row / kDh;
+  const int b = bh / heads, h = bh % heads;
+  const float dtv = dt[bh];  // at T = 1, dt [B, 1, H] holds (b, h) at bh
+  const float decay = expf(dtv * a_neg[h]);
+  const float xdt = to_f32(x[row]) * dtv;
+  const size_t at = static_cast<size_t>(row) * kN + n0;
+  float4 s = state_in ? *reinterpret_cast<const float4*>(state_in + at)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  float* sv = reinterpret_cast<float*>(&s);
+  float part = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    sv[e] = decay * sv[e] + xdt * to_f32(bm[b * kN + n0 + e]);
+    part += sv[e] * to_f32(cm[b * kN + n0 + e]);
+  }
+  *reinterpret_cast<float4*>(state_out + at) = s;
+#pragma unroll
+  for (int off = 1; off < kQ; off <<= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (n0 == 0) y[row] = from_f32<T>(part);
+}
+
+// ---- bfloat16 prefill: three chunk-parallel phases on mma.sync ---------
+
+constexpr int kChunk = 64;   // steps a block of phases (a) and (c) takes
+constexpr int kSub = 16;     // rows of a warp's strip
+constexpr int kStrips = kChunk / kSub;
+constexpr int kThreads = 32 * kStrips;  // one warp a strip
+constexpr int kHeads = 8;    // heads a block of phase (c) takes in turn
+constexpr int kBufs = 2;     // and the heads' buffers it keeps in flight
+constexpr int kIncHeads = kThreads / 32;  // heads of a phase (a) block
+constexpr int kPassThreads = 256;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` (16 or 4) from global to shared memory, or zeros when !live
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool live) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(live ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(live ? 4 : 0)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// rows [0, kChunk) of `width` bf16 each, `row_stride` apart from `src`,
+// into shared rows of `pitch`; rows from `live_rows` on are zero
+__device__ __forceinline__ void load_rows(bf16* dst, int pitch,
+                                          const bf16* src, size_t row_stride,
+                                          int width, int live_rows) {
+  const int per_row = width / 8;
+  for (int i = threadIdx.x; i < kChunk * per_row; i += blockDim.x) {
+    const int t = i / per_row, c = (i % per_row) * 8;
+    const bool live = t < live_rows;
+    cp_async<16>(dst + t * pitch + c,
+                 live ? src + static_cast<size_t>(t) * row_stride + c : src,
+                 live);
+  }
+}
+
+// dt of heads h .. h + n_heads - 1 over the chunk, each row's n_heads
+// floats side by side (rows `stride` apart), into rows of `pitch`
+__device__ __forceinline__ void load_dt(float* dst, int pitch,
+                                        const float* src, int stride,
+                                        int n_heads, int live_rows) {
+  for (int i = threadIdx.x; i < kChunk * n_heads; i += blockDim.x) {
+    const int t = i / n_heads, hh = i % n_heads;
+    const bool live = t < live_rows;
+    cp_async<4>(dst + t * pitch + hh,
+                live ? src + static_cast<size_t>(t) * stride + hh : src, live);
+  }
+}
+
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h),
+                                                 y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 x, bf16 y) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(x)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(y)) << 16);
+}
+
+// 2^x by the SFU (ex2.approx.ftz: about 2^-22 relative error; results
+// below 2^-126 flush to 0, where a decay's product is below fp32's
+// range anyway)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a . b: m16n8k16, bf16 in, fp32 sums; fragment layouts as in
+// csrc/wkv6.cu (lane 4 g + q: a rows g, g + 8 by columns 2q, 2q + 1,
+// 2q + 8, 2q + 9; b rows 2q, 2q + 1, 2q + 8, 2q + 9 of column g; d rows
+// g, g + 8 by columns 2q, 2q + 1)
+__device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp: the chunk's log decays a_t = dt_t A (log2 units; rows past T
+// have dt = 0) as strip-local inclusive prefix sums `cum`, strip-local
+// exclusive suffix sums `rx` (the rest of the strip after the row) and
+// strip totals `tot`; lane l takes rows l, l + 32, ...; dt of row t at
+// dts[t * stride].
+__device__ __forceinline__ void strip_sums(const float* dts, int stride,
+                                           float a2, float* cum, float* rx,
+                                           float* tot) {
+  const int lane = threadIdx.x % 32;
+  const int sl = lane % kSub;
+#pragma unroll
+  for (int part = 0; part < kChunk / 32; ++part) {
+    const int t = lane + 32 * part;
+    const float a = dts[t * stride] * a2;
+    float pre = a, suf = a;
+#pragma unroll
+    for (int off = 1; off < kSub; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, pre, off, kSub);
+      const float dn = __shfl_down_sync(0xffffffffu, suf, off, kSub);
+      if (sl >= off) pre += up;
+      if (sl + off < kSub) suf += dn;
+    }
+    float after = __shfl_down_sync(0xffffffffu, suf, 1, kSub);
+    if (sl == kSub - 1) after = 0.f;
+    cum[t] = pre;
+    rx[t] = after;
+    if (sl == kSub - 1) tot[t / kSub] = pre;
+  }
+}
+
+// the strips lo .. hi - 1, summed in order
+__device__ __forceinline__ float span(const float* tot, int lo, int hi) {
+  float s = 0.f;
+  for (int i = lo; i < hi; ++i) s += tot[i];
+  return s;
+}
+
+template <int kDh, int kN>
+struct Smem {
+  static constexpr int kXB = kDh + 8;  // bf16 row pitches (16 bytes of pad)
+  static constexpr int kNB = kN + 8;
+  static constexpr int kSF = kN + 4;   // fp32 row pitch of the state
+  static constexpr int kIncRow = kIncHeads * kDh + 8;
+  // increments_kernel: the group's x, B_, dt; each warp's cum, rx,
+  // weights and tot
+  static constexpr int kIncBytes = kChunk * kIncRow * 2 + kChunk * kNB * 2 +
+                                   kChunk * kIncHeads * 4 +
+                                   kIncHeads * (3 * kChunk + kStrips) * 4;
+  // outputs_kernel: C_, B_, the group's dt; kBufs buffers of x and the
+  // entering state; each warp's cum, rx and tot
+  static constexpr int kBufBytes = kChunk * kXB * 2 + kDh * kSF * 4;
+  static constexpr int kOutBytes = 2 * kChunk * kNB * 2 +
+                                   kChunk * kHeads * 4 + kBufs * kBufBytes +
+                                   kStrips * (2 * kChunk + kStrips) * 4;
+};
+
+// (a) one block a (chunk, b * groups + group of kIncHeads heads), warp
+// hh a head: dS = X^T (B_ exp2(total - cum) dt) over the chunk, all of
+// its dh x N.  The group's x rows lie side by side (kIncHeads dh bf16 a
+// row) and so do its dt.
+template <int kDh, int kN>
+__global__ void __launch_bounds__(kThreads)
+increments_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                  const bf16* __restrict__ bm,
+                  const float* __restrict__ a_neg, float* __restrict__ inc,
+                  float* __restrict__ decays, int t_len, int heads) {
+  using L = Smem<kDh, kN>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [kChunk][kIncRow]
+  bf16* bs = xs + kChunk * L::kIncRow;
+  float* dts = reinterpret_cast<float*>(bs + kChunk * L::kNB);
+  float* sums = dts + kChunk * kIncHeads;
+
+  const int c = blockIdx.x, n_chunks = gridDim.x;
+  const int groups = (heads + kIncHeads - 1) / kIncHeads;
+  const int b = blockIdx.y / groups;
+  const int h0 = (blockIdx.y % groups) * kIncHeads;
+  const int n_heads = min(kIncHeads, heads - h0);
+  const int t0 = c * kChunk;
+  const int live = min(kChunk, t_len - t0);
+  const size_t row0 = static_cast<size_t>(b) * t_len + t0;
+
+  load_rows(xs, L::kIncRow, x + (row0 * heads + h0) * kDh,
+            static_cast<size_t>(heads) * kDh, n_heads * kDh, live);
+  load_rows(bs, L::kNB, bm + row0 * kN, kN, kN, live);
+  load_dt(dts, kIncHeads, dt + row0 * heads + h0, heads, n_heads, live);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int hh = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (hh >= n_heads) return;
+  const int h = h0 + hh;
+  float* cum = sums + hh * (3 * kChunk + kStrips);  // this warp's own
+  float* rx = cum + kChunk;
+  float* wt = rx + kChunk;
+  float* tot = wt + kChunk;
+  strip_sums(dts + hh, kIncHeads, a_neg[h] * kLog2e, cum, rx, tot);
+  __syncwarp();
+  // B_s's weight exp2(total - cum_s) dt_s: the rest of the strip, then
+  // the strips after it
+  for (int s = lane; s < kChunk; s += 32)
+    wt[s] = fast_exp2(rx[s] + span(tot, s / kSub + 1, kStrips)) *
+            dts[s * kIncHeads + hh];
+  const size_t slot = (static_cast<size_t>(b) * heads + h) * n_chunks + c;
+  if (lane == 0) decays[slot] = fast_exp2(span(tot, 0, kStrips));
+  __syncwarp();
+
+  const int g = lane / 4, q = lane % 4;
+  // B_ weighted, as B operands (k = s, n = N column), hi and lo pairs
+  uint32_t bh2[kChunk / 16][kN / 8][2], bl2[kChunk / 16][kN / 8][2];
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int s = 16 * kk + 2 * q + 8 * p, col = 8 * n + g;
+        split_bf16(__bfloat162float(bs[s * L::kNB + col]) * wt[s],
+                   __bfloat162float(bs[(s + 1) * L::kNB + col]) * wt[s + 1],
+                   bh2[kk][n][p], bl2[kk][n][p]);
+      }
+  const bf16* xh = xs + hh * kDh;
+  float* out = inc + slot * kDh * kN;
+#pragma unroll
+  for (int m = 0; m < kDh / 16; ++m) {
+    float acc[kN / 8][4];
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    const int j0 = 16 * m + g;
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      // A = X^T: rows j0, j0 + 8; columns s = 16 kk + 2q (+1, +8, +9)
+      uint32_t a[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int j = j0 + 8 * (p & 1);
+        const int s = 16 * kk + 2 * q + 8 * (p >> 1);
+        a[p] = pack_bf16(xh[s * L::kIncRow + j], xh[(s + 1) * L::kIncRow + j]);
+      }
+#pragma unroll
+      for (int n = 0; n < kN / 8; ++n) {
+        mma(acc[n], a, bh2[kk][n]);
+        mma(acc[n], a, bl2[kk][n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n) {
+      const int col = 8 * n + 2 * q;
+      *reinterpret_cast<float2*>(out + j0 * kN + col) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(out + (j0 + 8) * kN + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+}
+
+// (b) one thread a float4 of state elements (j, n .. n + 3) of one
+// (b, h): the walk over the chunks; the state entering chunk c replaces
+// its increment in `inc`.
+template <int kDh, int kN>
+__global__ void __launch_bounds__(kPassThreads)
+pass_kernel(const float* state_in, float* state_out, float* inc,
+            const float* __restrict__ decays, int n_chunks) {
+  constexpr int kElems = kDh * kN;
+  constexpr int kAhead = 16;  // chunks whose loads are issued together
+  const int bh = blockIdx.y;
+  const int e = 4 * (blockIdx.x * kPassThreads + threadIdx.x);
+  if (e >= kElems) return;
+  const size_t at = static_cast<size_t>(bh) * kElems + e;
+  float4 run = state_in ? *reinterpret_cast<const float4*>(state_in + at)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  float* slot = inc + static_cast<size_t>(bh) * n_chunks * kElems + e;
+  const float* dec = decays + static_cast<size_t>(bh) * n_chunks;
+  for (int c0 = 0; c0 < n_chunks; c0 += kAhead) {
+    float4 x[kAhead];
+    float a[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (c0 + i < n_chunks) {
+        x[i] = *reinterpret_cast<const float4*>(
+            slot + static_cast<size_t>(c0 + i) * kElems);
+        a[i] = dec[c0 + i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (c0 + i < n_chunks) {
+        *reinterpret_cast<float4*>(slot + static_cast<size_t>(c0 + i) *
+                                              kElems) = run;
+        run = make_float4(a[i] * run.x + x[i].x, a[i] * run.y + x[i].y,
+                          a[i] * run.z + x[i].z, a[i] * run.w + x[i].w);
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(state_out + at) = run;
+}
+
+// (c) one block a (chunk, b * groups + head group); warp w takes the
+// strip of rows t = 16 w .. 16 w + 15 for each head of the group in turn.
+template <int kDh, int kN>
+__global__ void __launch_bounds__(kThreads)
+outputs_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+               const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+               const float* __restrict__ a_neg,
+               const float* __restrict__ entering, bf16* __restrict__ y,
+               int t_len, int heads, int has_state) {
+  using L = Smem<kDh, kN>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* bs = cs + kChunk * L::kNB;
+  float* dts = reinterpret_cast<float*>(bs + kChunk * L::kNB);  // [t][hh]
+  uint8_t* bufs = reinterpret_cast<uint8_t*>(dts + kChunk * kHeads);
+  float* sums = reinterpret_cast<float*>(bufs + kBufs * L::kBufBytes);
+  auto xbuf = [&](int i) {
+    return reinterpret_cast<bf16*>(bufs + i * L::kBufBytes);
+  };
+  auto sbuf = [&](int i) {
+    return reinterpret_cast<float*>(bufs + i * L::kBufBytes +
+                                    kChunk * L::kXB * 2);
+  };
+
+  const int c = blockIdx.x, n_chunks = gridDim.x;
+  const int groups = (heads + kHeads - 1) / kHeads;
+  const int b = blockIdx.y / groups;
+  const int h0 = (blockIdx.y % groups) * kHeads;
+  const int n_heads = min(kHeads, heads - h0);
+  const int t0 = c * kChunk;
+  const int live = min(kChunk, t_len - t0);
+  const size_t row0 = static_cast<size_t>(b) * t_len + t0;
+  const size_t row_stride = static_cast<size_t>(heads) * kDh;
+  // the state entering the chunk is zero for chunk 0 without a state in
+  const bool inter = c > 0 || has_state;
+
+  auto load_head = [&](int hh, int i) {
+    const int h = h0 + hh;
+    load_rows(xbuf(i), L::kXB, x + (row0 * heads + h) * kDh, row_stride,
+              kDh, live);
+    if (inter) {
+      const float* src = entering + ((static_cast<size_t>(b) * heads + h) *
+                                         n_chunks + c) * kDh * kN;
+      float* dst = sbuf(i);
+      for (int p = threadIdx.x; p < kDh * kN / 4; p += blockDim.x) {
+        const int j = p / (kN / 4), n = (p % (kN / 4)) * 4;
+        cp_async<16>(dst + j * L::kSF + n, src + j * kN + n, true);
+      }
+    }
+  };
+  load_rows(cs, L::kNB, cm + row0 * kN, kN, kN, live);
+  load_rows(bs, L::kNB, bm + row0 * kN, kN, kN, live);
+  load_dt(dts, kHeads, dt + row0 * heads + h0, heads, n_heads, live);
+  // a ring of kBufs buffers: head hh in buffer hh % kBufs, loaded
+  // kBufs - 1 heads ahead; a group is committed for every head slot, empty
+  // past the last head, so that waiting for all but the newest kBufs - 1
+  // groups always waits for head hh
+  load_head(0, 0);
+  cp_async_commit();
+#pragma unroll
+  for (int ahead = 1; ahead < kBufs - 1; ++ahead) {
+    if (ahead < n_heads) load_head(ahead, ahead);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int ta = kSub * warp + g, tb = ta + 8;  // this lane's rows
+  float* cum = sums + warp * (2 * kChunk + kStrips);  // this warp's own
+  float* rx = cum + kChunk;
+  float* tot = rx + kChunk;
+
+  uint32_t cfr[4];  // C_ rows ta, tb as an A operand (k = n)
+
+  for (int hh = 0; hh < n_heads; ++hh) {
+    const int i = hh % kBufs;
+    __syncthreads();  // head hh - 1's buffer is done with
+    if (hh + kBufs - 1 < n_heads)
+      load_head(hh + kBufs - 1, (hh + kBufs - 1) % kBufs);
+    cp_async_commit();
+    cp_async_wait<kBufs - 1>();
+    __syncthreads();
+    if (hh == 0) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int t = p & 1 ? tb : ta;
+        const int n = 2 * q + 8 * (p >> 1);
+        cfr[p] = n < kN ? pack_bf16(cs[t * L::kNB + n],
+                                    cs[t * L::kNB + n + 1])
+                        : 0u;
+      }
+    }
+    const int h = h0 + hh;
+    const float* dth = dts + hh;  // row t at dth[t * kHeads]
+    strip_sums(dth, kHeads, a_neg[h] * kLog2e, cum, rx, tot);
+    __syncwarp();
+
+    float acc[kDh / 8][4];
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    // exp2(cum_t) C_t S_c^T, the state as a hi and lo pair
+    if (inter) {
+      const float* S = sbuf(i);
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n) {
+        const int j = 8 * n + g;
+        uint32_t bh2[2], bl2[2];
+        split_bf16(S[j * L::kSF + 2 * q], S[j * L::kSF + 2 * q + 1], bh2[0],
+                   bl2[0]);
+        if (kN > 8) {
+          split_bf16(S[j * L::kSF + 2 * q + 8], S[j * L::kSF + 2 * q + 9],
+                     bh2[1], bl2[1]);
+        } else {
+          bh2[1] = bl2[1] = 0u;
+        }
+        mma(acc[n], cfr, bh2);
+        mma(acc[n], cfr, bl2);
+      }
+      const float pre = span(tot, 0, warp);
+      const float ea = fast_exp2(pre + cum[ta]), eb = fast_exp2(pre + cum[tb]);
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n) {
+        acc[n][0] *= ea;
+        acc[n][1] *= ea;
+        acc[n][2] *= eb;
+        acc[n][3] *= eb;
+      }
+    }
+
+    // ((C B^T) * L * dt) X: G's k step ks covers columns 16 ks .. 16 ks
+    // + 15, two tiles of C B^T (exact: bf16 products, fp32 sums) in the
+    // A operand's layout
+    const bf16* xs = xbuf(i);
+#pragma unroll
+    for (int ks = 0; ks < kStrips; ++ks) {
+      if (ks > warp) break;
+      float cb[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int s = kSub * ks + 8 * half + g;
+        const uint32_t bfr[2] = {
+            pack_bf16(bs[s * L::kNB + 2 * q], bs[s * L::kNB + 2 * q + 1]),
+            kN > 8 ? pack_bf16(bs[s * L::kNB + 2 * q + 8],
+                               bs[s * L::kNB + 2 * q + 9])
+                   : 0u};
+        mma(cb[half], cfr, bfr);
+      }
+      const float between = ks < warp ? span(tot, ks + 1, warp) : 0.f;
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int t = p & 1 ? tb : ta;
+        const float* cbt = cb[p >> 1];
+        float gv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int s = kSub * ks + 2 * q + 8 * (p >> 1) + e;
+          float ex;
+          if (ks < warp)
+            ex = cum[t] + rx[s] + between;
+          else
+            ex = s <= t ? cum[t] - cum[s] : -INFINITY;
+          gv[e] = s <= t ? cbt[2 * (p & 1) + e] * fast_exp2(ex) *
+                               dth[s * kHeads]
+                         : 0.f;
+        }
+        split_bf16(gv[0], gv[1], ah[p], al[p]);
+      }
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n) {
+        const int j = 8 * n + g;
+        const int s = kSub * ks + 2 * q;
+        const uint32_t bx[2] = {
+            pack_bf16(xs[s * L::kXB + j], xs[(s + 1) * L::kXB + j]),
+            pack_bf16(xs[(s + 8) * L::kXB + j], xs[(s + 9) * L::kXB + j])};
+        mma(acc[n], ah, bx);
+        mma(acc[n], al, bx);
+      }
+    }
+
+    // each output rounded once
+    bf16* ya = y + ((row0 + ta) * heads + h) * kDh;
+    bf16* yb = y + ((row0 + tb) * heads + h) * kDh;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      const int j = 8 * n + 2 * q;
+      if (ta < live)
+        *reinterpret_cast<__nv_bfloat162*>(ya + j) =
+            __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+      if (tb < live)
+        *reinterpret_cast<__nv_bfloat162*>(yb + j) =
+            __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+size_t n_chunks_of(int t_len) { return (t_len + kChunk - 1) / kChunk; }
+
+template <int kDh, int kN>
+int launch_chunked(const void* x, const float* dt, const void* bm,
+                   const void* cm, const float* a_neg,
+                   const float* state_in, void* y, float* state_out,
+                   float* scratch, int batch, int t_len, int heads,
+                   cudaStream_t stream) {
+  using L = Smem<kDh, kN>;
+  const int nc = static_cast<int>(n_chunks_of(t_len));
+  const int bhs = batch * heads;
+  const int groups = (heads + kHeads - 1) / kHeads;
+  if (bhs > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid.y
+  float* inc = scratch;
+  float* decays = scratch + static_cast<size_t>(bhs) * nc * kDh * kN;
+  cudaError_t err = allow_smem(increments_kernel<kDh, kN>, L::kIncBytes);
+  if (err == cudaSuccess)
+    err = allow_smem(outputs_kernel<kDh, kN>, L::kOutBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* bb = static_cast<const bf16*>(bm);
+  increments_kernel<kDh, kN>
+      <<<dim3(nc, batch * ((heads + kIncHeads - 1) / kIncHeads)), kThreads,
+         L::kIncBytes, stream>>>(xb, dt, bb, a_neg, inc, decays, t_len,
+                                 heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pass_kernel<kDh, kN>
+      <<<dim3((kDh * kN / 4 + kPassThreads - 1) / kPassThreads, bhs),
+         kPassThreads, 0, stream>>>(state_in, state_out, inc, decays, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  outputs_kernel<kDh, kN>
+      <<<dim3(nc, batch * groups), kThreads, L::kOutBytes, stream>>>(
+          xb, dt, bb, static_cast<const bf16*>(cm), a_neg, inc,
+          static_cast<bf16*>(y), t_len, heads, state_in != nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int kDh, int kN>
 int launch(const void* x, const float* dt, const void* bm, const void* cm,
            const float* a_neg, const float* state_in, void* y,
-           float* state_out, int batch, int t_len, int heads,
-           cudaStream_t stream) {
-  constexpr int kBytes =
-      smem_floats<kDh, kN>() * static_cast<int>(sizeof(float));
-  if (kBytes > 48 * 1024) {  // above 48 KB only after an opt-in
-    const cudaError_t set = cudaFuncSetAttribute(
-        ssd_kernel<T, kDh, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kBytes);
-    if (set != cudaSuccess) return static_cast<int>(set);
+           float* state_out, float* scratch, int batch, int t_len,
+           int heads, cudaStream_t stream) {
+  if (t_len == 1) {
+    const int quads = batch * heads * kDh * kN / 4;
+    decode_kernel<T, kDh, kN>
+        <<<(quads + kDecodeThreads - 1) / kDecodeThreads, kDecodeThreads, 0,
+           stream>>>(static_cast<const T*>(x), dt, static_cast<const T*>(bm),
+                     static_cast<const T*>(cm), a_neg, state_in,
+                     static_cast<T*>(y), state_out, heads, quads);
+    return static_cast<int>(cudaGetLastError());
   }
-  ssd_kernel<T, kDh, kN><<<batch * heads, kThreads, kBytes, stream>>>(
-      static_cast<const T*>(x), dt, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), a_neg, state_in, static_cast<T*>(y),
-      state_out, t_len, heads);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {
+    return launch_chunked<kDh, kN>(x, dt, bm, cm, a_neg, state_in, y,
+                                   state_out, scratch, batch, t_len, heads,
+                                   stream);
+  } else {
+    constexpr int kBytes =
+        serial_smem_floats<kDh, kN>() * static_cast<int>(sizeof(float));
+    const cudaError_t set = allow_smem(serial_kernel<T, kDh, kN>, kBytes);
+    if (set != cudaSuccess) return static_cast<int>(set);
+    serial_kernel<T, kDh, kN><<<batch * heads, kSerialThreads, kBytes,
+                                stream>>>(
+        static_cast<const T*>(x), dt, static_cast<const T*>(bm),
+        static_cast<const T*>(cm), a_neg, state_in, static_cast<T*>(y),
+        state_out, t_len, heads);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int kN>
 int by_head_dim(const void* x, const float* dt, const void* bm,
                 const void* cm, const float* a_neg, const float* state_in,
-                void* y, float* state_out, int batch, int t_len, int heads,
-                int head_dim, cudaStream_t s) {
+                void* y, float* state_out, float* scratch, int batch,
+                int t_len, int heads, int head_dim, cudaStream_t s) {
   switch (head_dim) {
     case 32:
       return launch<T, 32, kN>(x, dt, bm, cm, a_neg, state_in, y, state_out,
-                               batch, t_len, heads, s);
+                               scratch, batch, t_len, heads, s);
     case 64:
       return launch<T, 64, kN>(x, dt, bm, cm, a_neg, state_in, y, state_out,
-                               batch, t_len, heads, s);
+                               scratch, batch, t_len, heads, s);
     case 128:
-      return launch<T, 128, kN>(x, dt, bm, cm, a_neg, state_in, y, state_out,
-                                batch, t_len, heads, s);
+      return launch<T, 128, kN>(x, dt, bm, cm, a_neg, state_in, y,
+                                state_out, scratch, batch, t_len, heads, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -243,15 +900,16 @@ int by_head_dim(const void* x, const float* dt, const void* bm,
 template <typename T>
 int dispatch(const void* x, const float* dt, const void* bm, const void* cm,
              const float* a_neg, const float* state_in, void* y,
-             float* state_out, int batch, int t_len, int heads, int head_dim,
-             int d_state, cudaStream_t s) {
+             float* state_out, float* scratch, int batch, int t_len,
+             int heads, int head_dim, int d_state, cudaStream_t s) {
   switch (d_state) {
     case 8:
       return by_head_dim<T, 8>(x, dt, bm, cm, a_neg, state_in, y, state_out,
-                               batch, t_len, heads, head_dim, s);
+                               scratch, batch, t_len, heads, head_dim, s);
     case 16:
-      return by_head_dim<T, 16>(x, dt, bm, cm, a_neg, state_in, y, state_out,
-                                batch, t_len, heads, head_dim, s);
+      return by_head_dim<T, 16>(x, dt, bm, cm, a_neg, state_in, y,
+                                state_out, scratch, batch, t_len, heads,
+                                head_dim, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -259,21 +917,38 @@ int dispatch(const void* x, const float* dt, const void* bm, const void* cm,
 
 }  // namespace
 
+// The scratch a call takes, in floats: the chunk increments (then the
+// states entering each chunk) [batch, heads, NC, head_dim, d_state] and
+// the chunk decays [batch, heads, NC], NC = ceil(t_len / 64), for a
+// bfloat16 prefill (t_len > 1); 0 otherwise.
+extern "C" long long ssd_scratch_floats(int batch, int t_len, int heads,
+                                        int head_dim, int d_state,
+                                        int dtype) {
+  if (dtype != 1 || t_len <= 1 || batch <= 0 || heads <= 0) return 0;
+  const long long nc = static_cast<long long>(n_chunks_of(t_len));
+  return static_cast<long long>(batch) * heads * nc *
+         (static_cast<long long>(head_dim) * d_state + 1);
+}
+
 // C interface, loaded with ctypes.  x, y: [batch, t_len, heads, head_dim]
 // of one dtype (0 float32, 1 bfloat16); b, c: [batch, t_len, d_state] of
 // that dtype, shared by every head; dt: [batch, t_len, heads] float32,
 // each entry 0 or more; a: [heads] float32, each below 0; state_in (or
 // null for a zero state) and state_out: [batch, heads, head_dim, d_state]
-// float32; all contiguous.  state_in may equal state_out (each block
-// reads its slice before it writes it).  t_len must be at least 1.
-// Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head
-// dim other than 32, 64 or 128, a d_state other than 8 or 16, or
-// another dtype).
+// float32; scratch: at least ssd_scratch_floats(...) floats (null when
+// that is 0); all contiguous, and for a bfloat16 prefill x, b, c and dt
+// 16-byte aligned (cp.async).  state_in may equal state_out.  t_len must
+// be at least 1.  Launches on `stream` (one kernel at T = 1 and in
+// float32, three for a bfloat16 prefill), does not synchronise, and
+// returns cudaGetLastError() after the launches (cudaErrorInvalidValue
+// for a head dim other than 32, 64 or 128, a d_state other than 8 or 16,
+// another dtype, or a bfloat16 prefill of more than 65,535 (batch, head)
+// rows).
 extern "C" int ssd(const void* x, const void* dt, const void* b,
                    const void* c, const void* a, const void* state_in,
-                   void* y, void* state_out, int batch, int t_len, int heads,
-                   int head_dim, int d_state, int dtype, void* stream) {
+                   void* y, void* state_out, void* scratch, int batch,
+                   int t_len, int heads, int head_dim, int d_state,
+                   int dtype, void* stream) {
   if (batch <= 0 || heads <= 0 || t_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -281,12 +956,13 @@ extern "C" int ssd(const void* x, const void* dt, const void* b,
   const auto* an = static_cast<const float*>(a);
   const auto* si = static_cast<const float*>(state_in);
   auto* so = static_cast<float*>(state_out);
+  auto* sc = static_cast<float*>(scratch);
   if (dtype == 0)
-    return dispatch<float>(x, d, b, c, an, si, y, so, batch, t_len, heads,
-                           head_dim, d_state, s);
+    return dispatch<float>(x, d, b, c, an, si, y, so, sc, batch, t_len,
+                           heads, head_dim, d_state, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, d, b, c, an, si, y, so, batch, t_len,
-                                   heads, head_dim, d_state, s);
+    return dispatch<__nv_bfloat16>(x, d, b, c, an, si, y, so, sc, batch,
+                                   t_len, heads, head_dim, d_state, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

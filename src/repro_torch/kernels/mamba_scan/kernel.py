@@ -6,11 +6,15 @@
 A [H] (the Pallas kernel takes [B*H, T, ...] rows with B_ and C_ copied
 per head), with the state carried in and out, and any T (the Pallas
 kernel asserts T % chunk == 0).  On CUDA tensors it launches the CUDA
-kernel on the current stream, or raises; on CPU tensors it runs
-``ref.ssd_plain``.  Nothing else selects between the two.
+kernels on the current stream, or raises; on CPU tensors it runs
+``ref.ssd_plain``.  Nothing else selects between the two.  A bf16
+prefill (T > 1) runs three CUDA kernels (chunk increments, the pass
+over the chunks, the outputs) over a scratch this wrapper allocates;
+T = 1 and fp32 run one.
 
-``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
-on CPU tensors launches nothing and counts nothing.
+``LAUNCHES`` counts calls that launched the kernels, one a call however
+many CUDA kernels it runs, under the TPU kernel's name; a call on CPU
+tensors launches nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -44,8 +48,10 @@ _I = ctypes.c_int
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("ssd")
-    lib.ssd.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.ssd.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     lib.ssd.restype = _I
+    lib.ssd_scratch_floats.argtypes = [_I] * 6
+    lib.ssd_scratch_floats.restype = ctypes.c_longlong
     lib.ssd_error_string.argtypes = [_I]
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib
@@ -117,6 +123,14 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                     ("state", state)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # the state is read as float4s, a bf16 prefill's inputs by cp.async
+    wide = (("state", state),) if state is not None else ()
+    if x.dtype == torch.bfloat16 and T > 1:
+        wide += (("x", x), ("B_", B_), ("C_", C_))
+    for name, t in wide:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the kernels "
+                             "read it in 16-byte pieces")
     y = torch.empty_like(x)
     state_out = torch.empty(Bsz, H, dh, N, dtype=torch.float32, device=dev)
     if Bsz == 0 or H == 0:
@@ -126,13 +140,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
             return y, state_out.zero_()
         return y, state_out.copy_(state)
     lib = _library()
+    n_scratch = lib.ssd_scratch_floats(Bsz, T, H, dh, N, DTYPES[x.dtype])
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) \
+        if n_scratch else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd(x.data_ptr(), dt.data_ptr(), B_.data_ptr(),
                       C_.data_ptr(), A.data_ptr(),
                       state.data_ptr() if state is not None else None,
-                      y.data_ptr(), state_out.data_ptr(), Bsz, T, H, dh, N,
-                      DTYPES[x.dtype], stream)
+                      y.data_ptr(), state_out.data_ptr(),
+                      scratch.data_ptr() if scratch is not None else None,
+                      Bsz, T, H, dh, N, DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("ssd kernel launch failed: "
                            + lib.ssd_error_string(err).decode())

@@ -5,12 +5,15 @@
 v and logw [B, T, H, dh], u [H, dh] (the Pallas kernel takes one head's
 [B*H, T, dh] and its ops.py loops over heads), with the state carried
 in and out, and any T (the Pallas kernel asserts T % chunk == 0).  On
-CUDA tensors it launches the CUDA kernel on the current stream, or
+CUDA tensors it launches the CUDA kernels on the current stream, or
 raises; on CPU tensors it runs ``ref.wkv6_plain``.  Nothing else
-selects between the two.
+selects between the two.  A bf16 prefill (T > 1) runs three CUDA
+kernels (chunk increments, the pass over the chunks, the outputs) over
+a scratch this wrapper allocates; T = 1 and fp32 run one.
 
-``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
-on CPU tensors launches nothing and counts nothing.
+``LAUNCHES`` counts calls that launched the kernels, one a call however
+many CUDA kernels it runs, under the TPU kernel's name; a call on CPU
+tensors launches nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -43,8 +46,10 @@ _I = ctypes.c_int
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("wkv6")
-    lib.wkv6.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.wkv6.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     lib.wkv6.restype = _I
+    lib.wkv6_scratch_floats.argtypes = [_I] * 5
+    lib.wkv6_scratch_floats.restype = ctypes.c_longlong
     lib.wkv6_error_string.argtypes = [_I]
     lib.wkv6_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,6 +114,14 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ("state", state)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # the state is read as float4s, a bf16 prefill's inputs by cp.async
+    wide = (("state", state),) if state is not None else ()
+    if r.dtype == torch.bfloat16 and T > 1:
+        wide += (("r", r), ("k", k), ("v", v), ("logw", logw))
+    for name, t in wide:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the kernels "
+                             "read it in 16-byte pieces")
     out = torch.empty_like(r)
     state_out = torch.empty(B, H, dh, dh, dtype=torch.float32, device=dev)
     if B == 0 or H == 0:
@@ -118,13 +131,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return out, state_out.zero_()
         return out, state_out.copy_(state)
     lib = _library()
+    n_scratch = lib.wkv6_scratch_floats(B, T, H, dh, DTYPES[r.dtype])
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) \
+        if n_scratch else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                        logw.data_ptr(), u.data_ptr(),
                        state.data_ptr() if state is not None else None,
-                       out.data_ptr(), state_out.data_ptr(), B, T, H, dh,
-                       DTYPES[r.dtype], stream)
+                       out.data_ptr(), state_out.data_ptr(),
+                       scratch.data_ptr() if scratch is not None else None,
+                       B, T, H, dh, DTYPES[r.dtype], stream)
     if err:
         raise RuntimeError("wkv6 kernel launch failed: "
                            + lib.wkv6_error_string(err).decode())

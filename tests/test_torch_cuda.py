@@ -539,6 +539,10 @@ def wkv_inputs(rng, B, T, H, dh, dtype, device, strong=False):
     return r, k, v, logw, u, state
 
 
+# the bf16 prefill takes chunks of CHUNK steps; T = 1 is the decode path
+CHUNK = 64
+
+
 @pytest.mark.parametrize("B,T,H,dh,dtype,strong,carried", [
     (1, 512, 64, 64, torch.bfloat16, False, False),  # RWKV6-7B prefill
     (1, 1, 64, 64, torch.bfloat16, False, True),     # RWKV6-7B decode
@@ -546,6 +550,16 @@ def wkv_inputs(rng, B, T, H, dh, dtype, device, strong=False):
     (2, 37, 4, 32, torch.float32, False, True),      # ragged T, reduced
     (1, 300, 2, 128, torch.float32, True, True),
     (3, 16, 3, 64, torch.float32, False, False),
+    # decode at B = 2 and 4, both dtypes, every head dim
+    *[(B, 1, 3, dh, dtype, B == 4, True) for B in (2, 4)
+      for dtype in (torch.float32, torch.bfloat16) for dh in (32, 64, 128)],
+    # around the chunk: C - 1, C, C + 1 and 2C + 1 (strong decays there)
+    (1, CHUNK - 1, 3, 64, torch.bfloat16, False, True),
+    (2, CHUNK, 2, 32, torch.bfloat16, False, False),
+    (1, CHUNK + 1, 2, 128, torch.bfloat16, False, True),
+    (2, 2 * CHUNK + 1, 3, 64, torch.bfloat16, True, True),
+    (1, 2 * CHUNK + 1, 2, 64, torch.float32, True, True),
+    (1, 32, 64, 64, torch.bfloat16, False, False),   # RWKV's 32-token prompt
 ])
 def test_wkv6_matches_plain_version(card, B, T, H, dh, dtype, strong,
                                     carried):
@@ -671,6 +685,16 @@ def ssd_inputs(rng, B, T, H, dh, N, dtype, device):
     (3, 256, 2, 128, 16, torch.float32, False),     # test_kernels' width
     (1, 64, 4, 64, 8, torch.float32, True),
     (4, 1, 8, 32, 8, torch.float32, True),          # reduced decode
+    (1, 1, 8, 32, 8, torch.float32, True),          # the hybrid's decode
+    (1, 1, 256, 64, 16, torch.float32, True),       # Mamba's fp32 decode
+    # decode at B = 2 and 4, both dtypes, every head dim
+    *[(B, 1, 5, dh, 16 if dh == 64 else 8, dtype, True) for B in (2, 4)
+      for dtype in (torch.float32, torch.bfloat16) for dh in (32, 64, 128)],
+    # around the chunk: C - 1, C, C + 1 and 2C + 1
+    (1, CHUNK - 1, 9, 64, 16, torch.bfloat16, True),
+    (2, CHUNK, 3, 32, 8, torch.bfloat16, False),
+    (1, CHUNK + 1, 17, 128, 16, torch.bfloat16, True),
+    (3, 2 * CHUNK + 1, 8, 64, 8, torch.bfloat16, True),
 ])
 def test_ssd_matches_plain_version(card, B, T, H, dh, N, dtype, carried):
     rng = np.random.default_rng(T + H + dh + N)
@@ -714,6 +738,34 @@ def test_ssd_state_chains_on_card(card):
         2e-5 * scale
     assert float((s - s_whole).abs().max()) <= 2e-5 * float(
         s_whole.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_wkv6_state_chains_on_card(card, dtype):
+    """A prompt in three pieces (a prefill of 2C + 1, one decode step, a
+    ragged prefill) chained through the state equals the plain version
+    over the whole, with strong decays: outputs within 2e-5 (fp32) or the
+    bf16 limit, the final state within 2e-5."""
+    rng = np.random.default_rng(7)
+    r, k, v, logw, u, state = wkv_inputs(rng, 2, 3 * CHUNK, 3, 64, dtype,
+                                         card, strong=True)
+    plain, plain_state = kwkv.wkv6_plain(r, k, v, logw, u, state)
+    outs, s = [], state
+    for lo, hi in ((0, 2 * CHUNK + 1), (2 * CHUNK + 1, 2 * CHUNK + 2),
+                   (2 * CHUNK + 2, 3 * CHUNK)):
+        piece = (t[:, lo:hi].contiguous() for t in (r, k, v, logw))
+        o, s = kwkv.wkv6(*piece, u, s)
+        outs.append(o)
+    got = torch.cat(outs, 1)
+    diff = (got.float() - plain.float()).abs()
+    p = plain.float().abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5 * float(p.max())
+    else:
+        assert bool((diff <= 4 * 2.0 ** -8 * (p + 2.0 ** -8 * p.max())).all())
+    assert float((s - plain_state).abs().max()) <= 2e-5 * float(
+        plain_state.abs().max())
 
 
 def test_ssd_raises_and_never_falls_back(card):
