@@ -115,7 +115,10 @@ Phases, each of which exits non-zero on failure:
 4. each kernel against its plain PyTorch version on the card, on 4096
    queries made from ``--seed`` over a table a path loaded (hits,
    misses, fingerprint near-misses, key 0, and keys of 2^63 and above
-   where the index takes them): outputs must be bit-identical; the two
+   where the index takes them): outputs must be bit-identical; the
+   per-epoch packing of P-ART's and P-HOT's child entries on the
+   export's whole table, bit-identical to its plain version and to the
+   table the path descended; the two
    attention kernels on inputs drawn from ``--seed`` at the serving
    path's shapes, elementwise within ``ATTN_STEPS`` bf16 unit
    roundoffs, a limit that a dropped newest key breaks; the tag probe
@@ -163,6 +166,7 @@ from repro_torch.core import CrashPoint  # noqa: E402
 from repro_torch.core.ycsb import PhaseExecutor, generate  # noqa: E402
 from repro_torch.distributed import streams as dstreams  # noqa: E402
 from repro_torch.kernels import art_probe as kart  # noqa: E402
+from repro_torch.kernels.art_probe import ops as art_ops  # noqa: E402
 from repro_torch.kernels import clht_probe as ktag  # noqa: E402
 from repro_torch.configs import get_arch, layer_kinds  # noqa: E402
 from repro_torch.kernels import conflict as kconf  # noqa: E402
@@ -196,6 +200,7 @@ BF16_FLOPS_PER_S = 989e12
 SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "probe64": "src/repro_torch/csrc/probe.cu",
            "art_descend": "src/repro_torch/csrc/art_descend.cu",
+           "art_pack_entries": "src/repro_torch/csrc/art_descend.cu",
            "scan_window": "src/repro_torch/csrc/scan_window.cu",
            "scan_window_sharded": "src/repro_torch/csrc/scan_window.cu",
            "shard_route": "src/repro_torch/csrc/shard_route.cu",
@@ -207,10 +212,14 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "ssd": "src/repro_torch/csrc/ssd.cu"}
 # the sharded search is scan_window with a shard axis; on the JAX
 # package's mesh path it takes the place of a vmapped lower bound
-# (src/repro/distributed/mesh.py:84), which is not a Pallas kernel
+# (src/repro/distributed/mesh.py:84), which is not a Pallas kernel; the
+# per-epoch packing of the descent's child entries takes the place of the
+# JAX package's upload of `level` and `is_leaf` beside the child table
+# (its _prepare), which is not one either
 REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "probe64": "src/repro/kernels/probe/kernel.py:108",
             "art_descend": "src/repro/kernels/art_probe/kernel.py:96",
+            "art_pack_entries": "src/repro/kernels/art_probe/ops.py:45",
             "scan_window": "src/repro/kernels/scan/kernel.py:79",
             "scan_window_sharded": "src/repro/kernels/scan/kernel.py:79",
             "shard_route": "src/repro/kernels/partition/kernel.py:102",
@@ -892,9 +901,9 @@ def time_kernel(name: str, fn, plain_fn, batches, reps: int = 640,
 
 
 def probe_table(index):
-    """The table the P-CLHT path's last read wave probed: (keys, vals,
-    fps, nxt) on the card, the longest chain, the bucket count, and the
-    host export it was uploaded from."""
+    """The table the P-CLHT path's last read wave probed: (the line
+    table on the card, the longest chain, the bucket count), and the
+    host export it was packed from."""
     snap = index.snapshot()
     check("clht_probe" in snap.cache, "the P-CLHT path left no table on "
           "the card")
@@ -963,12 +972,12 @@ def probe_bound(arrays, depth: int, q: np.ndarray, use_fp: bool):
 
 
 def probe_vs_plain(index, seed: int, launches: dict) -> list:
-    (table, depth, n), arrays = probe_table(index)
-    dev = table[0].device
-    keys, vals, fps, nxt = table
-    n_bytes = sum(t.numel() * t.element_size() for t in table)
-    say(f"P-CLHT table: {keys.shape[0]} rows, {n} buckets, longest chain "
-        f"{depth}, {n_bytes} bytes on {dev}")
+    (lines, depth, n), arrays = probe_table(index)
+    dev = lines.device
+    n_rows = arrays[0].shape[0]
+    say(f"P-CLHT table: {n_rows} rows, {n} buckets, longest chain "
+        f"{depth}, {lines.shape[0]} lines ({lines.shape[0] - n_rows} chain "
+        f"copies), {lines.numel() * lines.element_size()} bytes on {dev}")
     rng = np.random.default_rng(seed + 2)
     q = probe_queries(arrays, depth, Q, rng)
 
@@ -983,11 +992,9 @@ def probe_vs_plain(index, seed: int, launches: dict) -> list:
               for _ in range(64)]
     rows = []
     for name, use_fp in (("probe64_fp", True), ("probe64", False)):
-        got = kprobe.probe_chain(qt, bt, keys, vals, fps, nxt, depth,
-                                 use_fp=use_fp)
+        got = kprobe.probe_chain(qt, bt, lines, depth, use_fp=use_fp)
         torch.cuda.synchronize()
-        plain = kprobe.probe_chain_plain(qt, bt, keys, vals, fps, nxt, depth,
-                                         use_fp=use_fp)
+        plain = kprobe.probe_chain_plain(qt, bt, lines, depth, use_fp=use_fp)
         err = compare(name, got, plain)
         found = got[0].cpu().numpy()
         check(found.sum() >= Q // 2, f"{name}: drawn hits were not found")
@@ -999,9 +1006,9 @@ def probe_vs_plain(index, seed: int, launches: dict) -> list:
         say(f"{name}: bit-identical to its plain version on {Q} queries "
             f"({int(found.sum())} found)")
         timed = time_kernel(name, lambda a, b: kprobe.probe_chain(
-            a, b, keys, vals, fps, nxt, depth, use_fp=use_fp),
+            a, b, lines, depth, use_fp=use_fp),
             lambda a, b: kprobe.probe_chain_plain(
-                a, b, keys, vals, fps, nxt, depth, use_fp=use_fp), timing)
+                a, b, lines, depth, use_fp=use_fp), timing)
         bms, by = probe_bound(arrays, depth, q, use_fp)
         say(f"{name}: bound {bms:.9f} ms ({by}) at Q={Q}, depth {depth}; "
             f"main-path launches {launches[name]}")
@@ -1026,11 +1033,11 @@ def radix_queries(arrays, n: int, rng) -> np.ndarray:
 
 
 def radix_bound(arrays, q: np.ndarray):
-    """Least time for one descent launch over this batch: each visited
-    inner row's level and is_leaf bytes and the one child entry taken,
-    each reached leaf's is_leaf and fingerprint bytes, key and value
-    words of the leaves whose fingerprint matched, the queries, and the
-    outputs (found, value, three counts)."""
+    """Least time for one descent launch over this batch: the one packed
+    child entry taken at each visited inner row (it carries the child's
+    level and leaf bit), each reached leaf's fingerprint byte, the key
+    and value words of the leaves whose fingerprint matched, the
+    queries, and the outputs (found, value, three counts)."""
     children, level = arrays["children"], arrays["level"]
     is_leaf = np.asarray(arrays["is_leaf"]) != 0
     lfp = np.asarray(arrays["leaf_fp"])
@@ -1040,7 +1047,7 @@ def radix_bound(arrays, q: np.ndarray):
     qfp = fp_partial(q)
     node = np.zeros(q.size, np.int64)
     active = np.ones(q.size, bool)
-    inner, entries, leaves, matched = [], [], [], []
+    entries, leaves, matched = [], [], []
     steps = 0
     for _ in range(n_units + 1):
         idx = np.nonzero(active)[0]
@@ -1051,7 +1058,6 @@ def radix_bound(arrays, q: np.ndarray):
         matched.append(at[leaf & (lfp[at] == qfp[idx])])
         active[idx[leaf]] = False
         idx, at = idx[~leaf], at[~leaf]
-        inner.append(at)
         lvl = np.clip(level[at], 0, n_units - 1).astype(np.uint64)
         shift = np.uint64(unit_bits) * (np.uint64(n_units - 1) - lvl)
         unit = ((uq[idx] >> shift) & np.uint64(fan - 1)).astype(np.int64)
@@ -1061,25 +1067,84 @@ def radix_bound(arrays, q: np.ndarray):
         active[idx[stop]] = False
         node[idx[~stop]] = child[~stop]
     uniq = [np.unique(np.concatenate(a)).size
-            for a in (inner, entries, leaves, matched)]
-    n_bytes = (q.size * 8 + uniq[0] * 5 + uniq[1] * 4 + uniq[2] * 2
-               + uniq[3] * 16 + q.size * (1 + 8 + 12))
+            for a in (entries, leaves, matched)]
+    n_bytes = (q.size * 8 + uniq[0] * 4 + uniq[1] + uniq[2] * 16
+               + q.size * (1 + 8 + 12))
     return bound(n_bytes, steps * 12 + q.size * 10)
 
 
+def time_in_place(fn, fresh, reps: int) -> float:
+    """ms a call of ``fn``, which rewrites its input in place: each call
+    is given a fresh copy (``fresh()``, untimed), and CUDA events around
+    the call alone time it."""
+    total = 0.0
+    for i in range(reps + 1):  # the first call warms up
+        args = fresh()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def pack_vs_plain(tag: str, arrays, pages, unit_bits: int) -> tuple:
+    """The per-epoch packing at the main path's size: the export's child
+    table uploaded afresh and packed by the kernel and by its plain
+    version, each held to the other and to the table the path's read
+    waves descended; then both timed.  Returns (err, timed, bound ms,
+    bound by, entries)."""
+    table, hdr, root = art_ops.upload_children(
+        arrays["children"], arrays["level"], arrays["is_leaf"],
+        unit_bits=unit_bits, device=pages[0].device)
+    check(root == pages[1], f"art_pack_entries ({tag}): the root header "
+          "differs from the main path's")
+    raw, plain = table.clone(), table.clone()
+    kart.kernel.pack_entries(table, hdr)
+    torch.cuda.synchronize()
+    kart.ref.pack_entries_plain(plain, hdr)
+    err = compare(f"art_pack_entries ({tag})", (table,), (plain,))
+    check(torch.equal(table, pages[0]), f"art_pack_entries ({tag}): the "
+          "packed table differs from the one the main path descended")
+    n_entries = table.numel()
+    say(f"art_pack_entries ({tag}): bit-identical to its plain version "
+        f"and to the main path's table on {n_entries} entries "
+        f"({int((table >= 0).sum())} children)")
+
+    def fresh():
+        table.copy_(raw)
+        return table, hdr
+    timed = {"ms": time_in_place(kart.kernel.pack_entries, fresh, 5),
+             "plain_ms": time_in_place(kart.ref.pack_entries_plain, fresh,
+                                       3)}
+    say(f"art_pack_entries ({tag}): {timed['ms']:.6f} ms a call, plain "
+        f"{timed['plain_ms']:.6f} ms (CUDA events around the call)")
+    # each entry read and written once, each row's header read once;
+    # three lane operations an entry (range test, shift, or)
+    bms, by = bound(n_entries * 8 + hdr.numel() * 4, n_entries * 3)
+    del table, raw, plain, hdr
+    return err, timed, bms, by, n_entries
+
+
 def radix_vs_plain(sessions, seed: int, launches: dict) -> list:
-    """art_descend at 8-bit (P-ART) and 4-bit (P-HOT) units; the row
-    carries the P-ART numbers, the main path's shape."""
-    rows = []
+    """art_descend at 8-bit (P-ART) and 4-bit (P-HOT) units, and the
+    per-epoch packing of their child entries; the rows carry the P-ART
+    numbers, the main path's shape."""
+    rows, packs = [], []
     err = 0
     for tag, session in sessions:
         snap = session.index.snapshot()
         check("art_probe" in snap.cache, f"the {tag} path left no node "
               "pages on the card")
         unit_bits, *pages = snap.cache["art_probe"]
-        n_bytes = sum(t.numel() * t.element_size() for t in pages)
+        n_bytes = sum(t.numel() * t.element_size() for t in pages
+                      if isinstance(t, torch.Tensor))
         say(f"{tag} node pages: {pages[0].shape[0]} rows, {unit_bits}-bit "
-            f"units, {n_bytes} bytes on {pages[0].device}")
+            f"units, root header {pages[1]}, {n_bytes} bytes on "
+            f"{pages[0].device}")
         rng = np.random.default_rng(seed + 3)
         q = radix_queries(snap.arrays, Q, rng)
         qt = torch.from_numpy(q).to(pages[0].device)
@@ -1108,10 +1173,18 @@ def radix_vs_plain(sessions, seed: int, launches: dict) -> list:
         bms, by = radix_bound(snap.arrays, q)
         say(f"art_descend ({tag}): bound {bms:.9f} ms ({by}) at Q={Q}")
         rows.append((tag, timed, bms, by, unit_bits, pages[0].shape[0]))
+        packs.append((tag,) + pack_vs_plain(tag, snap.arrays, pages,
+                                            unit_bits))
     tag, timed, bms, by, unit_bits, n_rows = rows[0]
     say(f"art_descend: main-path launches {launches['art_descend']}")
+    say(f"art_pack_entries: main-path launches "
+        f"{launches['art_pack_entries']}")
+    p_tag, p_err, p_timed, p_bms, p_by, n_entries = packs[0]
     return [row("art_descend", launches, err, timed, bms, by, None,
-                f"{tag}, Q={Q}, {unit_bits}-bit units, {n_rows} rows")]
+                f"{tag}, Q={Q}, {unit_bits}-bit units, {n_rows} rows"),
+            row("art_pack_entries", launches,
+                max(p[1] for p in packs), p_timed, p_bms, p_by, None,
+                f"{p_tag}, {n_entries} entries, {n_rows} rows")]
 
 
 def scan_bound(keys: np.ndarray, q: np.ndarray, counts: np.ndarray,
@@ -2287,10 +2360,10 @@ def main(argv=None) -> int:
         ("P-CLHT", "clht", ("probe64_fp", "probe64"),
          lambda s: point_path(s, args.n_clht, args.seed, "P-CLHT",
                               edge_keys=False)),
-        ("P-ART", "art", ("art_descend",),
+        ("P-ART", "art", ("art_descend", "art_pack_entries"),
          lambda s: point_path(s, args.n_art, args.seed, "P-ART",
                               edge_keys=True)),
-        ("P-HOT", "hot", ("art_descend",),
+        ("P-HOT", "hot", ("art_descend", "art_pack_entries"),
          lambda s: point_path(s, args.n_hot, args.seed, "P-HOT",
                               edge_keys=True)),
         ("P-Masstree", "masstree", ("scan_window",),
@@ -2343,7 +2416,7 @@ def main(argv=None) -> int:
     say(f"serving path: {time.perf_counter() - t0:.3f} s; kernel launches "
         f"{counts}")
     for name in ("flash_attention", "paged_attention", "probe64_fp",
-                 "art_descend", "scan_window"):
+                 "art_descend", "art_pack_entries", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the serving "
               "path")
     for name in launches:
@@ -2367,7 +2440,8 @@ def main(argv=None) -> int:
           f"({rwkv['decode_steps']}): {want}")
     split["wkv6"]["prefill"] += n_layers * rwkv["prefills"]
     split["wkv6"]["decode"] += n_layers * rwkv["decode_steps"]
-    for name in ("probe64_fp", "art_descend", "scan_window"):
+    for name in ("probe64_fp", "art_descend", "art_pack_entries",
+                 "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the RWKV "
               "serving path")
     for name in launches:
@@ -2414,7 +2488,7 @@ def main(argv=None) -> int:
     split["ssd"]["prefill"] += n_mixers * hybrid["prefills"]
     split["ssd"]["decode"] += n_mixers * hybrid["decode_steps"]
     for name in ("flash_attention", "paged_attention", "probe64_fp",
-                 "art_descend", "scan_window"):
+                 "art_descend", "art_pack_entries", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the hybrid "
               "serving path")
     for name in launches:

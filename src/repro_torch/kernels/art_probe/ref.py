@@ -6,8 +6,8 @@ query, walk from node 0 by key unit, trusting ``level``, and verify
 the full key at the leaf.  ``descend_plain`` computes what
 ``csrc/art_descend.cu`` computes, with torch indexing and no custom
 kernel: the kernel's lockstep loop of ``U + 1`` steps over the whole
-batch (gathers of ``is_leaf``, ``lfp``, ``level`` and ``children``),
-the level clamped to ``[0, U - 1]`` as the TPU kernel clamps it.  The
+batch, on the packed child entries (each carries its child's level,
+clamped to ``[0, U - 1]`` as the TPU kernel clamps it, and leaf bit).  The
 CPU tests hold it against the JAX package; ``chip_smoke.py`` holds the
 CUDA kernel against it.
 
@@ -27,6 +27,14 @@ import torch
 from ..probe.fingerprint import fp_partial
 
 KEY_BITS = 64
+# a packed child entry (``ops.pack_children``): the row in bits 0-25, the
+# child's clamped level in bits 26-29, its leaf bit in bit 30; a header
+# is an entry shifted down by ROW_BITS
+ROW_BITS = 26
+ROW_MASK = (1 << ROW_BITS) - 1
+LEVEL_MASK = 15
+LEAF_BIT = 16
+PACK_CHUNK = 1 << 24
 
 
 def leaf_fp_lane(arrays: Dict[str, np.ndarray]) -> np.ndarray:
@@ -87,6 +95,24 @@ def descend_fp_ref(queries: np.ndarray, arrays: Dict[str, np.ndarray]
     return found, vals, nenc, nfp, nfalse
 
 
+def pack_entries_plain(children: torch.Tensor, hdr: torch.Tensor) -> None:
+    """What ``csrc/art_descend.cu``'s ``pack_entries_kernel`` does, in
+    place: each entry of ``children`` ([N, fan] int32) naming a row in
+    [0, N) gains that row's header from ``hdr`` ([N] int32, clamped
+    level | leaf << 4) shifted up by ROW_BITS; every other entry becomes
+    -1.  In slices of about PACK_CHUNK entries, so no copy of the table
+    is made."""
+    n_nodes, fan = children.shape
+    none = torch.full((), -1, dtype=torch.int32, device=children.device)
+    step = max(1, PACK_CHUNK // fan)
+    for lo in range(0, n_nodes, step):
+        rows = children[lo:lo + step]
+        child = rows.clamp(0, n_nodes - 1)
+        entry = hdr.index_select(0, child.view(-1)).view_as(child)
+        entry.bitwise_left_shift_(ROW_BITS).bitwise_or_(child)
+        torch.where(child == rows, entry, none, out=rows)
+
+
 def key_unit(queries: torch.Tensor, lvl: torch.Tensor,
              unit_bits: int) -> torch.Tensor:
     """The big-endian ``unit_bits``-wide unit of each query at ``lvl``
@@ -96,17 +122,18 @@ def key_unit(queries: torch.Tensor, lvl: torch.Tensor,
     return (queries >> shift) & ((1 << unit_bits) - 1)
 
 
-def descend_plain(queries: torch.Tensor, children: torch.Tensor,
-                  level: torch.Tensor, is_leaf: torch.Tensor,
+def descend_plain(queries: torch.Tensor, children: torch.Tensor, root: int,
                   lfp: torch.Tensor, leaf_key: torch.Tensor,
                   leaf_val: torch.Tensor, *, unit_bits: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor, torch.Tensor]:
-    """queries: [Q] int64; children: [N, 2^unit_bits] int32 (-1 none);
-    level: [N] int32; is_leaf, lfp: [N] uint8; leaf_key, leaf_val: [N]
-    int64.  Returns (found [Q] bool, values [Q] int64, nenc, nfp,
-    nfalse [Q] int32).  A child index outside [0, N) ends the walk, as
-    -1 does."""
+    """queries: [Q] int64; children: [N, 2^unit_bits] int32 packed
+    entries (``ops.pack_children``: row in bits 0-25, clamped level in
+    26-29, leaf bit 30, -1 none); root: the root's header (clamped level
+    | leaf << 4); lfp: [N] uint8; leaf_key, leaf_val: [N] int64.
+    Returns (found [Q] bool, values [Q] int64, nenc, nfp, nfalse [Q]
+    int32).  An entry whose row lies outside [0, N) ends the walk, as -1
+    does."""
     n_units = KEY_BITS // unit_bits
     n_nodes = children.shape[0]
     dev = queries.device
@@ -114,6 +141,7 @@ def descend_plain(queries: torch.Tensor, children: torch.Tensor,
     qfp = queries & 0xFF
     qfp = qfp + (qfp == 0)
     node = torch.zeros(n_q, dtype=torch.int64, device=dev)
+    hdr = torch.full((n_q,), root, dtype=torch.int64, device=dev)
     active = torch.ones(n_q, dtype=torch.bool, device=dev)
     found = torch.zeros(n_q, dtype=torch.bool, device=dev)
     values = torch.zeros(n_q, dtype=torch.int64, device=dev)
@@ -121,7 +149,7 @@ def descend_plain(queries: torch.Tensor, children: torch.Tensor,
     nfp = torch.zeros(n_q, dtype=torch.int32, device=dev)
     nfalse = torch.zeros(n_q, dtype=torch.int32, device=dev)
     for _ in range(n_units + 1):
-        leaf = active & (is_leaf[node] != 0)
+        leaf = active & ((hdr & LEAF_BIT) != 0)
         fpmatch = leaf & (lfp[node].to(torch.int64) == qfp)
         hit = fpmatch & (leaf_key[node] == queries) & (leaf_val[node] != 0)
         found |= hit
@@ -130,12 +158,14 @@ def descend_plain(queries: torch.Tensor, children: torch.Tensor,
         nfp += fpmatch
         nfalse += fpmatch & ~hit
         active &= ~leaf
-        lvl = level[node].to(torch.int64).clamp(0, n_units - 1)
-        child = children[node, key_unit(queries, lvl, unit_bits)]
-        child = child.to(torch.int64)
-        active &= (child >= 0) & (child < n_nodes)
-        node = torch.where(active, child, node)
+        lvl = (hdr & LEVEL_MASK).clamp(max=n_units - 1)
+        entry = children[node, key_unit(queries, lvl, unit_bits)]
+        entry = entry.to(torch.int64)
+        active &= (entry >= 0) & ((entry & ROW_MASK) < n_nodes)
+        node = torch.where(active, entry & ROW_MASK, node)
+        hdr = torch.where(active, entry >> ROW_BITS, hdr)
     return found, values, nenc, nfp, nfalse
 
 
-__all__ = ["descend_fp_ref", "descend_plain", "key_unit", "leaf_fp_lane"]
+__all__ = ["LEAF_BIT", "LEVEL_MASK", "ROW_BITS", "ROW_MASK", "descend_fp_ref",
+           "descend_plain", "key_unit", "leaf_fp_lane", "pack_entries_plain"]

@@ -3,7 +3,9 @@
 ``probe_chain`` is the port's form of the JAX package's
 ``kernels/probe/kernel.py`` ``probe64_fp`` (``use_fp=True``) and
 ``probe64`` (``use_fp=False``), with the chain-window gather of
-``kernels/clht_probe/ops.py::_gather_probe`` folded into the kernel.
+``kernels/clht_probe/ops.py::_gather_probe`` folded into the kernel:
+it reads the snapshot's line table (``layout.pack_lines``), built once
+an epoch.
 On CUDA tensors it launches the CUDA kernel on the current stream, or
 raises; on CPU tensors it runs ``ref.probe_chain_plain``.  Nothing else
 selects between the two.
@@ -22,7 +24,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ... import build
-from .ref import SLOTS, probe_chain_plain
+from .layout import LINE_WORDS
+from .ref import probe_chain_plain
 
 #: CUDA launches per kernel variant since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"probe64_fp": 0, "probe64": 0}
@@ -35,31 +38,31 @@ def reset_launches() -> None:
 
 _P = ctypes.c_void_p
 
+#: the line table's alignment: the kernel reads it in 16-byte vectors,
+#: and each line is one 64-byte segment
+ALIGN = 64
+
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("probe")
-    lib.probe_chain.argtypes = [_P] * 6 + [ctypes.c_longlong,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int] + [_P] * 5
+    lib.probe_chain.argtypes = [_P] * 3 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_int] * 2 + [_P] * 5
     lib.probe_chain.restype = ctypes.c_int
     lib.probe_error_string.argtypes = [ctypes.c_int]
     lib.probe_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(queries, bucket, keys, vals, fps, nxt, depth) -> None:
-    if queries.dim() != 1 or keys.dim() != 2:
-        raise ValueError("queries must be [Q] and keys [R, 3]")
-    n_q, n_rows = queries.shape[0], keys.shape[0]
+def _check(queries, bucket, lines, depth) -> None:
+    if queries.dim() != 1 or lines.dim() != 2:
+        raise ValueError("queries must be [Q] and lines [L, 8]")
+    n_q = queries.shape[0]
     dev = queries.device
     for name, t, dtype, shape in (
             ("queries", queries, torch.int64, (n_q,)),
             ("bucket", bucket, torch.int64, (n_q,)),
-            ("keys", keys, torch.int64, (n_rows, SLOTS)),
-            ("vals", vals, torch.int64, (n_rows, SLOTS)),
-            ("fps", fps, torch.uint8, (n_rows, SLOTS)),
-            ("nxt", nxt, torch.int64, (n_rows,))):
+            ("lines", lines, torch.int64, (lines.shape[0], LINE_WORDS))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, queries on {dev}")
         if t.dtype != dtype:
@@ -69,28 +72,29 @@ def _check(queries, bucket, keys, vals, fps, nxt, depth) -> None:
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if lines.data_ptr() % ALIGN:
+        raise ValueError(f"lines must be {ALIGN}-byte aligned")
     if depth < 1:
         raise ValueError(f"depth must be at least 1, got {depth}")
 
 
 def probe_chain(queries: torch.Tensor, bucket: torch.Tensor,
-                keys: torch.Tensor, vals: torch.Tensor, fps: torch.Tensor,
-                nxt: torch.Tensor, depth: int, *, use_fp: bool
+                lines: torch.Tensor, depth: int, *, use_fp: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Probe ``depth`` hops of each query's bucket chain.
+    """Probe ``depth`` hops of each query's chain.
 
-    queries, bucket: [Q] int64 (bucket = head row of each query's
-    chain); keys, vals: [R, 3] int64; fps: [R, 3] uint8 fingerprint
-    lane; nxt: [R] int64 next row, -1 at a chain's end.  Returns (found
-    [Q] bool, values [Q] int64, nfp [Q] int32, nfalse [Q] int32), the
-    counts None when ``use_fp`` is off.  The outputs are bit-identical
-    to ``probe_chain_plain`` on the same inputs."""
-    _check(queries, bucket, keys, vals, fps, nxt, depth)
+    queries, bucket: [Q] int64 (bucket = the row each query's probe
+    starts at); lines: [L, 8] int64, the snapshot's line table from
+    ``layout.pack_lines``, 64-byte aligned.  Returns (found [Q] bool,
+    values [Q] int64, nfp [Q] int32, nfalse [Q] int32), the counts None
+    when ``use_fp`` is off.  The outputs are bit-identical to
+    ``probe_chain_plain`` on the same inputs."""
+    _check(queries, bucket, lines, depth)
     dev = queries.device
     if dev.type == "cpu":
-        return probe_chain_plain(queries, bucket, keys, vals, fps, nxt,
-                                 depth, use_fp=use_fp)
+        return probe_chain_plain(queries, bucket, lines, depth,
+                                 use_fp=use_fp)
     if dev.type != "cuda":
         raise ValueError(f"probe_chain takes CUDA or CPU tensors, not {dev}")
     n_q = queries.shape[0]
@@ -106,10 +110,10 @@ def probe_chain(queries: torch.Tensor, bucket: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.probe_chain(
-            queries.data_ptr(), bucket.data_ptr(), keys.data_ptr(),
-            vals.data_ptr(), fps.data_ptr(), nxt.data_ptr(), n_q,
-            keys.shape[0], int(depth), int(use_fp), found.data_ptr(),
-            values.data_ptr(), nfp.data_ptr() if use_fp else None,
+            queries.data_ptr(), bucket.data_ptr(), lines.data_ptr(), n_q,
+            lines.shape[0], int(depth), int(use_fp),
+            found.data_ptr(), values.data_ptr(),
+            nfp.data_ptr() if use_fp else None,
             nfalse.data_ptr() if use_fp else None, stream)
     if err:
         raise RuntimeError("probe_chain kernel launch failed: "
@@ -118,4 +122,5 @@ def probe_chain(queries: torch.Tensor, bucket: torch.Tensor,
     return found, values, nfp, nfalse
 
 
-__all__ = ["LAUNCHES", "probe_chain", "reset_launches"]
+__all__ = ["ALIGN", "LAUNCHES", "probe_chain",
+           "reset_launches"]

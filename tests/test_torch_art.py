@@ -2,10 +2,11 @@
 JAX package, bit for bit.
 
 The radix descent: ``descend_plain`` (what the port's wrapper runs on
-CPU tensors) against the JAX package's Pallas ``art_descend`` in
-interpret mode and its numpy oracle, counts included, on exported node
-pages and on random pages whose levels leave the valid range (the TPU
-kernel clamps them).  The indexes: the same YCSB plans through both
+CPU tensors) on the packed child entries ``pack_children`` builds,
+against the JAX package's Pallas ``art_descend`` in interpret mode on
+the export's own pages and its numpy oracle, counts included, on
+exported node pages and on random pages whose levels leave the valid
+range (the TPU kernel clamps them; the packing bakes the clamp in).  The indexes: the same YCSB plans through both
 facades give the same results, wave schedules, tallies, probe-stat
 deltas and PMem counters; a plan crash sweep on P-ART agrees; a P-ART
 image carried over with ``convert.pmem_from_arrays`` answers lookups
@@ -200,9 +201,14 @@ def test_art_descend_rejects_bad_inputs():
     with pytest.raises(TypeError):
         tart.art_descend(q, *bad, unit_bits=8)
     bad = list(good)
-    bad[1] = good[1][:-1]
+    bad[2] = good[2][:-1]
     with pytest.raises(ValueError):
         tart.art_descend(q, *bad, unit_bits=8)
+    for root in (-1, 32, 8):  # not a header; a level past U - 1 = 7
+        bad = list(good)
+        bad[1] = root
+        with pytest.raises(ValueError):
+            tart.art_descend(q, *bad, unit_bits=8)
     with pytest.raises(ValueError):
         tart.art_descend(q.view(2, 4), *good, unit_bits=8)
 

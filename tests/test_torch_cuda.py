@@ -73,30 +73,52 @@ def random_table(rng, n_buckets, depth):
 
 
 @pytest.mark.parametrize("use_fp", [True, False])
-@pytest.mark.parametrize("depth", [1, 4, 7])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 6, 7, 8, 64])
 def test_kernel_matches_plain_version(card, depth, use_fp):
+    """Chains longer than one group of lines, probes from overflow rows,
+    a ragged last block, key 0 and values of 2^32 and above."""
     rng = np.random.default_rng(depth)
     keys, vals, fps, nxt, head = random_table(rng, 512, depth)
     q = rng.integers(1, 1 << 62, size=4099)  # a ragged last block
     bucket = rng.integers(0, 512, size=q.size)
     rows, slots = np.nonzero(keys)
-    pick = rng.integers(rows.size, size=2000)
-    q[:2000] = keys[rows[pick], slots[pick]]
-    bucket[:2000] = head[rows[pick]]  # a hit probes its own chain
+    pick = rng.integers(rows.size, size=3000)
+    q[:3000] = keys[rows[pick], slots[pick]]
+    bucket[:2000] = head[rows[pick[:2000]]]  # a hit probes its own chain
+    bucket[2000:3000] = rows[pick[2000:]]   # ... or starts at its own row
+    bucket[3000:3500] = rng.integers(0, keys.shape[0], size=500)
     q[-3:] = 0
-    t = [torch.from_numpy(a).to(card)
-         for a in (q, bucket, keys, vals, fps, nxt)]
+    lines, table_depth = kprobe.pack_lines(keys, vals, fps, nxt, device=card)
+    assert table_depth == depth
+    qt, bt = (torch.from_numpy(a).to(card) for a in (q, bucket))
     name = "probe64_fp" if use_fp else "probe64"
     before = kprobe.LAUNCHES[name]
-    got = kprobe.probe_chain(*t, depth, use_fp=use_fp)
+    got = kprobe.probe_chain(qt, bt, lines, depth, use_fp=use_fp)
     torch.cuda.synchronize()
     assert kprobe.LAUNCHES[name] == before + 1
-    plain = kprobe.probe_chain_plain(*t, depth, use_fp=use_fp)
+    plain = kprobe.probe_chain_plain(qt, bt, lines, depth, use_fp=use_fp)
     for g, p in zip(got, plain):
         assert (g is None) == (p is None)
         if p is not None:
             assert torch.equal(g, p)
-    assert int(got[0].sum()) >= 1000
+    found = got[0].cpu().numpy()
+    assert found[:3000].all()
+    assert (got[1].cpu().numpy()[:3000] >= 1 << 32).any()
+
+
+def test_probe_rejects_a_misaligned_table(card):
+    rng = np.random.default_rng(9)
+    keys, vals, fps, nxt, _ = random_table(rng, 64, 3)
+    lines, depth = kprobe.pack_lines(keys, vals, fps, nxt, device=card)
+    buf = torch.empty(lines.numel() + 1, dtype=torch.int64, device=card)
+    shifted = buf[1:].view(lines.shape)
+    shifted.copy_(lines)
+    q = torch.from_numpy(keys[:, 0].copy()).to(card)
+    b = torch.arange(q.numel(), device=card)
+    before = dict(kprobe.LAUNCHES)
+    with pytest.raises(ValueError, match="aligned"):
+        kprobe.probe_chain(q, b, shifted, depth, use_fp=True)
+    assert kprobe.LAUNCHES == before
 
 
 def test_main_path_on_card_equals_cpu(card):
@@ -120,21 +142,25 @@ def test_main_path_on_card_equals_cpu(card):
 
 def node_pages(index_cls, n, seed, device):
     """A P-ART or P-HOT index over ``n`` random keys (every 37th
-    deleted), its export's node pages on ``device`` and the keys."""
+    deleted, unless it is the only one), its export's node pages on
+    ``device`` and the keys."""
     rng = np.random.default_rng(seed)
     keys = np.unique(rng.integers(1, 1 << 62, size=n))
     idx = index_cls(PMem(seed=seed), device="cpu")
     for k in keys.tolist():
         idx.insert(k, k ^ (1 << 40))
-    for k in keys[::37].tolist():
+    for k in keys[::37].tolist() if n > 1 else []:
         idx.delete(k)
     unit_bits, *pages = kart.ops._prepare(idx.export_arrays(), device)
     return unit_bits, pages, keys
 
 
+@pytest.mark.parametrize("n_keys", [4096, 1])
 @pytest.mark.parametrize("index_cls", [PART, PHOT], ids=["art", "hot"])
-def test_art_descend_matches_plain_version(card, index_cls):
-    unit_bits, pages, keys = node_pages(index_cls, 6000, 1, card)
+def test_art_descend_matches_plain_version(card, index_cls, n_keys):
+    """2^12 keys, and a one-key tree whose root is its leaf."""
+    unit_bits, pages, keys = node_pages(index_cls, n_keys, 1, card)
+    assert (pages[1] >> 4 == 1) == (n_keys == 1)  # the root's leaf bit
     rng = np.random.default_rng(2)
     q = rng.integers(1, 1 << 62, size=4099)  # a ragged last block
     q[:2000] = rng.choice(keys, 2000)
@@ -149,6 +175,27 @@ def test_art_descend_matches_plain_version(card, index_cls):
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
     assert int(got[0].sum()) >= 1900 and int(got[4].sum()) > 0
+
+
+@pytest.mark.parametrize("unit_bits", [8, 4])
+def test_pack_entries_matches_plain_version(card, unit_bits):
+    """The per-epoch packing of the child entries: children in range,
+    -1, other negatives and rows past the table, on the card and by the
+    plain version on the CPU."""
+    rng = np.random.default_rng(unit_bits)
+    n = 70000
+    children = rng.integers(-3, n + 3, size=(n, 1 << unit_bits)).astype(
+        np.int32)
+    hdr = rng.integers(0, 32, size=n).astype(np.int32)
+    want = torch.from_numpy(children.copy())
+    kart.ref.pack_entries_plain(want, torch.from_numpy(hdr))
+    got = torch.from_numpy(children.copy()).to(card)
+    before = kart.LAUNCHES["art_pack_entries"]
+    kart.kernel.pack_entries(got, torch.from_numpy(hdr).to(card))
+    torch.cuda.synchronize()
+    assert kart.LAUNCHES["art_pack_entries"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert int((want == -1).sum()) > (children < 0).sum()
 
 
 @pytest.mark.parametrize("width", [1, 128])
@@ -195,6 +242,8 @@ def test_ordered_kinds_on_card_equal_cpu(card, kind):
     after = {**kart.LAUNCHES, **kscan.LAUNCHES}
     assert after[name] > before[name]
     assert after["scan_window"] > before["scan_window"]  # E0's scans
+    if kind in ("art", "hot"):  # each export's child entries packed
+        assert after["art_pack_entries"] > before["art_pack_entries"]
 
 
 HIGH = -(1 << 63)  # 2^63 as an int64 bit pattern

@@ -6,7 +6,8 @@ side runs ``_gather_probe`` in interpret mode, as its snapshot lookup
 calls it, and ``gather_chain_windows`` + the numpy oracles.  Tables are
 random bucket chains of depth 1-6 with empty slots holding stale
 values, values at and above 2^32, fingerprint near-misses (same
-fingerprint, other key) and key-0 queries.  No tolerance: every output
+fingerprint, other key), probes that start at overflow rows, and key-0
+queries.  The port's side reads the line table ``pack_lines`` builds.  No tolerance: every output
 is an integer and must be equal.  The CUDA kernel itself is held
 against the plain version on the card by tests/test_torch_cuda.py.
 """
@@ -61,8 +62,9 @@ def make_table(seed, n_buckets, depth):
 
 
 def make_queries(seed, table, n_q):
-    """Hits, misses, fingerprint near-misses and key 0, with the head
-    row each query probes."""
+    """Hits, misses, fingerprint near-misses, probes that start at a
+    row of their chain other than its head (overflow rows included) and
+    key 0, with the row each query's probe starts at."""
     keys, _, fps, _, head = table
     rng = np.random.default_rng(seed + 1)
     n_rows, n_buckets = keys.shape[0], int(head.max()) + 1
@@ -80,18 +82,31 @@ def make_queries(seed, table, n_q):
         r, s = live[rng.integers(len(live))]
         cand = pool[pool_fp == fps[r, s]]
         q[i], bucket[i] = cand[i % len(cand)], head[r]
+    # a probe may start at any row: a resident key from its own row, and
+    # a fresh key from a random one
+    own = live[rng.integers(len(live), size=n_q // 16)]
+    lo = n_q // 2 + n_q // 8
+    q[lo:lo + own.shape[0]] = keys[own[:, 0], own[:, 1]]
+    bucket[lo:lo + own.shape[0]] = own[:, 0]
+    lo += own.shape[0]
+    bucket[lo:lo + n_q // 16] = rng.integers(0, n_rows, size=n_q // 16)
     q[-5:] = 0  # key 0 matches empty slots and lanes past a chain's end
     q[-6] = 12345
     bucket[-6] = head[np.argwhere(keys == 12345)[0, 0]]
     return q.astype(np.int64), bucket.astype(np.int64)
 
 
-def port_probe(q, bucket, table, depth, use_fp):
+def line_table(table):
     keys, vals, fps, nxt, _ = table
-    t = [torch.from_numpy(np.ascontiguousarray(a))
-         for a in (q, bucket, keys, vals, fps, nxt)]
-    found, values, nfp, nfalse = tprobe.probe_chain(*t, depth,
-                                                    use_fp=use_fp)
+    lines, _ = tprobe.pack_lines(keys, vals, fps, nxt,
+                                 device=torch.device("cpu"))
+    return lines
+
+
+def port_probe(q, bucket, table, depth, use_fp):
+    found, values, nfp, nfalse = tprobe.probe_chain(
+        torch.from_numpy(q), torch.from_numpy(bucket), line_table(table),
+        depth, use_fp=use_fp)
     out = [found.numpy(), values.numpy()]
     if use_fp:
         out += [nfp.numpy(), nfalse.numpy()]
@@ -132,6 +147,8 @@ def test_probe_chain_matches_jax_gather_probe(depth, use_fp):
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
     assert got[0][:150].all()  # every drawn hit is found
+    own = slice(300 // 2 + 300 // 8, 300 // 2 + 300 // 8 + 300 // 16)
+    assert got[0][own].all()  # so is a key probed from its own row
     assert (got[1] >= 1 << 31).sum() > 0
     if use_fp:
         assert got[3].sum() > 0  # near-misses reached the full compare
@@ -172,9 +189,9 @@ def test_probe_chain_cpu_runs_plain_version_and_counts_no_launch():
     before = dict(tprobe.LAUNCHES)
     got = port_probe(q, bucket, table, 3, True)
     assert tprobe.LAUNCHES == before
-    keys, vals, fps, nxt, _ = table
-    t = [torch.from_numpy(a) for a in (q, bucket, keys, vals, fps, nxt)]
-    plain = tprobe.probe_chain_plain(*t, 3, use_fp=True)
+    plain = tprobe.probe_chain_plain(torch.from_numpy(q),
+                                     torch.from_numpy(bucket),
+                                     line_table(table), 3, use_fp=True)
     for g, p in zip(got, plain):
         np.testing.assert_array_equal(g, p.numpy())
 
@@ -182,19 +199,28 @@ def test_probe_chain_cpu_runs_plain_version_and_counts_no_launch():
 def test_probe_chain_rejects_bad_inputs():
     table = make_table(4, n_buckets=8, depth=2)
     q, bucket = make_queries(4, table, 16)
-    keys, vals, fps, nxt, _ = table
-    good = [torch.from_numpy(a) for a in (q, bucket, keys, vals, fps, nxt)]
+    lines = line_table(table)
+    good = [torch.from_numpy(q), torch.from_numpy(bucket), lines]
     bad_dtype = list(good)
-    bad_dtype[4] = good[4].to(torch.int32)
+    bad_dtype[2] = lines.to(torch.int32)
     with pytest.raises(TypeError):
         tprobe.probe_chain(*bad_dtype, 2, use_fp=True)
     bad_shape = list(good)
     bad_shape[1] = good[1][:-1]
     with pytest.raises(ValueError):
         tprobe.probe_chain(*bad_shape, 2, use_fp=True)
+    bad_shape = list(good)
+    bad_shape[2] = lines[:, :6].contiguous()
+    with pytest.raises(ValueError):
+        tprobe.probe_chain(*bad_shape, 2, use_fp=True)
     strided = list(good)
-    strided[2] = torch.from_numpy(np.asfortranarray(keys))
+    strided[2] = lines.t().contiguous().t()
     with pytest.raises(ValueError):
         tprobe.probe_chain(*strided, 2, use_fp=True)
+    misaligned = list(good)
+    buf = torch.zeros(lines.numel() + 1, dtype=torch.int64)
+    misaligned[2] = buf[1:].view(lines.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        tprobe.probe_chain(*misaligned, 2, use_fp=True)
     with pytest.raises(ValueError):
         tprobe.probe_chain(*good, 0, use_fp=True)
