@@ -373,10 +373,18 @@ def reset_counts() -> None:
     for counts in COUNTERS:
         for name in counts:
             counts[name] = 0
+    for by_width in kscan.WINDOWS.values():
+        by_width.clear()
 
 
 def read_counts() -> dict:
-    return {name: n for counts in COUNTERS for name, n in counts.items()}
+    """Launches by kernel, and the search's also by window width, as
+    ``"scan_window C=1"``."""
+    out = {name: n for counts in COUNTERS for name, n in counts.items()}
+    for name, by_width in kscan.WINDOWS.items():
+        for width, n in sorted(by_width.items()):
+            out[f"{name} C={width}"] = n
+    return out
 
 
 def value_of(keys: np.ndarray) -> np.ndarray:
@@ -1189,10 +1197,11 @@ def radix_vs_plain(sessions, seed: int, launches: dict) -> list:
 
 def scan_bound(keys: np.ndarray, q: np.ndarray, counts: np.ndarray,
                width: int, base=None, length=None):
-    """Least time for one search launch over this batch: the keys the
-    lower-bound halvings visit, the window entries that are valid
-    (key and value), the queries and counts (and with a shard axis each
-    row's base and length), and the [Q, C] outputs."""
+    """Least time for one search launch over this batch: the keys a
+    binary search visits (fewer than the kernel's 33-way rounds read, so
+    the bound is the function's, not the design's), the window entries
+    that are valid (key and value), the queries and counts (and with a
+    shard axis each row's base and length), and the [Q, C] outputs."""
     n = keys.size
     rows = base is not None
     lo = base.copy() if rows else np.zeros(q.size, np.int64)
@@ -1218,9 +1227,79 @@ def scan_bound(keys: np.ndarray, q: np.ndarray, counts: np.ndarray,
     return bound(n_bytes, steps * 6 + q.size * width * 3)
 
 
+def search_rounds(tag: str, keys: np.ndarray, q: np.ndarray, base=None,
+                  length=None) -> None:
+    """Print the dependent rounds the kernel's 33-way search makes on
+    this batch (``ref.ways_lower_bound``, checked against
+    ``np.searchsorted``), beside a binary search's."""
+    lb, rounds = kscan.ref.ways_lower_bound(keys, q, base, length)
+    if base is None:
+        check(np.array_equal(lb, np.searchsorted(keys, q)), f"{tag}: the "
+              "search model is not the lower bound")
+    n = int(keys.size if length is None else np.max(length))
+    most = next(r for r in range(64) if 33 ** r >= n + 1)
+    check(int(rounds.max()) <= most + 1, f"{tag}: a query made more than "
+          f"ceil(log33(n + 1)) + 1 = {most + 1} search rounds")
+    say(f"{tag}: search rounds a query: max {int(rounds.max())}, mean "
+        f"{rounds.mean():.4f} (ceil(log33(n + 1)) = {most}, a binary "
+        f"search ceil(log2(n + 1)) = {n.bit_length()}; n = {n})")
+
+
+def scan_edges(dev) -> int:
+    """scan_window against its plain version on runs of 0, 1, 31, 32,
+    33, 34, 1089 and 1090 entries (where the rounds change), windows of
+    1, 2, 33 and 128, negative keys, starts below and above the run, key
+    0, -1 and keys of 2^63 and above, counts of 0."""
+    rng = np.random.default_rng(7)
+    err = 0
+    runs, starts = [], []
+    for n in (0, 1, 31, 32, 33, 34, 1089, 1090):
+        keys = np.unique(rng.integers(-(1 << 62), 1 << 62, size=n + 16))
+        keys = np.sort(rng.choice(keys, n, replace=False)).astype(np.int64)
+        vals = rng.integers(1, 1 << 62, size=n)
+        q = rng.integers(HIGH, (1 << 63) - 1, size=1024)
+        if n:
+            q[:500] = rng.choice(keys, 500)
+            q[500:504] = [keys[0] - 1, keys[0], keys[-1], keys[-1] + 1]
+        q[-5:] = [0, -1, HIGH, HIGH + 1, (1 << 63) - 1]
+        runs.append((keys, vals))
+        starts.append(q)
+        for width in (1, 2, 33, 128):
+            counts = rng.integers(0, width + 1, size=q.size).astype(np.int32)
+            counts[::9] = 0
+            t = [torch.from_numpy(a).to(dev) for a in (q, counts, keys,
+                                                        vals)]
+            got = kscan.scan_window(*t, max_count=width)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"scan_window (n={n}, C={width})", got,
+                                   kscan.scan_window_plain(
+                                       *t, max_count=width)))
+    # the same runs stacked, each query row on its own run
+    sizes = np.array([k.size for k, _ in runs])
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    shard = np.repeat(np.arange(len(runs)), [q.size for q in starts])
+    for width in (1, 128):
+        counts = rng.integers(0, width + 1, size=shard.size).astype(np.int32)
+        counts[::9] = 0
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            np.concatenate(starts), counts, offsets[:-1][shard],
+            sizes[shard], np.concatenate([k for k, _ in runs]),
+            np.concatenate([v for _, v in runs]))]
+        got = kscan.scan_window_rows(*t, max_count=width)
+        torch.cuda.synchronize()
+        err = max(err, compare(f"scan_window_sharded (edge runs, C={width})",
+                               got, kscan.scan_window_rows_plain(
+                                   *t, max_count=width)))
+    say("scan_window: bit-identical to its plain version on runs of 0, 1, "
+        "31, 32, 33, 34, 1089 and 1090 entries at C = 1, 2, 33 and 128, and "
+        "scan_window_sharded on the same runs stacked at C = 1 and 128")
+    return err
+
+
 def scan_vs_plain(session, seed: int, launches: dict) -> list:
     """scan_window at windows of 1 (lookups) and 128 (YCSB-E scans) on
-    the P-Masstree run; the row carries the scan numbers, and
+    the P-Masstree run, and on short runs at the search's edges; the row
+    carries the scan numbers, a line the lookups', and
     ``torch.searchsorted`` is timed as the library call for the lower
     bound."""
     snap = session.index.snapshot()
@@ -1241,7 +1320,9 @@ def scan_vs_plain(session, seed: int, launches: dict) -> list:
         rng.choice(keys_np, Q // 2),
         rng.integers(1, 1 << 62, size=Q // 2)])).to(dev) for _ in range(64)]
     out = {}
-    err = 0
+    err = scan_edges(dev)
+    search_rounds("scan_window", keys_np, np.concatenate(
+        [q] + [t.cpu().numpy() for t in timing_q[:4]]))
     for width in (1, 128):
         counts = (np.ones(Q, np.int32) if width == 1 else
                   rng.integers(1, 101, size=Q).astype(np.int32))
@@ -1275,6 +1356,18 @@ def scan_vs_plain(session, seed: int, launches: dict) -> list:
     say(f"torch.searchsorted (the lower bound alone): device {lib_dev} ms, "
         f"call {lib_call:.6f} ms; main-path launches "
         f"{launches['scan_window']}")
+    by_width = {int(name.split("C=")[1]): n for name, n in launches.items()
+                if name.startswith("scan_window C=")}
+    for width in (1, 128):
+        timed, bms, by = out[width]
+        say(f"scan_window (C={width}): {timed['ms']} ms, bound {bms:.9f} "
+            f"ms ({by}), torch.searchsorted {library_ms} ms, plain "
+            f"{timed['plain_ms']} ms; main-path launches at C={width} "
+            f"{by_width.get(width, 0)} of {launches['scan_window']}")
+    say(f"scan_window main-path launches by window: {by_width}; "
+        "scan_window_sharded: " + str({
+            int(name.split("C=")[1]): n for name, n in launches.items()
+            if name.startswith("scan_window_sharded C=")}))
     timed, bms, by = out[128]
     return [row("scan_window", launches, err, timed, bms, by, library_ms,
                 f"P-Masstree, Q={Q}, C=128, n={keys_np.size}")]
@@ -1318,6 +1411,7 @@ def sharded_scan_vs_plain(scale, seed: int, launches: dict) -> list:
 
     err = 0
     out = {}
+    search_rounds("scan_window_sharded", keys_np, q, base, length)
     for width in (1, 128):
         counts = (np.ones(Q, np.int32) if width == 1 else
                   rng.integers(1, 101, size=Q).astype(np.int32))
@@ -1416,6 +1510,50 @@ def route_vs_plain(scale, launches: dict) -> list:
                 f"P-CLHT x{SHARDS}, Q={Q}, hash, {b} bits")]
 
 
+def conflict_edges(dev) -> int:
+    """conflict_any against its plain version and the numpy oracle on
+    keys 0, -1, INT64_MIN and INT64_MAX, reference sets of 1, 7, 12288
+    and 65536 with no SCAN, no write or only GETs, and one key many
+    times over, writes_conflict both ways."""
+    rng = np.random.default_rng(11)
+    edges = np.array([0, -1, HIGH, (1 << 63) - 1, 1], np.int64)
+    err = 0
+    for n_b in (1, 7, 12288, 65536):
+        n_a = 1024 if n_b > 12288 else Q
+        pool = np.concatenate([edges, rng.integers(
+            HIGH, (1 << 63) - 1, size=max(8, n_b // 3))])
+        for case, kinds_b in (("edges", (0, 1, 2, 3, 4, 5)),
+                              ("no SCAN", (0, 1, 2, 3, 5)),
+                              ("no write", (0, 4, 5)), ("only GETs", (0,)),
+                              ("one key", (0, 1, 2, 3, 4, 5))):
+            ka = rng.integers(0, 6, size=n_a).astype(np.int32)
+            kb = rng.choice(np.array(kinds_b, np.int32), size=n_b)
+            xa, xb = rng.choice(pool, n_a), rng.choice(pool, n_b)
+            if case == "edges":
+                xa[::2] = np.resize(edges, xa[::2].size)
+                xb[:] = np.resize(edges, n_b)
+            if case == "one key":
+                xb[:] = xa[3]
+            t = [torch.from_numpy(a).to(dev) for a in (ka, xa, kb, xb)]
+            for wc in (False, True):
+                got = kconf.kernel.conflict_any(*t, writes_conflict=wc)
+                torch.cuda.synchronize()
+                err = max(err, compare(f"conflict_any ({case}, B={n_b})",
+                                       [got], [kconf.conflict_any_plain(
+                                           *t, writes_conflict=wc)]))
+                check(np.array_equal(got.cpu().numpy(),
+                                     kconf.conflict_any_ref(
+                                         ka, xa, kb, xb,
+                                         writes_conflict=wc)),
+                      f"conflict_any ({case}, B={n_b}): differs from the "
+                      "numpy oracle")
+    say("conflict_any: bit-identical to its plain version and to the numpy "
+        "oracle on keys 0, -1, INT64_MIN and INT64_MAX, B = 1, 7, 12288 "
+        "and 65536, no SCAN, no write, only GETs, one key many times over, "
+        "writes_conflict both ways")
+    return err
+
+
 def conflict_vs_plain(scale, launches: dict) -> list:
     """conflict_any against its plain version and the numpy oracle on
     the admission checks the stream phase made (the largest reference
@@ -1443,6 +1581,7 @@ def conflict_vs_plain(scale, launches: dict) -> list:
             check(np.array_equal(got.cpu().numpy(), kconf.conflict_any_ref(
                 ka, xa, kb[:nb], xb[:nb], writes_conflict=wc)),
                 "conflict_any: differs from the numpy oracle")
+    err = max(err, conflict_edges(dev))
     n_conf = 0
     for c in checks:  # every admission check of the path, as it ran
         t = on_card(*c)
@@ -1462,15 +1601,20 @@ def conflict_vs_plain(scale, launches: dict) -> list:
         lambda *t: kconf.kernel.conflict_any(*t, writes_conflict=True),
         lambda *t: kconf.conflict_any_plain(*t, writes_conflict=True),
         timing, reps=320)
-    # the pair tests this check needs: each candidate up to its first
-    # conflict, or all of B; about 12 integer operations a pair
+    # the function's bytes: each op's kind and key read once, each
+    # candidate's answer written once; the work is a hash and a compare
+    # or two an op, about 12 integer operations (the design before this
+    # one ran a pair test of some 12 operations for each candidate up to
+    # its first conflict, or all of B)
     conf = kconf.conflict_matrix_ref(ka, xa, kb, xb, writes_conflict=True)
     pairs = int(np.where(conf.any(axis=1), conf.argmax(axis=1) + 1,
                          b_max).sum())
-    bms, by = bound((ka.size + b_max) * 12 + ka.size, pairs * 12)
+    bms, by = bound((ka.size + b_max) * 12 + ka.size,
+                    (ka.size + b_max) * 12)
     say(f"conflict_any: bound {bms:.9f} ms ({by}) at A={ka.size}, "
-        f"B={b_max} ({pairs} pair tests, {int(conf.any(axis=1).sum())} "
-        f"candidates conflict); main-path launches "
+        f"B={b_max} ({int(conf.any(axis=1).sum())} candidates "
+        f"conflict; the pair-test design's bound counted {pairs} pair "
+        f"tests: {bound(0, pairs * 12)[0]:.9f} ms); main-path launches "
         f"{launches['conflict_any']}")
     return [row("conflict_any", launches, err, timed, bms, by, None,
                 f"{STREAMS}-stream tick, A={ka.size}, B={b_max}")]
@@ -2391,8 +2535,8 @@ def main(argv=None) -> int:
         for name in kernels:
             check(counts[name] > 0, f"{name} was not launched on the {tag} "
                   "path")
-        for name in launches:
-            launches[name] += counts[name]
+        for name, done in counts.items():
+            launches[name] = launches.get(name, 0) + done
 
     reset_counts()
     t0 = time.perf_counter()
@@ -2404,8 +2548,8 @@ def main(argv=None) -> int:
                  "probe64_fp", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the scale-out "
               "path")
-    for name in launches:
-        launches[name] += counts[name]
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
 
     reset_counts()
     t0 = time.perf_counter()
@@ -2419,8 +2563,8 @@ def main(argv=None) -> int:
                  "art_descend", "art_pack_entries", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the serving "
               "path")
-    for name in launches:
-        launches[name] += counts[name]
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
     serving_cpu_check(serve, min(serve["prompts"], key=len))
     decode_busy(serve)
 
@@ -2444,8 +2588,8 @@ def main(argv=None) -> int:
                  "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the RWKV "
               "serving path")
-    for name in launches:
-        launches[name] += counts[name]
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
     # a full-width CPU run of a 512-token prompt is slow: the check takes
     # the path's 32-token prompt (the width is not cut)
     serving_cpu_check(rwkv, min(rwkv["prompts"], key=len))
@@ -2465,8 +2609,8 @@ def main(argv=None) -> int:
           f"({mamba['decode_steps']}): {want}")
     split["ssd"]["prefill"] += n_mixers * mamba["prefills"]
     split["ssd"]["decode"] += n_mixers * mamba["decode_steps"]
-    for name in launches:
-        launches[name] += counts[name]
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
     mamba_cpu_check(mamba)
 
     reset_counts()
@@ -2491,8 +2635,8 @@ def main(argv=None) -> int:
                  "art_descend", "art_pack_entries", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the hybrid "
               "serving path")
-    for name in launches:
-        launches[name] += counts[name]
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
     # the reduced model is small: the check takes the longest prompt
     serving_cpu_check(hybrid, max(hybrid["prompts"], key=len))
     decode_busy(hybrid)
@@ -2505,8 +2649,8 @@ def main(argv=None) -> int:
         f"{counts}")
     check(counts["clht_probe"] > 0, "clht_probe was not launched on the "
           "tag path")
-    for name in launches:
-        launches[name] += counts[name]
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
 
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = probe_vs_plain(sessions["P-CLHT"].index, args.seed, launches)

@@ -17,14 +17,30 @@
 //   * lane j < C of the row: valid = j < count && lb + j < n; key and
 //     value of entry lb + j where valid, 0 elsewhere.
 //
-// What bounds it on an H100: a point lookup (C = 1) reads about
-// log2(n) keys per query along a chain of dependent loads (18 at
-// n = 2^18) and writes 17 bytes, so it is latency-bound like the probe
-// kernels.  A YCSB-E scan (C = 128) also writes a [Q, 128] window of
-// 17 bytes a lane, 8.9 MB at Q = 4096: the window copy is the part that
-// meets HBM bandwidth.  So each warp runs the search once (all lanes
-// the same addresses, served as broadcasts) and then copies its window
-// with its 32 lanes on consecutive entries, coalesced.
+// The search is 33-way: while the range [lo, hi) holds more than 32
+// entries, lane j reads the pivot p_j = lo + (j + 1) * len / 33, and
+// since the run is sorted, __ballot_sync(keys[p_j] < q) is a prefix
+// mask whose popcount c picks the sub-range between two pivots:
+// [p_{c-1} + 1, p_c), with lo for p_{-1} + 1 and hi for p_32.  Each
+// sub-range holds at most floor(len / 33) entries.  The last <= 32
+// entries are read in one round, one a lane, and the popcount of their
+// ballot is the exact lower bound.  So a query makes ceil(log33(len +
+// 1)) dependent rounds of loads (4 at n = 2^18), where a binary search
+// makes ceil(log2(len + 1)) (19).
+//
+// The window: the warp's 32 lanes copy consecutive entries, a lane
+// each, coalesced.  For a point lookup (C = 1) the last search round
+// reads values beside keys, so the entry comes from a lane by shuffle
+// and no load waits on the lower bound.  (Four entries a lane, their
+// valid bytes stored as one 32-bit word and their keys and values as
+// 16-byte pairs, was slower at C = 128 on an H100, and so were the
+// first 32 entries of every window taken by shuffle:
+// tools/search_variants.py.)
+//
+// What bounds it on an H100: a point lookup (C = 1) makes the search's
+// dependent rounds and writes 17 bytes, so it is latency-bound; a
+// YCSB-E scan (C = 128) also writes a [Q, 128] window of 17 bytes a
+// lane, 8.9 MB at Q = 4096, the part that meets HBM bandwidth.
 //
 // The shard axis (scan_window_rows): the sharded mesh read path
 // (distributed/mesh.py) stacks every shard's sorted run end to end in one
@@ -36,10 +52,6 @@
 // (_probe_one_shard), which pads every run to a common power of two.
 // The single-run entry point (scan_window) is the same kernel with base
 // 0 and length n for every row.
-//
-// Left for later: a 32-way search (each lane reads one pivot, a ballot
-// picks the sub-range) would cut the dependent loads from log2(n) to
-// log32(n).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +59,35 @@
 namespace {
 
 constexpr int kWarp = 32;
+constexpr int kWays = kWarp + 1;  // sub-ranges a round splits into
 constexpr int kBlock = 128;
 constexpr int kWarpsPerBlock = kBlock / kWarp;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Narrows [lo, hi) by 33-way rounds until it holds 32 entries or fewer
+// and still holds the first index whose key is >= q (or ends at it);
+// every lane of the warp takes part and gets the same range.
+__device__ __forceinline__ void narrow(const int64_t* __restrict__ keys,
+                                       long long& lo, long long& hi,
+                                       long long q, int lane) {
+  while (hi - lo > kWarp) {
+    // under 2^26 entries the pivot takes 32-bit arithmetic (faster by
+    // 2-4% on an H100: tools/search_variants.py)
+    const long long len = hi - lo;
+    const long long p =
+        lo + (len < (1ll << 26)
+                  ? static_cast<long long>(static_cast<unsigned>(lane + 1) *
+                                           static_cast<unsigned>(len) /
+                                           static_cast<unsigned>(kWays))
+                  : (lane + 1) * len / kWays);
+    const int c = __popc(__ballot_sync(
+        kFull, static_cast<long long>(__ldg(keys + p)) < q));
+    const long long below = __shfl_sync(kFull, p, c > 0 ? c - 1 : 0);
+    const long long above = __shfl_sync(kFull, p, c < kWarp ? c : 0);
+    if (c > 0) lo = below + 1;
+    if (c < kWarp) hi = above;
+  }
+}
 
 // kRows: row i searches keys[base[i], base[i] + length[i]); otherwise
 // every row searches keys[0, n).
@@ -66,33 +105,58 @@ scan_window_kernel(const int64_t* __restrict__ queries,
                     threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (i >= n_queries) return;
-  const long long q = queries[i];
-  long long lo = kRows ? base[i] : 0;
-  long long hi = kRows ? lo + length[i] : n;
-  const long long end = hi;
-  while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    if (static_cast<long long>(keys[mid]) < q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const int count = counts[i];
+  const long long q = __ldg(queries + i);
+  const int count = __ldg(counts + i);
+  long long lo = kRows ? __ldg(base + i) : 0;
+  const long long end = kRows ? lo + __ldg(length + i) : n;
+  long long hi = end;
+  narrow(keys, lo, hi, q, lane);
+  // the last round: lane j reads entry lo + j wherever it lies in the
+  // run, and the popcount of the ballot is the lower bound; a point
+  // lookup (C = 1) reads the value beside the key
+  const long long at = lo + lane;
+  const bool in = at < end;
+  const long long k = in ? static_cast<long long>(__ldg(keys + at)) : 0;
+  const long long v =
+      in && max_count == 1 ? static_cast<long long>(__ldg(vals + at)) : 0;
+  const int below = __popc(__ballot_sync(kFull, lane < hi - lo && k < q));
+  const long long lb = lo + below;
   const int64_t row = i * max_count;
+  if (max_count == 1) {  // the entry comes from lane `below` by shuffle
+    const long long k0 = __shfl_sync(kFull, k, below % kWarp);
+    const long long v0 = __shfl_sync(kFull, v, below % kWarp);
+    if (lane == 0) {
+      const bool ok = count > 0 && lb < end;
+      long long k1 = k0, v1 = v0;
+      if (ok && below == kWarp) {  // entry lo + 32: no lane read it
+        k1 = __ldg(keys + lb);
+        v1 = __ldg(vals + lb);
+      }
+      valid[row] = ok;
+      okeys[row] = ok ? k1 : 0;
+      ovals[row] = ok ? v1 : 0;
+    }
+    return;
+  }
   for (int j = lane; j < max_count; j += kWarp) {
-    const long long pos = lo + j;
+    const long long pos = lb + j;
     const bool ok = j < count && pos < end;
     valid[row + j] = ok;
-    okeys[row + j] = ok ? keys[pos] : 0;
-    ovals[row + j] = ok ? vals[pos] : 0;
+    okeys[row + j] = ok ? __ldg(keys + pos) : 0;
+    ovals[row + j] = ok ? __ldg(vals + pos) : 0;
   }
+}
+
+unsigned grid_for(long long n_queries) {
+  return static_cast<unsigned>((n_queries + kWarpsPerBlock - 1) /
+                               kWarpsPerBlock);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after the launch.
+// C interface, loaded with ctypes.  valid, okeys and ovals are [Q, C].
+// Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch.
 extern "C" int scan_window(const void* queries, const void* counts,
                            const void* keys, const void* vals,
                            long long n_queries, long long n, int max_count,
@@ -100,10 +164,8 @@ extern "C" int scan_window(const void* queries, const void* counts,
                            void* stream) {
   if (n_queries <= 0) return 0;
   if (max_count < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(
-      (n_queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
   scan_window_kernel<false>
-      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<grid_for(n_queries), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int64_t*>(queries),
           static_cast<const int32_t*>(counts), nullptr, nullptr,
           static_cast<const int64_t*>(keys),
@@ -123,10 +185,8 @@ extern "C" int scan_window_rows(const void* queries, const void* counts,
                                 void* ovals, void* stream) {
   if (n_queries <= 0) return 0;
   if (max_count < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(
-      (n_queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
   scan_window_kernel<true>
-      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<grid_for(n_queries), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int64_t*>(queries),
           static_cast<const int32_t*>(counts),
           static_cast<const int64_t*>(base),

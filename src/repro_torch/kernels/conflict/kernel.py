@@ -6,8 +6,10 @@ tensors it launches the CUDA kernel on the current stream, or raises;
 on CPU tensors it runs ``ref.conflict_any_plain``.  Nothing else
 selects between the two.
 
-``LAUNCHES`` counts kernel launches under the name ``conflict_any``; a
-call on CPU tensors launches nothing and counts nothing.
+``LAUNCHES`` counts calls that launch the CUDA kernels under the name
+``conflict_any``: one a call, which clears the scratch's table and runs
+two CUDA kernels (insert, then probe); a call on CPU tensors, or with
+an empty set, launches nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -37,8 +39,11 @@ _P = ctypes.c_void_p
 def _library() -> ctypes.CDLL:
     lib = build.load("conflict_any")
     lib.conflict_any.argtypes = [_P, _P, ctypes.c_longlong, _P, _P,
-                                 ctypes.c_longlong, ctypes.c_int, _P, _P]
+                                 ctypes.c_longlong, ctypes.c_int, _P, _P,
+                                 _P]
     lib.conflict_any.restype = ctypes.c_int
+    lib.conflict_any_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.conflict_any_scratch_bytes.restype = ctypes.c_longlong
     lib.conflict_any_error_string.argtypes = [ctypes.c_int]
     lib.conflict_any_error_string.restype = ctypes.c_char_p
     return lib
@@ -77,15 +82,20 @@ def conflict_any(kinds_a: torch.Tensor, keys_a: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"conflict_any takes CUDA or CPU tensors, not {dev}")
     n_a, n_b = kinds_a.shape[0], kinds_b.shape[0]
-    out = torch.zeros(n_a, dtype=torch.bool, device=dev)
     if n_a == 0 or n_b == 0:
-        return out
+        return torch.zeros(n_a, dtype=torch.bool, device=dev)
     lib = _library()
+    out = torch.empty(n_a, dtype=torch.bool, device=dev)
+    # the reference set's hash table, cleared and filled on the current
+    # stream by the call
+    scratch = torch.empty(lib.conflict_any_scratch_bytes(n_b),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.conflict_any(kinds_a.data_ptr(), keys_a.data_ptr(), n_a,
                                kinds_b.data_ptr(), keys_b.data_ptr(), n_b,
-                               int(writes_conflict), out.data_ptr(), stream)
+                               int(writes_conflict), out.data_ptr(),
+                               scratch.data_ptr(), stream)
     if err:
         raise RuntimeError("conflict_any kernel launch failed: "
                            + lib.conflict_any_error_string(err).decode())

@@ -11,8 +11,10 @@ raises; on CPU tensors it runs its plain version
 else selects between the two.
 
 ``LAUNCHES`` counts kernel launches, ``scan_window`` under the TPU
-kernel's name and the shard-axis form as ``scan_window_sharded``; a
-call on CPU tensors launches nothing and counts nothing.
+kernel's name and the shard-axis form as ``scan_window_sharded``;
+``WINDOWS`` splits the same launches by window width C (``max_count``),
+``{name: {C: launches}}``.  A call on CPU tensors launches nothing and
+counts nothing.
 """
 
 from __future__ import annotations
@@ -28,11 +30,19 @@ from .ref import scan_window_plain, scan_window_rows_plain
 
 #: CUDA launches since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"scan_window": 0, "scan_window_sharded": 0}
+#: the same launches by window width
+WINDOWS: Dict[str, Dict[int, int]] = {name: {} for name in LAUNCHES}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        WINDOWS[name].clear()
+
+
+def _count(name: str, max_count: int) -> None:
+    LAUNCHES[name] += 1
+    WINDOWS[name][max_count] = WINDOWS[name].get(max_count, 0) + 1
 
 
 _P = ctypes.c_void_p
@@ -110,7 +120,7 @@ def scan_window(queries: torch.Tensor, counts: torch.Tensor,
     if err:
         raise RuntimeError("scan_window kernel launch failed: "
                            + lib.scan_window_error_string(err).decode())
-    LAUNCHES["scan_window"] += 1
+    _count("scan_window", max_count)
     return valid, okeys, ovals
 
 
@@ -154,8 +164,9 @@ def scan_window_rows(queries: torch.Tensor, counts: torch.Tensor,
     if err:
         raise RuntimeError("scan_window_rows kernel launch failed: "
                            + lib.scan_window_error_string(err).decode())
-    LAUNCHES["scan_window_sharded"] += 1
+    _count("scan_window_sharded", max_count)
     return valid, okeys, ovals
 
 
-__all__ = ["LAUNCHES", "reset_launches", "scan_window", "scan_window_rows"]
+__all__ = ["LAUNCHES", "WINDOWS", "reset_launches", "scan_window",
+           "scan_window_rows"]

@@ -10,7 +10,8 @@ int64, the order of ``np.searchsorted`` on int64 and of the TPU
 kernel's (signed high half, biased low half) compare: a query of 2^63
 or above (negative as int64) has lower bound 0.  The CPU tests hold it
 against the JAX package; ``chip_smoke.py`` holds the CUDA kernel
-against it.
+against it.  ``ways_lower_bound`` is a numpy model of the CUDA kernel's
+33-way warp search, which counts each query's dependent rounds.
 """
 
 from __future__ import annotations
@@ -44,6 +45,54 @@ def scan_ref(starts: np.ndarray, counts: np.ndarray, keys: np.ndarray,
         j = min(i + int(c), len(keys))
         out.append(list(zip(keys[i:j].tolist(), vals[i:j].tolist())))
     return out
+
+
+#: sub-ranges a round of csrc/scan_window.cu's search splits into
+#: (kWays): 32 pivots, one a lane of a warp
+WAYS = 33
+
+
+def ways_lower_bound(keys: np.ndarray, queries: np.ndarray,
+                     base=None, length=None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The CUDA kernel's search on the host: (lb [Q], rounds [Q]).
+
+    Row ``i`` searches ``keys[base[i]:base[i] + length[i]]`` (the whole
+    run without ``base``).  While its range holds more than 32 entries,
+    a round reads the pivots ``lo + (j + 1) * len // 33``, j < 32, and
+    the count c of pivots below the query keeps ``[p_{c-1} + 1, p_c)``;
+    a last round reads the <= 32 entries left and adds the count below
+    the query.  An empty range makes no round."""
+    keys = np.asarray(keys, np.int64)
+    q = np.asarray(queries, np.int64)
+    lo = (np.zeros(q.size, np.int64) if base is None
+          else np.asarray(base, np.int64).copy())
+    hi = (np.full(q.size, keys.size, np.int64) if base is None
+          else lo + np.asarray(length, np.int64))
+    rounds = np.zeros(q.size, np.int64)
+    lane = np.arange(WAYS - 1, dtype=np.int64)
+    while True:
+        act = np.nonzero(hi - lo > WAYS - 1)[0]
+        if not act.size:
+            break
+        a_lo, a_hi = lo[act], hi[act]
+        piv = a_lo[:, None] + (lane + 1) * (a_hi - a_lo)[:, None] // WAYS
+        c = (keys[piv] < q[act, None]).sum(axis=1)
+        last = WAYS - 2
+        lo[act] = np.where(c > 0, piv[np.arange(act.size),
+                                      np.maximum(c - 1, 0)] + 1, a_lo)
+        hi[act] = np.where(c <= last, piv[np.arange(act.size),
+                                          np.minimum(c, last)], a_hi)
+        rounds[act] += 1
+    act = np.nonzero(hi > lo)[0]
+    if act.size:
+        idx = lo[act, None] + lane
+        live = lane < (hi - lo)[act, None]
+        less = live & (keys[np.where(live, idx, lo[act, None])]
+                       < q[act, None])
+        lo[act] += less.sum(axis=1)
+        rounds[act] += 1
+    return lo, rounds
 
 
 def lower_bound_plain(queries: torch.Tensor, keys: torch.Tensor
@@ -113,5 +162,5 @@ def scan_window_rows_plain(queries: torch.Tensor, counts: torch.Tensor,
     return valid, okeys, ovals
 
 
-__all__ = ["lookup_ref", "lower_bound_plain", "scan_ref",
-           "scan_window_plain", "scan_window_rows_plain"]
+__all__ = ["WAYS", "lookup_ref", "lower_bound_plain", "scan_ref",
+           "scan_window_plain", "scan_window_rows_plain", "ways_lower_bound"]

@@ -219,6 +219,38 @@ def test_scan_window_matches_plain_version(card, width):
     assert int(got[1][-3, 0]) == (int(keys[0]) if counts[-3] else 0)
 
 
+@pytest.mark.parametrize("width", [1, 2, 33, 128])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 34, 1089, 1090, 1 << 18])
+def test_scan_window_edge_runs_match_plain_version(card, n, width):
+    """The 33-way search at the run lengths where its rounds change (32,
+    33, 1089, 1090), on empty and one-entry runs and at P-Masstree's
+    2^18; negative keys, starts below and above the run, key 0, -1 and
+    keys of 2^63 and above, counts of 0; windows of 1 (the entry taken
+    by shuffle from the last round), 2, 33 and 128."""
+    rng = np.random.default_rng(n + width)
+    keys = np.unique(rng.integers(-(1 << 62), 1 << 62, size=n + 16))
+    keys = np.sort(rng.choice(keys, n, replace=False)).astype(np.int64)
+    vals = rng.integers(1, 1 << 62, size=n)
+    q = rng.integers(HIGH, (1 << 63) - 1, size=4099)
+    if n:
+        q[:2000] = rng.choice(keys, 2000)
+        q[2000:2500] = rng.choice(keys, 500) + 1
+        q[2500:2504] = [keys[0] - 1, keys[0], keys[-1], keys[-1] + 1]
+    q[-5:] = [0, -1, HIGH, HIGH + 1, (1 << 63) - 1]
+    counts = rng.integers(0, width + 1, size=q.size).astype(np.int32)
+    counts[::9] = 0
+    t = [torch.from_numpy(a).to(card) for a in (q, counts, keys, vals)]
+    before = kscan.LAUNCHES["scan_window"]
+    by_width = kscan.WINDOWS["scan_window"].get(width, 0)
+    got = kscan.scan_window(*t, max_count=width)
+    torch.cuda.synchronize()
+    assert kscan.LAUNCHES["scan_window"] == before + 1
+    assert kscan.WINDOWS["scan_window"][width] == by_width + 1
+    plain = kscan.scan_window_plain(*t, max_count=width)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+
+
 @pytest.mark.parametrize("kind", ["art", "hot", "masstree", "bwtree"])
 def test_ordered_kinds_on_card_equal_cpu(card, kind):
     """YCSB load + C + E0 plans on the card give the results, tallies
@@ -273,8 +305,10 @@ def test_shard_route_matches_plain_version(card, scheme):
 
 
 @pytest.mark.parametrize("writes_conflict", [False, True])
-@pytest.mark.parametrize("n_a,n_b", [(1, 1), (4099, 1), (300, 5000),
-                                     (4096, 12288), (7, 0)])
+@pytest.mark.parametrize("n_a,n_b", [(1, 1), (4099, 1), (64, 7),
+                                     (300, 5000), (4096, 12288),
+                                     (9000, 12289), (4096, 65536),
+                                     (300, 65537), (7, 0)])
 def test_conflict_any_matches_plain_version(card, n_a, n_b,
                                             writes_conflict):
     rng = np.random.default_rng(n_a + n_b)
@@ -298,11 +332,46 @@ def test_conflict_any_matches_plain_version(card, n_a, n_b,
         assert 0 < int(got.sum()) < n_a or n_a == 1
 
 
+@pytest.mark.parametrize("writes_conflict", [False, True])
+@pytest.mark.parametrize("n_b", [1, 7, 12288, 65536, 65537])
+@pytest.mark.parametrize("case", ["edges", "no-scan", "no-write",
+                                  "gets-only", "duplicates"])
+def test_conflict_any_edge_sets_match_plain_version(card, case, n_b,
+                                                    writes_conflict):
+    """Reference sets of 1 op to 65537 on keys 0, -1, INT64_MIN and
+    INT64_MAX, with no SCAN, no write or only GETs, and of one key many
+    times over, as a GET and as a write."""
+    rng = np.random.default_rng(n_b + len(case))
+    edges = np.array([0, -1, HIGH, (1 << 63) - 1, 1], np.int64)
+    pool = np.concatenate([edges, rng.integers(HIGH, (1 << 63) - 1,
+                                               size=max(8, n_b // 3))])
+    kinds_b = {"no-scan": (0, 1, 2, 3, 5), "no-write": (0, 4, 5),
+               "gets-only": (0,)}.get(case, (0, 1, 2, 3, 4, 5))
+    ka = rng.integers(0, 6, size=4096).astype(np.int32)
+    kb = rng.choice(np.array(kinds_b, np.int32), size=n_b)
+    xa, xb = rng.choice(pool, ka.size), rng.choice(pool, n_b)
+    if case == "edges":
+        xa[::2] = np.resize(edges, xa[::2].size)
+        xb[:] = np.resize(edges, n_b)
+    if case == "duplicates":
+        xb[:] = xa[3]
+    t = [torch.from_numpy(a).to(card) for a in (ka, xa, kb, xb)]
+    before = kconf.LAUNCHES["conflict_any"]
+    got = kconf.kernel.conflict_any(*t, writes_conflict=writes_conflict)
+    torch.cuda.synchronize()
+    assert kconf.LAUNCHES["conflict_any"] == before + 1
+    assert torch.equal(got, kconf.conflict_any_plain(
+        *t, writes_conflict=writes_conflict))
+    assert np.array_equal(got.cpu().numpy(), kconf.conflict_any_ref(
+        ka, xa, kb, xb, writes_conflict=writes_conflict))
+
+
 @pytest.mark.parametrize("width", [1, 128])
 def test_scan_window_rows_matches_plain_version(card, width):
     rng = np.random.default_rng(width + 7)
     runs = [np.unique(rng.integers(HIGH, (1 << 63) - 1, size=n))
-            for n in (5000, 0, 1, 20000, 300, 7, 0, 9000)]
+            for n in (5000, 0, 1, 20000, 300, 7, 0, 9000, 32, 33, 1089,
+                      1090, 1 << 17)]
     offsets = np.concatenate([[0], np.cumsum([r.size for r in runs])])
     keys = np.concatenate(runs)
     vals = rng.integers(1, 1 << 62, size=keys.size)
