@@ -28,17 +28,21 @@ converted indexes each:
   stale-snapshot floor).
 
 The sixth, the scale-out path, drives ``open_index(kind, shards=S)``:
-every plan is routed by the shard-routing kernel
-(``csrc/shard_route.cu``):
+every plan is routed and sorted by shard in one launch of the partition
+kernel (``csrc/shard_route.cu`` ``shard_partition``; the routing
+kernel of the same source, ``shard_route``, answers ``route``, which no
+path calls: where the smoke needs a key's shard it asks the numpy
+``route_ref``):
 
 * P-CLHT in 8 shards (``--n-clht`` keys, hash routing): Load A, YCSB-C
   through the mesh read path (all 8 shards' sorted runs searched in one
-  launch of ``csrc/scan_window.cu`` with a shard axis) and through the
-  per-shard path, the same plans on the unsharded P-CLHT of the first
-  path, YCSB-A, a crash injected inside one shard's group commit (the
-  siblings serve the plan's new values with no replay; the shard is
-  power-failed and its sub-plan replayed; every acknowledged key reads
-  back), and 4 client streams of overlapping YCSB-A plans through
+  launch of ``csrc/scan_window.cu`` with a shard axis, the plan's keys
+  and shard ids left on the card) and through the per-shard path (the
+  mean ``route_ns`` of each printed), the same plans on the unsharded
+  P-CLHT of the first path, YCSB-A, a crash injected inside one shard's
+  group commit (the siblings serve the plan's new values with no
+  replay; the shard is power-failed and its sub-plan replayed; every
+  acknowledged key reads back), and 4 client streams of overlapping YCSB-A plans through
   ``StreamDriver``, whose admission runs the conflict kernel
   (``csrc/conflict_any.cu``): some plans defer, and every ticket's
   results equal a sequential oracle applied in tick order;
@@ -98,7 +102,11 @@ The eleventh, the tag path, drives the 32-bit tag data plane
 (``kernels/clht_probe`` ``tag_lookup``): 2^19 keys in a chained table of
 2^18 buckets built from ``--seed``, one wave of 4096 queries (hits,
 misses, query 0 and two keys whose tags collide) through the tag probe
-kernel (``csrc/clht_probe.cu``), every answer equal to a numpy reading.
+kernel (``csrc/clht_probe.cu`` ``tag_probe``, which walks each query's
+chain itself), every answer equal to a numpy reading.  After the path's
+counts are read, the wave's device operations are counted with the
+profiler; the window entry of that source (``clht_probe``), which no
+path runs, is checked in phase 4.
 
 Phases, each of which exits non-zero on failure:
 
@@ -121,11 +129,14 @@ Phases, each of which exits non-zero on failure:
    table the path descended; the two
    attention kernels on inputs drawn from ``--seed`` at the serving
    path's shapes, elementwise within ``ATTN_STEPS`` bf16 unit
-   roundoffs, a limit that a dropped newest key breaks; the tag probe
-   bit-identical to its plain version and the numpy reading on the tag
-   path's windows; the WKV6 kernel at RWKV6-7B's prefill (T = 512) and
-   decode (T = 1, carried state) shapes, with decays down to logw = -8,
-   within the same limit, which the plain version without the bonus u or
+   roundoffs, a limit that a dropped newest key breaks; the tag probe's
+   window form bit-identical to its plain version and the numpy reading
+   on the tag path's windows, and its whole lookup to the windows'
+   gather followed by the plain probe; the partition kernel to its plain
+   version and the numpy partition at 1 to 2^12 shards; the WKV6 kernel
+   at RWKV6-7B's prefill (T = 512) and decode (T = 1, carried state)
+   shapes, with decays down to logw = -8, within the same limit, which
+   the plain version without the bonus u or
    without the carried state breaks; the SSD kernel at Jamba's prefill
    (T = 4096) and decode (T = 1, carried state; bf16, and fp32 as the
    Mamba path runs it) shapes and at the hybrid's reduced decode (fp32),
@@ -204,10 +215,12 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "scan_window": "src/repro_torch/csrc/scan_window.cu",
            "scan_window_sharded": "src/repro_torch/csrc/scan_window.cu",
            "shard_route": "src/repro_torch/csrc/shard_route.cu",
+           "shard_partition": "src/repro_torch/csrc/shard_route.cu",
            "conflict_any": "src/repro_torch/csrc/conflict_any.cu",
            "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "clht_probe": "src/repro_torch/csrc/clht_probe.cu",
+           "tag_probe": "src/repro_torch/csrc/clht_probe.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu",
            "ssd": "src/repro_torch/csrc/ssd.cu"}
 # the sharded search is scan_window with a shard axis; on the JAX
@@ -215,7 +228,11 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
 # (src/repro/distributed/mesh.py:84), which is not a Pallas kernel; the
 # per-epoch packing of the descent's child entries takes the place of the
 # JAX package's upload of `level` and `is_leaf` beside the child table
-# (its _prepare), which is not one either
+# (its _prepare), which is not one either; the partition takes the place
+# of the routing kernel and the host's stable sort by shard
+# (src/repro/kernels/partition/ref.py:75, partition_ref), and the tag
+# probe that of the window kernel and the gather that feeds it
+# (src/repro/kernels/clht_probe/ops.py:147)
 REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "probe64": "src/repro/kernels/probe/kernel.py:108",
             "art_descend": "src/repro/kernels/art_probe/kernel.py:96",
@@ -223,12 +240,14 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "scan_window": "src/repro/kernels/scan/kernel.py:79",
             "scan_window_sharded": "src/repro/kernels/scan/kernel.py:79",
             "shard_route": "src/repro/kernels/partition/kernel.py:102",
+            "shard_partition": "src/repro/kernels/partition/kernel.py:102",
             "conflict_any": "src/repro/kernels/conflict/kernel.py:64",
             "paged_attention":
                 "src/repro/kernels/paged_attention/kernel.py:68",
             "flash_attention":
                 "src/repro/kernels/flash_attention/kernel.py:90",
             "clht_probe": "src/repro/kernels/clht_probe/kernel.py:38",
+            "tag_probe": "src/repro/kernels/clht_probe/kernel.py:38",
             "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:60",
             "ssd": "src/repro/kernels/mamba_scan/kernel.py:58"}
 COUNTERS = (kprobe.LAUNCHES, kart.LAUNCHES, kscan.LAUNCHES, kpart.LAUNCHES,
@@ -545,12 +564,15 @@ def checked_results(res, want: np.ndarray, what: str) -> None:
           f"{what}: a value differs from the acknowledged one")
 
 
-def c_columns(index, keys: np.ndarray, tag: str, **kw) -> tuple:
+def c_columns(index, keys: np.ndarray, tag: str, route_ns=None,
+              **kw) -> tuple:
     """YCSB-C plans of ``keys`` (every result must be ``value_of(key)``):
     (wall kops/s, modeled kops/s) over all plans but the first, which
     is forced onto the kernel path (a stale snapshot is re-exported)
     and not timed.  Modeled is ``critical_ns`` (routing + the slowest
-    shard + merge) for a sharded index, the wall time otherwise."""
+    shard + merge) for a sharded index, the wall time otherwise.  A
+    sharded index's ``route_ns`` of the timed plans is appended to the
+    list ``route_ns`` when one is given."""
     wall = crit = n = 0
     for lo in range(0, keys.size, PLAN_OPS):
         chunk = keys[lo:lo + PLAN_OPS]
@@ -563,6 +585,8 @@ def c_columns(index, keys: np.ndarray, tag: str, **kw) -> tuple:
             wall += dt
             crit += getattr(res, "critical_ns", dt)
             n += chunk.size
+            if route_ns is not None:
+                route_ns.append(res.route_ns)
     check(n > 0, f"{tag} YCSB-C: fewer than two plans to time")
     return n / wall * 1e6, n / crit * 1e6
 
@@ -598,7 +622,7 @@ def shard_crash(session, loaded: np.ndarray, inserted: np.ndarray,
     idx = session.index
     keys = rng.choice(loaded, PLAN_OPS, replace=False)
     new = value_of(keys) ^ 2
-    routes = idx.route(keys)
+    routes = kpart.route_ref(keys, idx.n_shards, idx.scheme)
     victim = int(routes[0])
     mine = routes == victim
     idx.pmems[victim].arm_crash(after_stores=int(mine.sum()) // 2)
@@ -727,16 +751,24 @@ def clht_scale_out(sessions, n_load: int, seed: int) -> dict:
     say(f"{tag} load: {rate(loaded.size, secs)}")
     c_keys = op_keys(load.run_ops[:(C_PLANS + 1) * PLAN_OPS])
     before = idx.stats["mesh_plans"]
+    partitions = kpart.LAUNCHES["shard_partition"]
     t0 = time.perf_counter()
-    mesh = c_columns(idx, c_keys, f"{tag} mesh", mesh=True)
+    mesh_route, shard_route = [], []
+    mesh = c_columns(idx, c_keys, f"{tag} mesh", mesh_route, mesh=True)
     n_plans = -(-c_keys.size // PLAN_OPS)
     check(idx.stats["mesh_plans"] - before == n_plans,
           f"{tag}: a YCSB-C plan did not take the mesh path")
+    check(kpart.LAUNCHES["shard_partition"] - partitions == n_plans,
+          f"{tag}: a YCSB-C plan did not launch shard_partition once")
     say(f"{tag} YCSB-C, mesh path: wall {mesh[0]:.3f} kops/s, modeled "
         f"{mesh[1]:.3f} kops/s, all found ({n_plans} plans, the "
         f"first re-exporting every shard's run; "
         f"{time.perf_counter() - t0:.3f} s)")
-    per_shard = c_columns(idx, c_keys, f"{tag} per-shard", mesh=False)
+    per_shard = c_columns(idx, c_keys, f"{tag} per-shard", shard_route,
+                          mesh=False)
+    say(f"{tag} YCSB-C route_ns, mean of {len(mesh_route)} plans: mesh "
+        f"path {np.mean(mesh_route):.1f} ns, per-shard path "
+        f"{np.mean(shard_route):.1f} ns")
     one = c_columns(sessions["P-CLHT"].index, c_keys, "P-CLHT")
     report_columns("P-CLHT", one, per_shard, SHARDS)
     inserted = ycsb_a(idx, n_load, seed, tag)
@@ -774,7 +806,8 @@ def fastfair_scans(n_load: int, seed: int) -> None:
     check(done["acked"] == len(load.load_ops), f"{tag} Load A: an insert "
           "was not acknowledged")
     loaded = op_keys(load.load_ops)
-    per_shard = np.bincount(idx.route(loaded), minlength=4)
+    per_shard = np.bincount(kpart.route_ref(loaded, 4, idx.scheme),
+                            minlength=4)
     check((per_shard > 0).all(), f"{tag}: a shard holds no key")
     say(f"{tag} load: {rate(loaded.size, secs)}; keys per shard "
         f"{per_shard.tolist()}")
@@ -1507,7 +1540,57 @@ def route_vs_plain(scale, launches: dict) -> list:
     say(f"shard_route: bound {bms:.9f} ms ({by}) at Q={Q}; main-path "
         f"launches {launches['shard_route']}")
     return [row("shard_route", launches, err, timed, bms, by, None,
-                f"P-CLHT x{SHARDS}, Q={Q}, hash, {b} bits")]
+                f"P-CLHT x{SHARDS}, Q={Q}, hash, {b} bits"),
+            partition_vs_plain(q, timing, launches)]
+
+
+def partition_vs_plain(q: np.ndarray, timing: list, launches: dict
+                       ) -> dict:
+    """shard_partition against its plain version and the numpy
+    partition on the route check's keys and on 1 and 4097 of them
+    (both forms), hash, prefix and prefix@58, 1 to 2^12 shards; timed
+    at the path's shape (8 shards, hash) on the keys of 16 YCSB-C plans;
+    a stable torch.sort of the ids and a bincount timed as the library
+    yardstick of the partition half."""
+    dev = timing[0][0].device
+    err = 0
+    for n in (Q, 1, Q + 1):
+        keys = np.resize(q, n)
+        kt = torch.from_numpy(keys).to(dev)
+        for scheme in ("hash", "prefix", "prefix@58"):
+            for bits in range(kpart.MAX_PARTITION_BITS + 1):
+                b, shift = kpart.route_params(1 << bits, scheme)
+                got = kpart.shard_partition(kt, bits=b, shift=shift)
+                torch.cuda.synchronize()
+                plain = kpart.shard_partition_plain(kt, bits=b, shift=shift)
+                err = max(err, compare("shard_partition", got, plain))
+                ref = kpart.partition_ref(keys, 1 << bits, scheme)
+                check(all(np.array_equal(g.cpu().numpy(), r)
+                          for g, r in zip(got, ref)),
+                      "shard_partition: differs from the numpy partition")
+    say(f"shard_partition: bit-identical to its plain version and to the "
+        f"numpy partition on {Q}, 1 and {Q + 1} keys, hash, prefix and "
+        f"prefix@58, 1-{1 << kpart.MAX_PARTITION_BITS} shards")
+    b, shift = kpart.route_params(SHARDS, "hash")
+    timed = time_kernel(
+        "shard_partition",
+        lambda k: kpart.shard_partition(k, bits=b, shift=shift),
+        lambda k: kpart.shard_partition_plain(k, bits=b, shift=shift),
+        timing)
+    ids = [(kpart.shard_route(k, bits=b, shift=shift),) for (k,) in timing]
+    lib_dev, lib_call = time_calls(
+        lambda i: (torch.sort(i, stable=True),
+                   torch.bincount(i, minlength=SHARDS)), ids, 640)
+    library_ms = lib_dev if lib_dev is not None else lib_call
+    # each key read once (8 bytes), its id and its place written once (4
+    # and 4), the offsets; a route and a rank are some 24 operations
+    bms, by = bound(Q * 16 + (SHARDS + 1) * 4, Q * 24)
+    say(f"shard_partition: bound {bms:.9f} ms ({by}) at Q={Q}, "
+        f"S={SHARDS}; torch.sort(stable) + bincount of the ids: device "
+        f"{lib_dev} ms, call {lib_call:.6f} ms; main-path launches "
+        f"{launches['shard_partition']}")
+    return row("shard_partition", launches, err, timed, bms, by,
+               library_ms, f"P-CLHT x{SHARDS}, Q={Q}, hash, {b} bits")
 
 
 def conflict_edges(dev) -> int:
@@ -2086,6 +2169,53 @@ def tag_path(seed: int) -> dict:
             "q": qd, "numpy": (nf, nv)}
 
 
+def tag_wave_ops(tag: dict) -> None:
+    """The device operations of one tag_lookup wave on the tag path's
+    table, counted by the profiler: one, the tag probe.  Run after the
+    path's counts are read, so its launches count for no path."""
+    n_ops, names = device_ops(lambda: ktag.tag_lookup(
+        tag["q"], *tag["table"], n_buckets=TAG_BUCKETS))
+    check(n_ops <= 1, f"tag path: a tag_lookup wave ran {n_ops:.2f} "
+          f"device operations, not one: {names}")
+    say(f"tag path: the wave's device operations: {n_ops:.2f} "
+        f"({', '.join(names)})")
+
+
+def device_ops(fn, calls: int = 32) -> tuple:
+    """(operations a call, their names) of the device operations ``fn``
+    runs: each CUDA kernel, copy and fill the profiler records over
+    ``calls`` calls, after a profiled warm-up (the profiler may miss a
+    window's first launches, so a count may read low, never high)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for n in (4, calls):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.count
+           and not e.key.startswith("ProfilerStep")]
+    return (sum(e.count for e in ops) / calls,
+            [f"{kernel_name(e.key)} x{e.count / calls:g}" for e in ops])
+
+
+def tag_walks(q: np.ndarray, host: tuple) -> tuple:
+    """(rows each query of the tag probe reads, whether it hit a live
+    lane) over the host table: the kernel's walk, vectorized."""
+    keys, _, nxt = host
+    row = ktag.ref.tag_hash_np(q, TAG_BUCKETS)
+    read = np.zeros(q.size, np.int64)
+    hit = np.zeros(q.size, bool)
+    for _ in range(ktag.ref.CHAIN_DEPTH):
+        live = (row >= 0) & ~hit
+        safe = np.where(live, row, 0)
+        read += live
+        hit |= live & (keys[safe] == q[:, None]).any(axis=1)
+        row = np.where(live & ~hit, nxt[safe], -1)
+    return read, hit
+
+
 def clht_vs_plain(tag: dict, launches: dict) -> list:
     """clht_probe on the tag path's windows (Q queries of 128 lanes)
     against its plain version and the numpy reading, then timed over 8
@@ -2119,7 +2249,59 @@ def clht_vs_plain(tag: dict, launches: dict) -> list:
     say(f"clht_probe: bound {bms:.9f} ms ({by}, {n_bytes} bytes, {n_lanes} "
         f"lane compares); main-path launches {launches['clht_probe']}")
     return [row("clht_probe", launches, err, timed, bms, by, None,
-                f"tag path, Q={Q}, W=128, {TAG_BUCKETS} buckets")]
+                f"tag path, Q={Q}, W=128, {TAG_BUCKETS} buckets"),
+            tag_vs_plain(tag, waves, launches)]
+
+
+def tag_vs_plain(tag: dict, waves: list, launches: dict) -> dict:
+    """tag_probe on the tag path's table against its plain version (the
+    windows' gather, then the plain probe) and the numpy reading on 8
+    waves; timed over them beside the wave it replaced (the gather and
+    the window kernel), each with its device operations counted."""
+    table = tag["table"]
+    err = 0
+    for q in waves:
+        got = ktag.tag_probe(q, *table, n_buckets=TAG_BUCKETS)
+        torch.cuda.synchronize()
+        err = max(err, compare("tag_probe", got, ktag.tag_probe_plain(
+            q, *table, n_buckets=TAG_BUCKETS)))
+        qn = q.cpu().numpy()
+        nf, nv = ktag.tag_lookup_np(qn, *tag["host"], TAG_BUCKETS)
+        check(np.array_equal(got[0].cpu().numpy(), nf) and
+              np.array_equal(got[1].cpu().numpy(), nv),
+              "tag_probe: differs from tag_lookup's numpy reading")
+    say(f"tag_probe: bit-identical to its plain version and to the numpy "
+        f"reading on {len(waves)} waves of {Q} queries")
+
+    def probe(q):
+        return ktag.tag_probe(q, *table, n_buckets=TAG_BUCKETS)
+
+    def plain(q):
+        return ktag.tag_probe_plain(q, *table, n_buckets=TAG_BUCKETS)
+
+    def windows_wave(q):
+        return ktag.clht_probe(q, *ktag.tag_windows(
+            q, *table, n_buckets=TAG_BUCKETS))
+
+    batches = [(q,) for q in waves]
+    timed = time_kernel("tag_probe", probe, plain, batches)
+    before_dev, before_call = time_calls(windows_wave, batches, 640)
+    n_new, _ = device_ops(lambda: probe(waves[0]))
+    n_old, _ = device_ops(lambda: windows_wave(waves[0]))
+    # what these queries need: each query, the rows it walks (3 keys and
+    # the next row, 16 bytes), the hit's value, and the two outputs
+    read, hit = tag_walks(waves[0].cpu().numpy(), tag["host"])
+    n_bytes = Q * 4 + int(read.sum()) * 16 + int(hit.sum()) * 4 + Q * 5
+    bms, by = bound(n_bytes, Q * 6 + int(read.sum()) * 4)
+    say(f"tag_probe: bound {bms:.9f} ms ({by}, {n_bytes} bytes); rows a "
+        f"query reads: mean {read.mean():.4f}, max {int(read.max())} (a "
+        f"round each after the query's own); the wave it replaced "
+        f"(tag_windows + clht_probe): device {before_dev} ms, call "
+        f"{before_call:.6f} ms, {n_old:.2f} device operations, against "
+        f"{n_new:.2f}; main-path launches {launches['tag_probe']}")
+    return row("tag_probe", launches, err, timed, bms, by, None,
+               f"tag path, Q={Q}, {TAG_BUCKETS} buckets, depth "
+               f"{ktag.ref.CHAIN_DEPTH}")
 
 
 # -- the WKV6 kernel ----------------------------------------------------------
@@ -2496,6 +2678,11 @@ def main(argv=None) -> int:
                          "shard_route", "conflict_any", "flash_attention",
                          "paged_attention", "clht_probe", "wkv6", "ssd"},
           "a kernel source was not built")
+    logs = "".join(b.log for b in built.values())
+    for name in ("partition_cluster_kernel", "partition_count_kernel",
+                 "partition_scan_kernel", "partition_scatter_kernel",
+                 "tag_probe_kernel", "clht_probe_kernel"):
+        check(name in logs, f"{name} is not in the build's kernels")
     for name, b in built.items():
         for line in ptxas_lines(b.log):
             say(f"  {name}: {line}")
@@ -2544,7 +2731,7 @@ def main(argv=None) -> int:
     counts = read_counts()
     say(f"scale-out path: {time.perf_counter() - t0:.3f} s; kernel "
         f"launches {counts}")
-    for name in ("shard_route", "conflict_any", "scan_window_sharded",
+    for name in ("shard_partition", "conflict_any", "scan_window_sharded",
                  "probe64_fp", "scan_window"):
         check(counts[name] > 0, f"{name} was not launched on the scale-out "
               "path")
@@ -2647,25 +2834,33 @@ def main(argv=None) -> int:
     counts = read_counts()
     say(f"tag path: {time.perf_counter() - t0:.3f} s; kernel launches "
         f"{counts}")
-    check(counts["clht_probe"] > 0, "clht_probe was not launched on the "
-          "tag path")
+    check(counts["tag_probe"] > 0, "tag_probe was not launched on the tag "
+          "path")
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
+    tag_wave_ops(tag)
 
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
-    rows = probe_vs_plain(sessions["P-CLHT"].index, args.seed, launches)
-    rows += radix_vs_plain([("P-ART", sessions["P-ART"]),
-                            ("P-HOT", sessions["P-HOT"])], args.seed,
-                           launches)
-    rows += scan_vs_plain(sessions["P-Masstree"], args.seed, launches)
-    rows += sharded_scan_vs_plain(scale, args.seed, launches)
-    rows += route_vs_plain(scale, launches)
-    rows += conflict_vs_plain(scale, launches)
-    rows += paged_vs_plain(serve, args.seed, launches)
-    rows += flash_vs_plain(serve, args.seed, launches)
-    rows += clht_vs_plain(tag, launches)
-    rows += wkv6_vs_plain(rwkv, args.seed, launches, split["wkv6"])
-    rows += ssd_vs_plain(mamba, hybrid, args.seed, launches, split["ssd"])
+    rows = []
+    for check_rows, fargs in (
+            (probe_vs_plain, (sessions["P-CLHT"].index, args.seed,
+                              launches)),
+            (radix_vs_plain, ([("P-ART", sessions["P-ART"]),
+                               ("P-HOT", sessions["P-HOT"])], args.seed,
+                              launches)),
+            (scan_vs_plain, (sessions["P-Masstree"], args.seed, launches)),
+            (sharded_scan_vs_plain, (scale, args.seed, launches)),
+            (route_vs_plain, (scale, launches)),
+            (conflict_vs_plain, (scale, launches)),
+            (paged_vs_plain, (serve, args.seed, launches)),
+            (flash_vs_plain, (serve, args.seed, launches)),
+            (clht_vs_plain, (tag, launches)),
+            (wkv6_vs_plain, (rwkv, args.seed, launches, split["wkv6"])),
+            (ssd_vs_plain, (mamba, hybrid, args.seed, launches,
+                            split["ssd"]))):
+        t0 = time.perf_counter()
+        rows += check_rows(*fargs)
+        say(f"{check_rows.__name__}: {time.perf_counter() - t0:.3f} s")
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
     say(f"whole run: {time.perf_counter() - t_start:.3f} s")

@@ -17,6 +17,12 @@ shards live on the index's one device and run in one launch; spreading
 them over several cards is not built (``mesh_devices`` reports whether
 a host has them).
 
+``ShardedIndex`` calls ``probe_rows`` with the plan's keys already on
+the card and their shard ids from ``kernels.partition.shard_partition``:
+each row's base and length are gathered there from the runs' starts and
+sizes, which ``build_stacked`` uploads once.  ``mesh_lookup`` is the
+JAX package's per-shard-lists form of the same lookup.
+
 Keys compare in SIGNED 64-bit order, as in the JAX package, whose
 split-half compare (signed high half, XOR-biased low half) is signed
 64-bit order too: a query of 2^63 or above (negative as int64) has
@@ -33,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.readback import to_host
 from ..kernels.scan import scan_window_rows
 
 
@@ -44,6 +51,17 @@ class StackedRuns:
     vals: torch.Tensor   # [sum n] int64
     offsets: np.ndarray  # [S + 1] int64 — host copy of the run bounds
     n_shards: int
+    starts: torch.Tensor  # [S] int64 on the device: offsets[:-1]
+    sizes: torch.Tensor   # [S] int64 on the device: the runs' lengths
+    ones: torch.Tensor = dataclasses.field(default=None, repr=False)
+
+    def counts(self, n: int) -> torch.Tensor:
+        """[n] int32 ones on the device (a window of 1 a row), kept from
+        call to call."""
+        if self.ones is None or self.ones.shape[0] < n:
+            self.ones = torch.ones(max(n, 1), dtype=torch.int32,
+                                   device=self.keys.device)
+        return self.ones[:n]
 
     @property
     def n(self) -> np.ndarray:
@@ -65,7 +83,9 @@ def build_stacked(runs: Sequence[Optional[Tuple[np.ndarray, np.ndarray]]],
                           or [np.zeros(0, np.int64)])
     return StackedRuns(keys=torch.from_numpy(keys).to(device),
                        vals=torch.from_numpy(vals).to(device),
-                       offsets=offsets, n_shards=len(runs))
+                       offsets=offsets, n_shards=len(runs),
+                       starts=torch.from_numpy(offsets[:-1]).to(device),
+                       sizes=torch.from_numpy(np.diff(offsets)).to(device))
 
 
 def mesh_devices(n_shards: int) -> bool:
@@ -73,6 +93,29 @@ def mesh_devices(n_shards: int) -> bool:
     shards (more than one); false on one card.  Reported only: the
     lookup runs every shard on the stacked runs' one device."""
     return torch.cuda.device_count() >= n_shards > 1
+
+
+def probe_rows(stacked: StackedRuns, queries: torch.Tensor,
+               shard: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Probe all shards in one launch, on the device: query i searches
+    the run of shard ``shard[i]`` (queries [Q] int64, shard [Q] int32 or
+    int64, both on the runs' device).  Returns the search's (valid,
+    keys, vals), each [Q, 1]: query i is found when valid and its key
+    equals the query."""
+    base = torch.index_select(stacked.starts, 0, shard)
+    length = torch.index_select(stacked.sizes, 0, shard)
+    return scan_window_rows(queries, stacked.counts(queries.shape[0]),
+                            base, length, stacked.keys, stacked.vals,
+                            max_count=1)
+
+
+def found_values(queries: np.ndarray, valid: np.ndarray, keys: np.ndarray,
+                 vals: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(found [Q] bool, values [Q] int64, 0 where not found) from
+    ``probe_rows``'s outputs read back."""
+    found = valid.reshape(-1) & (keys.reshape(-1) == queries)
+    return found, np.where(found, vals.reshape(-1), 0)
 
 
 def mesh_lookup(stacked: StackedRuns,
@@ -88,21 +131,16 @@ def mesh_lookup(stacked: StackedRuns,
                      np.int64)
     q = np.concatenate([np.asarray(x, np.int64) for x in queries]
                        or [np.zeros(0, np.int64)])
-    shard = np.repeat(np.arange(S), q_len)
     dev = stacked.keys.device
-    qt = torch.from_numpy(q).to(dev)
-    base = torch.from_numpy(stacked.offsets[:-1][shard]).to(dev)
-    length = torch.from_numpy(stacked.n[shard]).to(dev)
-    ones = torch.ones(q.shape[0], dtype=torch.int32, device=dev)
-    valid, okeys, ovals = scan_window_rows(qt, ones, base, length,
-                                           stacked.keys, stacked.vals,
-                                           max_count=1)
-    found_t = valid[:, 0] & (okeys[:, 0] == qt)
-    vals_t = torch.where(found_t, ovals[:, 0], 0)
-    found, vals = found_t.cpu().numpy(), vals_t.cpu().numpy()
+    shard = torch.from_numpy(np.repeat(np.arange(S), q_len)).to(dev)
+    valid, okeys, ovals = probe_rows(stacked, torch.from_numpy(q).to(dev),
+                                     shard)
+    okeys, ovals, valid = to_host(okeys, ovals, valid)
+    found, vals = found_values(q, valid, okeys, ovals)
     bounds = np.concatenate([[0], np.cumsum(q_len)])
     return [(found[bounds[s]:bounds[s + 1]], vals[bounds[s]:bounds[s + 1]])
             for s in range(S)]
 
 
-__all__ = ["StackedRuns", "build_stacked", "mesh_devices", "mesh_lookup"]
+__all__ = ["StackedRuns", "build_stacked", "found_values", "mesh_devices",
+           "mesh_lookup", "probe_rows"]

@@ -43,11 +43,18 @@ host the wall clock serializes the shards; benchmarks report both
 columns (the JAX package's docs/SHARDING.md, "Reporting model").
 
 The port of ``repro.distributed.sharded``.  The one difference is where
-routing runs: the JAX package routes on the host by default; here
-``route`` runs the ``shard_route`` kernel on the shards' device (its
-plain PyTorch version on the CPU), and the ids come back to the host
-for ``split_by_shard``.  Results, tallies and PMem counters are the
-reference's, bit for bit.
+routing runs: the JAX package routes and splits on the host; here
+``execute`` uploads the plan's keys once and ``shard_partition`` routes
+them and sorts them stably by shard on the shards' device (its plain
+PyTorch version on the CPU).  The per-shard path reads the ids, the
+permutation and the run offsets back in one copy: shard s's sub-plan is
+``order[offsets[s]:offsets[s + 1]]``, ``split_by_shard``'s ascending
+positions, unless the plan has a SCAN, whose replicas
+``split_by_shard`` places from the ids.  The mesh path leaves all three
+on the card: its search takes the keys and the ids there, and its
+results and the offsets come back in one copy.  ``route`` (ids only)
+runs the ``shard_route`` kernel.  Results, tallies and PMem counters are
+the reference's, bit for bit.
 """
 
 from __future__ import annotations
@@ -57,14 +64,16 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.plan import Plan, PlanResult, split_by_shard
 from ..core.pmem import CrashPoint, OpCounters, PMem
 from ..kernels.conflict import GET, SCAN
 from ..device import resolve_device
-from ..kernels.partition import route_shards
+from ..kernels.partition import route_params, route_shards, shard_partition
+from ..kernels.readback import to_host
 from ..obs import RECORDER as _OBS
-from .mesh import build_stacked, mesh_lookup
+from .mesh import build_stacked, found_values, probe_rows
 
 
 class ShardedPMem:
@@ -179,14 +188,30 @@ class ShardedIndex:
         self.stats["plans"] += 1
         self.last_crashed_shard = None
         t0 = time.perf_counter_ns()
-        shards = self.route(keys)
-        parts = split_by_shard(kinds, shards, self.n_shards,
-                               scan_suffix=self.scheme.startswith("prefix"))
-        result.route_ns = time.perf_counter_ns() - t0
+        bits, shift = route_params(self.n_shards, self.scheme)
+        keys_dev = torch.from_numpy(np.ascontiguousarray(keys, np.int64)
+                                    ).to(self.device)
+        routed = shard_partition(keys_dev, bits=bits, shift=shift)
         use_mesh = self.mesh_reads if mesh is None else mesh
         if use_mesh and n >= self.n_shards and bool((kinds == GET).all()):
-            self._execute_mesh(keys, parts, result, collect_results)
+            # nothing comes back (the search reads the ids on the card),
+            # but route_ns ends where the per-shard path's does: after
+            # the partition has run
+            if keys_dev.is_cuda:
+                torch.cuda.current_stream(keys_dev.device).synchronize()
+            result.route_ns = time.perf_counter_ns() - t0
+            self._execute_mesh(keys, keys_dev, routed, result,
+                               collect_results)
             return result
+        shards, order, offsets = to_host(*routed)
+        if (kinds == SCAN).any():
+            parts = split_by_shard(
+                kinds, shards, self.n_shards,
+                scan_suffix=self.scheme.startswith("prefix"))
+        else:
+            parts = [order[offsets[s]:offsets[s + 1]]
+                     for s in range(self.n_shards)]
+        result.route_ns = time.perf_counter_ns() - t0
         self._execute_per_shard(kinds, keys, aux, parts, result,
                                 force_kernel, collect_results)
         return result
@@ -311,7 +336,7 @@ class ShardedIndex:
             snap.cache["mesh"] = cell
         return cell[0]
 
-    def _execute_mesh(self, keys, parts, result,
+    def _execute_mesh(self, keys, keys_dev, routed, result,
                       collect_results: bool) -> None:
         ek = tuple(sh._epoch_key() for sh in self.shards)
         if self._mesh_cache is None or self._mesh_cache[0] != ek:
@@ -328,27 +353,30 @@ class ShardedIndex:
             self._mesh_cache = (ek, build_stacked(runs,
                                                   device=self.device))
         stacked = self._mesh_cache[1]
+        shards_dev, _, offsets_dev = routed
         t0 = time.perf_counter_ns()
         with _OBS.span("shard.mesh_lookup", shards=self.n_shards,
                        ops=int(keys.shape[0])):
-            per_shard = mesh_lookup(stacked, [keys[idx] for idx in parts])
+            valid, okeys, ovals = probe_rows(stacked, keys_dev, shards_dev)
+            okeys, ovals, offsets, valid = to_host(okeys, ovals, offsets_dev,
+                                                   valid)
+            found, vals = found_values(keys, valid, okeys, ovals)
         dt = time.perf_counter_ns() - t0
         # one launch covers all shards: book each shard's share of it
         # by its query weight (sums back to the wall)
-        total_q = max(1, sum(int(idx.size) for idx in parts))
-        for s, idx in enumerate(parts):
-            result.shard_ops.append(int(idx.size))
-            result.shard_ns.append(dt * int(idx.size) // total_q)
+        sizes = np.diff(offsets).tolist()
+        total_q = max(1, sum(sizes))
+        for size in sizes:
+            result.shard_ops.append(size)
+            result.shard_ns.append(dt * size // total_q)
         result.wave_kinds.append("read")
         result.wave_widths.append(int(keys.shape[0]))
         result.mesh = True
         self.stats["mesh_plans"] += 1
-        for (found, vals), idx in zip(per_shard, parts):
-            result.found += int(found.sum())
-            if collect_results:
-                for p, f, v in zip(idx.tolist(), found.tolist(),
-                                   vals.tolist()):
-                    result.results[p] = v if f else None
+        result.found += int(found.sum())
+        if collect_results:
+            result.results[:] = [v if f else None for f, v in
+                                 zip(found.tolist(), vals.tolist())]
 
     # -- crash / recovery -------------------------------------------------
     def crash_shard(self, s: int, mode: str = "powerfail", **kw) -> None:

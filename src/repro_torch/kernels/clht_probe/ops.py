@@ -10,8 +10,10 @@ its plain PyTorch version on the CPU.  Results are bit-identical to scalar
 ``lookup``, values above 32 bits included.
 
 ``tag_lookup`` keeps the JAX package's 32-bit-tag data plane (one int32
-lane per key, collisions possible): a 32-bit hash, a fixed chain depth,
-windows gathered here and compared by the ``clht_probe`` kernel.
+lane per key, collisions possible): a 32-bit hash and a fixed chain
+depth, walked by the ``tag_probe`` kernel.  ``tag_hash`` and
+``tag_windows`` (the JAX package's gather, which the window form
+``clht_probe`` takes) live with the plain versions in ``ref``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from ...obs import RECORDER as _OBS
 from ..partition.ref import mix64_ref as mix64
 from ..probe import account, pack_lines, probe_chain
 from ..readback import to_host
-from .kernel import clht_probe
-from .ref import CHAIN_DEPTH, HASH_MUL, SLOTS, WINDOW
+from .kernel import tag_probe
+from .ref import CHAIN_DEPTH, SLOTS, WINDOW, tag_hash, tag_windows
 
 _U64 = np.uint64
 
@@ -84,57 +86,16 @@ def snapshot_lookup(snap, queries: np.ndarray, *, device: torch.device,
     return found, values
 
 
-_M32 = 0xFFFFFFFF
-
-
-def tag_hash(queries: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """Bucket of each int32 query, the JAX package's 32-bit hash:
-    z = uint32(q) * 0x9E3779B9 mod 2^32, z ^= z >> 16, z % n_buckets, all
-    unsigned.  Computed in int64: the product is formed from the query's
-    16-bit halves so no intermediate passes 2^49."""
-    q = queries.to(torch.int64) & _M32
-    z = ((q & 0xFFFF) * HASH_MUL
-         + ((((q >> 16) * HASH_MUL) & 0xFFFF) << 16)) & _M32
-    z = z ^ (z >> 16)
-    return z % n_buckets
-
-
-def tag_windows(queries: torch.Tensor, keys: torch.Tensor,
-                vals: torch.Tensor, nxt: torch.Tensor, *, n_buckets: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each query's window: its bucket and up to ``CHAIN_DEPTH - 1``
-    chained rows (keys, vals [R, SLOTS] int32; nxt [R] int32 row index,
-    -1 none), ``WINDOW`` lanes of keys and of values [Q, WINDOW] int32.
-    Dead rows and the lanes past the chain are key 0, value 0."""
-    row = tag_hash(queries, n_buckets)
-    rows = [row]
-    for _ in range(CHAIN_DEPTH - 1):
-        row = torch.where(row >= 0, nxt[row.clamp_min(0)].to(torch.int64),
-                          -1)
-        rows.append(row)
-    rows = torch.stack(rows, dim=1)                     # [Q, CHAIN_DEPTH]
-    live = (rows >= 0)[:, :, None]
-    n_q = queries.shape[0]
-    windows = []
-    for table in (keys, vals):
-        w = torch.zeros(n_q, WINDOW, dtype=torch.int32, device=keys.device)
-        lanes = torch.where(live, table[rows.clamp_min(0)], 0)
-        w[:, :CHAIN_DEPTH * SLOTS] = lanes.reshape(n_q, -1)
-        windows.append(w)
-    return windows[0], windows[1]
-
-
 def tag_lookup(queries: torch.Tensor, keys: torch.Tensor,
                vals: torch.Tensor, nxt: torch.Tensor, *, n_buckets: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 32-bit-tag data plane: queries [Q] int32 hashed with the
-    32-bit mix, their windows gathered (``tag_windows``), then one
-    ``clht_probe`` launch.  Returns (found [Q] bool, values [Q] int32).
+    32-bit mix and their chains walked, in one ``tag_probe`` launch (no
+    windows are built).  Returns (found [Q] bool, values [Q] int32).
     Query 0 hits a zero lane and comes back found with value 0, as in the
     JAX package.  Tags collide: a hit is to be verified against the
     authoritative index."""
-    return clht_probe(queries, *tag_windows(queries, keys, vals, nxt,
-                                            n_buckets=n_buckets))
+    return tag_probe(queries, keys, vals, nxt, n_buckets=n_buckets)
 
 
 __all__ = ["CHAIN_DEPTH", "SLOTS", "WINDOW", "mix64", "snapshot_lookup",

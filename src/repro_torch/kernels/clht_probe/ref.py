@@ -2,8 +2,12 @@
 
 ``probe_plain`` is the port of the JAX package's
 ``kernels/clht_probe/ref.py`` ``probe_ref`` in PyTorch: what
-``csrc/clht_probe.cu`` computes over pre-gathered windows.  The tests
-and the CPU path run it; on the card the kernel runs instead.
+``csrc/clht_probe.cu``'s window form (``clht_probe``) computes over
+pre-gathered windows.  ``tag_probe_plain`` is the plain version of its
+whole lookup (``tag_probe``): the 32-bit hash (``tag_hash``), each
+query's window gathered from the table (``tag_windows``, the JAX
+package's ``tag_lookup`` gather), then ``probe_plain``.  The tests and
+the CPU path run them; on the card the kernels run instead.
 
 ``tag_lookup_np`` reads ``ops.tag_lookup`` in numpy, a query at a time:
 the 32-bit hash, the chain walk and the first hit in the window, with
@@ -35,6 +39,55 @@ def probe_plain(queries: torch.Tensor, bucket_keys: torch.Tensor,
     idx = hit.to(torch.int8).argmax(dim=1)  # the first True
     vals = torch.gather(bucket_vals, 1, idx[:, None])[:, 0]
     return found, torch.where(found, vals, torch.zeros_like(vals))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def tag_hash(queries: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Bucket of each int32 query, the JAX package's 32-bit hash:
+    z = uint32(q) * 0x9E3779B9 mod 2^32, z ^= z >> 16, z % n_buckets, all
+    unsigned.  Computed in int64: the product is formed from the query's
+    16-bit halves so no intermediate passes 2^49."""
+    q = queries.to(torch.int64) & _M32
+    z = ((q & 0xFFFF) * HASH_MUL
+         + ((((q >> 16) * HASH_MUL) & 0xFFFF) << 16)) & _M32
+    z = z ^ (z >> 16)
+    return z % n_buckets
+
+
+def tag_windows(queries: torch.Tensor, keys: torch.Tensor,
+                vals: torch.Tensor, nxt: torch.Tensor, *, n_buckets: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's window: its bucket and up to ``CHAIN_DEPTH - 1``
+    chained rows (keys, vals [R, SLOTS] int32; nxt [R] int32 row index,
+    -1 none), ``WINDOW`` lanes of keys and of values [Q, WINDOW] int32.
+    Dead rows and the lanes past the chain are key 0, value 0."""
+    row = tag_hash(queries, n_buckets)
+    rows = [row]
+    for _ in range(CHAIN_DEPTH - 1):
+        row = torch.where(row >= 0, nxt[row.clamp_min(0)].to(torch.int64),
+                          -1)
+        rows.append(row)
+    rows = torch.stack(rows, dim=1)                     # [Q, CHAIN_DEPTH]
+    live = (rows >= 0)[:, :, None]
+    n_q = queries.shape[0]
+    windows = []
+    for table in (keys, vals):
+        w = torch.zeros(n_q, WINDOW, dtype=torch.int32, device=keys.device)
+        lanes = torch.where(live, table[rows.clamp_min(0)], 0)
+        w[:, :CHAIN_DEPTH * SLOTS] = lanes.reshape(n_q, -1)
+        windows.append(w)
+    return windows[0], windows[1]
+
+
+def tag_probe_plain(queries: torch.Tensor, keys: torch.Tensor,
+                    vals: torch.Tensor, nxt: torch.Tensor, *, n_buckets: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tag lookup in plain PyTorch: ``tag_windows``, then
+    ``probe_plain``.  Returns (found [Q] bool, values [Q] int32)."""
+    return probe_plain(queries, *tag_windows(queries, keys, vals, nxt,
+                                             n_buckets=n_buckets))
 
 
 def tag_hash_np(queries: np.ndarray, n_buckets: int) -> np.ndarray:
@@ -105,4 +158,5 @@ def tag_lookup_np(queries: np.ndarray, keys: np.ndarray, vals: np.ndarray,
 
 
 __all__ = ["CHAIN_DEPTH", "HASH_MUL", "SLOTS", "WINDOW", "probe_plain",
-           "tag_hash_np", "tag_lookup_np", "tag_table_np"]
+           "tag_hash", "tag_hash_np", "tag_lookup_np", "tag_probe_plain",
+           "tag_table_np", "tag_windows"]

@@ -1,11 +1,12 @@
 """Host front-end for shard routing + stable sort-by-shard.
 
-``route_shards`` is what ``distributed.ShardedIndex.route`` calls for
-every plan.  With ``device=None`` it is the host oracle ``route_ref``,
-as the JAX package's default is; with a torch device it uploads the
-keys and runs ``kernel.shard_route`` there (the CUDA kernel on the
-card, its plain PyTorch version on the CPU), and the ids come back to
-the host, which splits the plan.
+``route_shards`` is what ``distributed.ShardedIndex.route`` calls.
+With ``device=None`` it is the host oracle ``route_ref``, as the JAX
+package's default is; with a torch device it uploads the keys and runs
+``kernel.shard_route`` there (the CUDA kernel on the card, its plain
+PyTorch version on the CPU), and the ids come back to the host.  A plan
+is routed and split by ``kernel.shard_partition`` on the shards' device
+instead (``ShardedIndex.execute``).
 
 ``partition_writes`` is what ``RecipeIndex._write_batch`` calls: route
 every op's key to a shard, then produce the stable sort-by-shard

@@ -13,9 +13,12 @@ count:
 
 The routes run in numpy ``uint64``, which has the logical right shifts
 splitmix64 needs.  ``shard_route_plain`` is the plain PyTorch version
-of the CUDA kernel (``csrc/shard_route.cu``): the same routes on int64
-tensors, where multiplies wrap modulo 2^64 and each right shift of the
-hash is masked to make it logical.
+of the CUDA routing kernel (``csrc/shard_route.cu``): the same routes on
+int64 tensors, where multiplies wrap modulo 2^64 and each right shift of
+the hash is masked to make it logical.  ``shard_partition_plain`` is the
+plain version of the partition kernel of the same source: that route,
+a stable sort of the ids, a bincount and a cumsum, as ``partition_ref``
+computes them in numpy.
 """
 
 from __future__ import annotations
@@ -108,3 +111,16 @@ def shard_route_plain(keys: torch.Tensor, *, bits: int, shift: int
     if shift < 0:
         return _shr(mix64(keys), 64 - bits).to(torch.int32)
     return (_shr(keys, shift) & ((1 << bits) - 1)).to(torch.int32)
+
+
+def shard_partition_plain(keys: torch.Tensor, *, bits: int, shift: int):
+    """keys: [Q] int64.  Returns (shards [Q], order [Q], offsets
+    [2^bits + 1]) int32: ``shard_route_plain``'s ids, the stable
+    sort-by-shard permutation and the per-shard run offsets."""
+    shards = shard_route_plain(keys, bits=bits, shift=shift)
+    order = torch.sort(shards, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros((1 << bits) + 1, dtype=torch.int32,
+                          device=keys.device)
+    offsets[1:] = torch.cumsum(torch.bincount(shards, minlength=1 << bits),
+                               0)
+    return shards, order, offsets

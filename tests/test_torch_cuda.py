@@ -304,6 +304,36 @@ def test_shard_route_matches_plain_version(card, scheme):
     assert empty.shape == (0,)
 
 
+@pytest.mark.parametrize("scheme", ["hash", "prefix", "prefix@58"])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 65537])
+def test_shard_partition_matches_plain_version(card, n, scheme):
+    """Both forms (one cluster of 8 blocks at n <= 4096 and S <= 128,
+    tiles otherwise),
+    1 to 2^12 shards, keys 0, -1, 2^63 and 2^63 - 1 among random ones:
+    bit-identical to the plain version and to the numpy partition, one
+    launch counted a call; 2^13 shards raise."""
+    rng = np.random.default_rng(n + 3)
+    keys = rng.integers(HIGH, (1 << 63) - 1, size=n, dtype=np.int64)
+    keys[: n // 2] = rng.integers(1, 1 << 62, size=n // 2)
+    keys[:4] = [0, -1, HIGH, (1 << 63) - 1][:min(n, 4)]
+    kt = torch.from_numpy(keys).to(card)
+    for bits in range(13):
+        b, shift = kpart.route_params(1 << bits, scheme)
+        before = kpart.LAUNCHES["shard_partition"]
+        got = kpart.shard_partition(kt, bits=b, shift=shift)
+        torch.cuda.synchronize()
+        assert kpart.LAUNCHES["shard_partition"] == before + 1
+        plain = kpart.shard_partition_plain(kt, bits=b, shift=shift)
+        for g, p in zip(got, plain):
+            assert torch.equal(g, p), bits
+        shards, order, offsets = kpart.partition_ref(keys, 1 << bits, scheme)
+        assert np.array_equal(got[0].cpu().numpy(), shards)
+        assert np.array_equal(got[1].cpu().numpy(), order)
+        assert np.array_equal(got[2].cpu().numpy(), offsets)
+    with pytest.raises(ValueError, match="P2"):
+        kpart.shard_partition(kt, bits=13, shift=-1)
+
+
 @pytest.mark.parametrize("writes_conflict", [False, True])
 @pytest.mark.parametrize("n_a,n_b", [(1, 1), (4099, 1), (64, 7),
                                      (300, 5000), (4096, 12288),
@@ -410,9 +440,12 @@ def test_sharded_session_on_card_equals_cpu(card):
     for ops in (w.load_ops, c.run_ops, w.run_ops):
         for lo in range(0, len(ops), 4096):
             plan = Plan.from_ops(ops[lo:lo + 4096])
+            routed = kpart.LAUNCHES["shard_partition"]
             a, b = gpu.execute(plan), cpu.execute(plan)
+            assert kpart.LAUNCHES["shard_partition"] == routed + 1
             assert a.results == b.results
             assert (a.found, a.acked, a.mesh) == (b.found, b.acked, b.mesh)
+            assert a.shard_ops == b.shard_ops
     drivers = [s.streams(4) for s in (gpu, cpu)]
     for d in drivers:
         for i in range(8):
@@ -423,8 +456,13 @@ def test_sharded_session_on_card_equals_cpu(card):
         drivers[1].stats["deferred_plans"] > 0
     assert sorted(gpu.items()) == sorted(cpu.items())
     after = {**kpart.LAUNCHES, **kconf.LAUNCHES, **kscan.LAUNCHES}
-    for name in ("shard_route", "conflict_any", "scan_window_sharded"):
+    for name in ("shard_partition", "conflict_any", "scan_window_sharded"):
         assert after[name] > before[name], name
+    assert after["shard_route"] == before["shard_route"]
+    ids = gpu.index.route(np.array([k for _, k, _ in c.load_ops[:999]],
+                                   np.int64))
+    assert kpart.LAUNCHES["shard_route"] == after["shard_route"] + 1
+    assert ids.dtype == np.int32 and int(ids.max()) < 8
 
 
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -749,13 +787,70 @@ def test_tag_lookup_on_card_equals_numpy(card):
     q = np.concatenate([tags[:3000], rng.integers(
         -(1 << 31), 1 << 31, size=1000).astype(np.int32), [0, 0, 0]])
     q = q.astype(np.int32)
+    before = dict(ktag.LAUNCHES)
     found, got = ktag.tag_lookup(*(torch.from_numpy(a).to(card)
                                    for a in (q, keys, vals, nxt)),
                                  n_buckets=n_buckets)
+    assert ktag.LAUNCHES == {**before, "tag_probe": before["tag_probe"] + 1}
     nf, nv = ktag.tag_lookup_np(q, keys, vals, nxt, n_buckets)
     assert np.array_equal(found.cpu().numpy(), nf)
     assert np.array_equal(got.cpu().numpy(), nv)
     assert nf[-3:].all() and not nv[-3:].any()
+
+
+@pytest.mark.parametrize("zero_tag", [False, True])
+def test_tag_probe_matches_plain_version(card, zero_tag):
+    """2^12 buckets at 3 tags a bucket (chains of one row and more), a
+    sixth of the tags stored twice, tag 0 stored or not:
+    tag_probe against tag_windows + probe_plain on the card and the numpy
+    reading, one launch a call; every stored tag is found."""
+    rng = np.random.default_rng(7 + zero_tag)
+    n_buckets = 1 << 12
+    tags = rng.integers(-(1 << 31), 1 << 31, size=3 * n_buckets)
+    tags = tags.astype(np.int32)
+    tags[-(tags.size // 6):] = tags[:tags.size // 6]
+    values = rng.integers(1, 1 << 31, size=tags.shape[0]).astype(np.int32)
+    if zero_tag:
+        tags[5], values[5] = 0, 1234
+    table = ktag.tag_table_np(tags, values, n_buckets)
+    q = np.concatenate([tags, rng.integers(-(1 << 31), 1 << 31,
+                                           size=4000).astype(np.int32),
+                        np.zeros(5, np.int32)]).astype(np.int32)
+    args = [torch.from_numpy(a).to(card) for a in (q, *table)]
+    before = ktag.LAUNCHES["tag_probe"]
+    found, got = ktag.tag_probe(*args, n_buckets=n_buckets)
+    torch.cuda.synchronize()
+    assert ktag.LAUNCHES["tag_probe"] == before + 1
+    pf, pv = ktag.tag_probe_plain(*args, n_buckets=n_buckets)
+    assert torch.equal(found, pf) and torch.equal(got, pv)
+    nf, nv = ktag.tag_lookup_np(q, *table, n_buckets)
+    assert np.array_equal(found.cpu().numpy(), nf)
+    assert np.array_equal(got.cpu().numpy(), nv)
+    assert nf[-5:].all() and nf[:tags.size].all()
+    with pytest.raises(ValueError, match="n_buckets"):
+        ktag.tag_probe(*args, n_buckets=table[0].shape[0] + 1)
+
+
+def test_tag_probe_follows_a_table_written_in_place(card):
+    """The kernel reads the table's tensors where they lie: new values
+    are read after an in-place update, and one launch is counted a call
+    either way."""
+    rng = np.random.default_rng(9)
+    tags = rng.integers(-(1 << 31), 1 << 31, size=3000).astype(np.int32)
+    values = rng.integers(1, 1 << 31, size=3000).astype(np.int32)
+    table = [torch.from_numpy(a).to(card)
+             for a in ktag.tag_table_np(tags, values, 1024)]
+    q = torch.from_numpy(tags).to(card)
+    before = ktag.LAUNCHES["tag_probe"]
+    f1, v1 = ktag.tag_probe(q, *table, n_buckets=1024)
+    table[1].add_(1)
+    f2, v2 = ktag.tag_probe(q, *table, n_buckets=1024)
+    torch.cuda.synchronize()
+    assert ktag.LAUNCHES["tag_probe"] == before + 2
+    assert torch.equal(f1, f2) and bool(f1.all())
+    assert torch.equal(v2, v1 + 1)
+    pf, pv = ktag.tag_probe_plain(q, *table, n_buckets=1024)
+    assert torch.equal(f2, pf) and torch.equal(v2, pv)
 
 
 def test_full_width_rwkv_server_on_card(card):
