@@ -108,13 +108,45 @@ counts are read, the wave's device operations are counted with the
 profiler; the window entry of that source (``clht_probe``), which no
 path runs, is checked in phase 4.
 
+The twelfth, the matrix path, drives the adversarial workload matrix
+(``repro_torch.data.workloads``) and RECIPE's own crash testing
+(``repro_torch.core.crash_testing``) on indexes opened on the card with
+fingerprints on.  Every count is held against ``replay``, the
+dict/sorted-dict oracle, and every final state against its model:
+
+* (a) YCSB-F with Zipfian targets (theta 0.99, YCSB's constant) on
+  P-CLHT, 2^18 keys loaded and 2^16 run ops through ``run_workload`` in
+  4096-op plans, then on a freshly loaded P-CLHT through the buffered
+  engine: both runs' kops/s and the plans' waves per plan (the hottest
+  key's read-modify-writes force waves);
+* (b) YCSB-A over clustered string keys (``keyspace="string"``, theta
+  0.99) on P-ART, 2^17 keys and 2^15 run ops: the radix descent;
+* (c) YCSB-E over string keys (theta 0.9) on P-Masstree, 2^14 keys and
+  4096 run ops, sized so that ``replay``'s scans (a sort of the live
+  keys each) take some 10 s of host time: the sorted-run search;
+* (d) a pinned hot set (1% of 2^17 keys taking 90% of the draws) of
+  YCSB-F on P-CLHT in 8 shards, 2^14 run ops in plans of 256 round robin
+  over 4 client streams through ``StreamDriver``: some plans defer, the
+  summed counts equal ``replay``'s and the final items ``replay`` in
+  admission order (the partition and conflict kernels);
+* (e) the per-store crash sweep (``run_crash_sweep``, paper §5) on the
+  seven kinds the JAX package's tests sweep, with their factories on the
+  card: the five converted indexes in powerfail and interrupt mode,
+  FAST&FAIR and CCEH in fixed mode; buggy FAST&FAIR (``fixed=False``),
+  whose split-persist bug the sweep must find again; the durability
+  audit (``audit_durability``) on all eight kinds, each empty; after
+  each sweep every key of its workload looked up in one plan on the
+  index's kernel, equal to the scalar lookups;
+* (f) one plan of (a) and one tick of (d) traced, written as a Chrome
+  trace (``repro_torch.obs.trace``) and validated.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel; each
    kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
    them;
-3. the eleven paths, each with every kernel's launch count set to 0 just
+3. the twelve paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
@@ -159,10 +191,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -173,8 +207,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import build  # noqa: E402
 from repro_torch.api import Plan, open_index  # noqa: E402
-from repro_torch.core import CrashPoint  # noqa: E402
-from repro_torch.core.ycsb import PhaseExecutor, generate  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.core import (PART, PHOT, PCLHT, CrashPoint,  # noqa: E402
+                              PBwTree, PMasstree, audit_durability,
+                              run_crash_sweep)
+from repro_torch.core.baselines import (CCEH, FastFair,  # noqa: E402
+                                        LevelHashing)
+from repro_torch.core.ycsb import (PhaseExecutor, generate,  # noqa: E402
+                                   run_workload)
+from repro_torch.data.workloads import matrix_workload, replay  # noqa: E402
 from repro_torch.distributed import streams as dstreams  # noqa: E402
 from repro_torch.kernels import art_probe as kart  # noqa: E402
 from repro_torch.kernels.art_probe import ops as art_ops  # noqa: E402
@@ -298,6 +339,24 @@ PLAIN_VERSIONS = ((kflash.kernel, "attention_plain"),
 # probed by one read wave
 TAG_BUCKETS = 1 << 18
 TAG_KEYS = 1 << 19
+# the matrix path's workloads (``repro_torch.data.workloads``): YCSB's
+# zipfian constant 0.99 on P-CLHT and P-ART, a skewed string-key scan
+# mix sized so that ``replay`` (a sort of the live keys per scan) stays
+# within some 20 s of host time, and a pinned hot set of 1% of the keys
+# taking 90% of the draws.  The hot set runs F: its read-modify-write
+# updates are what collide across streams (A's inserts are of fresh
+# keys, so no two of its plans ever conflict and none defers)
+MATRIX_ZIPF = dict(mix="F", n_load=1 << 18, n_run=1 << 16, dist="zipfian",
+                   theta=0.99)
+MATRIX_STRING = dict(mix="A", n_load=1 << 17, n_run=1 << 15,
+                     dist="zipfian", theta=0.99, keyspace="string")
+MATRIX_SCAN = dict(mix="E", n_load=1 << 14, n_run=4096, dist="zipfian",
+                   theta=0.9, keyspace="string")
+MATRIX_HOT = dict(mix="F", n_load=1 << 17, n_run=1 << 14, dist="hotset",
+                  hot_frac=0.01, hot_op_frac=0.9)
+HOT_PLAN = 256  # ops per client plan on the hot set
+# RECIPE's five converted indexes, swept in both crash modes
+CONVERTED = ("P-CLHT", "P-HOT", "P-BwTree", "P-ART", "P-Masstree")
 # bf16 attention kernel against its plain version: the same fp32
 # arithmetic in another order, each rounded once to bf16, so two outputs
 # differ by up to 2 unit roundoffs (2^-8) of the value.  Each element is
@@ -2641,6 +2700,316 @@ def ssd_vs_plain(mp: dict, hybrid: dict, seed: int, launches: dict,
                      f"dh={dh}, N={N}, bf16"), launches_by_shape=split)]
 
 
+# -- the twelfth path: the workload matrix and the crash sweeps -----------
+
+def traced(fn):
+    """Run ``fn`` with tracing on, keeping the epoch of spans already
+    recorded so that one trace holds every traced phase on one clock."""
+    epoch = RECORDER.epoch if RECORDER.spans else None
+    RECORDER.enable()
+    if epoch is not None:
+        RECORDER.epoch = epoch
+    try:
+        return fn()
+    finally:
+        RECORDER.disable()
+
+
+def counts_of(done: dict) -> tuple:
+    return done["found"], done["acked"], done["scanned"]
+
+
+def matrix_load(session, wl, tag: str) -> None:
+    """The load phase through ``run_workload`` in plans, then the first
+    loaded keys read back through the kernel (the first plan re-exports
+    the snapshot)."""
+    t0 = time.perf_counter()
+    done = run_workload(session.index, wl, phase="load", batch_lookups=True,
+                        max_batch=PLAN_OPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(done["acked"] == len(wl.load_ops), f"{tag} load: an insert was "
+          "not acknowledged")
+    say(f"{tag} load: {rate(len(wl.load_ops), secs)}")
+    read_back(session, op_keys(wl.load_ops[:PLAN_OPS]), f"{tag} load")
+
+
+def matrix_run(session, wl, want, tag: str, *, buffered: bool = False,
+               trace_first: bool = False) -> float:
+    """The run phase through ``run_workload`` in plans of ``PLAN_OPS``
+    ops (or its buffered engine): found, acked and scanned, and the
+    final items, must equal ``replay``'s.  With ``trace_first`` the
+    first plan's ops run traced, as a workload of their own, and the
+    rest after them.  Returns the run's kops/s (host clock, ending in a
+    device synchronise)."""
+    index = session.index
+    ops = wl.run_ops
+    engine = dict(phase="run", batch_lookups=True, max_batch=PLAN_OPS,
+                  buffered=buffered)
+    before = read_counts()
+    t0 = time.perf_counter()
+    if trace_first:
+        first = traced(lambda: run_workload(index, dataclasses.replace(
+            wl, run_ops=ops[:PLAN_OPS]), **engine))
+        rest = run_workload(index, dataclasses.replace(
+            wl, run_ops=ops[PLAN_OPS:]), **engine)
+        done = {k: first[k] + rest[k] for k in first}
+    else:
+        done = run_workload(index, wl, **engine)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = read_counts()
+    engine = "buffered" if buffered else "plans"
+    check(counts_of(done) == want.counts(), f"{tag} run ({engine}): "
+          f"found/acked/scanned {counts_of(done)} differ from replay's "
+          f"{want.counts()}")
+    t1 = time.perf_counter()
+    check(dict(index.items()) == want.model, f"{tag} run ({engine}): the "
+          "final items differ from replay's model")
+    ran = {k: after[k] - before.get(k, 0) for k in after
+           if after[k] != before.get(k, 0)}
+    if buffered:
+        shape = (f"{done['batches']} read, {done['scan_batches']} scan and "
+                 f"{done['write_batches']} write flushes")
+    else:
+        shape = (f"{done['plans']} plans, {done['waves']} waves, "
+                 f"{done['waves'] / done['plans']:.3f} waves per plan")
+    say(f"{tag} run ({engine}): {rate(len(ops), secs)}; {shape}; "
+        f"found {done['found']}, acked {done['acked']}, scanned "
+        f"{done['scanned']}, equal to replay, and the final items equal "
+        f"its model ({time.perf_counter() - t1:.3f} s to compare); "
+        f"kernel launches in the run {ran}")
+    return len(ops) / secs / 1e3
+
+
+def timed_replay(wl, tag: str):
+    t0 = time.perf_counter()
+    want = replay(wl.load_ops, wl.run_ops)
+    say(f"{tag} replay: {time.perf_counter() - t0:.3f} s for "
+        f"{len(wl.load_ops)} + {len(wl.run_ops)} ops")
+    return want
+
+
+def matrix_zipf(seed: int) -> None:
+    """(a) Zipf F (theta 0.99) on P-CLHT, in plans and buffered, each on
+    a freshly loaded index."""
+    wl = matrix_workload(seed=seed, **MATRIX_ZIPF)
+    want = timed_replay(wl, "zipf F")
+    rates = {}
+    for buffered in (False, True):
+        tag = f"P-CLHT zipf F ({'buffered' if buffered else 'plans'})"
+        session = open_index("clht")
+        matrix_load(session, wl, tag)
+        rates[buffered] = matrix_run(session, wl, want, tag,
+                                     buffered=buffered,
+                                     trace_first=not buffered)
+    say(f"P-CLHT zipf F run: plans {rates[False]:.3f} kops/s, buffered "
+        f"{rates[True]:.3f} kops/s, plans / buffered "
+        f"{rates[False] / rates[True]:.3f}x")
+
+
+def matrix_sorted(kind: str, tag: str, spec: dict, seed: int) -> None:
+    """(b) string-key A on P-ART, (c) skewed string-key E on P-Masstree."""
+    wl = matrix_workload(seed=seed, **spec)
+    want = timed_replay(wl, tag)
+    session = open_index(kind)
+    matrix_load(session, wl, tag)
+    matrix_run(session, wl, want, tag)
+
+
+def matrix_hot(seed: int) -> None:
+    """(d) hot-set F on P-CLHT in 8 shards (hash routing): the run ops in
+    plans of ``HOT_PLAN`` ops, round robin over ``STREAMS`` client
+    streams.  Some plans defer; the summed counts equal ``replay``'s,
+    and the final items equal ``replay`` of the plans in the order the
+    driver admitted them (plans admitted in one tick are conflict-free,
+    so their order within it does not matter).  The first tick runs
+    traced."""
+    tag = f"P-CLHT x{SHARDS} hot-set F"
+    wl = matrix_workload(seed=seed, **MATRIX_HOT)
+    want = timed_replay(wl, tag)
+    session = open_index("clht", shards=SHARDS, scheme="hash")
+    matrix_load(session, wl, tag)
+    drv = session.streams(STREAMS, collect_results=False)
+    ops = wl.run_ops
+    tickets = [drv.streams[i % STREAMS].submit(Plan.from_ops(
+        ops[lo:lo + HOT_PLAN]))
+        for i, lo in enumerate(range(0, len(ops), HOT_PLAN))]
+    t0 = time.perf_counter()
+    traced(drv.tick)
+    ticks = 1 + drv.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stats = drv.stats
+    check(not drv.pending(), f"{tag}: a plan was never admitted")
+    check(stats["deferred_plans"] > 0, f"{tag}: no plan deferred")
+    got = (stats["found"], stats["acked"], stats["scanned"])
+    check(got == want.counts(), f"{tag}: summed counts {got} differ from "
+          f"replay's {want.counts()}")
+    in_order = [op for t in sorted(tickets, key=lambda t: t.tick)
+                for op in plan_ops(t.plan)]
+    ordered = replay(wl.load_ops, in_order)
+    check(ordered.counts() == want.counts(), f"{tag}: replay in admission "
+          "order counts otherwise")
+    check(dict(session.index.items()) == ordered.model, f"{tag}: the final "
+          "items differ from replay in admission order")
+    say(f"{tag}: {STREAMS} streams, {len(tickets)} plans of {HOT_PLAN} ops "
+        f"in {ticks} ticks, {rate(len(ops), secs)}; deferred_plans "
+        f"{stats['deferred_plans']}, multi-stream ticks "
+        f"{stats['multi_stream_ticks']}; found/acked/scanned {got} equal "
+        "replay's, the final items equal replay in admission order")
+
+
+def keys_for(seed: int, n: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [int(k) for k in np.unique(rng.integers(1, 1 << 60, size=n))]
+
+
+def sweep_ops() -> dict:
+    """The reference tests' crash workloads (tests/test_indexes_common.py
+    and tests/test_baselines.py of the JAX package)."""
+    keys = keys_for(4, 40)
+    # sequential keys force tree/leaf splits; random ones hash
+    keys += list(range(0x0F00000000000000, 0x0F00000000000000 + 30))
+    audit = keys_for(3, 150)
+    return {
+        "powerfail": [("insert", k, k ^ 0xAB) for k in dict.fromkeys(keys)]
+        + [("delete", k, 0) for k in keys[:8]],
+        "interrupt": [("insert", k, k + 3) for k in keys_for(5, 30)],
+        "baseline": [("insert", k, k + 1) for k in keys_for(1, 50)],
+        "buggy": [("insert", k, k + 1) for k in sorted(keys_for(2, 40))],
+        "audit": [("insert", k, k + 9) for k in audit]
+        + [("delete", k, 0) for k in audit[:40]]
+        + [("lookup", k, 0) for k in audit[40:80]]
+        + [("insert", k, k + 1) for k in keys_for(5, 120)],
+    }
+
+
+def sweep_kinds(dev) -> dict:
+    """Each kind's factory on the card, as the reference tests build it,
+    and the kernel its batched lookups launch."""
+    return {
+        "P-CLHT": (lambda pm: PCLHT(pm, n_buckets=8, device=dev),
+                   "probe64_fp"),
+        "P-HOT": (lambda pm: PHOT(pm, device=dev), "art_descend"),
+        "P-BwTree": (lambda pm: PBwTree(pm, device=dev), "scan_window"),
+        "P-ART": (lambda pm: PART(pm, device=dev), "art_descend"),
+        "P-Masstree": (lambda pm: PMasstree(pm, device=dev), "scan_window"),
+        "FAST&FAIR": (lambda pm: FastFair(pm, fixed=True, device=dev),
+                      "scan_window"),
+        "CCEH": (lambda pm: CCEH(pm, fixed=True, device=dev),
+                 "scan_window"),
+        "Level hashing": (lambda pm: LevelHashing(pm, device=dev), None),
+        "FAST&FAIR (buggy)": (lambda pm: FastFair(pm, fixed=False,
+                                                  device=dev),
+                              "scan_window"),
+    }
+
+
+def batched_read_back(index, ops, kernel: str, tag: str) -> None:
+    """Every key of the sweep's workload (and 20 absent ones) in one plan
+    on the index's kernel: the answers equal the scalar lookups."""
+    keys = [k for _, k, _ in ops] + [k + 1 for _, k, _ in ops[:20]]
+    scalar = [index.lookup(k) for k in keys]
+    before = read_counts()[kernel]
+    got = index.execute(Plan.from_ops([("lookup", k, 0) for k in keys]),
+                        force_kernel=True).results
+    check(read_counts()[kernel] > before, f"{tag}: the read-back did not "
+          f"launch {kernel}")
+    check(got == scalar, f"{tag}: a batched lookup after the sweep differs "
+          "from the scalar one")
+
+
+def crash_sweeps(dev) -> None:
+    """(e) the per-store crash sweep on the seven kinds the reference
+    sweeps, the paper's FAST&FAIR bug found again, and the durability
+    audit on all eight kinds, every index on ``dev`` (the card)."""
+    ops = sweep_ops()
+    kinds = sweep_kinds(dev)
+    sweeps = [(name, mode, ops[mode], dict(post_writes=6, max_states=4000)
+               if mode == "powerfail" else dict(post_writes=4,
+                                                max_states=1500))
+              for name in CONVERTED for mode in ("powerfail", "interrupt")]
+    sweeps += [(name, "powerfail", ops["baseline"],
+                dict(post_writes=4, max_states=2500))
+               for name in ("FAST&FAIR", "CCEH")]
+    sweeps.append(("FAST&FAIR (buggy)", "powerfail", ops["buggy"],
+                   dict(post_writes=2, max_states=2500)))
+    for name, mode, workload, kw in sweeps:
+        make, kernel = kinds[name]
+        built = []
+
+        def factory(pm, make=make):
+            built.append(make(pm))
+            return built[-1]
+
+        t0 = time.perf_counter()
+        report = run_crash_sweep(factory, workload, mode=mode, **kw)
+        secs = time.perf_counter() - t0
+        tag = f"{name} {mode} sweep"
+        check(built and built[0].device == dev, f"{tag}: the index is not "
+              "on the card")
+        if name == "FAST&FAIR (buggy)":
+            check(not report.ok and report.consistency_failures,
+                  f"{tag}: the split-persist bug was not found "
+                  f"({report.summary()})")
+            found = f"the bug found again: {report.consistency_failures[0]}"
+        else:
+            check(report.ok, f"{tag}: {report.summary()}")
+            check(mode != "powerfail" or name not in CONVERTED
+                  or report.n_crash_states > 50, f"{tag}: only "
+                  f"{report.n_crash_states} crash states")
+            found = "ok"
+        batched_read_back(built[0], workload, kernel, tag)
+        say(f"{tag}: {found}; n_crash_states {report.n_crash_states}, "
+            f"max_stores_per_op {report.max_stores_per_op}, "
+            f"{report.n_ops_tested} ops, {secs:.3f} s; the batched "
+            f"read-back on {kernel} equals the scalar lookups")
+    for name in ("P-CLHT", "P-HOT", "P-BwTree", "P-ART", "P-Masstree",
+                 "FAST&FAIR", "CCEH", "Level hashing"):
+        t0 = time.perf_counter()
+        failures = audit_durability(kinds[name][0], ops["audit"])
+        check(failures == [], f"{name} durability audit: {failures[:2]}")
+        say(f"{name} durability audit: [] over {len(ops['audit'])} ops in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+
+def write_matrix_trace() -> None:
+    """(f) the traced plan of (a) and tick of (d), written as a Chrome
+    trace and validated."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "matrix_trace.json"
+        obj = obs.write_trace(str(path), RECORDER)
+        errors = obs.validate_trace_file(str(path))
+        size = path.stat().st_size
+    check(errors == [], f"trace: {errors[:3]}")
+    cats = {}
+    for ev in obj["traceEvents"]:
+        cats[ev["cat"]] = cats.get(ev["cat"], 0) + 1
+    for cat in ("plan", "pmem", "kernel", "streams", "shard"):
+        check(cats.get(cat, 0) > 0, f"trace: no {cat} event")
+    say(f"trace: {len(obj['traceEvents'])} events, {size} bytes, valid; "
+        f"events by cat {dict(sorted(cats.items()))}")
+
+
+def matrix_path(seed: int, dev) -> None:
+    RECORDER.reset()
+    for phase, fn in (("(a) zipf F", lambda: matrix_zipf(seed)),
+                      ("(b) string-key A", lambda: matrix_sorted(
+                          "art", "P-ART string-key zipf A", MATRIX_STRING,
+                          seed)),
+                      ("(c) skewed scans", lambda: matrix_sorted(
+                          "masstree", "P-Masstree string-key zipf E",
+                          MATRIX_SCAN, seed)),
+                      ("(d) hot set", lambda: matrix_hot(seed)),
+                      ("(e) crash sweeps", lambda: crash_sweeps(dev)),
+                      ("(f) trace", write_matrix_trace)):
+        t0 = time.perf_counter()
+        fn()
+        say(f"matrix path {phase}: {time.perf_counter() - t0:.3f} s")
+    RECORDER.reset()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-clht", type=int, default=1 << 20)
@@ -2839,6 +3208,19 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
     tag_wave_ops(tag)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    matrix_path(args.seed, torch.device("cuda", 0))
+    counts = read_counts()
+    say(f"matrix path: {time.perf_counter() - t0:.3f} s; kernel launches "
+        f"{counts}")
+    for name in ("probe64_fp", "art_descend", "art_pack_entries",
+                 "scan_window", "shard_partition", "conflict_any"):
+        check(counts[name] > 0, f"{name} was not launched on the matrix "
+              "path")
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
 
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []

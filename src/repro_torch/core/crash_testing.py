@@ -1,23 +1,52 @@
-"""Crash-recovery testing for batched plans over PM indexes (paper §5).
+"""Targeted crash-recovery testing for PM indexes (paper §5).
 
-Ported from ``repro.core.crash_testing``: the image snapshot/restore
-(``PMSnapshot``) and the group-commit crash-point sweep over batched
-plans (``plan_crash_sweep``).  The unit of failure atomicity there is
-the persist epoch the wave executor opens per shard run: the sweep
-crashes a plan at each outermost group-commit boundary and inside each
-optimistic-read validation window, recovers, and checks that every
-key holds some prefix of its own op history.  The per-store scalar
-sweep and the durability audit of the JAX package are not ported yet.
+Ported from ``repro.core.crash_testing``, whole.  The paper's key
+observation: insert and SMO operations in non-blocking indexes are
+composed of a *small number of ordered atomic stores* (fewer than five
+in every index they tested), so it suffices to simulate a crash after
+**each atomic store** of each operation rather than sampling crash
+points randomly/exhaustively (Yat, pmreorder).
+
+For every operation ``i`` in a workload and every store count ``k``
+within that operation, ``run_crash_sweep``:
+
+1. restores the PM image to just before op ``i`` (snapshot/restore);
+2. arms the simulator to crash at op ``i``'s ``k``-th store and runs
+   the op ("returning from the operation without any clean-up
+   activities");
+3. fails over: drops the volatile cache (``powerfail``) or keeps memory
+   (``interrupt``), reinitializes locks, calls ``index.recover()``;
+4. runs a post-crash phase of reads and writes (optionally from several
+   threads, as in §7.5) and verifies that every previously-acknowledged
+   key reads back with its value, that the crashed op's key is either
+   fully present or fully absent, that new writes succeed and are
+   readable, and that structure invariants hold.
+
+Durability is audited separately (the paper's PIN tracing,
+``audit_durability``): after every *completed* operation, no dirtied
+cache line may remain unpersisted.  ``plan_crash_sweep`` sweeps
+batched plans instead, whose unit of failure atomicity is the persist epoch
+the wave executor opens per shard run: it crashes a plan at each
+outermost group-commit boundary and inside each optimistic-read
+validation window, recovers, and checks that every key holds some
+prefix of its own op history.
+
+The index's device comes with the ``factory``: the sweeps build every
+index through it and take no device of their own.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .pmem import CrashPoint, PMem
 
-Op = Tuple[str, int, int]  # (kind, key, value): insert/update/delete/lookup
+Op = Tuple[str, int, int]  # (kind, key, value) — kind in {insert, delete, lookup}
+# plan_crash_sweep additionally accepts "update" (upsert) ops
 
 
 # ----------------------------------------------------------------------
@@ -75,6 +104,167 @@ class CrashReport:
                 f"stores/op); {len(self.consistency_failures)} consistency, "
                 f"{len(self.durability_failures)} durability, "
                 f"{len(self.stall_failures)} stall failures")
+
+
+def _apply(index, op: Op) -> None:
+    kind, key, value = op
+    if kind == "insert":
+        index.insert(key, value)
+    elif kind == "delete":
+        index.delete(key)
+    else:
+        index.lookup(key)
+
+
+def _verify(index, expect: Dict[int, int], crashed: Optional[Op],
+            report: CrashReport, tag: str) -> None:
+    kind = crashed[0] if crashed else None
+    ckey = crashed[1] if crashed else None
+    for key, value in expect.items():
+        if key == ckey:
+            continue
+        got = index.lookup(key)
+        if got != value:
+            report.consistency_failures.append(
+                f"{tag}: key {key} expected {value} got {got}")
+            return  # one failure per state is enough signal
+    if crashed is not None:
+        got = index.lookup(ckey)
+        if kind == "insert":
+            prior = expect.get(ckey)
+            if got is not None and got != crashed[2] and got != prior:
+                report.consistency_failures.append(
+                    f"{tag}: crashed insert of {ckey} reads {got!r} "
+                    f"(neither absent, old, nor new)")
+        elif kind == "delete":
+            prior = expect.get(ckey)
+            if got is not None and got != prior:
+                report.consistency_failures.append(
+                    f"{tag}: crashed delete of {ckey} reads {got!r}")
+    try:
+        index.check_invariants()
+    except AssertionError as e:  # pragma: no cover - failure path
+        report.consistency_failures.append(f"{tag}: invariant: {e}")
+
+
+def run_crash_sweep(
+    factory: Callable[[PMem], object],
+    workload: Sequence[Op],
+    *,
+    crash_ops: Optional[Sequence[int]] = None,
+    mode: str = "powerfail",
+    evict_probability: float = 0.0,
+    post_writes: int = 16,
+    post_threads: int = 1,
+    max_states: Optional[int] = None,
+    seed: int = 0,
+) -> CrashReport:
+    """Enumerate targeted crash states over ``workload`` and verify recovery."""
+    pmem = PMem(seed=seed)
+    index = factory(pmem)
+    report = CrashReport(index_name=type(index).__name__)
+    rng = np.random.default_rng(seed)
+
+    if crash_ops is None:
+        crash_ops = range(len(workload))
+
+    expect: Dict[int, int] = {}
+    op_idx_set = set(crash_ops)
+    for i, op in enumerate(workload):
+        if i in op_idx_set:
+            snap = PMSnapshot(pmem, index)
+            expect_before = dict(expect)
+            # dry-run to count this op's crash points (one per atomic
+            # store; a store_bulk blob — unreachable until its commit
+            # store — is a single failure-atomic event)
+            n_stores = pmem.crash_calls
+            try:
+                _apply(index, op)
+            except Exception as e:  # pragma: no cover
+                report.stall_failures.append(f"op{i} {op}: dry-run raised {e!r}")
+                snap.restore(pmem)
+                continue
+            n_stores = pmem.crash_calls - n_stores
+            report.max_stores_per_op = max(report.max_stores_per_op, n_stores)
+            snap.restore(pmem)
+            report.n_ops_tested += 1
+            # crash after each atomic store (the §5 targeted strategy)
+            for k in range(n_stores):
+                if max_states is not None and report.n_crash_states >= max_states:
+                    break
+                report.n_crash_states += 1
+                tag = f"op{i}{op[:2]}@store{k}"
+                pmem.arm_crash(after_stores=k)
+                try:
+                    _apply(index, op)
+                    pmem.disarm_crash()
+                    crashed: Optional[Op] = None  # op completed before k stores
+                except CrashPoint:
+                    crashed = op
+                except Exception as e:  # pragma: no cover
+                    report.stall_failures.append(f"{tag}: raised {e!r}")
+                    snap.restore(pmem)
+                    continue
+                pmem.crash(mode=mode, evict_probability=evict_probability)
+                try:
+                    index.recover()
+                except Exception as e:
+                    report.stall_failures.append(f"{tag}: recover raised {e!r}")
+                    snap.restore(pmem)
+                    continue
+                try:
+                    _post_crash_phase(index, expect_before, crashed, report, tag,
+                                      post_writes, post_threads, rng)
+                except Exception as e:
+                    report.stall_failures.append(f"{tag}: post-crash phase {e!r}")
+                snap.restore(pmem)
+        # run the op for real and advance the expected model
+        _apply(index, op)
+        kind, key, value = op
+        if kind == "insert":
+            expect.setdefault(key, value)  # CLHT-style: insert won't overwrite
+        elif kind == "delete":
+            expect.pop(key, None)
+    return report
+
+
+def _post_crash_phase(index, expect: Dict[int, int], crashed: Optional[Op],
+                      report: CrashReport, tag: str, post_writes: int,
+                      post_threads: int, rng: np.random.Generator) -> None:
+    """§7.5: after the crash, read+write from several threads, then read
+    back every successfully inserted key."""
+    _verify(index, expect, crashed, report, tag)
+    new_keys = [int(k) for k in
+                rng.integers(1 << 40, 1 << 41, size=post_writes)]
+    acked: Dict[int, int] = {}
+    ack_mutex = threading.Lock()
+
+    def writer(tid: int) -> None:
+        for j, key in enumerate(new_keys):
+            if j % max(post_threads, 1) != tid:
+                continue
+            value = key ^ 0xABCD
+            if index.insert(key, value):
+                with ack_mutex:
+                    acked[key] = value
+            index.lookup(key)
+
+    if post_threads <= 1:
+        writer(0)
+    else:
+        threads = [threading.Thread(target=writer, args=(t,))
+                   for t in range(post_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    for key, value in acked.items():
+        got = index.lookup(key)
+        if got != value:
+            report.consistency_failures.append(
+                f"{tag}: post-crash write {key} lost (got {got!r})")
+            return
+    _verify(index, expect, crashed, report, tag + "+post")
 
 
 # ----------------------------------------------------------------------
@@ -286,3 +476,18 @@ def plan_crash_sweep(
             "clean plan run diverged from the dict model")
     return report
 
+
+def audit_durability(factory: Callable[[PMem], object],
+                     workload: Sequence[Op], seed: int = 0) -> List[str]:
+    """The PIN-based durability test (§5): after every completed op, all
+    dirtied cache lines must have been flushed+fenced."""
+    pmem = PMem(seed=seed)
+    index = factory(pmem)
+    pmem.fence()  # settle construction
+    failures: List[str] = []
+    for i, op in enumerate(workload):
+        _apply(index, op)
+        leftover = pmem.unpersisted_lines()
+        if leftover:
+            failures.append(f"op{i} {op}: unpersisted lines {leftover[:4]}")
+    return failures

@@ -6,7 +6,9 @@ scan/insert) — plus D (95/5 read-latest/insert) and F (50/50
 read/read-modify-write), which the paper excluded because several of
 its indexes lacked updates; our conversions add native update commits
 (value-word / CoW-leaf / delta stores), so both join the mix.  Keys
-are uniformly distributed 8-byte random integers ("randint").
+are uniformly distributed 8-byte random integers ("randint"); a
+"string" mode derives 24-byte-string-like keys by hashing (tries
+traverse more bytes — the cache-behavior analogue).
 
 Ported from ``repro.core.ycsb``: ``generate`` draws the same numpy RNG
 streams, so a seed gives the reference's op lists exactly.
@@ -46,7 +48,8 @@ class Workload:
     load_ops: List[Op]  # the Load A phase that populates the index
     run_ops: List[Op]  # the measured phase
     scan_lengths: List[int]
-    # generator knobs (distribution, theta, keyspace, ...), so
+    # generator knobs (distribution, theta, keyspace, ...) — filled by
+    # the adversarial matrix generator (repro_torch.data.workloads) so
     # benchmark rows can label themselves from the workload alone
     meta: dict = dataclasses.field(default_factory=dict)
 
@@ -108,6 +111,21 @@ def generate(name: str, n_load: int, n_run: int, *, seed: int = 0,
                     scan_lengths=scan_lengths)
 
 
+def string_keyspace(keys: Sequence[int]) -> List[int]:
+    """Derive 'string-like' keys: 24-byte YCSB strings stress longer
+    traversals; we model them as keys whose entropy is spread across all
+    8 key bytes (tries walk more levels, B+ trees compare more).  For
+    TRUE variable-length string keys (order-preserving encode/decode,
+    shared-prefix clustering) use ``repro_torch.data.workloads.
+    encode_str`` / ``string_keys`` — the adversarial matrix's string
+    column."""
+    out = []
+    for k in keys:
+        z = (int(k) * 0x9E3779B97F4A7C15) & ((1 << 64) - 1)
+        out.append(z | 1)
+    return out
+
+
 class PhaseExecutor:
     """Executes a workload phase against an index.
 
@@ -119,8 +137,15 @@ class PhaseExecutor:
     across the read/write boundary, so the mixed YCSB mixes (A/B/D/F)
     run fully batched instead of flushing on the first key collision.
     Op results, found counts, and scanned-record counts match the
-    scalar execution (``batch_lookups=False``) exactly.  The JAX
-    package's ``buffered=True`` baseline engine is not ported.
+    scalar execution (``batch_lookups=False``) exactly.
+
+    ``buffered=True`` keeps the pre-plan buffer-and-flush engine (one
+    buffer per protocol, flushed on the first cross-buffer key
+    conflict) as the measured baseline for plan construction.  Scans
+    and lookups are both reads and never conflict — back-to-back scans
+    over identical start keys share a buffer, and a scan does not dump
+    the read buffer (nor a lookup the scan buffer); only writes fence
+    both.
 
     Scans execute as "first ``aux`` live records from ``key``"
     (``index.scan``) — real YCSB-E semantics, identical on the scalar
@@ -128,15 +153,22 @@ class PhaseExecutor:
     """
 
     def __init__(self, index, *, batch_lookups: bool = False,
-                 max_batch: int = 4096, lat_hist=None):
+                 max_batch: int = 4096, buffered: bool = False,
+                 lat_hist=None):
         self.index = index
         self.batch_lookups = batch_lookups
         self.max_batch = max_batch
+        self.buffered = buffered
         self.lat_hist = lat_hist  # optional obs.Histogram of per-op ns
         self.done = {"insert": 0, "update": 0, "delete": 0, "lookup": 0,
                      "scan": 0, "found": 0, "scanned": 0, "acked": 0,
                      "batches": 0, "scan_batches": 0, "write_batches": 0,
                      "plans": 0, "waves": 0, "wave_ops": 0}
+        self._pending: List[int] = []
+        self._pending_keys: set = set()
+        self._pending_scans: List[Tuple[int, int]] = []
+        self._pending_writes: List[Op] = []
+        self._pending_write_keys: set = set()
 
     # -- plan mode (the default batched path) -----------------------------
     def _run_plans(self, ops: Sequence[Op]) -> dict:
@@ -180,8 +212,80 @@ class PhaseExecutor:
                     done["write_batches"] += 1
         return done
 
+    # -- buffered mode (the pre-plan baseline) ----------------------------
+    def _flush_lookups(self) -> None:
+        if not self._pending:
+            return
+        results = self.index._lookup_batch(self._pending)
+        self.done["lookup"] += len(self._pending)
+        self.done["found"] += sum(r is not None for r in results)
+        self.done["batches"] += 1
+        self._pending.clear()
+        self._pending_keys.clear()
+
+    def _flush_scans(self) -> None:
+        if not self._pending_scans:
+            return
+        starts = [s for s, _ in self._pending_scans]
+        counts = [c for _, c in self._pending_scans]
+        results = self.index._scan_batch(starts, counts)
+        self.done["scan"] += len(starts)
+        self.done["scanned"] += sum(len(r) for r in results)
+        self.done["scan_batches"] += 1
+        self._pending_scans.clear()
+
+    def _flush_writes(self) -> None:
+        if not self._pending_writes:
+            return
+        results = self.index._write_batch(self._pending_writes)
+        done = self.done
+        for kind, _, _ in self._pending_writes:
+            done[kind] += 1
+        done["acked"] += sum(bool(r) for r in results)
+        done["write_batches"] += 1
+        self._pending_writes.clear()
+        self._pending_write_keys.clear()
+
+    def _flush(self) -> None:
+        self._flush_lookups()
+        self._flush_scans()
+        self._flush_writes()
+
+    def _run_buffered(self, ops: Sequence[Op]) -> dict:
+        done = self.done
+        pending, max_batch = self._pending, self.max_batch
+        pending_keys = self._pending_keys
+        pending_scans = self._pending_scans
+        pending_writes = self._pending_writes
+        pending_write_keys = self._pending_write_keys
+        for kind, key, aux in ops:
+            if kind == "lookup":
+                if key in pending_write_keys:
+                    self._flush_writes()  # must observe that write
+                pending.append(key)
+                pending_keys.add(key)
+                if len(pending) >= max_batch:
+                    self._flush_lookups()
+            elif kind == "scan":
+                self._flush_writes()  # a scan may observe any write
+                pending_scans.append((key, aux))
+                if len(pending_scans) >= max_batch:
+                    self._flush_scans()
+            else:  # insert / update / delete
+                self._flush_scans()  # buffered scans precede this write
+                if key in pending_keys:
+                    self._flush_lookups()  # those reads precede it too
+                pending_writes.append((kind, key, aux))
+                pending_write_keys.add(key)
+                if len(pending_writes) >= max_batch:
+                    self._flush_writes()
+        self._flush()
+        return done
+
     def run(self, ops: Sequence[Op]) -> dict:
         if self.batch_lookups:
+            if self.buffered:
+                return self._run_buffered(ops)
             return self._run_plans(ops)
         done = self.done
         index, lookup = self.index, self.index.lookup
@@ -210,3 +314,22 @@ class PhaseExecutor:
                 hist.record(timer() - t0)
         return done
 
+
+
+def run_workload(index, wl: Workload, *, phase: str = "run",
+                 batch_lookups: bool = False, max_batch: int = 4096,
+                 buffered: bool = False, lat_hist=None) -> dict:
+    """Execute a phase; returns op counts (throughput measured by caller).
+    With ``batch_lookups`` the op stream runs as operation plans of
+    ``max_batch`` ops through ``index.execute`` — conflict-wave
+    scheduling over the probe/scan kernels and the sharded group-commit
+    write path, for all five converted indexes.  ``buffered`` selects
+    the pre-plan buffer-and-flush baseline instead (benchmark honesty
+    comparisons only).  ``lat_hist`` (an ``obs.Histogram``) collects
+    per-op latency in ns: exact per op on the scalar path, amortized
+    per plan chunk on the batched path."""
+    ops = wl.load_ops if phase == "load" else wl.run_ops
+    ex = PhaseExecutor(index, batch_lookups=batch_lookups,
+                       max_batch=max_batch, buffered=buffered,
+                       lat_hist=lat_hist)
+    return ex.run(ops)

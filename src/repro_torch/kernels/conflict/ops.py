@@ -30,8 +30,11 @@ def conflict_any(kinds_a, keys_a, kinds_b, keys_b, *,
     kinds_b = np.asarray(kinds_b, np.int32)
     keys_a = np.asarray(keys_a, np.int64)
     keys_b = np.asarray(keys_b, np.int64)
+    # the span's attributes are the JAX package's: ``use_kernel`` says
+    # whether the check launches the kernel (on the card)
+    on_card = device is not None and torch.device(device).type == "cuda"
     with _OBS.span("kernel.conflict", batch=int(kinds_a.size),
-                   ref=int(kinds_b.size), device=str(device or "host")):
+                   ref=int(kinds_b.size), use_kernel=on_card):
         if device is None or kinds_a.size == 0 or kinds_b.size == 0:
             return conflict_any_ref(kinds_a, keys_a, kinds_b, keys_b,
                                     writes_conflict=writes_conflict)

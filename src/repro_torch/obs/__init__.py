@@ -12,11 +12,12 @@ method call and no allocation.  Enable around a region of interest::
     obs.enable()
     ... run workload ...
     kernel_spans = obs.spans("kernel.clht_probe")
+    obs.write_trace("trace.json")   # Chrome-trace/Perfetto JSON
     obs.disable()
 
 Span names and attributes are those of the JAX package (``plan.*``,
-``pmem.group_commit``, ``kernel.clht_probe``).  The Chrome-trace
-exporter is not ported yet.
+``pmem.group_commit``, ``kernel.clht_probe``), held to plain Python
+values where they are recorded so that the trace serializes as is.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from __future__ import annotations
 from .histogram import Histogram, bucket_index, bucket_upper
 from .metrics import Counter, Gauge, MetricsRegistry, MetricsView
 from .recorder import NULL_SPAN, Recorder, Span
+from .trace import (chrome_trace, validate_chrome_trace,
+                    validate_trace_file, write_trace)
 
 #: the process-global recorder every instrumented layer reports to
 RECORDER = Recorder()
@@ -69,4 +72,6 @@ __all__ = [
     "Histogram", "bucket_index", "bucket_upper",
     "Counter", "Gauge", "MetricsRegistry", "MetricsView",
     "enable", "disable", "enabled", "reset", "span", "add_span", "spans",
+    "chrome_trace", "write_trace", "validate_chrome_trace",
+    "validate_trace_file",
 ]

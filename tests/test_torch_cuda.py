@@ -1050,3 +1050,65 @@ def test_mamba_mixer_on_card_equals_cpu(card):
         runs.append(torch.cat([o.cpu() for o in outs], 1))
     scale = float(runs[1].abs().max())
     assert float((runs[0] - runs[1]).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("kind,mix,keyspace", [("clht", "F", "int"),
+                                               ("art", "A", "string")])
+def test_matrix_workload_on_card_equals_replay(card, kind, mix, keyspace):
+    """A Zipf F on P-CLHT and a string-key A on P-ART at 2^12 keys, in
+    plans and through the buffered engine, on the card: the counts and
+    the final items equal ``replay``'s, and the read waves launched the
+    index's kernel."""
+    from repro_torch.core.ycsb import run_workload
+    from repro_torch.data.workloads import matrix_workload, replay
+    wl = matrix_workload(mix, 1 << 12, 1 << 12, dist="zipfian", theta=0.99,
+                         keyspace=keyspace, seed=5)
+    want = replay(wl.load_ops, wl.run_ops)
+    name = "probe64_fp" if kind == "clht" else "art_descend"
+    for buffered in (False, True):
+        s = open_index(kind)
+        assert s.index.device.type == "cuda"
+        run_workload(s.index, wl, phase="load", batch_lookups=True)
+        before = {**kprobe.LAUNCHES, **kart.LAUNCHES}[name]
+        s.execute(Plan.from_ops([("lookup", k, 0)
+                                 for _, k, _ in wl.load_ops[:1024]]),
+                  force_kernel=True)
+        done = run_workload(s.index, wl, phase="run", batch_lookups=True,
+                            buffered=buffered, max_batch=1024)
+        assert (done["found"], done["acked"], done["scanned"]) == \
+            want.counts(), buffered
+        assert dict(s.index.items()) == want.model
+        assert {**kprobe.LAUNCHES, **kart.LAUNCHES}[name] > before
+
+
+def test_crash_sweep_on_card_then_batched_read_back(card):
+    """The powerfail sweep of the JAX tests' P-CLHT (8 buckets: rehashes)
+    with the index on the card: ``ok``, more than 50 crash states; then
+    every surviving key looked up in one plan on the probe kernel equals
+    its scalar lookup (an export made before a ``PMSnapshot.restore``
+    is never served after it)."""
+    from repro_torch.core import PCLHT, run_crash_sweep
+    rng = np.random.default_rng(4)
+    keys = [int(k) for k in np.unique(rng.integers(1, 1 << 60, size=40))]
+    keys += list(range(0x0F00000000000000, 0x0F00000000000000 + 30))
+    ops = [("insert", k, k ^ 0xAB) for k in dict.fromkeys(keys)]
+    ops += [("delete", k, 0) for k in keys[:8]]
+    built = []
+
+    def factory(pm):
+        built.append(PCLHT(pm, n_buckets=8, device=card))
+        return built[-1]
+
+    report = run_crash_sweep(factory, ops, mode="powerfail", post_writes=6,
+                             max_states=4000)
+    assert report.ok, report.summary()
+    assert report.n_crash_states > 50
+    index = built[0]
+    probe = [k for _, k, _ in ops] + [k + 1 for _, k, _ in ops[:20]]
+    scalar = [index.lookup(k) for k in probe]
+    before = kprobe.LAUNCHES["probe64_fp"]
+    got = index.execute(Plan.from_ops([("lookup", k, 0) for k in probe]),
+                        force_kernel=True).results
+    assert got == scalar
+    assert kprobe.LAUNCHES["probe64_fp"] == before + 1
+    assert sum(v is not None for v in got) == len(set(keys)) - 8

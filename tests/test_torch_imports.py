@@ -33,7 +33,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.kernels.rwkv6_scan, "
             "repro_torch.kernels.clht_probe, repro_torch.models.rwkv, "
             "repro_torch.kernels.mamba_scan, repro_torch.models.mamba, "
-            "repro_torch.models.ffn\n"
+            "repro_torch.models.ffn, repro_torch.data.workloads, "
+            "repro_torch.obs.trace, repro_torch.core.crash_testing\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(repr(bad))\n")
