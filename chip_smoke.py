@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--n-clht 1048576] [--n-art 524288]
+    python3 chip_smoke.py [--n-clht 1048576] [--n-art 262144]
                           [--n-hot 262144] [--n-masstree 262144]
                           [--n-bwtree 32768] [--n-cceh 32768]
                           [--n-fastfair 65536] [--n-level 16384]
@@ -69,7 +69,10 @@ drain; then the same workload on a fresh server with pipelined ticks
 (tokens equal to the blocking run's).  Steady decode ticks move no PMem
 loads, the plain attention versions are never called on the path, and
 one request's prefill logits and 4 decode steps are recomputed on the
-CPU with the plain versions and the same weights.
+CPU with the plain versions and the same weights, bf16 on both sides.
+Every serving path runs through one function (``serving_run``) and its
+CPU check through another (``serving_cpu_check``), which frees the
+path's model.
 
 The eighth, the RWKV serving path, runs the same workload on RWKV6-7B at
 full width (32 layers, d_model 4096, 64 heads of 64, d_ff 14336,
@@ -77,7 +80,7 @@ vocabulary 65,536, bf16 from ``--seed``), plus prompts of exactly 32 and
 64 tokens (its layer and head counts) in the last phase: time mixing on
 the WKV6 kernel (``csrc/wkv6.cu``), 32 launches per prefill and per
 decode step, the index kernels as above, no plain version on the path.
-Its CPU check takes the 32-token prompt.
+Its CPU check takes the 32-token prompt, in fp32 on both sides.
 
 The ninth, the Mamba path, runs Jamba-1.5-Large's Mamba mixers at full
 width (d_model 8192, d_in 16384, 256 heads of 64, d_state 16, bf16 from
@@ -96,7 +99,8 @@ plus prompts of 1 and 8 tokens (the lengths at which the reference's
 cache padding breaks on Mamba state): the SSD kernel 7 times per
 prefill and per decode step, both attention kernels, the index kernels,
 no plain version on the path.  Its CPU check takes the longest prompt,
-in fp32 on both sides.
+in fp32 on both sides, and compares the MoE layers' expert sets as the
+MoE paths' checks do.
 
 The eleventh, the tag path, drives the 32-bit tag data plane
 (``kernels/clht_probe`` ``tag_lookup``): 2^19 keys in a chained table of
@@ -115,7 +119,7 @@ fingerprints on.  Every count is held against ``replay``, the
 dict/sorted-dict oracle, and every final state against its model:
 
 * (a) YCSB-F with Zipfian targets (theta 0.99, YCSB's constant) on
-  P-CLHT, 2^18 keys loaded and 2^16 run ops through ``run_workload`` in
+  P-CLHT, 2^17 keys loaded and 2^15 run ops through ``run_workload`` in
   4096-op plans, then on a freshly loaded P-CLHT through the buffered
   engine: both runs' kops/s and the plans' waves per plan (the hottest
   key's read-modify-writes force waves);
@@ -140,13 +144,37 @@ dict/sorted-dict oracle, and every final state against its model:
 * (f) one plan of (a) and one tick of (d) traced, written as a Chrome
   trace (``repro_torch.obs.trace``) and validated.
 
+The thirteenth to fifteenth, the MoE and sliding-window serving paths,
+run the serving workload (8 requests, crash and recovery, blocking then
+pipelined) on DeepSeek-MoE-16B at full width (28 layers, d_model 2048,
+16 heads, a dense layer 0, then 64 routed experts top-6 of width 1408
+and 2 shared experts; 16.3 B parameters, 32.6 GB bf16), on
+StarCoder2-15B at full width (40 layers, d_model 6144, 48 heads over 4
+KV heads, LayerNorm, GELU MLP of 24576, a sliding window of 4096; 16.0
+B parameters, 31.9 GB) plus one prompt of 4352 tokens, 256 past the
+window, whose prefill and decode mask real keys on both attention
+kernels (``paged_attention`` with a window, counted again as
+``paged_attention windowed``), and on Mixtral-8x22B at full width cut
+to its first 4 of 56 layers (d_model 6144, 48 heads over 8 KV heads,
+8 experts of 16384 top-2, a window of 4096; 10.1 B parameters, 20.3 GB;
+281 GB in bf16 at full depth) plus prompts of 4096 and 4352 tokens, at
+and past its window.  No plain version runs on them.  Each path's CPU
+check runs fp32 on both sides, at full width and cut depth with the
+served weights (DeepSeek: dense0 and two MoE layers over the shortest
+prompt; StarCoder2 and Mixtral: two layers over the 4352-token prompt),
+holds every token's top-K expert set on the card to the CPU's (a
+differing set fails unless it is a printed router near-tie, and a run
+with a near-tie sends the check to the path's next prompt: one prompt
+must run with every set equal), and frees the model before the next
+path draws.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel; each
    kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
    them;
-3. the twelve paths, each with every kernel's launch count set to 0 just
+3. the fifteen paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
@@ -161,7 +189,9 @@ Phases, each of which exits non-zero on failure:
    table the path descended; the two
    attention kernels on inputs drawn from ``--seed`` at the serving
    path's shapes, elementwise within ``ATTN_STEPS`` bf16 unit
-   roundoffs, a limit that a dropped newest key breaks; the tag probe's
+   roundoffs, a limit that a dropped newest key breaks, and with
+   StarCoder2's window (decode at lengths 4353-4384 and the prefill at
+   T = 4352), a limit the window's absence breaks; the tag probe's
    window form bit-identical to its plain version and the numpy reading
    on the tag path's windows, and its whole lookup to the windows'
    gather followed by the plain probe; the partition kernel to its plain
@@ -192,6 +222,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -233,6 +264,7 @@ from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.kernels.clht_probe import mix64  # noqa: E402
 from repro_torch.kernels.probe import fp64, fp_partial  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import ffn as ffn_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models.common import norm, norm_params  # noqa: E402
 from repro_torch.obs import RECORDER  # noqa: E402
@@ -291,6 +323,11 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "tag_probe": "src/repro/kernels/clht_probe/kernel.py:38",
             "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:60",
             "ssd": "src/repro/kernels/mamba_scan/kernel.py:58"}
+# the paged attention's launches that took a sliding window (the JAX
+# package masks the window outside its kernel,
+# src/repro/models/attention.py:169), counted among its launches and
+# again under this name
+WINDOWED_COUNT = "paged_attention windowed"
 COUNTERS = (kprobe.LAUNCHES, kart.LAUNCHES, kscan.LAUNCHES, kpart.LAUNCHES,
             kconf.LAUNCHES, kpaged.LAUNCHES, kflash.LAUNCHES,
             ktag.LAUNCHES, kwkv.LAUNCHES, kssd.LAUNCHES)
@@ -310,10 +347,42 @@ SERVE_BATCH = 8
 SERVE_PAGE = 16
 SERVE_PAGES = 1024
 SERVE_MAX_LEN = SERVE_PROMPT[1] + SERVE_NEW + 2
-SERVE_SLOTS = -(-SERVE_MAX_LEN // SERVE_PAGE) * SERVE_PAGE
 # RWKV6-7B's layer count (32) and head count (64): prompts of these
 # lengths broke the reference's cache padding (ROADMAP Queue 3, item 6)
 RWKV_EXTRA_PROMPTS = (32, 64)
+# the MoE family and sliding windows, 8 requests each at full width
+# (every full-width decode step reads every routed expert under GShard's
+# dispatch): DeepSeek-MoE-16B (a dense layer 0, 64 routed experts top-6
+# and 2 shared; 32.6 GB in bf16), StarCoder2-15B (window 4096; 31.9 GB)
+# and Mixtral-8x22B (8 experts top-2, window 4096; 281 GB in bf16 at its
+# 56 layers) cut to its first 4 layers, 20.3 GB.  StarCoder2's extra
+# prompt runs 256 tokens past its window, and Mixtral's end at and 256
+# past it, so both windowed kernels mask real keys; they take a cache of
+# that length.  Each CPU check runs fp32 on both sides at full width and
+# cut depth (DeepSeek: dense0 and two MoE layers over its shortest
+# prompt; StarCoder2 and Mixtral: two layers over the prompt past the
+# window)
+MOE_ARCH = "deepseek-moe-16b"
+CODER_ARCH = "starcoder2-15b"
+MIXTRAL_ARCH = "mixtral-8x22b"
+CODER_LONG = 4096 + 256
+CODER_MAX_LEN = CODER_LONG + SERVE_NEW + 2
+WIDE = dict(requests=8)
+WIDE_PATHS = {
+    MOE_ARCH: dict(WIDE, cpu_layers=3),
+    CODER_ARCH: dict(WIDE, extra=(CODER_LONG,), max_len=CODER_MAX_LEN,
+                     pick=max, cpu_layers=2),
+    MIXTRAL_ARCH: dict(WIDE, extra=(4096, CODER_LONG), depth=4,
+                       max_len=CODER_MAX_LEN, pick=max, cpu_layers=2)}
+# decode steps a busy share is measured over: the profiler's bookkeeping
+# of a step's 500-3,600 kernels takes seconds a step
+BUSY_STEPS = 4
+# a card/CPU difference in a token's top-K expert set is a router
+# near-tie, printed and not gated, only where the CPU's K-th and
+# (K+1)-th router probabilities lie within this of each other; the check
+# then runs the path's next prompt, up to TIE_PROMPTS of them
+ROUTER_TIE = 1e-6
+TIE_PROMPTS = 2
 # the hybrid: one superblock of Jamba-1.5-Large is 45.1 B parameters,
 # 90 GB in bf16, more than the card holds, so it serves at reduced();
 # prompts of 1 token and of its H = 8 heads broke the reference's cache
@@ -346,7 +415,7 @@ TAG_KEYS = 1 << 19
 # taking 90% of the draws.  The hot set runs F: its read-modify-write
 # updates are what collide across streams (A's inserts are of fresh
 # keys, so no two of its plans ever conflict and none defers)
-MATRIX_ZIPF = dict(mix="F", n_load=1 << 18, n_run=1 << 16, dist="zipfian",
+MATRIX_ZIPF = dict(mix="F", n_load=1 << 17, n_run=1 << 15, dist="zipfian",
                    theta=0.99)
 MATRIX_STRING = dict(mix="A", n_load=1 << 17, n_run=1 << 15,
                      dist="zipfian", theta=0.99, keyspace="string")
@@ -453,12 +522,15 @@ def reset_counts() -> None:
             counts[name] = 0
     for by_width in kscan.WINDOWS.values():
         by_width.clear()
+    kpaged.WINDOWED["paged_attention"] = 0
 
 
 def read_counts() -> dict:
-    """Launches by kernel, and the search's also by window width, as
+    """Launches by kernel, the windowed paged attention's among them
+    again as ``WINDOWED_COUNT``, and the search's by window width, as
     ``"scan_window C=1"``."""
     out = {name: n for counts in COUNTERS for name, n in counts.items()}
+    out[WINDOWED_COUNT] = kpaged.WINDOWED["paged_attention"]
     for name, by_width in kscan.WINDOWS.items():
         for width, n in sorted(by_width.items()):
             out[f"{name} C={width}"] = n
@@ -1764,16 +1836,18 @@ def conflict_vs_plain(scale, launches: dict) -> list:
 
 # -- the serving path -------------------------------------------------------
 
-def serve_prompts(vocab: int, seed: int) -> list:
-    """16 prompts of 256-512 tokens sharing a 128-token prefix."""
+def serve_prompts(vocab: int, seed: int, n: int = SERVE_REQUESTS) -> list:
+    """``n`` prompts of 256-512 tokens sharing a 128-token prefix (the
+    first n of the same draws)."""
     rng = np.random.default_rng(seed + 11)
     prefix = rng.integers(1, vocab, SERVE_PREFIX).tolist()
     return [prefix + rng.integers(1, vocab, int(rng.integers(
         SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)) - SERVE_PREFIX).tolist()
-        for _ in range(SERVE_REQUESTS)]
+        for _ in range(n)]
 
 
-def drive_server(server, phases: list, *, pipelined: bool, tag: str):
+def drive_server(server, phases: list, *, pipelined: bool, tag: str,
+                 max_len: int = SERVE_MAX_LEN):
     """Submit each phase's prompts through 2 sessions and drain; before
     every phase but the first the server power-fails and recovers.
     Returns the requests, per-phase measurements and the PMem-load
@@ -1795,7 +1869,7 @@ def drive_server(server, phases: list, *, pipelined: bool, tag: str):
         while server.queue or server.running:
             admitting = bool(server.queue)
             loads = server.pmem.counters.loads
-            server.step(SERVE_MAX_LEN, pipelined=pipelined)
+            server.step(max_len, pipelined=pipelined)
             now = time.perf_counter()
             if not admitting:
                 steady += 1
@@ -1819,22 +1893,43 @@ def drive_server(server, phases: list, *, pipelined: bool, tag: str):
     return reqs, first_tok, phases_out, steady
 
 
-def prefilled(model, prompt: list):
+def prefilled(model, prompt: list, slots: int):
     """One request's prefill on ``model``: the logits and the caches
-    ``decode_step`` continues from (k and v padded to the serving path's
-    slots, as the engine pads them; recurrent state as it comes)."""
+    ``decode_step`` continues from (k and v padded to ``slots``, the
+    serving path's, as the engine pads them; recurrent state as it
+    comes)."""
     dev = model.device
     logits, caches = model.prefill(
         {"tokens": torch.tensor([prompt], device=dev)}, len(prompt))
-    return logits, _pad_caches(caches, len(prompt), SERVE_SLOTS)
+    return logits, _pad_caches(caches, len(prompt), slots)
 
 
-def logit_runs(models: list, prompt: list) -> list:
+@contextlib.contextmanager
+def routing():
+    """Record every MoE layer's routing inside the block: yields a list
+    that gains, a layer at a time, (device type, experts [S, K], router
+    probabilities [S, E] fp32)."""
+    seen = []
+    real = ffn_mod._route
+
+    def spy(p, xt, cfg):
+        out = real(p, xt, cfg)
+        seen.append((xt.device.type, out[3].cpu(), out[1].float().cpu()))
+        return out
+
+    ffn_mod._route = spy
+    try:
+        yield seen
+    finally:
+        ffn_mod._route = real
+
+
+def logit_runs(models: list, prompt: list, slots: int) -> list:
     """One request's prefill logits and 4 decode steps on each model (the
     first model's greedy tokens fed to all), as fp32 CPU tensors."""
     runs = []
     for model in models:
-        logits, caches = prefilled(model, prompt)
+        logits, caches = prefilled(model, prompt, slots)
         runs.append((model, [logits.float().cpu()], caches))
     tokens = [int(torch.argmax(runs[0][1][0][0]))]
     for step in range(4):
@@ -1859,26 +1954,36 @@ def worst_rel(got: list, want: list) -> float:
 
 
 def serving_path(arch: str, seed: int, extra: tuple = (), *,
-                 reduced: bool = False) -> dict:
+                 reduced: bool = False, depth=None,
+                 requests: int = SERVE_REQUESTS,
+                 max_len: int = SERVE_MAX_LEN) -> dict:
     """The serving workload on ``arch`` at full width (or at its
-    ``reduced()`` widths); ``extra`` prompt lengths join the last
-    phase."""
+    ``reduced()`` widths), cut to its first ``depth`` layers where given:
+    ``requests`` requests, half before the crash and half after it, with
+    ``extra`` prompt lengths joining the last phase, every request's
+    cache ``max_len`` rounded up to whole pages."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
+    full_depth = cfg.n_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.perf_counter()
     lm = LM(cfg, seed=seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in lm.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
     say(f"serving: {cfg.name} at {'reduced' if reduced else 'full'} width "
-        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_layers} of {full_depth} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
         f"/ {cfg.n_kv_heads} KV heads, head_dim {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab}"
         + (f"; layers {layer_kinds(cfg)}" if cfg.family == "hybrid" else "")
+        + (f"; {cfg.moe}" if cfg.moe else "")
+        + (f"; sliding window {cfg.sliding_window}" if cfg.sliding_window
+           else "")
         + f"): {n_params} parameters, {n_bytes} bytes on {lm.device}, drawn "
         f"in {time.perf_counter() - t0:.3f} s")
-    prompts = serve_prompts(cfg.vocab, seed)
+    prompts = serve_prompts(cfg.vocab, seed, requests)
     rng = np.random.default_rng(seed + 14)
     extra_prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in extra]
     half = len(prompts) // 2
@@ -1896,7 +2001,8 @@ def serving_path(arch: str, seed: int, extra: tuple = (), *,
                       "prefix cache is not on the model's device")
                 tag = f"serving {cfg.name} ({mode})"
                 runs[mode] = (server,) + drive_server(
-                    server, phases, pipelined=mode == "pipelined", tag=tag)
+                    server, phases, pipelined=mode == "pipelined", tag=tag,
+                    max_len=max_len)
     finally:
         RECORDER.disable()
     check(not any(plain_calls.values()), f"serving {cfg.name}: a plain "
@@ -1935,49 +2041,148 @@ def serving_path(arch: str, seed: int, extra: tuple = (), *,
         f"all {len(blocking[1])} requests")
     lens = [r.pos for r in blocking[1]]
     return {"cfg": cfg, "lm": lm, "prompts": prompts + extra_prompts,
+            "slots": -(-max_len // SERVE_PAGE) * SERVE_PAGE,
             "decode_lens": (min(lens), max(lens)),
             "prefills": 2 * n_reqs,
             "decode_steps": sum(run[0].stats["decode_steps"]
                                 for run in runs.values())}
 
 
-def serving_cpu_check(serve: dict, prompt: list) -> None:
-    """The card against the CPU's plain versions on the same weights.
-    Qwen2-0.5B (dense): the served bf16 model on both.  RWKV6-7B and the
-    hybrid: the weights upcast to fp32 on both, and the served bf16 card
-    run beside them."""
+def first_layers(lm, n_layers: int):
+    """``lm`` cut to its first ``n_layers`` layers (``lm`` itself at its
+    own depth): a model of that depth drawn on the card, then given
+    ``lm``'s own tensors (no copy), so a check can copy those layers
+    alone and never the whole served model."""
+    if n_layers == lm.cfg.n_layers:
+        return lm
+    small = LM(dataclasses.replace(lm.cfg, n_layers=n_layers),
+               device=lm.device)
+    own = lm.state_dict()
+    small.load_state_dict({name: own[name] for name in small.state_dict()},
+                          assign=True)
+    return small
+
+
+def expert_sets_agree(name: str, card: list, cpu: list, top_k: int):
+    """Each token's top-K expert set on the card against the CPU, step by
+    step (the prefill, then each decode step: its MoE layers in order).
+    A set that differs fails the run unless the CPU's K-th and (K+1)-th
+    router probabilities lie within ``ROUTER_TIE``: that near-tie is
+    printed, and the step it falls in is returned (the flip, not a
+    kernel, moves that step's logits and the later steps').  Returns the
+    number of sets compared up to the flip and its step, or None."""
+    n = 0
+    for step, (card_calls, cpu_calls) in enumerate(zip(card, cpu)):
+        check(len(card_calls) == len(cpu_calls), f"{name}: the card and "
+              "the CPU ran different numbers of MoE layers")
+        for layer, ((_, e_card, _), (_, e_cpu, probs)) in enumerate(
+                zip(card_calls, cpu_calls)):
+            same = (e_card.sort(-1).values == e_cpu.sort(-1).values).all(-1)
+            n += same.numel()
+            if bool(same.all()):
+                continue
+            top = probs.sort(-1, descending=True).values
+            gaps = (top[:, top_k - 1] - top[:, top_k])[~same]
+            check(bool((gaps < ROUTER_TIE).all()), f"{name}: step {step}, "
+                  f"MoE layer {layer}: {int((~same).sum())} tokens routed "
+                  "to other experts on the card than on the CPU, with "
+                  f"router gaps up to {float(gaps.max()):.3e}")
+            say(f"{name}: step {step}, MoE layer {layer}: a router near-tie "
+                f"(gap {float(gaps.max()):.3e} < {ROUTER_TIE}) routed "
+                f"{int((~same).sum())} tokens to other experts")
+            return n, step
+    return n, None
+
+
+def serving_cpu_check(served: dict, pick, n_layers=None, *,
+                      bf16: bool = False) -> None:
+    """The card against the CPU's plain versions on the served weights,
+    at the model's width and its first ``n_layers`` layers (all where
+    None), over the path's prompt that ``pick`` (``min`` or ``max`` by
+    length) chooses and 4 decode steps.  Qwen2-0.5B (``bf16``): the
+    served bf16 model on both sides, within ``LOGIT_REL_TOL``; every
+    other model: its weights upcast to fp32 on both sides, within
+    ``FP32_LOGIT_REL_TOL``.  Frees the served model first, so that it
+    and the check's copies never share the card.  Where the model has
+    MoE layers, every token's top-K expert set is compared
+    (``expert_sets_agree``): a printed router near-tie leaves the steps
+    from the flip on ungated and sends the check to the path's next
+    prompt in ``pick``'s order, up to ``TIE_PROMPTS`` prompts, and the
+    check fails unless one prompt ran with every set equal and every
+    step gated."""
     t0 = time.perf_counter()
-    lm, name = serve["lm"], serve["cfg"].name
-    if lm.cfg.family == "dense":
-        card, cpu = logit_runs([lm, copy.deepcopy(lm).cpu()], prompt)
-        rel, tol, what = worst_rel(card, cpu), LOGIT_REL_TOL, "bf16"
-        extra = ""
+    cfg, name = served["cfg"], served["cfg"].name
+    small = first_layers(served.pop("lm"), n_layers or cfg.n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in small.parameters())
+    at = f"{small.cfg.n_layers} of {cfg.n_layers} layers"
+    # the CPU copy first: the card then holds the bf16 model and one
+    # copy at a time
+    if bf16:
+        cpu_m = copy.deepcopy(small).cpu()
+        card_m, what, tol = small, "bf16", LOGIT_REL_TOL
     else:
-        card16, card, cpu = logit_runs(
-            [lm, copy.deepcopy(lm).float(), copy.deepcopy(lm).cpu().float()],
-            prompt)
-        rel, tol, what = worst_rel(card, cpu), FP32_LOGIT_REL_TOL, "fp32"
-        extra = (f"; the served bf16 card run against the fp32 CPU run: "
-                 f"{worst_rel(card16, cpu):.6f} (bf16 rounding, not gated)")
-        torch.cuda.empty_cache()
-    check(rel <= tol, f"serving {name}: card logits differ from the CPU's "
-          f"by {rel:.6f} of the largest logit ({what}, tolerance {tol})")
-    say(f"serving {name}: prefill ({len(prompt)} tokens) and 4 decode steps "
-        f"on the card against the CPU's plain versions, {what}: max |diff| "
-        f"/ max |logit| = {rel:.6f} (tolerance {tol}){extra}; "
-        f"{time.perf_counter() - t0:.3f} s")
+        cpu_m = copy.deepcopy(small).cpu().float()
+        card_m, what, tol = (copy.deepcopy(small).float(), "fp32",
+                             FP32_LOGIT_REL_TOL)
+    del small
+    n_moe = sum(ffn == "moe" for _, ffn in layer_kinds(card_m.cfg))
+    prompts = sorted(served["prompts"], key=len,
+                     reverse=pick is max)[:TIE_PROMPTS]
+    for prompt in prompts:
+        with routing() as routes:
+            card, cpu = logit_runs([card_m, cpu_m], prompt, served["slots"])
+        flip, extra = None, ""
+        if n_moe:
+            # each step runs the MoE layers in order, on each device
+            check(len(routes) == 2 * len(card) * n_moe, f"{name}: "
+                  f"{len(routes)} MoE layers ran, not {n_moe} a step on "
+                  "each device")
+            steps = {dev: [r for r in routes if r[0] == dev]
+                     for dev in ("cuda", "cpu")}
+            steps = {dev: [rs[i:i + n_moe] for i in range(0, len(rs), n_moe)]
+                     for dev, rs in steps.items()}
+            check(len(steps["cuda"]) == len(steps["cpu"]) == len(card),
+                  f"{name}: the MoE layers did not run on the card and on "
+                  "the CPU once a step each")
+            n_sets, flip = expert_sets_agree(name, steps["cuda"],
+                                             steps["cpu"], cfg.moe.top_k)
+            extra = (f"; {n_sets} top-{cfg.moe.top_k} expert sets compared, "
+                     + ("all equal" if flip is None else
+                        f"a printed near-tie at step {flip}"))
+        gated = len(card) if flip is None else flip
+        rel = worst_rel(card[:gated], cpu[:gated]) if gated else 0.0
+        check(rel <= tol, f"{name}: card logits differ from the CPU's by "
+              f"{rel:.6f} of the largest logit ({what}, {at}, tolerance "
+              f"{tol})")
+        say(f"{name}: prefill ({len(prompt)} tokens) and 4 decode steps at "
+            f"{at} ({n_params} parameters), {what} "
+            f"on the card against the CPU's plain versions: max |diff| / "
+            f"max |logit| = {rel:.6f} over {gated} of {len(card)} steps "
+            f"(tolerance {tol}){extra}; {time.perf_counter() - t0:.3f} s")
+        if flip is None:
+            break
+    else:
+        check(False, f"{name}: a router near-tie in each of the "
+              f"{len(prompts)} prompts checked: no run compared every "
+              "expert set and gated every step")
+    del card_m, cpu_m
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def decode_busy(serve: dict, steps: int = 16) -> None:
-    """Where a decode step's time goes: ``steps`` steps of one request
-    at B = 1, as the engine runs them, timed on the host clock (each
-    step ends in the argmax that syncs), then the same steps under the
-    profiler for the summed device time and the count of CUDA kernels a
-    step.  Busy share = device time over host time."""
+def decode_busy(serve: dict) -> None:
+    """Where a decode step's time goes: ``BUSY_STEPS`` steps of one
+    request at B = 1, as the engine runs them, timed on the host clock
+    (each step ends in the argmax that syncs), then the same steps under
+    the profiler for the summed device time and the count of CUDA kernels
+    a step.  Busy share = device time over host time."""
+    steps = BUSY_STEPS
     lm = serve["lm"]
     prompt = max(serve["prompts"], key=len)
     dev = lm.device
-    logits, caches = prefilled(lm, prompt)
+    logits, caches = prefilled(lm, prompt, serve["slots"])
     tok = int(torch.argmax(logits[0]))
 
     def run(first: int) -> int:
@@ -2009,6 +2214,67 @@ def decode_busy(serve: dict, steps: int = 16) -> None:
         f"{dev_ms / host_ms:.4f}; top kernels: " + "; ".join(
             f"{e.key[:50]} {e.device_time_total / 1e3 / steps:.4f} ms"
             for e in top))
+
+
+def serving_run(arch: str, seed: int, launches: dict, split: dict, *,
+                extra: tuple = (), reduced: bool = False, depth=None,
+                requests: int = SERVE_REQUESTS,
+                max_len: int = SERVE_MAX_LEN,
+                pick=min, cpu_layers=None, bf16_check: bool = False
+                ) -> dict:
+    """One serving path: ``serving_path`` with the counts set to 0 just
+    before it and read just after; the index kernels launched, the
+    attention kernels too where the model has attention (the windowed
+    paged launches all of them where it has a window, none where it has
+    not), and each scan (``wkv6``, ``ssd``) once per layer of its mixer
+    per prefill and per decode step; then the decode busy share and the
+    CPU check (``serving_cpu_check``), which
+    frees the model.  Adds the path's launches to ``launches`` and its
+    scans' to ``split``; returns the path's dict without its model."""
+    reset_counts()
+    t0 = time.perf_counter()
+    served = serving_path(arch, seed, extra, reduced=reduced, depth=depth,
+                          requests=requests, max_len=max_len)
+    counts = read_counts()
+    cfg = served["cfg"]
+    check(served["lm"].device.type == "cuda", f"the {cfg.name} serving "
+          "path's model is not on the card")
+    say(f"{cfg.name} serving path: {time.perf_counter() - t0:.3f} s; kernel "
+        f"launches {counts}")
+    mixers = [mixer for mixer, _ in layer_kinds(cfg)]
+    for name in (("flash_attention", "paged_attention") * ("attn" in mixers)
+                 + ("probe64_fp", "art_descend", "art_pack_entries",
+                    "scan_window")):
+        check(counts[name] > 0, f"{name} was not launched on the "
+              f"{cfg.name} serving path")
+    windowed = counts[WINDOWED_COUNT]
+    if cfg.sliding_window is not None:
+        check(windowed == counts["paged_attention"] > 0, f"{cfg.name} "
+              f"decodes with a window of {cfg.sliding_window}, but "
+              f"{windowed} of {counts['paged_attention']} paged_attention "
+              "launches took it")
+    else:
+        check(windowed == 0, f"{cfg.name} has no window, but {windowed} "
+              "paged_attention launches took one")
+    for mixer, scan in (("rwkv", "wkv6"), ("mamba", "ssd")):
+        n = mixers.count(mixer)
+        want = n * (served["prefills"] + served["decode_steps"])
+        check(counts[scan] == want, f"{scan} was launched {counts[scan]} "
+              f"times on the {cfg.name} serving path, not {n} per prefill "
+              f"({served['prefills']}) and per decode step "
+              f"({served['decode_steps']}): {want}")
+        if n:
+            split[scan]["prefill"] += n * served["prefills"]
+            split[scan]["decode"] += n * served["decode_steps"]
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
+    decode_busy(served)
+    serving_cpu_check(served, pick, cpu_layers, bf16=bf16_check)
+    say(f"{cfg.name} path and its checks: {time.perf_counter() - t0:.3f} s; "
+        f"card memory after its model was freed "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return served
 
 
 def attn_bound(n_bytes: float, flops: float):
@@ -2048,23 +2314,31 @@ def close(name: str, got, plain, dropped,
     return err
 
 
-def flash_vs_plain(serve: dict, seed: int, launches: dict) -> list:
+def flash_vs_plain(serve: dict, coder: dict, seed: int,
+                   launches: dict) -> list:
     """flash_attention at the prefill shapes (T = S = 256 and 512, the
     full width's heads, bf16); ``scaled_dot_product_attention`` on the
-    same inputs (kv heads repeated beforehand) is the library call."""
+    same inputs (kv heads repeated beforehand) is the library call.  Then
+    the windowed prefill at StarCoder2's heads and window over its long
+    prompt (T = S = 4352): within the same limit of its plain version,
+    which the plain version without the window breaks; timed, with its
+    bound (the keys each query sees)."""
     cfg = serve["cfg"]
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dev = serve["lm"].device
+    dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 12)
+
+    def draw(T, H, Hk, dh, n):
+        return [tuple(torch.randn(shape, generator=gen, device=dev)
+                      .to(torch.bfloat16)
+                      for shape in ((1, T, H, dh), (1, T, Hk, dh),
+                                    (1, T, Hk, dh))) for _ in range(n)]
+
     out = None
     err = 0.0
     for T in SERVE_PROMPT:
-        batches = [tuple(torch.randn(shape, generator=gen, device=dev)
-                         .to(torch.bfloat16)
-                         for shape in ((1, T, H, dh), (1, T, Hk, dh),
-                                       (1, T, Hk, dh)))
-                   for _ in range(8)]
+        batches = draw(T, H, Hk, dh, 8)
         q, k, v = batches[0]
         got = kflash.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -2094,35 +2368,53 @@ def flash_vs_plain(serve: dict, seed: int, launches: dict) -> list:
             f"{lib_call:.6f} ms")
         out = (timed, bms, by, library_ms, T)
     timed, bms, by, library_ms, T = out
+
+    # the windowed prefill: each query sees its last W keys
+    ccfg = coder["cfg"]
+    W, T_long = ccfg.sliding_window, CODER_LONG
+    cH, cHk, cdh = ccfg.n_heads, ccfg.n_kv_heads, ccfg.head_dim
+    batches = draw(T_long, cH, cHk, cdh, 2)
+    q, k, v = batches[0]
+    got = kflash.flash_attention(q, k, v, window=W)
+    torch.cuda.synchronize()
+    close(f"flash_attention windowed ({ccfg.name}, T={T_long}, W={W})", got,
+          kflash.attention_plain(q, k, v, window=W),
+          kflash.attention_plain(q, k, v), "the plain version without "
+          "the window")
+    time_kernel(f"flash_attention windowed (T={T_long}, W={W})",
+                lambda a, b, c: kflash.flash_attention(a, b, c, window=W),
+                lambda a, b, c: kflash.attention_plain(a, b, c, window=W),
+                batches, reps=64, plain_reps=4)
+    seen = sum(min(i + 1, W) for i in range(T_long))  # keys the queries see
+    wbms, wby = attn_bound(2 * (2 * T_long * cH * cdh
+                                + 2 * T_long * cHk * cdh),
+                           2 * 2 * seen * cdh * cH)
+    say(f"flash_attention windowed (T={T_long}, W={W}): bound {wbms:.9f} ms "
+        f"({wby}); no library call takes a sliding window without a dense "
+        "mask")
     say(f"flash_attention: main-path launches {launches['flash_attention']}")
     return [row("flash_attention", launches, err, timed, bms, by, library_ms,
                 f"{cfg.name} prefill, T=S={T}, H={H}, Hk={Hk}, dh={dh}, "
                 "bf16")]
 
 
-def paged_vs_plain(serve: dict, seed: int, launches: dict) -> list:
-    """paged_attention at the decode shapes: one sequence, the full
-    width's heads, the path's dense cache of S_pad slots read as pages
-    through the identity table, at the shortest and longest length a
-    request reached; ``scaled_dot_product_attention`` over the live
-    keys (kv heads repeated beforehand) is the library call."""
-    cfg = serve["cfg"]
-    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    slots = SERVE_SLOTS
+def paged_lengths(tag: str, dims: tuple, slots: int, lengths, gen, dev,
+                  window=None) -> tuple:
+    """paged_attention at each of ``lengths``: one sequence with ``dims``
+    = (H, Hk, dh) over a dense cache of ``slots`` slots read as pages
+    through the identity table, bf16, with a sliding ``window`` or none.
+    Each is held to ``ATTN_STEPS`` of its plain version (which a dropped
+    newest key, or without a window the window's absence, breaks) and
+    timed, beside ``scaled_dot_product_attention`` over the live keys
+    (kv heads repeated beforehand) and the bound.  Returns the largest
+    error and (timed, bound, bound_by, library ms) at the last length."""
+    H, Hk, dh = dims
     n_pages = slots // SERVE_PAGE
-    dev = serve["lm"].device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed + 13)
     table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
-    pages, n_splits = kpaged.split_plan(
-        n_pages, 1, H, Hk, torch.cuda.get_device_properties(dev)
-        .multi_processor_count)
-    say(f"paged_attention: {n_splits} splits of {pages} pages (one cluster "
-        f"a kv head), {n_splits * Hk} blocks")
     err = 0.0
-    out = None
-    for length in serve["decode_lens"]:
+    for length in lengths:
         lens = torch.tensor([length], dtype=torch.int32, device=dev)
+        live = min(length, window or length)  # keys each call reads
         batches = [tuple(torch.randn(shape, generator=gen, device=dev)
                          .to(torch.bfloat16)
                          for shape in ((1, H, dh), (n_pages, SERVE_PAGE, Hk,
@@ -2130,41 +2422,89 @@ def paged_vs_plain(serve: dict, seed: int, launches: dict) -> list:
                                        (n_pages, SERVE_PAGE, Hk, dh)))
                    for _ in range(8)]
         q, pk, pv = batches[0]
-        got = kpaged.paged_mqa(q, pk, pv, table, lens)
+        got = kpaged.paged_mqa(q, pk, pv, table, lens, window)
         torch.cuda.synchronize()
-        err = max(err, close(
-            f"paged_attention (len={length}, {slots} slots)", got,
-            kpaged.paged_attention_plain(q, pk, pv, table, lens),
-            kpaged.paged_attention_plain(q, pk, pv, table, lens - 1)))
+        plain = kpaged.paged_attention_plain(q, pk, pv, table, lens, window)
+        if window is None:
+            broken, variant = kpaged.paged_attention_plain(
+                q, pk, pv, table, lens - 1), "a dropped newest key"
+        else:
+            broken, variant = kpaged.paged_attention_plain(
+                q, pk, pv, table, lens), "the plain version without the window"
+        err = max(err, close(f"{tag} (len={length}, {slots} slots)", got,
+                             plain, broken, variant))
         timed = time_kernel(
-            f"paged_attention (len={length})",
-            lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens),
+            f"{tag} (len={length})",
+            lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens, window),
             lambda a, b, c: kpaged.paged_attention_plain(a, b, c, table,
-                                                         lens),
+                                                         lens, window),
             batches, reps=256)
         lib = [(a[:, :, None],
-                b.reshape(1, slots, Hk, dh)[:, :length]
+                b.reshape(1, slots, Hk, dh)[:, length - live:length]
                 .repeat_interleave(H // Hk, dim=2).transpose(1, 2)
                 .contiguous(),
-                c.reshape(1, slots, Hk, dh)[:, :length]
+                c.reshape(1, slots, Hk, dh)[:, length - live:length]
                 .repeat_interleave(H // Hk, dim=2).transpose(1, 2)
                 .contiguous()) for a, b, c in batches]
         lib_dev, lib_call = time_calls(
             lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
                 a, b, c), lib, 256)
         library_ms = lib_dev if lib_dev is not None else lib_call
-        # the live keys and values once, q, the table row, the output
-        n_bytes = 2 * (2 * length * Hk * dh + 2 * H * dh) + 4 * n_pages + 4
-        bms, by = attn_bound(n_bytes, 4 * length * H * dh)
-        say(f"paged_attention (len={length}): bound {bms:.9f} ms ({by}); "
-            f"scaled_dot_product_attention: device {lib_dev} ms, call "
-            f"{lib_call:.6f} ms")
-        out = (timed, bms, by, library_ms, length)
-    timed, bms, by, library_ms, length = out
-    say(f"paged_attention: main-path launches {launches['paged_attention']}")
-    return [row("paged_attention", launches, err, timed, bms, by, library_ms,
-                f"{cfg.name} decode, B=1, H={H}, Hk={Hk}, dh={dh}, "
-                f"len={length}, {slots} slots, bf16")]
+        # the live keys and values once, q, the table's live entries, the
+        # output
+        n_bytes = (2 * (2 * live * Hk * dh + 2 * H * dh)
+                   + 4 * -(-live // SERVE_PAGE) + 4)
+        bms, by = attn_bound(n_bytes, 4 * live * H * dh)
+        say(f"{tag} (len={length}, {live} live keys): bound {bms:.9f} ms "
+            f"({by}, {n_bytes} bytes); scaled_dot_product_attention over "
+            f"the live keys: device {lib_dev} ms, call {lib_call:.6f} ms")
+    return err, (timed, bms, by, library_ms)
+
+
+def paged_vs_plain(serve: dict, coder: dict, seed: int,
+                   launches: dict) -> list:
+    """paged_attention at Qwen2-0.5B's decode shape (one sequence, the
+    path's dense cache read as pages, at the shortest and longest length
+    a request reached), then with a sliding window at StarCoder2-15B's
+    (B = 1, its heads and window of 4096, its long prompt's decode
+    lengths over its cache): one row, the windowed shape's numbers under
+    its ``window`` key and the launches split by ``launches_by_shape``."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    measured = []
+    for tag, served, lengths, window in (
+            ("paged_attention", serve, serve["decode_lens"], None),
+            ("paged_attention windowed", coder,
+             (CODER_LONG + 1, CODER_LONG + SERVE_NEW),
+             coder["cfg"].sliding_window)):
+        cfg, slots = served["cfg"], served["slots"]
+        dims = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        pages, n_splits = kpaged.split_plan(
+            slots // SERVE_PAGE, 1, cfg.n_heads, cfg.n_kv_heads,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        say(f"{tag} ({cfg.name}): {n_splits} splits of {pages} pages (one "
+            f"cluster a kv head), {n_splits * cfg.n_kv_heads} blocks")
+        err, (timed, bms, by, library_ms) = paged_lengths(
+            tag, dims, slots, lengths, gen, dev, window)
+        measured.append((err, timed, bms, by, library_ms,
+                         f"{cfg.name} decode, B=1, H={dims[0]}, "
+                         f"Hk={dims[1]}, dh={dims[2]}, len={lengths[-1]}, "
+                         + (f"window {window}, " if window else "")
+                         + f"{slots} slots, bf16"))
+    windowed = launches[WINDOWED_COUNT]
+    split = {"no window": launches["paged_attention"] - windowed,
+             "window": windowed}
+    say(f"paged_attention: main-path launches {launches['paged_attention']}: "
+        f"{split}")
+    (err, timed, bms, by, library_ms, shape), w = measured
+    out = row("paged_attention", launches, max(err, w[0]), timed, bms, by,
+              library_ms, shape)
+    out["launches_by_shape"] = split
+    out["window"] = {"max_abs_err": w[0], "ms": w[1]["ms"],
+                     "plain_ms": w[1]["plain_ms"], "bound_ms": w[2],
+                     "bound_by": w[3], "library_ms": w[4], "shape": w[5]}
+    return [out]
 
 
 # -- the tag path and its kernel --------------------------------------------
@@ -2392,7 +2732,7 @@ def wkv6_vs_plain(serve: dict, seed: int, launches: dict,
     cfg = serve["cfg"]
     dh = cfg.rwkv.head_dim
     H = cfg.d_model // dh
-    dev = serve["lm"].device
+    dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 16)
     err = 0.0
@@ -3012,13 +3352,14 @@ def matrix_path(seed: int, dev) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n-clht", type=int, default=1 << 20)
-    # P-ART's load is the longest of the index paths (some 14 kops/s):
-    # 2^19 keys keep the whole run within two thirds of its time limit
-    ap.add_argument("--n-art", type=int, default=1 << 19)
-    ap.add_argument("--n-hot", type=int, default=1 << 18)
-    ap.add_argument("--n-masstree", type=int, default=1 << 18)
-    ap.add_argument("--n-bwtree", type=int, default=1 << 15)
+    # the index loads run on the host at 1.3-36 kops/s (BwTree slowest):
+    # these depths keep the whole run, with the MoE and sliding-window
+    # serving paths, within its time limit on the slower machines
+    ap.add_argument("--n-clht", type=int, default=1 << 19)
+    ap.add_argument("--n-art", type=int, default=1 << 18)
+    ap.add_argument("--n-hot", type=int, default=1 << 17)
+    ap.add_argument("--n-masstree", type=int, default=1 << 17)
+    ap.add_argument("--n-bwtree", type=int, default=1 << 14)
     # one CCEH directory and one Level hashing level must each fit an
     # arena segment (65,528 words): a 2^16-key CCEH load and a
     # 20,480-key Level hashing load overflow it
@@ -3107,49 +3448,12 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
 
-    reset_counts()
-    t0 = time.perf_counter()
-    serve = serving_path(SERVE_ARCH, args.seed)
-    counts = read_counts()
-    check(serve["lm"].device.type == "cuda", "the serving path's model is "
-          "not on the card")
-    say(f"serving path: {time.perf_counter() - t0:.3f} s; kernel launches "
-        f"{counts}")
-    for name in ("flash_attention", "paged_attention", "probe64_fp",
-                 "art_descend", "art_pack_entries", "scan_window"):
-        check(counts[name] > 0, f"{name} was not launched on the serving "
-              "path")
-    for name, done in counts.items():
-        launches[name] = launches.get(name, 0) + done
-    serving_cpu_check(serve, min(serve["prompts"], key=len))
-    decode_busy(serve)
-
-    reset_counts()
-    t0 = time.perf_counter()
-    rwkv = serving_path(RWKV_ARCH, args.seed, RWKV_EXTRA_PROMPTS)
-    counts = read_counts()
-    check(rwkv["lm"].device.type == "cuda", "the RWKV serving path's model "
-          "is not on the card")
-    say(f"RWKV serving path: {time.perf_counter() - t0:.3f} s; kernel "
-        f"launches {counts}")
-    n_layers = rwkv["cfg"].n_layers
-    want = n_layers * (rwkv["prefills"] + rwkv["decode_steps"])
-    check(counts["wkv6"] == want, f"wkv6 was launched {counts['wkv6']} "
-          f"times on the RWKV serving path, not {n_layers} per prefill "
-          f"({rwkv['prefills']}) and per decode step "
-          f"({rwkv['decode_steps']}): {want}")
-    split["wkv6"]["prefill"] += n_layers * rwkv["prefills"]
-    split["wkv6"]["decode"] += n_layers * rwkv["decode_steps"]
-    for name in ("probe64_fp", "art_descend", "art_pack_entries",
-                 "scan_window"):
-        check(counts[name] > 0, f"{name} was not launched on the RWKV "
-              "serving path")
-    for name, done in counts.items():
-        launches[name] = launches.get(name, 0) + done
+    serve = serving_run(SERVE_ARCH, args.seed, launches, split,
+                        bf16_check=True)
     # a full-width CPU run of a 512-token prompt is slow: the check takes
     # the path's 32-token prompt (the width is not cut)
-    serving_cpu_check(rwkv, min(rwkv["prompts"], key=len))
-    decode_busy(rwkv)
+    rwkv = serving_run(RWKV_ARCH, args.seed, launches, split,
+                       extra=RWKV_EXTRA_PROMPTS)
 
     reset_counts()
     t0 = time.perf_counter()
@@ -3169,33 +3473,9 @@ def main(argv=None) -> int:
         launches[name] = launches.get(name, 0) + done
     mamba_cpu_check(mamba)
 
-    reset_counts()
-    t0 = time.perf_counter()
-    hybrid = serving_path(HYBRID_ARCH, args.seed, HYBRID_EXTRA_PROMPTS,
-                          reduced=True)
-    counts = read_counts()
-    check(hybrid["lm"].device.type == "cuda", "the hybrid serving path's "
-          "model is not on the card")
-    say(f"hybrid serving path: {time.perf_counter() - t0:.3f} s; kernel "
-        f"launches {counts}")
-    kinds = layer_kinds(hybrid["cfg"])
-    n_mixers = sum(mixer == "mamba" for mixer, _ in kinds)
-    want = n_mixers * (hybrid["prefills"] + hybrid["decode_steps"])
-    check(counts["ssd"] == want, f"ssd was launched {counts['ssd']} times "
-          f"on the hybrid serving path, not {n_mixers} per prefill "
-          f"({hybrid['prefills']}) and per decode step "
-          f"({hybrid['decode_steps']}): {want}")
-    split["ssd"]["prefill"] += n_mixers * hybrid["prefills"]
-    split["ssd"]["decode"] += n_mixers * hybrid["decode_steps"]
-    for name in ("flash_attention", "paged_attention", "probe64_fp",
-                 "art_descend", "art_pack_entries", "scan_window"):
-        check(counts[name] > 0, f"{name} was not launched on the hybrid "
-              "serving path")
-    for name, done in counts.items():
-        launches[name] = launches.get(name, 0) + done
     # the reduced model is small: the check takes the longest prompt
-    serving_cpu_check(hybrid, max(hybrid["prompts"], key=len))
-    decode_busy(hybrid)
+    hybrid = serving_run(HYBRID_ARCH, args.seed, launches, split,
+                         extra=HYBRID_EXTRA_PROMPTS, reduced=True, pick=max)
 
     reset_counts()
     t0 = time.perf_counter()
@@ -3222,6 +3502,12 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
 
+    # the MoE family and sliding windows; each path frees its model before
+    # the next one draws (DeepSeek-MoE and StarCoder2 hold 32.6 and 31.9
+    # GB of bf16 weights, Mixtral's 4 layers 20.3 GB)
+    wide = {arch: serving_run(arch, args.seed, launches, split, **kw)
+            for arch, kw in WIDE_PATHS.items()}
+
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []
     for check_rows, fargs in (
@@ -3234,8 +3520,10 @@ def main(argv=None) -> int:
             (sharded_scan_vs_plain, (scale, args.seed, launches)),
             (route_vs_plain, (scale, launches)),
             (conflict_vs_plain, (scale, launches)),
-            (paged_vs_plain, (serve, args.seed, launches)),
-            (flash_vs_plain, (serve, args.seed, launches)),
+            (paged_vs_plain, (serve, wide[CODER_ARCH], args.seed,
+                              launches)),
+            (flash_vs_plain, (serve, wide[CODER_ARCH], args.seed,
+                              launches)),
             (clht_vs_plain, (tag, launches)),
             (wkv6_vs_plain, (rwkv, args.seed, launches, split["wkv6"])),
             (ssd_vs_plain, (mamba, hybrid, args.seed, launches,

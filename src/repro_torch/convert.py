@@ -10,8 +10,8 @@ arrays from the JAX package's ``PMem`` regions and hold both packages
 to the same table.
 
 ``lm_params_from_arrays`` turns the JAX package's ``LM`` parameter tree
-(as numpy arrays: each pattern position's leaves under ``blocks.l<i>``,
-stacked on axis 0 over the group's repeats; dense, RWKV6 or hybrid)
+(as numpy arrays: each group's pattern positions under ``<group>.l<i>``,
+stacked on axis 0 over the group's repeats; dense, MoE, RWKV6 or hybrid)
 into the port ``LM``'s state dict, so both packages run the same
 weights.
 """
@@ -23,7 +23,9 @@ from typing import Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
 from .core.pmem import WORDS_PER_LINE, OpCounters, PMem, Region
+from .models.model import layer_slots
 
 
 def pmem_from_arrays(regions: Iterable[Mapping], next_rid: int, *,
@@ -71,36 +73,45 @@ def _tensor(a, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-def lm_params_from_arrays(params: Mapping, n_layers: int, *,
+def _leaves(tree: Mapping, prefix: str):
+    """(port name, array) of each leaf of one layer's part; a nested
+    dict (a MoE layer's ``shared`` experts) becomes the part
+    ``<part>_<name>``, as the port's ``Block`` holds it."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            yield from _leaves(leaf, f"{prefix}_{name}")
+        else:
+            yield f"{prefix}.{name}", np.asarray(leaf)
+
+
+def lm_params_from_arrays(params: Mapping, cfg: ArchConfig, *,
                           dtype: Optional[torch.dtype] = None
                           ) -> Dict[str, torch.Tensor]:
-    """The port ``LM``'s state dict from the JAX package's parameter
-    tree for the dense family, RWKV6 or the hybrid.
+    """The port ``LM``'s state dict for ``cfg`` from the JAX package's
+    parameter tree for the dense and MoE families, RWKV6 or the hybrid.
 
     ``params`` is the JAX ``LM.init_params`` tree with numpy leaves:
-    ``embed``, ``final_norm.w``, optionally ``lm_head``, and
-    ``blocks.l<i>.<part>.<name>`` for each of the group pattern's P
-    positions, stacked on axis 0 over the group's ``n_layers / P``
-    repeats (unstacked when the group runs once, as the JAX package
-    builds it).  The parts are ``ln1``, a mixer (``attn``, ``mamba`` or
-    ``rwkv``), ``ln2`` and an FFN (``ffn`` or ``moe``; RWKV6 has none).
-    Position i at repeat r is the port's layer ``r * P + i``.  Each leaf
+    ``embed``, ``final_norm.w`` (and ``.b`` for LayerNorm), optionally
+    ``lm_head``, and for each group of ``group_plan(cfg)``
+    ``<group>.l<i>.<part>.<name>`` for each of its pattern's positions,
+    stacked on axis 0 over the group's repeats (unstacked when the group
+    runs once, as the JAX package builds it).  ``layer_slots(cfg)`` says
+    which (group, position, repeat) each port layer is.  The parts are
+    ``ln1``, a mixer (``attn``, ``mamba`` or ``rwkv``), ``ln2`` and an
+    FFN (``ffn`` or ``moe``, whose shared experts are nested under
+    ``moe.shared`` and become ``moe_shared``; RWKV6 has none).  Each leaf
     keeps its dtype unless ``dtype`` is given.  Load the result with
     ``LM.load_state_dict(sd, assign=True)`` so the dtypes carry over."""
-    out = {"embed": _tensor(params["embed"], dtype),
-           "final_norm.w": _tensor(params["final_norm"]["w"], dtype)}
+    out = {"embed": _tensor(params["embed"], dtype)}
+    for name, leaf in params["final_norm"].items():  # w, and LayerNorm's b
+        out[f"final_norm.{name}"] = _tensor(leaf, dtype)
     if "lm_head" in params:
         out["lm_head"] = _tensor(params["lm_head"], dtype)
-    group = params["blocks"]
-    P = len(group)
-    repeat = n_layers // P
-    for i in range(P):
-        for part, leaves in group[f"l{i}"].items():
-            for name, leaf in leaves.items():
-                leaf = np.asarray(leaf)
-                for r in range(repeat):
-                    out[f"layers.{r * P + i}.{part}.{name}"] = _tensor(
-                        leaf[r] if repeat > 1 else leaf, dtype)
+    for layer, (group, pos, r) in enumerate(layer_slots(cfg)):
+        for part, leaves in params[group][pos].items():
+            for name, leaf in _leaves(leaves, part):
+                out[f"layers.{layer}.{name}"] = _tensor(
+                    leaf if r is None else leaf[r], dtype)
     return out
 
 

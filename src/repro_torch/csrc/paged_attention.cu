@@ -15,6 +15,9 @@
 // Semantics, those of the TPU kernel:
 //   * keys j < min(len, MAXP * PS) are live (pages pi * PS < len); key j
 //     is slot j % PS of page max(table[b, j / PS], 0);
+//   * with a sliding window w > 0 (the JAX package masks it outside its
+//     kernel, in models/attention.py attn_decode), only keys j >= len - w
+//     of those are live;
 //   * q and the pages are upcast to fp32; s = (q . k) * scale; softmax
 //     and the P.V product in fp32; out = acc / max(l, 1e-30) in q's
 //     dtype, so len = 0 gives zeros.
@@ -67,6 +70,15 @@
 //     barrier to keep them alive, and was slower on an H100.)  Nothing
 //     goes through device memory but the inputs and the output, and the
 //     kernel needs no scratch.
+//   * Window: each block computes its sequence's first live key,
+//     max(0, len - w), from the length it reads, and starts its split's
+//     key loop there (its chunks count from that key, not from the split's
+//     first), so no key before the window is read, and no page wholly
+//     before it.  A split that lies wholly before the window has no chunk
+//     and leaves the empty partial, as a split past len does.  The split
+//     plan stays a function of the table's shape: a windowed call has the
+//     same grid, and its early splits do no work.  Its first rounds wait
+//     for the length; without a window they go out before it, as above.
 //
 // Left for later: the same work in one block per SM at a large batch
 // (more heads a block), and folding the decode step into a CUDA graph.
@@ -193,7 +205,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
                        const int32_t* __restrict__ table,
                        const int32_t* __restrict__ lens, T* __restrict__ out,
                        int heads, int kv_heads, int page_size, int max_pages,
-                       int split_pages, float scale) {
+                       int split_pages, int window, float scale) {
   using L = Layout<T, kDh>;
   constexpr int kVec = L::kVec;
   constexpr int kPieces = L::kPieces;
@@ -244,17 +256,17 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
   for (int i = threadIdx.x; i < n_heads * kDh; i += kThreads)
     qs[i] = to_f32(q_row[i]);
 
-  // round r: chunks r kTeams .. r kTeams + kTeams - 1 of the split, keys
-  // of k and v into their stages; rows past the split or the table are
-  // zero-filled
-  auto stage_round = [&](int r) {
+  // round r: chunks r kTeams .. r kTeams + kTeams - 1 of the split's keys
+  // from `from` on, keys of k and v into their stages; rows past the
+  // split or the table are zero-filled
+  auto stage_round = [&](int from, int r) {
     constexpr int kRowPieces = 2 * kChunk * kPieces;  // one chunk
     for (int i = threadIdx.x; i < kTeams * kRowPieces; i += kThreads) {
       const int ci = r * kTeams + i / kRowPieces;
       const int kv = i / (kChunk * kPieces) % 2;
       const int j = (i / kPieces) % kChunk;
       const int piece = i % kPieces;
-      const int key = lo + ci * kChunk + j;
+      const int key = from + ci * kChunk + j;
       const bool live = key < split_hi;
       const char* src = reinterpret_cast<const char*>(kv ? pages_v : pages_k);
       if (live) {
@@ -268,15 +280,24 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
     }
   };
 
-  // the first rounds go out before the length is known
+  auto stage_first = [&](int from) {
 #pragma unroll
-  for (int r = 0; r < kDepth; ++r) {
-    if (lo + r * kTeams * kChunk < split_hi) stage_round(r);
-    cp_async_commit();
-  }
+    for (int r = 0; r < kDepth; ++r) {
+      if (from + r * kTeams * kChunk < split_hi) stage_round(from, r);
+      cp_async_commit();
+    }
+  };
+  // without a window the first rounds go out before the length is known
+  if (window == 0) stage_first(lo);
   const int len = max(0, min(len_raw, max_pages * page_size));
+  // the split's keys are read from `base` on: its first key, or the
+  // sequence's first live key where a window starts inside the split
+  // (split_hi where it starts past it, so no chunk is read)
+  const int first = window > 0 ? max(0, len - window) : 0;
+  const int base = max(lo, min(split_hi, first));
+  if (window > 0) stage_first(base);
   const int hi = min(split_hi, len);
-  const int n_chunks = hi > lo ? (hi - lo + kChunk - 1) / kChunk : 0;
+  const int n_chunks = hi > base ? (hi - base + kChunk - 1) / kChunk : 0;
   const int n_rounds = (n_chunks + kTeams - 1) / kTeams;
 
   // head slot i of this warp is head warp + kTeamWarps i; slots past the
@@ -296,7 +317,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
     cp_async_wait<kDepth - 1>();
     __syncthreads();  // round r is in
     const int ci = r * kTeams + team;  // this team's chunk
-    const int c0 = lo + ci * kChunk;
+    const int c0 = base + ci * kChunk;
     // keys c0 + n and on are dead: their rows may hold anything (a slot
     // not yet written), so they are masked and never read for P.V
     const int n = min(kChunk, hi - c0);
@@ -374,7 +395,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
     }
     if (r + kDepth < n_rounds) {
       __syncthreads();  // round r's stages are free
-      stage_round(r + kDepth);
+      stage_round(base, r + kDepth);
     }
     cp_async_commit();
   }
@@ -455,7 +476,7 @@ template <typename T, int kDh, int kHeads>
 int launch_heads(const void* q, const void* pages_k, const void* pages_v,
                  const void* table, const void* lens, void* out, int batch,
                  int heads, int kv_heads, int page_size, int max_pages,
-                 int split_pages, int n_splits, float scale,
+                 int split_pages, int n_splits, int window, float scale,
                  cudaStream_t stream) {
   constexpr int kBlockHeads = kTeamWarps * kHeads;
   const int groups = (heads / kv_heads + kBlockHeads - 1) / kBlockHeads;
@@ -483,7 +504,7 @@ int launch_heads(const void* q, const void* pages_k, const void* pages_v,
       static_cast<const T*>(pages_k), static_cast<const T*>(pages_v),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
       static_cast<T*>(out), heads, kv_heads, page_size, max_pages,
-      split_pages, scale);
+      split_pages, window, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -495,24 +516,24 @@ template <typename T, int kDh>
 int launch(const void* q, const void* pages_k, const void* pages_v,
            const void* table, const void* lens, void* out, int batch,
            int heads, int kv_heads, int page_size, int max_pages,
-           int split_pages, int n_splits, int block_heads, float scale,
-           cudaStream_t stream) {
+           int split_pages, int n_splits, int block_heads, int window,
+           float scale, cudaStream_t stream) {
   switch (block_heads) {
     case kTeamWarps:
       return launch_heads<T, kDh, 1>(q, pages_k, pages_v, table, lens, out,
                                      batch, heads, kv_heads, page_size,
-                                     max_pages, split_pages, n_splits, scale,
-                                     stream);
+                                     max_pages, split_pages, n_splits, window,
+                                     scale, stream);
     case 2 * kTeamWarps:
       return launch_heads<T, kDh, 2>(q, pages_k, pages_v, table, lens, out,
                                      batch, heads, kv_heads, page_size,
-                                     max_pages, split_pages, n_splits, scale,
-                                     stream);
+                                     max_pages, split_pages, n_splits, window,
+                                     scale, stream);
     case 8 * kTeamWarps:
       return launch_heads<T, kDh, 8>(q, pages_k, pages_v, table, lens, out,
                                      batch, heads, kv_heads, page_size,
-                                     max_pages, split_pages, n_splits, scale,
-                                     stream);
+                                     max_pages, split_pages, n_splits, window,
+                                     scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -523,20 +544,21 @@ int launch_dtype(const void* q, const void* pages_k, const void* pages_v,
                  const void* table, const void* lens, void* out, int batch,
                  int heads, int kv_heads, int head_dim, int page_size,
                  int max_pages, int split_pages, int n_splits,
-                 int block_heads, float scale, cudaStream_t stream) {
+                 int block_heads, int window, float scale,
+                 cudaStream_t stream) {
   switch (head_dim) {
     case 32:
       return launch<T, 32>(q, pages_k, pages_v, table, lens, out, batch,
                            heads, kv_heads, page_size, max_pages, split_pages,
-                           n_splits, block_heads, scale, stream);
+                           n_splits, block_heads, window, scale, stream);
     case 64:
       return launch<T, 64>(q, pages_k, pages_v, table, lens, out, batch,
                            heads, kv_heads, page_size, max_pages, split_pages,
-                           n_splits, block_heads, scale, stream);
+                           n_splits, block_heads, window, scale, stream);
     case 128:
       return launch<T, 128>(q, pages_k, pages_v, table, lens, out, batch,
                             heads, kv_heads, page_size, max_pages,
-                            split_pages, n_splits, block_heads, scale,
+                            split_pages, n_splits, block_heads, window, scale,
                             stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -552,22 +574,24 @@ int launch_dtype(const void* q, const void* pages_k, const void* pages_v,
 // 1 bfloat16), the pages 16-byte aligned.  The keys are cut into
 // n_splits (1, 2, 4 or 8) splits of split_pages pages, n_splits *
 // split_pages >= max_pages; a block computes block_heads (4, 8 or 32)
-// query heads of a kv head.  Launches on `stream`, does not synchronise,
-// and returns the launch's error or cudaGetLastError() after it
+// query heads of a kv head; window > 0 keeps only the last `window` of a
+// sequence's keys live, 0 keeps all.  Launches on `stream`, does not
+// synchronise, and returns the launch's error or cudaGetLastError() after it
 // (cudaErrorInvalidValue for a head dim other than 32, 64 or 128,
 // another dtype, heads not a multiple of kv_heads, another block_heads,
-// or a split plan that does not cover max_pages).
+// a negative window, or a split plan that does not cover max_pages).
 extern "C" int paged_attention(const void* q, const void* pages_k,
                                const void* pages_v, const void* table,
                                const void* lens, void* out, int batch,
                                int heads, int kv_heads, int head_dim,
                                int page_size, int max_pages, int split_pages,
-                               int n_splits, int block_heads, int dtype,
-                               float scale, void* stream) {
+                               int n_splits, int block_heads, int window,
+                               int dtype, float scale, void* stream) {
   if (batch <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || page_size <= 0 ||
       max_pages < 0 || split_pages <= 0 || n_splits <= 0 ||
       n_splits > kMaxSplits || (n_splits & (n_splits - 1)) != 0 ||
+      window < 0 ||
       static_cast<int64_t>(n_splits) * split_pages < max_pages)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -575,12 +599,13 @@ extern "C" int paged_attention(const void* q, const void* pages_k,
     return launch_dtype<float>(q, pages_k, pages_v, table, lens, out, batch,
                                heads, kv_heads, head_dim, page_size,
                                max_pages, split_pages, n_splits, block_heads,
-                               scale, s);
+                               window, scale, s);
   if (dtype == 1)
     return launch_dtype<__nv_bfloat16>(q, pages_k, pages_v, table, lens, out,
                                        batch, heads, kv_heads, head_dim,
                                        page_size, max_pages, split_pages,
-                                       n_splits, block_heads, scale, s);
+                                       n_splits, block_heads, window, scale,
+                                       s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

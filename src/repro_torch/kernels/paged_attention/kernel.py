@@ -13,10 +13,15 @@ run in parallel, one thread-block cluster a (sequence, kv head), and
 merges them on chip (``ref.merge_partials`` is the merge's plain form).
 ``split_plan`` chooses the splits from the block table's shape and the
 SM count alone, never from ``seq_lens``, so the wrapper reads nothing
-from the device and allocates nothing but the output.
+from the device and allocates nothing but the output.  With a sliding
+``window`` each block finds its sequence's first live key on the card
+and starts at the page that holds it: pages wholly before the window are
+never read, and a split that lies wholly before it stores an empty
+partial.
 
-``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
-on CPU tensors launches nothing and counts nothing.
+``LAUNCHES`` counts kernel launches under the TPU kernel's name;
+``WINDOWED`` counts those of the same launches that took a sliding
+window.  A call on CPU tensors launches nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +38,8 @@ from .ref import paged_attention_plain
 
 #: CUDA launches since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
+#: the same launches that took a sliding window
+WINDOWED: Dict[str, int] = {"paged_attention": 0}
 
 HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,6 +84,7 @@ def _sm_count(index: int) -> int:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        WINDOWED[name] = 0
 
 
 _P = ctypes.c_void_p
@@ -86,14 +94,14 @@ _I = ctypes.c_int
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
-    lib.paged_attention.argtypes = [_P] * 6 + [_I] * 10 + [ctypes.c_float, _P]
+    lib.paged_attention.argtypes = [_P] * 6 + [_I] * 11 + [ctypes.c_float, _P]
     lib.paged_attention.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, pages_k, pages_v, block_table, seq_lens) -> None:
+def _check(q, pages_k, pages_v, block_table, seq_lens, window) -> None:
     if q.dim() != 3 or pages_k.dim() != 4:
         raise ValueError("q must be [B, H, dh] and the pages [NP, PS, Hk, dh]")
     B, H, dh = q.shape
@@ -123,23 +131,27 @@ def _check(q, pages_k, pages_v, block_table, seq_lens) -> None:
                     ("block_table", block_table), ("seq_lens", seq_lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive width, got {window}")
 
 
 def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
                     pages_v: torch.Tensor, block_table: torch.Tensor,
-                    seq_lens: torch.Tensor) -> torch.Tensor:
+                    seq_lens: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
     """One-token decode attention over block-table pages.
 
     q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh], H % Hk == 0,
     float32 or bfloat16; block_table: [B, MAXP] int32, entries below 0
     read page 0; seq_lens: [B] int32.  Keys j < seq_lens[b] (at most
-    MAXP * PS) are live.  fp32 accumulation; returns [B, H, dh] in q's
-    dtype, zeros for a sequence of length 0."""
-    _check(q, pages_k, pages_v, block_table, seq_lens)
+    MAXP * PS) are live, and with a ``window`` (at least 1) only those
+    with j >= seq_lens[b] - window.  fp32 accumulation; returns [B, H,
+    dh] in q's dtype, zeros for a sequence of length 0."""
+    _check(q, pages_k, pages_v, block_table, seq_lens, window)
     dev = q.device
     if dev.type == "cpu":
         return paged_attention_plain(q, pages_k, pages_v, block_table,
-                                     seq_lens)
+                                     seq_lens, window)
     if dev.type != "cuda":
         raise ValueError(f"paged_attention takes CUDA or CPU tensors, "
                          f"not {dev}")
@@ -167,13 +179,16 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B,
             H, Hk, dh, PS, maxp, pages, n_splits, heads_per_block(H // Hk),
-            DTYPES[q.dtype], 1.0 / math.sqrt(dh), stream)
+            int(window or 0), DTYPES[q.dtype], 1.0 / math.sqrt(dh), stream)
     if err:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.paged_attention_error_string(err).decode())
     LAUNCHES["paged_attention"] += 1
+    if window is not None:
+        WINDOWED["paged_attention"] += 1
     return out
 
 
-__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "MAX_SPLITS", "heads_per_block",
-           "paged_attention", "reset_launches", "split_plan"]
+__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "MAX_SPLITS", "WINDOWED",
+           "heads_per_block", "paged_attention", "reset_launches",
+           "split_plan"]

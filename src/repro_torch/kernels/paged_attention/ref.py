@@ -2,8 +2,11 @@
 
 ``paged_attention_plain`` computes what ``csrc/paged_attention.cu``
 computes: for each sequence b and query head h, attention of q[b, h]
-over the keys j < seq_lens[b] (at most MAXP * PS), key j read from slot
-j % PS of page max(block_table[b, j // PS], 0), kv head h // (H // Hk).
+over the keys j < seq_lens[b] (at most MAXP * PS), and with a
+``window`` only the last ``window`` of them (j >= seq_lens[b] -
+window, the JAX package's ``kpos > pos - window`` at seq_len = pos + 1),
+key j read from slot j % PS of page max(block_table[b, j // PS], 0), kv
+head h // (H // Hk).
 fp32 throughout, output in q's dtype, as in the JAX package's Pallas
 kernel (``kernels/paged_attention/kernel.py``); a sequence of length 0
 gives zeros, where the JAX package's ``paged_attention_ref`` gives NaN.
@@ -16,16 +19,21 @@ sum and unnormalised output, and merges them.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 
 def paged_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
                           pages_v: torch.Tensor, block_table: torch.Tensor,
-                          seq_lens: torch.Tensor) -> torch.Tensor:
+                          seq_lens: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
     """q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh] with H % Hk == 0;
     block_table: [B, MAXP] int32 (physical page per logical page, -1
-    unused); seq_lens: [B] int32.  Returns [B, H, dh] in q's dtype."""
+    unused); seq_lens: [B] int32; ``window``: None, or the live keys'
+    count from the end (at least 1).  Returns [B, H, dh] in q's dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive width, got {window}")
     B, H, dh = q.shape
     _, PS, Hk, _ = pages_k.shape
     MAXP = block_table.shape[1]
@@ -36,6 +44,8 @@ def paged_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
     s = torch.einsum("bhd,bshd->bhs", q.float(), k) * (1.0 / math.sqrt(dh))
     pos = torch.arange(MAXP * PS, device=q.device)[None, :]
     valid = pos < seq_lens.long()[:, None]
+    if window is not None:
+        valid &= pos >= seq_lens.long()[:, None] - window
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)

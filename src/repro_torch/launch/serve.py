@@ -3,13 +3,14 @@ crash/restart demonstration of the persistent prefix cache.  The port
 of ``repro.launch.serve``.
 
 The JAX driver always serves the reduced configuration on the CPU; the
-port serves the named architecture (a dense config or ``rwkv6-7b``)
-at full width on the card by default, with weights drawn at random
-from ``seed`` (no checkpoint exists to load).  The hybrid
-(``jamba-1.5-large-398b``) serves only with ``reduced=True``: the least
-depth its layer grouping takes, one superblock, holds more bf16 weights
-than one card.  ``reduced=True, device="cpu"`` gives the JAX driver's
-setting.  Run ``python -m repro_torch.launch.serve`` with
+port serves the named architecture (a dense or MoE config, or
+``rwkv6-7b``) at full width on the card by default, with weights drawn
+at random from ``seed`` (no checkpoint exists to load).  A
+configuration whose bf16 weights do not fit one card serves only with
+``reduced=True``: ``mixtral-8x22b`` (281 GB) and the hybrid
+``jamba-1.5-large-398b``, whose least depth, one superblock, already
+holds 90 GB.  ``reduced=True, device="cpu"`` gives the setting of
+``repro.launch.serve``.  Run ``python -m repro_torch.launch.serve`` with
 ``PYTHONPATH=src``.
 """
 
@@ -31,18 +32,22 @@ def check_fits(cfg) -> None:
     """Raise for a configuration whose least servable depth does not
     fit one card in bf16.  For the hybrid that depth is one superblock
     (``attn_every`` layers, the unit ``group_plan`` repeats):
-    Jamba-1.5-Large's holds 45.1 B parameters, 90 GB."""
-    if cfg.family != "hybrid":
-        return
-    one = dataclasses.replace(cfg, n_layers=cfg.attn_every)
-    need = 2 * one.param_count()
+    Jamba-1.5-Large's holds 45.1 B parameters, 90 GB.  For every other
+    family it is the whole model: Mixtral-8x22B holds 140.6 B
+    parameters, 281 GB."""
+    if cfg.family == "hybrid":
+        least = dataclasses.replace(cfg, n_layers=cfg.attn_every)
+        what = (f"one superblock of {cfg.attn_every} layers, the least "
+                "depth its layer grouping takes, holds")
+    else:
+        least, what = cfg, f"its {cfg.n_layers} layers hold"
+    need = 2 * least.param_count()
     if need > CARD_BYTES:
         raise NotImplementedError(
-            f"{cfg.name} at full width does not fit one card: one "
-            f"superblock of {cfg.attn_every} layers, the least depth its "
-            f"layer grouping takes, holds {one.param_count():,} parameters, "
-            f"{need / 1e9:.1f} GB in bf16, against the card's "
-            f"{CARD_BYTES / 1e9:.0f} GB; serve it with reduced=True")
+            f"{cfg.name} at full width does not fit one card: {what} "
+            f"{least.param_count():,} parameters, {need / 1e9:.1f} GB "
+            f"in bf16, against the card's {CARD_BYTES / 1e9:.0f} GB; serve "
+            "it with reduced=True")
 
 
 def serve(arch: str = "qwen2-0.5b", *, device=None, reduced: bool = False,

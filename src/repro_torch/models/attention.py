@@ -17,7 +17,10 @@ place* (the JAX package updates functionally and donates the buffer)
 and reads the cache as contiguous pages of ``page_size`` slots through
 an identity block table, with ``seq_len = pos + 1``.  The cache's slot
 count must be a multiple of ``page_size``; slots past ``pos`` are
-masked by the length.
+masked by the length.  With a sliding window (``cfg.sliding_window``)
+prefill and decode see each query's last ``window`` keys, the JAX
+package's mask ``kpos > pos - window``: the kernels take the window and
+read no page wholly before it.
 """
 
 from __future__ import annotations
@@ -103,11 +106,10 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     """One-token decode.  x: [B, 1, D]; cache k/v: [B, S, Hk, dh] with S
     a multiple of ``page_size``; pos: [B] int64 (the current absolute
     position; slots >= pos are not yet written).  Writes k/v at ``pos``
-    in place and returns (y [B, 1, D], cache).  ``block_table`` and
+    in place and returns (y [B, 1, D], cache).  With a sliding window
+    the keys at pos - window + 1 .. pos are live.  ``block_table`` and
     ``seq_lens`` (the identity table and pos + 1) may be passed in when
     every layer shares them."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window decode is not yet ported")
     B = x.shape[0]
     S, Hk, dh = cache["k"].shape[1:]
     q, k_new, v_new = _project_qkv(p, x, cfg)
@@ -123,7 +125,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     pages_k = cache["k"].reshape(-1, page_size, Hk, dh)
     pages_v = cache["v"].reshape(-1, page_size, Hk, dh)
     out = paged_mqa(q[:, 0].to(cache["k"].dtype).contiguous(), pages_k,
-                    pages_v, block_table, seq_lens)
+                    pages_v, block_table, seq_lens, cfg.sliding_window)
     y = torch.matmul(out.to(x.dtype).reshape(B, 1, -1), p["wo"])
     return y, cache
 

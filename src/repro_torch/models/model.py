@@ -1,26 +1,32 @@
 """Model assembly: the port of ``repro.models.model``'s ``LM`` for the
-dense family (every layer attention + MLP with full causal attention:
-Qwen2, CodeQwen1.5, MiniCPM), for RWKV6 (every layer RWKV time mix +
-channel mix) and for the hybrid family (Jamba: superblocks of
-``attn_every`` sublayers, Mamba mixers around one attention mixer in
-the middle, MoE on every ``moe.every``-th sublayer and a dense MLP on
-the others).  A Python loop over layers takes the place of
-``lax.scan``.
+dense family (every layer attention + MLP: Qwen2, CodeQwen1.5, MiniCPM,
+StarCoder2), for the MoE family (every layer attention + MoE: Mixtral;
+DeepSeek-MoE with a dense MLP in layer 0 and shared experts beside the
+routed ones), for RWKV6 (every layer RWKV time mix + channel mix) and
+for the hybrid family (Jamba: superblocks of ``attn_every`` sublayers,
+Mamba mixers around one attention mixer in the middle, MoE on every
+``moe.every``-th sublayer and a dense MLP on the others).  Attention may
+have a sliding window (StarCoder2, Mixtral).  A Python loop over layers
+takes the place of ``lax.scan``.
 
-``group_plan`` gives the layers' pattern as the JAX package groups
-them: one group ``blocks`` of a pattern of (mixer, ffn) pairs repeated
-``n_layers / len(pattern)`` times; the pattern is one layer for the
-dense family and RWKV6, one superblock for the hybrid.
+``group_plan`` gives the layers' groups as the JAX package makes them:
+a group is a pattern of (mixer, ffn) pairs repeated some number of
+times.  Most configurations have one group ``blocks`` whose pattern is
+one layer (one superblock for the hybrid); DeepSeek-MoE has ``dense0``
+(layer 0, once) and then ``blocks`` (the MoE layer, ``n_layers - 1``
+times).
 
 ``LM`` is an ``nn.Module`` holding its parameters under the JAX
 package's names: ``embed``, ``final_norm.w``, ``lm_head`` (untied
 only), and per layer ``layers.<l>.{ln1,<mixer>,ln2,<ffn>}.<name>``
 with the mixer ``attn``, ``mamba`` or ``rwkv`` and the ffn ``ffn``
-(dense MLP) or ``moe`` (RWKV6 keeps its channel mix in ``rwkv``).
-Layer l is the JAX package's ``blocks.l<i>.<...>`` leaf at pattern
-position i = l mod P, repeat r = l div P (``convert.lm_params_from_arrays``
-carries them across).  Its serving surface is the JAX package's
-without ``params``:
+(dense MLP) or ``moe`` (RWKV6 keeps its channel mix in ``rwkv``); a MoE
+layer's shared experts (the JAX package's nested ``moe.shared``) are
+``layers.<l>.moe_shared.<name>``.  The layers run group after group:
+pattern position i of repeat r of a group whose first layer is l0 is
+layer ``l0 + r * P + i`` (``convert.lm_params_from_arrays`` carries the
+JAX leaves across).  Its serving surface is the JAX package's without
+``params``:
 
 * ``prefill(batch, seq_len)``: forward over ``batch["tokens"]``,
   returning the last position's logits and the caches;
@@ -28,15 +34,17 @@ without ``params``:
   written in place;
 * ``init_caches(batch, seq_len)``: zeroed caches.
 
-Caches are the JAX package's layout: ``{"blocks": {"l<i>": ...}}``, one
-entry per pattern position, each leaf stacked on a leading repeat axis
-when the group repeats more than once (as ``lax.scan`` stacks them).
+Caches are the JAX package's layout: ``{<group>: {"l<i>": ...}}``, one
+entry per group and pattern position (``{"dense0": {"l0": ...},
+"blocks": {"l0": ...}}`` for DeepSeek-MoE), each leaf stacked on a
+leading repeat axis when the group repeats more than once (as
+``lax.scan`` stacks them).
 Attention positions hold ``{"k", "v"}`` [B, S, Hk, dh], Mamba positions
 ``{"ssm", "conv"}`` (ssm [B, H, dh, N] fp32, conv [B, d_conv - 1,
 d_in]), RWKV6 ``{"wkv", "shift_tm", "shift_cm"}`` (wkv [B, H, dh, dh]
 fp32, the two token shifts [B, D]).  Recurrent state has no token axis.
-Other families (MoE, the dense-first-layer grouping, encoder-decoder,
-VLM) and configurations with a sliding window raise "not yet ported".
+Encoder-decoder (Whisper) and VLM (InternVL) configurations raise "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -62,21 +70,20 @@ def _frozen(params: Params) -> nn.ParameterDict:
                              for k, v in params.items()})
 
 
-PORTED_KINDS = ({("attn", "mlp")}, {("rwkv", "channelmix")},
+PORTED_KINDS = ({("attn", "mlp")}, {("attn", "moe")},
+                {("attn", "mlp"), ("attn", "moe")}, {("rwkv", "channelmix")},
                 {("mamba", "mlp"), ("mamba", "moe"), ("attn", "mlp")})
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for a configuration the port cannot run yet."""
+    """Raise for a configuration the port cannot run yet: encoder-decoder
+    and VLM."""
     if set(layer_kinds(cfg)) not in PORTED_KINDS or any(
             getattr(cfg, f) is not None for f in ("encdec", "vision")):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not yet ported: the port runs "
-            "dense attention + MLP models, RWKV6 and the Mamba + attention "
-            "+ MoE hybrid")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not yet ported")
+            "decoder-only models (dense, MoE, RWKV6 and the Mamba + "
+            "attention + MoE hybrid), not encoder-decoder or VLM")
 
 
 def group_plan(cfg: ArchConfig) -> List[Tuple[str, List[Tuple[str, str]],
@@ -89,7 +96,20 @@ def group_plan(cfg: ArchConfig) -> List[Tuple[str, List[Tuple[str, str]],
         pattern = kinds[:block]
         assert kinds == pattern * (cfg.n_layers // block)
         return [("blocks", pattern, cfg.n_layers // block)]
+    if cfg.moe is not None and kinds[0][1] != kinds[-1][1]:
+        # DeepSeek-MoE: a dense layer 0, MoE elsewhere
+        return [("dense0", [kinds[0]], 1),
+                ("blocks", [kinds[-1]], cfg.n_layers - 1)]
     return [("blocks", [kinds[0]], cfg.n_layers)]
+
+
+def layer_slots(cfg: ArchConfig) -> List[Tuple[str, str, Optional[int]]]:
+    """Where each layer's cache lives: (group, ``l<i>``, repeat index, or
+    None where the group runs once and its leaves are not stacked), in
+    layer order."""
+    return [(name, f"l{i}", r if repeat > 1 else None)
+            for name, pattern, repeat in group_plan(cfg)
+            for r in range(repeat) for i in range(len(pattern))]
 
 
 class Block(nn.Module):
@@ -110,25 +130,29 @@ class Block(nn.Module):
             self.attn = _frozen(attn.init_attn(gen, cfg))
         self.ln2 = _frozen(norm_params(cfg.d_model, cfg.norm, gen.device))
         if ffn == "moe":
-            self.moe = _frozen(ffn_mod.init_moe(gen, cfg))
+            moe = ffn_mod.init_moe(gen, cfg)
+            shared = moe.pop("shared", None)
+            self.moe = _frozen(moe)
+            if shared is not None:  # a ParameterDict holds no nested dict
+                self.moe_shared = _frozen(shared)
         elif ffn == "mlp":
             self.ffn = _frozen(ffn_mod.init_mlp(gen, cfg.d_model, cfg.d_ff,
                                                 cfg.mlp))
 
 
 class LM(nn.Module):
-    """Decoder LM for the dense family, RWKV6 and the hybrid, initialised
-    at random from ``seed`` with a ``torch.Generator`` on ``device`` (the
-    card unless the caller passes ``device="cpu"``): weights bf16; norms,
-    biases, RWKV's decay, bonus and mix vectors and Mamba's ``dt_bias``,
-    ``A_log`` and ``D`` fp32, as the JAX package's ``init_params`` makes
-    them."""
+    """Decoder LM for the dense and MoE families, RWKV6 and the hybrid,
+    initialised at random from ``seed`` with a ``torch.Generator`` on
+    ``device`` (the card unless the caller passes ``device="cpu"``):
+    weights bf16; norms, biases, RWKV's decay, bonus and mix vectors and
+    Mamba's ``dt_bias``, ``A_log`` and ``D`` fp32, as the JAX package's
+    ``init_params`` makes them."""
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
-        ((_, self.pattern, self.repeat),) = group_plan(cfg)
+        self.slots = layer_slots(cfg)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -164,47 +188,55 @@ class LM(nn.Module):
         cfg = self.cfg
         h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
         if blk.kind[1] == "moe":
-            y, _ = ffn_mod.moe_forward(blk.moe, h2, cfg)
+            p = dict(blk.moe)
+            if hasattr(blk, "moe_shared"):
+                p["shared"] = blk.moe_shared
+            y, _ = ffn_mod.moe_forward(p, h2, cfg)
             return x + y
         return x + ffn_mod.mlp_forward(blk.ffn, h2, cfg.mlp)
 
     # ------------------------------------------------------------------
-    # caches: one entry per pattern position, stacked over the repeats
+    # caches: one entry per group and pattern position, stacked over the
+    # group's repeats
     # ------------------------------------------------------------------
     def _stack(self, per_layer: List[Params]) -> Params:
-        """Layer l's cache leaves -> ``{"blocks": {"l<i>": ...}}``."""
-        P, R = len(self.pattern), self.repeat
-        group = {}
-        for i in range(P):
-            caches = per_layer[i::P]
-            group[f"l{i}"] = {name: torch.stack([c[name] for c in caches])
-                              if R > 1 else caches[0][name]
-                              for name in caches[0]}
-        return {"blocks": group}
+        """Layer l's cache leaves -> ``{<group>: {"l<i>": ...}}``."""
+        at: Dict[Tuple[str, str], List[Params]] = {}
+        for (group, pos, _), c in zip(self.slots, per_layer):
+            at.setdefault((group, pos), []).append(c)
+        caches: Params = {}
+        for (group, pos), cs in at.items():
+            caches.setdefault(group, {})[pos] = {
+                name: torch.stack([c[name] for c in cs]) if len(cs) > 1
+                else cs[0][name] for name in cs[0]}
+        return caches
 
     def _layer_cache(self, caches: Params, layer: int) -> Params:
-        P = len(self.pattern)
-        group = caches["blocks"][f"l{layer % P}"]
-        if self.repeat == 1:
-            return dict(group)
-        return {name: t[layer // P] for name, t in group.items()}
+        group, pos, r = self.slots[layer]
+        leaves = caches[group][pos]
+        if r is None:
+            return dict(leaves)
+        return {name: t[r] for name, t in leaves.items()}
 
     def _store(self, caches: Params, layer: int, new: Params) -> None:
         """Write a layer's new recurrent state into ``caches``."""
-        P = len(self.pattern)
-        group = caches["blocks"][f"l{layer % P}"]
+        group, pos, r = self.slots[layer]
+        leaves = caches[group][pos]
         for name, t in new.items():
-            if self.repeat == 1:
-                group[name] = t
+            if r is None:
+                leaves[name] = t
             else:
-                group[name][layer // P] = t
+                leaves[name][r] = t
 
     def init_caches(self, batch: int, seq_len: int,
                     dtype: Optional[torch.dtype] = None) -> Params:
         cfg = self.cfg
         dtype = dtype if dtype is not None else self.dtype
-        per_layer = []
-        for mixer, _ in self.pattern:
+        zeros: Dict[Tuple[str, str], Params] = {}  # one a pattern position
+        for (group, pos, _), blk in zip(self.slots, self.layers):
+            if (group, pos) in zeros:
+                continue
+            mixer = blk.kind[0]
             if mixer == "rwkv":
                 c = rwkv_mod.init_rwkv_state(cfg, batch, dtype, self.device)
             elif mixer == "mamba":
@@ -214,8 +246,9 @@ class LM(nn.Module):
                 shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
                 c = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                      "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-            per_layer.append(c)
-        return self._stack(per_layer * self.repeat)
+            zeros[group, pos] = c
+        return self._stack([zeros[group, pos]
+                            for group, pos, _ in self.slots])
 
     # ------------------------------------------------------------------
     # serving: prefill + one-token decode
@@ -301,4 +334,5 @@ def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:
     return LM(cfg, seed=seed, device=device)
 
 
-__all__ = ["Block", "LM", "build_model", "check_ported", "group_plan"]
+__all__ = ["Block", "LM", "build_model", "check_ported", "group_plan",
+           "layer_slots"]

@@ -9,7 +9,12 @@ versions they are compared with on the card.
   chunk as the kernel's teams do, merged, must equal
   ``paged_attention_plain`` within 1e-5 of the largest output magnitude
   (fp32: the same sums in another order), empty splits included, and
-  give exact zeros for a sequence of length 0.
+  give exact zeros for a sequence of length 0.  With a sliding window
+  each block starts its split's keys at the sequence's first live key,
+  max(0, len - window) (``window_start``, the kernel's ``base``): the
+  model reads no key before it, a split that lies wholly before it
+  stores the empty partial, and the merge equals
+  ``paged_attention_plain(window=...)``.
 * ``flash_attention`` in bf16 multiplies P by V on the tensor cores as
   P_hi = bf16(P) plus P_lo = bf16(P - P_hi).  Emulated tile by tile
   (64 keys, scores in log2 units, fp32 sums) at Qwen2-0.5B's prefill
@@ -57,9 +62,20 @@ def partial(q, k, v, live):
     return m, p.sum(dim=-1), p @ v
 
 
-def split_partials(q, pages_k, pages_v, table, lens, pages, n_splits):
-    """Each split's partial, merged from its 32-key chunks as the
-    kernel's teams do: m, l [B, H, n_splits], acc [B, H, n_splits, dh]."""
+def window_start(lo, split_hi, length, window):
+    """The kernel's ``base``: the first key a split's block reads, its
+    own first key or the sequence's first live key, split_hi where that
+    lies past the split."""
+    first = max(0, length - window) if window else 0
+    return max(lo, min(split_hi, first))
+
+
+def split_partials(q, pages_k, pages_v, table, lens, pages, n_splits,
+                   window=None, read=None):
+    """Each split's partial, merged from its 32-key chunks (from the
+    split's ``window_start`` on) as the kernel's teams do: m, l [B, H,
+    n_splits], acc [B, H, n_splits, dh].  ``read``, where given, gathers
+    the keys each split stages for scoring: {(b, split): [key, ...]}."""
     B, H, dh = q.shape
     _, PS, Hk, _ = pages_k.shape
     maxp = table.shape[1]
@@ -75,7 +91,12 @@ def split_partials(q, pages_k, pages_v, table, lens, pages, n_splits):
         for s in range(n_splits):
             lo = s * pages * PS
             hi = min(lo + pages * PS, maxp * PS)
-            chunks = range(lo, max(lo, hi), CHUNK)
+            base = window_start(lo, hi, length, window)
+            # keys past min(hi, length) are staged, never scored
+            chunks = range(base, max(base, min(hi, length)), CHUNK)
+            if read is not None:
+                read[b, s] = [j for c0 in chunks
+                              for j in range(c0, min(c0 + CHUNK, hi))]
             for hk in range(Hk):
                 heads = slice(hk * G, (hk + 1) * G)
                 parts = []
@@ -126,6 +147,55 @@ def test_merge_partials_matches_plain_version(B, H, Hk, dh, NP, PS, MAXP,
     for b, n in enumerate(lens):
         if n == 0:
             assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+@pytest.mark.parametrize("H,Hk,dh,MAXP,window,lens", [
+    # StarCoder2's decode: 8 splits of 35 pages, the window of 4096
+    (48, 4, 128, 275, 4096, [4353, 4384, 4096, 4097]),
+    (48, 4, 128, 275, 4096, [300, 4400]),         # window >= len; MAXP * PS
+    (14, 2, 64, 34, 100, [529, 357]),            # Qwen2's shape, mid-page
+    (14, 2, 64, 34, 64, [544, 80]),               # starts on a page edge
+    (14, 2, 64, 34, 20, [544, 541, 530]),         # inside the last split
+    (4, 1, 32, 34, 64, [64, 65, 200, 1]),         # Mixtral reduced: G = 4
+    (4, 1, 32, 34, 1, [17, 0]),                   # the newest key alone
+])
+def test_window_start_matches_plain_version(H, Hk, dh, MAXP, window, lens):
+    """The kernel's window start under ``split_plan``: the merged
+    partials equal ``paged_attention_plain(window=...)``; no key before
+    the window is read, nor any page wholly before it; a split that lies
+    wholly before the window reads nothing and stores the empty partial
+    (m = -1e30, l = 0)."""
+    PS, B = 16, len(lens)
+    rng = np.random.default_rng(window + sum(lens))
+    q = normal(rng, (B, H, dh))
+    NP = B * MAXP
+    pk, pv = normal(rng, (NP, PS, Hk, dh)), normal(rng, (NP, PS, Hk, dh))
+    table = torch.from_numpy(
+        rng.permutation(NP).reshape(B, MAXP).astype(np.int32))
+    lt = torch.tensor(lens, dtype=torch.int32)
+    pages, n_splits = kpaged.split_plan(MAXP, B, H, Hk)
+    read = {}
+    m, l, acc = split_partials(q, pk, pv, table, lt, pages, n_splits,
+                               window, read)
+    got = kpaged.merge_partials(m, l, acc)
+    want = kpaged.paged_attention_plain(q, pk, pv, table, lt, window=window)
+    scale = float(want.abs().max()) or 1.0
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    for b, n in enumerate(lens):
+        first = max(0, n - window)
+        for s in range(n_splits):
+            keys = read[b, s]
+            assert all(j >= first for j in keys)
+            assert all(j // PS >= first // PS for j in keys)  # no dead page
+            split_hi = min((s + 1) * pages * PS, MAXP * PS)
+            if split_hi <= first or s * pages * PS >= n:
+                assert keys == []
+                assert torch.equal(m[b, :, s], torch.full((H,), -1e30))
+                assert torch.equal(l[b, :, s], torch.zeros(H))
+        # every live key is read, by exactly one split
+        live = sorted(j for s in range(n_splits) for j in read[b, s]
+                      if j < n)
+        assert live == list(range(first, n))
 
 
 def test_merge_partials_of_empty_splits_is_zero():

@@ -540,25 +540,30 @@ def test_flash_attention_bf16_within_attn_steps(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,H,Hk,dh,NP,PS,MAXP,edges", [
-    (1, 14, 2, 64, 40, 16, 34, False),   # Qwen2-0.5B decode over 544 slots
-    (3, 4, 4, 64, 16, 32, 4, False),
-    (2, 4, 2, 32, 9, 16, 4, False),      # reduced widths
-    (4, 8, 2, 128, 32, 64, 8, False),
-    (1, 14, 2, 64, 40, 16, 34, True),    # Qwen2: G = 7, 8 splits of 5 pages
-    (1, 4, 1, 32, 40, 16, 34, True),     # the hybrid at reduced(): G = 4
-    (1, 8, 8, 128, 16, 64, 8, True),     # G = 1
-    (4, 14, 2, 64, 160, 16, 34, True),   # 4 sequences, different lens
-    (2, 64, 1, 64, 40, 16, 20, True),    # G = 64: two head groups
+@pytest.mark.parametrize("B,H,Hk,dh,NP,PS,MAXP,edges,window", [
+    (1, 14, 2, 64, 40, 16, 34, False, None),  # Qwen2-0.5B decode, 544 slots
+    (3, 4, 4, 64, 16, 32, 4, False, None),
+    (2, 4, 2, 32, 9, 16, 4, False, None),      # reduced widths
+    (4, 8, 2, 128, 32, 64, 8, False, None),
+    (1, 14, 2, 64, 40, 16, 34, True, None),    # Qwen2: 8 splits of 5 pages
+    (1, 4, 1, 32, 40, 16, 34, True, None),     # the hybrid at reduced()
+    (1, 8, 8, 128, 16, 64, 8, True, None),     # G = 1
+    (4, 14, 2, 64, 160, 16, 34, True, None),   # 4 sequences, different lens
+    (2, 64, 1, 64, 40, 16, 20, True, None),    # G = 64: two head groups
+    (1, 48, 4, 128, 280, 16, 275, True, 4096),  # StarCoder2: G = 12
+    (2, 48, 4, 128, 600, 16, 275, False, 4096),
+    (1, 4, 1, 32, 40, 16, 34, True, 64),       # Mixtral reduced: G = 4
+    (3, 4, 1, 32, 40, 16, 34, False, 64),
 ])
 def test_paged_attention_matches_plain_version(card, B, H, Hk, dh, NP, PS,
-                                               MAXP, edges, dtype):
+                                               MAXP, edges, window, dtype):
     """Pages out of order, -1 entries past the live pages, a sequence of
     length 0 (zeros) and one at MAXP * PS.  With ``edges`` the lens sit
     at the kernel's split edges (``split_plan``): 0, 1, a split
     boundary and one either side, MAXP * PS - 1 and MAXP * PS, each
     sequence of the batch at one of them, over as many calls as that
-    takes."""
+    takes; with a ``window`` also where the window's first key sits at a
+    split boundary, one either side of it, and mid-page."""
     rng = np.random.default_rng(B * H + dh)
     q = normal(rng, (B, H, dh), dtype, card)
     pk, pv = (normal(rng, (NP, PS, Hk, dh), dtype, card) for _ in range(2))
@@ -579,6 +584,11 @@ def test_paged_attention_matches_plain_version(card, B, H, Hk, dh, NP, PS,
         table[:, -1] = rng.integers(0, NP, size=B)  # every page live
         edge = pages * PS
         want = [0, 1, edge - 1, edge, edge + 1, PS * MAXP - 1, PS * MAXP]
+        if window:
+            want += [n for n in (window + edge - 1, window + edge,
+                                 window + edge + 1, window + PS // 2,
+                                 window + 3 * edge + 5)
+                     if n <= PS * MAXP]
         want += [PS * MAXP] * (-len(want) % B)
         calls = [np.array(want[i:i + B], np.int32)
                  for i in range(0, len(want), B)]
@@ -586,10 +596,13 @@ def test_paged_attention_matches_plain_version(card, B, H, Hk, dh, NP, PS,
     for lens in calls:
         lt = torch.from_numpy(lens).to(card)
         before = kpaged.LAUNCHES["paged_attention"]
-        got = kpaged.paged_mqa(q, pk, pv, tt, lt)
+        windowed = kpaged.WINDOWED["paged_attention"]
+        got = kpaged.paged_mqa(q, pk, pv, tt, lt, window)
         torch.cuda.synchronize()
         assert kpaged.LAUNCHES["paged_attention"] == before + 1
-        plain = kpaged.paged_attention_plain(q, pk, pv, tt, lt)
+        assert kpaged.WINDOWED["paged_attention"] == \
+            windowed + (window is not None)
+        plain = kpaged.paged_attention_plain(q, pk, pv, tt, lt, window)
         assert torch.isfinite(got.float()).all()
         err = float((got.float() - plain.float()).abs().max())
         assert err < ATTN_TOL[dtype], (lens, err)

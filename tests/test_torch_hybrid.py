@@ -76,7 +76,7 @@ def pair(dtype, seed=0, n_layers=None):
         jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(lm_params_from_arrays(jax.tree.map(np.asarray, jp),
-                                             cfg.n_layers), assign=True)
+                                             cfg), assign=True)
     return cfg, jm, jp, lm
 
 
@@ -113,7 +113,7 @@ def test_group_plan_and_state_dict_carry_across():
         assert repeat == cfg.n_layers // 8
         jp = jax.tree.map(np.asarray, jax_build_model(jcfg).init_params(
             jax.random.PRNGKey(0)))
-        sd = lm_params_from_arrays(jp, cfg.n_layers)
+        sd = lm_params_from_arrays(jp, cfg)
         own = LM(cfg, device="cpu").state_dict()
         assert sorted(sd) == sorted(own)
         for name, t in own.items():

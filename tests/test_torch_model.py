@@ -52,7 +52,7 @@ def pair(jcfg, cfg, dtype, seed=0):
     if dtype == "fp32":
         jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
     lm = LM(cfg, device="cpu")
-    lm.load_state_dict(lm_params_from_arrays(to_np(jp), cfg.n_layers),
+    lm.load_state_dict(lm_params_from_arrays(to_np(jp), cfg),
                        assign=True)
     return jm, jp, lm
 
@@ -136,7 +136,7 @@ def test_one_layer_params_carry_across():
 def test_state_dict_names_and_dtypes_are_the_jax_trees():
     cfg, jcfg = get_arch(ARCH).reduced(), jax_get_arch(ARCH).reduced()
     jp = to_np(jax_build_model(jcfg).init_params(jax.random.PRNGKey(0)))
-    sd = lm_params_from_arrays(jp, cfg.n_layers)
+    sd = lm_params_from_arrays(jp, cfg)
     lm = LM(cfg, device="cpu")
     own = lm.state_dict()
     assert sorted(sd) == sorted(own)
@@ -184,10 +184,10 @@ def test_configs_equal_the_jax_package():
             assert c.active_param_count() == j.active_param_count(), name
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-moe-16b",
-                                  "whisper-tiny", "internvl2-76b",
-                                  "starcoder2-15b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
 def test_unported_families_raise(arch):
+    """Encoder-decoder and VLM; the MoE family and sliding windows run
+    (tests/test_torch_moe_family.py, tests/test_torch_window.py)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(get_arch(arch).reduced(), device="cpu")
 

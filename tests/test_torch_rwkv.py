@@ -58,7 +58,7 @@ def pair(dtype, seed=0):
         jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(lm_params_from_arrays(jax.tree.map(np.asarray, jp),
-                                             cfg.n_layers), assign=True)
+                                             cfg), assign=True)
     return cfg, jm, jp, lm
 
 
@@ -127,7 +127,7 @@ def test_one_layer_params_carry_across():
                       jm.init_params(jax.random.PRNGKey(4)))
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(lm_params_from_arrays(jax.tree.map(np.asarray, jp),
-                                             1), assign=True)
+                                             cfg), assign=True)
     toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 11))
     jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)}, 11)
     tl, _ = lm.prefill({"tokens": torch.from_numpy(toks)}, 11)
@@ -138,7 +138,7 @@ def test_state_dict_names_dtypes_and_size():
     cfg, jcfg = get_arch(ARCH).reduced(), jax_get_arch(ARCH).reduced()
     jp = jax.tree.map(np.asarray, jax_build_model(jcfg).init_params(
         jax.random.PRNGKey(0)))
-    sd = lm_params_from_arrays(jp, cfg.n_layers)
+    sd = lm_params_from_arrays(jp, cfg)
     lm = LM(cfg, device="cpu")
     own = lm.state_dict()
     assert sorted(sd) == sorted(own)

@@ -53,7 +53,7 @@ def served():
                       jm.init_params(jax.random.PRNGKey(0)))
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(lm_params_from_arrays(jax.tree.map(np.asarray, jp),
-                                             cfg.n_layers), assign=True)
+                                             cfg), assign=True)
     return cfg, jm, jp, lm
 
 
