@@ -168,13 +168,33 @@ with a near-tie sends the check to the path's next prompt: one prompt
 must run with every set equal), and frees the model before the next
 path draws.
 
+The sixteenth, the training path, runs ``repro_torch.launch.train``:
+
+* (a) MiniCPM-2B at full width (40 layers, d_model 2304, 36 heads of 64,
+  an untied head over 122,753 words; 3,007,701,504 parameters, 48.1 GB
+  of training state: bf16 weights and gradients, fp32 AdamW moments and
+  master copy) for 4 steps of B = 8, T = 64 under WSD, the JAX defaults
+  (fewer steps than ``ckpt_every``: the checkpoint store holds no leaf
+  over 65,528 words): every loss finite, the launches exactly 40
+  ``flash_attention`` and 40 ``flash_attention_bwd`` a step (the
+  backward kernel of ``csrc/flash_attention_bwd.cu``, behind ``mha``'s
+  autograd), no plain version, peak card memory under 70 GB, ms a step
+  after the first and one step's device busy share;
+* (b) the same weights cut to 2 of 40 layers, in fp32, on the card and
+  the CPU over one batch of B = 2, T = 64: the loss within 1e-5 and each
+  leaf's gradient within 1e-4 of its largest magnitude;
+* (c) the crash and restart example's run on the card (MiniCPM-2B at
+  ``reduced()``, 200 steps, a checkpoint every 25, a power failure at
+  step 110): it ends at step 200 (cursor and generation too), the loss
+  falls, generation 200 restores the live parameters bit for bit.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel; each
    kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
    them;
-3. the fifteen paths, each with every kernel's launch count set to 0 just
+3. the sixteen paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
@@ -204,7 +224,11 @@ Phases, each of which exits non-zero on failure:
    Mamba path runs it) shapes and at the hybrid's reduced decode (fp32),
    within the same limit in bf16 and 2e-5 of the largest magnitude in
    fp32, which the plain version without the s = t term or without the
-   carried state breaks; then per-launch
+   carried state breaks; the attention backward kernel at MiniCPM-2B's
+   training shape, Qwen2-0.5B's heads at T = 512 and StarCoder2-15B's
+   heads with a window of 512 over T = 1100, in fp32 and bf16, dq, dk
+   and dv within the same limit, which the plain version without the D
+   term breaks; then per-launch
    times at the main path's shape (device time from the profiler, call
    time from CUDA events), beside the plain version's, a library call's
    where one computes the same function, and the least time the card
@@ -270,6 +294,9 @@ from repro_torch.models.common import norm, norm_params  # noqa: E402
 from repro_torch.obs import RECORDER  # noqa: E402
 from repro_torch.serving import Server  # noqa: E402
 from repro_torch.serving.engine import _pad_caches  # noqa: E402
+from repro_torch.convert import (lm_arrays_from_params,  # noqa: E402
+                                 lm_params_from_arrays)
+from repro_torch.launch import train as train_mod  # noqa: E402
 
 PLAN_OPS = 4096
 Q = 4096  # queries per launch on the main path (one full read wave)
@@ -292,6 +319,8 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "conflict_any": "src/repro_torch/csrc/conflict_any.cu",
            "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
            "clht_probe": "src/repro_torch/csrc/clht_probe.cu",
            "tag_probe": "src/repro_torch/csrc/clht_probe.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu",
@@ -305,7 +334,9 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
 # of the routing kernel and the host's stable sort by shard
 # (src/repro/kernels/partition/ref.py:75, partition_ref), and the tag
 # probe that of the window kernel and the gather that feeds it
-# (src/repro/kernels/clht_probe/ops.py:147)
+# (src/repro/kernels/clht_probe/ops.py:147); the attention backward
+# replaces no TPU kernel: it is the gradient of _sdpa that
+# jax.value_and_grad takes in the JAX package's train step
 REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "probe64": "src/repro/kernels/probe/kernel.py:108",
             "art_descend": "src/repro/kernels/art_probe/kernel.py:96",
@@ -319,6 +350,7 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
                 "src/repro/kernels/paged_attention/kernel.py:68",
             "flash_attention":
                 "src/repro/kernels/flash_attention/kernel.py:90",
+            "flash_attention_bwd": "src/repro/launch/steps.py:34",
             "clht_probe": "src/repro/kernels/clht_probe/kernel.py:38",
             "tag_probe": "src/repro/kernels/clht_probe/kernel.py:38",
             "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:60",
@@ -401,6 +433,7 @@ MAMBA_CPU_STEPS = 4
 # every plain kernel version a model path could call in place of its
 # kernel; the model paths count their calls and fail on any
 PLAIN_VERSIONS = ((kflash.kernel, "attention_plain"),
+                  (kflash.kernel, "attention_bwd_plain"),
                   (kpaged.kernel, "paged_attention_plain"),
                   (kwkv.kernel, "wkv6_plain"),
                   (kssd.kernel, "ssd_plain"))
@@ -448,6 +481,27 @@ LOGIT_REL_TOL = 5e-2
 # a bf16 rounding can flip) and the full-width Mamba layer are checked the
 # same way, within the same share of their largest output
 FP32_LOGIT_REL_TOL = 1e-3
+# the training path: MiniCPM-2B at full width (40 layers, d_model 2304,
+# 36 heads of 64, vocabulary 122,753; 3,007,703,808 parameter values, the
+# config's analytic 3,007,701,504 plus the final norm's 2,304 it leaves
+# out; 48.1 GB of training state at 16 bytes a parameter) for the JAX defaults' 4 steps
+# of B = 8, T = 64 (fewer than ckpt_every: the checkpoint store holds no
+# leaf over 65,528 words); the same weights cut to 2 layers in fp32 on
+# the card and the CPU over one batch of B = 2, T = 64; then the crash
+# and restart example's run at reduced(): 200 steps, a checkpoint every
+# 25, a power failure at step 110
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_STEPS = 4
+TRAIN_BATCH = 8
+TRAIN_SEQ = 64
+TRAIN_PARAMS = 3_007_703_808
+TRAIN_PEAK_GB = 70.0
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH = 2
+TRAIN_LOSS_TOL = 1e-5  # relative, fp32 on both sides
+TRAIN_GRAD_TOL = 1e-4  # of each leaf's largest |g|, fp32 on both sides
+CRASH_RUN = dict(steps=200, batch=8, seq_len=64, ckpt_every=25,
+                 kill_at_step=110)
 
 
 def kernel_name(mangled: str) -> str:
@@ -2322,7 +2376,8 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
     the windowed prefill at StarCoder2's heads and window over its long
     prompt (T = S = 4352): within the same limit of its plain version,
     which the plain version without the window breaks; timed, with its
-    bound (the keys each query sees)."""
+    bound (the keys each query sees) and SDPA with the window as a
+    boolean mask as its library call, under the row's ``window`` key."""
     cfg = serve["cfg"]
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -2381,21 +2436,42 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
           kflash.attention_plain(q, k, v, window=W),
           kflash.attention_plain(q, k, v), "the plain version without "
           "the window")
-    time_kernel(f"flash_attention windowed (T={T_long}, W={W})",
-                lambda a, b, c: kflash.flash_attention(a, b, c, window=W),
-                lambda a, b, c: kflash.attention_plain(a, b, c, window=W),
-                batches, reps=64, plain_reps=4)
+    wtimed = time_kernel(f"flash_attention windowed (T={T_long}, W={W})",
+                         lambda a, b, c: kflash.flash_attention(a, b, c,
+                                                                window=W),
+                         lambda a, b, c: kflash.attention_plain(a, b, c,
+                                                                window=W),
+                         batches, reps=64, plain_reps=4)
     seen = sum(min(i + 1, W) for i in range(T_long))  # keys the queries see
     wbms, wby = attn_bound(2 * (2 * T_long * cH * cdh
                                 + 2 * T_long * cHk * cdh),
                            2 * 2 * seen * cdh * cH)
+    # the library call: SDPA with the window as a boolean mask (kv heads
+    # repeated beforehand)
+    pos = torch.arange(T_long, device=dev)
+    wmask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    wlib = [(a.transpose(1, 2).contiguous(),
+             b.repeat_interleave(cH // cHk, dim=2).transpose(1, 2)
+             .contiguous(),
+             c.repeat_interleave(cH // cHk, dim=2).transpose(1, 2)
+             .contiguous()) for a, b, c in batches]
+    wlib_dev, wlib_call = time_calls(
+        lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+            a, b, c, attn_mask=wmask), wlib, 16)
+    wlibrary_ms = wlib_dev if wlib_dev is not None else wlib_call
     say(f"flash_attention windowed (T={T_long}, W={W}): bound {wbms:.9f} ms "
-        f"({wby}); no library call takes a sliding window without a dense "
-        "mask")
+        f"({wby}); scaled_dot_product_attention with the window as a "
+        f"boolean mask: device {wlib_dev} ms, call {wlib_call:.6f} ms")
+    del wlib, wmask
     say(f"flash_attention: main-path launches {launches['flash_attention']}")
-    return [row("flash_attention", launches, err, timed, bms, by, library_ms,
-                f"{cfg.name} prefill, T=S={T}, H={H}, Hk={Hk}, dh={dh}, "
-                "bf16")]
+    out = row("flash_attention", launches, err, timed, bms, by, library_ms,
+              f"{cfg.name} prefill, T=S={T}, H={H}, Hk={Hk}, dh={dh}, bf16")
+    out["window"] = {"ms": wtimed["ms"], "plain_ms": wtimed["plain_ms"],
+                     "bound_ms": wbms, "bound_by": wby,
+                     "library_ms": wlibrary_ms,
+                     "shape": f"{ccfg.name} prefill, T=S={T_long}, W={W}, "
+                              f"H={cH}, Hk={cHk}, dh={cdh}, bf16"}
+    return [out]
 
 
 def paged_lengths(tag: str, dims: tuple, slots: int, lengths, gen, dev,
@@ -3350,6 +3426,315 @@ def matrix_path(seed: int, dev) -> None:
     RECORDER.reset()
 
 
+# -- the sixteenth path: training, and the attention backward kernel -------
+
+def train_full_width(seed: int) -> dict:
+    """(a) ``train`` of MiniCPM-2B at full width on the card for
+    ``TRAIN_STEPS`` steps, its train step wrapped to time each step on
+    the host clock (each ends in a synchronise) and to run the last one
+    under the profiler; no plain kernel version may run.  Returns the
+    run's dict, the plain versions' calls, the step times, the profile
+    and the peak card memory."""
+    timing = {"host_s": [], "prof": None}
+    real = train_mod.make_train_step
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def timed_factory(*a, **kw):
+        step_fn = real(*a, **kw)
+
+        def step(batch, state):
+            torch.cuda.synchronize()
+            if len(timing["host_s"]) == TRAIN_STEPS - 1:
+                with torch.profiler.profile(activities=acts) as prof:
+                    out = step_fn(batch, state)
+                    torch.cuda.synchronize()
+                timing["prof"] = prof
+                timing["host_s"].append(None)
+                return out
+            t0 = time.perf_counter()
+            out = step_fn(batch, state)
+            torch.cuda.synchronize()
+            timing["host_s"].append(time.perf_counter() - t0)
+            return out
+
+        return step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.make_train_step = timed_factory
+    try:
+        with counting_plain() as plain:
+            out = train_mod.train(TRAIN_ARCH, reduced=False,
+                                  steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ, ckpt_every=10,
+                                  seed=seed, verbose=False, device="cuda")
+    finally:
+        train_mod.make_train_step = real
+    return {"out": out, "plain": dict(plain), "timing": timing,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def train_report(trained: dict) -> None:
+    """(a)'s checks and numbers: the parameter count, every loss finite,
+    no generation saved, no plain version, peak memory under
+    ``TRAIN_PEAK_GB``; ms a step after the first; the profiled step's
+    device time, kernel count and busy share (device time over the
+    steps' host time, as ``decode_busy``)."""
+    out, timing = trained["out"], trained["timing"]
+    cfg = get_arch(TRAIN_ARCH)
+    n = sum(t.numel() for t in out["params"].values())
+    check(n == cfg.param_count() + cfg.d_model == TRAIN_PARAMS,
+          f"{TRAIN_ARCH} holds {n:,} parameters, not {TRAIN_PARAMS:,}")
+    check(all(t.device.type == "cuda" for t in out["params"].values()),
+          "the trained parameters are not on the card")
+    losses = out["losses"]
+    check(out["final_step"] == TRAIN_STEPS == len(losses)
+          and bool(np.isfinite(losses).all()), f"training {TRAIN_ARCH} gave "
+          f"losses {losses}")
+    check(out["store"].latest_step() is None, "a generation was saved at "
+          "full width")
+    check(not any(trained["plain"].values()), "a plain kernel version ran "
+          f"on the training path: {trained['plain']}")
+    check(trained["peak_gb"] < TRAIN_PEAK_GB, f"peak card memory "
+          f"{trained['peak_gb']:.3f} GB is over {TRAIN_PEAK_GB} GB")
+    host = [t for t in timing["host_s"][1:] if t is not None]
+    host_ms = sum(host) / len(host) * 1e3
+    kernels = [e for e in timing["prof"].key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+    n_k = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    say(f"training {TRAIN_ARCH} at full width: {n:,} parameters (the "
+        f"config's count {cfg.param_count():,} and the final norm), B="
+        f"{TRAIN_BATCH}, T={TRAIN_SEQ}, {TRAIN_STEPS} steps; losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; step times (host clock) "
+        + ", ".join("profiled" if t is None else f"{t * 1e3:.3f} ms"
+                    for t in timing["host_s"])
+        + f"; {host_ms:.3f} ms a step after the first; peak card memory "
+        f"{trained['peak_gb']:.3f} GB")
+    say(f"training {TRAIN_ARCH} step (profiled): {dev_ms:.3f} ms of device "
+        f"time in {n_k} CUDA kernels; device busy share "
+        f"{dev_ms / host_ms:.4f}; top kernels: " + "; ".join(
+            f"{e.key[:50]} x{e.count} {e.device_time_total / 1e3:.4f} ms"
+            for e in top))
+
+
+def train_cpu_check(params: dict, seed: int) -> None:
+    """(b) the trained weights cut to ``TRAIN_CHECK_LAYERS`` layers at
+    full width, upcast to fp32 (exactly), on the card and on the CPU:
+    one batch's loss within ``TRAIN_LOSS_TOL`` of the CPU's and each
+    leaf's gradient within ``TRAIN_GRAD_TOL`` of its largest |g| on the
+    CPU; fp32 products in full fp32 on the card (no TF32).  Frees both
+    models."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    card = LM(cfg, seed=seed, device="cuda")
+    card.load_state_dict({name: params[name].float()
+                          for name in card.state_dict()}, assign=True)
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(seed + 24)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(TRAIN_CHECK_BATCH, TRAIN_SEQ + 1)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    losses, grads = [], []
+    for lm in (card, cpu):
+        lm.requires_grad_(True)
+        loss = lm.loss(batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({name: p.grad.detach().cpu()
+                      for name, p in lm.named_parameters()})
+    rel_loss = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst, where = 0.0, None
+    for name, want in grads[1].items():
+        gap = float((grads[0][name] - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if gap >= worst:
+            worst, where = gap, name
+    say(f"training {TRAIN_ARCH} fp32 check ({TRAIN_CHECK_LAYERS} of 40 "
+        f"layers, full width, B={TRAIN_CHECK_BATCH}, T={TRAIN_SEQ}): loss "
+        f"card {losses[0]:.9f}, CPU {losses[1]:.9f} (relative "
+        f"{rel_loss:.3e}); worst gradient {worst:.3e} of its leaf's largest "
+        f"({where}), over {len(grads[1])} leaves; "
+        f"{time.perf_counter() - t0:.3f} s")
+    check(rel_loss <= TRAIN_LOSS_TOL, f"the card's fp32 loss differs from "
+          f"the CPU's by {rel_loss:.3e}")
+    check(worst <= TRAIN_GRAD_TOL, f"the card's fp32 gradient of {where} "
+          f"differs from the CPU's by {worst:.3e} of its largest")
+    del card, cpu, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def crash_restart_path(seed: int) -> dict:
+    """(c) the crash and restart example's run on the card: MiniCPM-2B at
+    ``reduced()``, a power failure at step 110, the restart from
+    generation 100 at the committed cursor; it finishes at step 200 on
+    every count, the loss falls, and generation 200 restores the live
+    parameters bit for bit."""
+    t0 = time.perf_counter()
+    with counting_plain() as plain:
+        out = train_mod.train(TRAIN_ARCH, seed=seed, verbose=False,
+                              device="cuda", **CRASH_RUN)
+    secs = time.perf_counter() - t0
+    steps = CRASH_RUN["steps"]
+    losses = out["losses"]
+    store = out["store"]
+    check(out["final_step"] == steps and out["data"].global_step == steps
+          and store.latest_step() == steps, f"the crash and restart run "
+          f"ended at step {out['final_step']}, cursor "
+          f"{out['data'].global_step}, generation {store.latest_step()}")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"the crash and restart run's loss went {losses[0]} -> "
+          f"{losses[-1]}")
+    check(not any(plain.values()), "a plain kernel version ran on the crash "
+          f"and restart run: {plain}")
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    got = lm_params_from_arrays(store.restore(
+        lm_arrays_from_params(out["params"], cfg), step=steps), cfg)
+    for name, live in out["params"].items():
+        live = live.cpu()
+        check(got[name].dtype == live.dtype and torch.equal(
+            got[name].view(torch.int16) if live.dtype == torch.bfloat16
+            else got[name], live.view(torch.int16)
+            if live.dtype == torch.bfloat16 else live),
+            f"generation {steps}'s {name} differs from the live parameter")
+    say(f"training {TRAIN_ARCH} reduced, crash at step "
+        f"{CRASH_RUN['kill_at_step']} and restart: {len(losses)} losses, "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; final step {out['final_step']}"
+        f", data cursor {out['data'].cursor}, generation "
+        f"{store.latest_step()}; {len(got)} parameters of generation {steps} "
+        f"equal the live parameters bit for bit; PMem {store.pmem.counters};"
+        f" {secs:.3f} s")
+    return out
+
+
+def seen_pairs(T: int, S: int, window) -> int:
+    """(query, key) pairs the causal mask, and the window, leave."""
+    off = S - T
+    return sum(max(0, min(S, i + off + 1)
+                   - (0 if window is None else max(0, i + off - window + 1)))
+               for i in range(T))
+
+
+def sdpa_bwd(batches, H: int, Hk: int, window, reps: int):
+    """The library call's time: the backward kernels of autograd through
+    ``scaled_dot_product_attention`` (kv heads repeated beforehand, the
+    window as a boolean mask) on the same inputs, by the profiler."""
+    lib = []
+    for q, k, v, _, dout in batches:
+        T, S = q.shape[1], k.shape[1]
+        qs = q.transpose(1, 2).contiguous().requires_grad_()
+        ks, vs = (t.repeat_interleave(H // Hk, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_() for t in (k, v))
+        mask = None
+        if window is not None:
+            qp = torch.arange(T, device=q.device)[:, None] + (S - T)
+            kp = torch.arange(S, device=q.device)[None, :]
+            mask = (kp <= qp) & (kp > qp - window)
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, is_causal=mask is None)
+        lib.append((o, qs, ks, vs, dout.transpose(1, 2).contiguous()))
+    return time_calls(lambda o, a, b, c, d: torch.autograd.grad(
+        o, (a, b, c), d, retain_graph=True), lib, reps)
+
+
+# the backward kernel's shapes: MiniCPM-2B's training shape (the main
+# path's), Qwen2-0.5B's heads at T = 512, and StarCoder2-15B's heads with
+# a window of 512 over T = 1100 (not a multiple of 64)
+BWD_SHAPES = (("MiniCPM-2B training", 8, 64, 36, 36, 64, None),
+              ("Qwen2-0.5B T=512", 1, 512, 14, 2, 64, None),
+              ("StarCoder2-15B heads, window 512", 1, 1100, 48, 4, 128,
+               512))
+
+
+def bwd_vs_plain(seed: int, launches: dict) -> list:
+    """flash_attention_bwd against ``attention_bwd_plain`` in fp32 and
+    bf16 at ``BWD_SHAPES``: dq, dk, dv each within ``attn_limit`` of the
+    plain version elementwise, a limit the plain version without the D
+    term breaks; then, in bf16, the kernel's and the plain version's
+    times, SDPA's backward as the library call, and the bound (bytes
+    over HBM bandwidth against the five products' FLOPs over the seen
+    pairs at the bf16 tensor-core rate)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 24)
+    measured = []
+    err = 0.0
+    for tag, B, T, H, Hk, dh, W in BWD_SHAPES:
+        name = f"flash_attention_bwd ({tag}, B={B}, T=S={T}, H={H}, " \
+            f"Hk={Hk}, dh={dh}" + (f", W={W}" if W else "") + ")"
+        batches = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            draws = []
+            for _ in range(4):
+                q = torch.randn(B, T, H, dh, generator=gen, device=dev)
+                k, v = (torch.randn(B, T, Hk, dh, generator=gen, device=dev)
+                        for _ in range(2))
+                dout = torch.randn(B, T, H, dh, generator=gen, device=dev)
+                q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+                out = kflash.flash_attention(q, k, v, window=W)
+                draws.append((q, k, v, out, dout))
+            batches[dtype] = draws
+            q, k, v, out, dout = draws[0]
+            got = kflash.flash_attention_bwd(q, k, v, out, dout, window=W)
+            torch.cuda.synchronize()
+            plain = kflash.attention_bwd_plain(q, k, v, out, dout, window=W)
+            no_d = kflash.attention_bwd_plain(q, k, v, torch.zeros_like(out),
+                                              dout, window=W)
+            caught = 0
+            for part, g, p, b in zip(("dq", "dk", "dv"), got, plain, no_d):
+                limit = attn_limit(p)
+                diff = (g.float() - p.float()).abs()
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"{name} {part}: non-finite output")
+                check(bool((diff <= limit).all()), f"{name} {part} "
+                      f"({dtype}): kernel differs from its plain version by "
+                      f"up to {float((diff / limit).max())} times the limit")
+                caught += int(((b.float() - p.float()).abs() > limit).sum())
+                err = max(err, float(diff.max()))
+                say(f"{name} {part} {str(dtype)[6:]}: max abs err "
+                    f"{float(diff.max()):.6g}, largest |plain| "
+                    f"{float(p.float().abs().max()):.6g}, "
+                    f"{float((diff / limit).max()):.4f} of the limit")
+            check(caught > 0, f"{name}: the limit does not see the plain "
+                  "version without the D term")
+            say(f"{name} {str(dtype)[6:]}: the plain version without the D "
+                f"term breaks the limit at {caught} elements")
+        bf = batches[torch.bfloat16]
+        timed = time_kernel(
+            name, lambda a, b, c, o, d: kflash.flash_attention_bwd(
+                a, b, c, o, d, window=W),
+            lambda a, b, c, o, d: kflash.attention_bwd_plain(
+                a, b, c, o, d, window=W), bf, reps=64, plain_reps=8)
+        lib_dev, lib_call = sdpa_bwd(bf, H, Hk, W, 16)
+        library_ms = lib_dev if lib_dev is not None else lib_call
+        n_bytes = 2 * (4 * B * T * H * dh + 4 * B * T * Hk * dh)
+        flops = 5 * 2 * dh * H * B * seen_pairs(T, T, W)
+        bms, by = attn_bound(n_bytes, flops)
+        say(f"{name}: bound {bms:.9f} ms ({by}); scaled_dot_product_"
+            f"attention's backward: device {lib_dev} ms, call "
+            f"{lib_call:.6f} ms")
+        measured.append((timed, bms, by, library_ms,
+                         f"{tag}, B={B}, T=S={T}, H={H}, Hk={Hk}, dh={dh}"
+                         + (f", W={W}" if W else "") + ", bf16"))
+        del batches, bf
+    say(f"flash_attention_bwd: main-path launches "
+        f"{launches['flash_attention_bwd']}")
+    (timed, bms, by, library_ms, shape), *others = measured
+    out = row("flash_attention_bwd", launches, err, timed, bms, by,
+              library_ms, shape)
+    out["other_shapes"] = [
+        {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b,
+         "bound_by": y, "library_ms": lib, "shape": sh}
+        for t, b, y, lib, sh in others]
+    return [out]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # the index loads run on the host at 1.3-36 kops/s (BwTree slowest):
@@ -3386,12 +3771,14 @@ def main(argv=None) -> int:
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.3f} s")
     check(set(built) >= {"probe", "art_descend", "scan_window",
                          "shard_route", "conflict_any", "flash_attention",
-                         "paged_attention", "clht_probe", "wkv6", "ssd"},
+                         "flash_attention_bwd", "paged_attention",
+                         "clht_probe", "wkv6", "ssd"},
           "a kernel source was not built")
     logs = "".join(b.log for b in built.values())
     for name in ("partition_cluster_kernel", "partition_count_kernel",
                  "partition_scan_kernel", "partition_scatter_kernel",
-                 "tag_probe_kernel", "clht_probe_kernel"):
+                 "tag_probe_kernel", "clht_probe_kernel", "dq_kernel",
+                 "dkv_kernel"):
         check(name in logs, f"{name} is not in the build's kernels")
     for name, b in built.items():
         for line in ptxas_lines(b.log):
@@ -3508,6 +3895,43 @@ def main(argv=None) -> int:
     wide = {arch: serving_run(arch, args.seed, launches, split, **kw)
             for arch, kw in WIDE_PATHS.items()}
 
+    # the training path: (a) MiniCPM-2B at full width, counted; (b) its
+    # fp32 check; (c) the crash and restart run, counted on its own
+    n_attn = get_arch(TRAIN_ARCH).n_layers
+    reset_counts()
+    t0 = time.perf_counter()
+    trained = train_full_width(args.seed)
+    counts = read_counts()
+    say(f"training path (a): {time.perf_counter() - t0:.3f} s; kernel "
+        f"launches {counts}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(counts[name] == TRAIN_STEPS * n_attn, f"{name} was launched "
+              f"{counts[name]} times in {TRAIN_STEPS} training steps of "
+              f"{n_attn} attention layers")
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
+    train_report(trained)
+    params = trained.pop("out")["params"]
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cpu_check(params, args.seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    crash_restart_path(args.seed)
+    counts = read_counts()
+    say(f"training path (c): {time.perf_counter() - t0:.3f} s; kernel "
+        f"launches {counts}")
+    want = CRASH_RUN["steps"] * get_arch(TRAIN_ARCH).reduced().n_layers
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(counts[name] == want, f"{name} was launched {counts[name]} "
+              f"times in the crash and restart run, not {want}")
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
+
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []
     for check_rows, fargs in (
@@ -3524,6 +3948,7 @@ def main(argv=None) -> int:
                               launches)),
             (flash_vs_plain, (serve, wide[CODER_ARCH], args.seed,
                               launches)),
+            (bwd_vs_plain, (args.seed, launches)),
             (clht_vs_plain, (tag, launches)),
             (wkv6_vs_plain, (rwkv, args.seed, launches, split["wkv6"])),
             (ssd_vs_plain, (mamba, hybrid, args.seed, launches,

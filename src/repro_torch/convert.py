@@ -13,19 +13,22 @@ to the same table.
 (as numpy arrays: each group's pattern positions under ``<group>.l<i>``,
 stacked on axis 0 over the group's repeats; dense, MoE, RWKV6 or hybrid)
 into the port ``LM``'s state dict, so both packages run the same
-weights.
+weights; ``lm_arrays_from_params`` is its inverse (the tree the
+checkpoint store saves and restores), and ``adamw_state_from_arrays``
+carries an optimizer state (step, m, v, master) across the same way.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .configs.base import ArchConfig
 from .core.pmem import WORDS_PER_LINE, OpCounters, PMem, Region
-from .models.model import layer_slots
+from .models.model import group_plan, layer_slots
+from .optim.adamw import AdamWState
 
 
 def pmem_from_arrays(regions: Iterable[Mapping], next_rid: int, *,
@@ -65,6 +68,8 @@ def pmem_from_arrays(regions: Iterable[Mapping], next_rid: int, *,
 
 
 def _tensor(a, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a if dtype is None else a.to(dtype)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -81,7 +86,8 @@ def _leaves(tree: Mapping, prefix: str):
         if isinstance(leaf, Mapping):
             yield from _leaves(leaf, f"{prefix}_{name}")
         else:
-            yield f"{prefix}.{name}", np.asarray(leaf)
+            yield f"{prefix}.{name}", (
+                leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf))
 
 
 def lm_params_from_arrays(params: Mapping, cfg: ArchConfig, *,
@@ -115,4 +121,61 @@ def lm_params_from_arrays(params: Mapping, cfg: ArchConfig, *,
     return out
 
 
-__all__ = ["lm_params_from_arrays", "pmem_from_arrays"]
+def lm_arrays_from_params(params: Mapping[str, torch.Tensor],
+                          cfg: ArchConfig) -> Dict:
+    """The JAX package's parameter tree for ``cfg`` from the port
+    ``LM``'s state dict (or any dict keyed by its names): the inverse of
+    ``lm_params_from_arrays``.  Each group's pattern positions sit under
+    ``<group>.l<i>``, stacked on axis 0 over the group's repeats
+    (``torch.stack``, a copy) and unstacked when it runs once; a part
+    ``moe_shared`` becomes ``moe.shared``.  Leaves keep their dtype and
+    device."""
+    tree: Dict = {"embed": params["embed"], "final_norm": {}}
+    for name, t in params.items():
+        if name.startswith("final_norm."):
+            tree["final_norm"][name.split(".", 1)[1]] = t
+    if "lm_head" in params:
+        tree["lm_head"] = params["lm_head"]
+    per_slot: Dict = {}  # (group, position) -> one layer dict a repeat
+    for layer, (group, pos, _) in enumerate(layer_slots(cfg)):
+        prefix = f"layers.{layer}."
+        one: Dict = {}
+        for name, t in params.items():
+            if not name.startswith(prefix):
+                continue
+            part, leaf = name[len(prefix):].split(".", 1)
+            if "_" in part:  # moe_shared: the nested moe.shared
+                part, sub = part.split("_", 1)
+                one.setdefault(part, {}).setdefault(sub, {})[leaf] = t
+            else:
+                one.setdefault(part, {})[leaf] = t
+        per_slot.setdefault((group, pos), []).append(one)
+    repeats = {name: repeat for name, _, repeat in group_plan(cfg)}
+
+    def stack(layers: List):
+        if isinstance(layers[0], Mapping):
+            return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
+        return torch.stack(layers)
+
+    for (group, pos), layers in per_slot.items():
+        tree.setdefault(group, {})[pos] = (
+            stack(layers) if repeats[group] > 1 else layers[0])
+    return tree
+
+
+def adamw_state_from_arrays(state, cfg: ArchConfig, *,
+                            device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the JAX package's (``step``, and
+    ``m``, ``v`` and ``master`` as parameter trees with numpy leaves),
+    keyed by the port ``LM``'s parameter names, fp32 on ``device``."""
+    def leaves(tree):
+        out = lm_params_from_arrays(tree, cfg, dtype=torch.float32)
+        return {k: t if device is None else t.to(device)
+                for k, t in out.items()}
+
+    return AdamWState(step=int(np.asarray(state.step)), m=leaves(state.m),
+                      v=leaves(state.v), master=leaves(state.master))
+
+
+__all__ = ["adamw_state_from_arrays", "lm_arrays_from_params",
+           "lm_params_from_arrays", "pmem_from_arrays"]

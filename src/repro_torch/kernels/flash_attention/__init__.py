@@ -1,9 +1,11 @@
-"""Prefill attention: the flash-attention CUDA kernel wrapper, its plain
-PyTorch version and the ``mha`` op."""
+"""Prefill and training attention: the flash-attention CUDA kernels'
+wrappers (the forward and its gradient), their plain PyTorch versions
+and the differentiable ``mha`` op."""
 
-from .kernel import LAUNCHES, flash_attention, reset_launches
+from .kernel import LAUNCHES, flash_attention, flash_attention_bwd, \
+    reset_launches
 from .ops import mha
-from .ref import attention_plain
+from .ref import attention_bwd_plain, attention_plain
 
-__all__ = ["LAUNCHES", "attention_plain", "flash_attention", "mha",
-           "reset_launches"]
+__all__ = ["LAUNCHES", "attention_bwd_plain", "attention_plain",
+           "flash_attention", "flash_attention_bwd", "mha", "reset_launches"]

@@ -1,4 +1,6 @@
-"""The flash-attention kernel's wrapper (``csrc/flash_attention.cu``).
+"""The flash-attention kernels' wrappers: the forward
+(``csrc/flash_attention.cu``) and its gradient
+(``csrc/flash_attention_bwd.cu``).
 
 ``flash_attention`` is the port's form of the JAX package's
 ``kernels/flash_attention/kernel.py`` ``flash_attention``, in the
@@ -11,8 +13,16 @@ the two.  The CUDA source holds one kernel per dtype: bfloat16 runs on
 the tensor cores (wgmma, its tiles loaded by TMA), float32 on the CUDA
 cores in exact fp32.
 
-``LAUNCHES`` counts kernel launches under the TPU kernel's name; a call
-on CPU tensors launches nothing and counts nothing.
+``flash_attention_bwd`` computes (dq, dk, dv) of that function from
+the forward's output and the output's gradient.  No TPU kernel is its
+counterpart: the JAX package trains through XLA's autodiff of its jnp
+attention.  On CUDA tensors it launches the CUDA kernels of its source
+(two kernels, counted as one launch a call), or raises; on CPU tensors
+it runs ``ref.attention_bwd_plain``.
+
+``LAUNCHES`` counts kernel launches under the TPU kernel's name and
+the backward's under ``flash_attention_bwd``; a call on CPU tensors
+launches nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -25,10 +35,10 @@ from typing import Dict, Optional
 import torch
 
 from ... import build
-from .ref import attention_plain
+from .ref import attention_bwd_plain, attention_plain
 
 #: CUDA launches since the last ``reset_launches``
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +60,17 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention.restype = _I
     lib.flash_attention_error_string.argtypes = [_I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = ([_P] * 10 + [_I] * 9
+                                        + [ctypes.c_float, _P])
+    lib.flash_attention_bwd.restype = _I
+    lib.flash_attention_bwd_error_string.argtypes = [_I]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -127,5 +148,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None):
+    """The gradient of ``flash_attention`` at (q, k, v).
+
+    q, out, dout: [B, T, H, dh]; k, v: [B, S, Hk, dh]; one dtype, float32
+    or bfloat16 on the card, contiguous.  ``out`` is the forward's output
+    as it returned it (D = rowsum(dout * out) reads it).  Returns (dq,
+    dk, dv) in q's dtype, accumulated in fp32; rows that see no key add
+    nothing."""
+    _check(q, k, v, window)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, q is "
+                             f"{tuple(q.shape)}")
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
+                            f"{q.dtype} on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                   window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd takes CUDA or CPU tensors, "
+                         f"not {dev}")
+    B, T, H, dh = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"batch {B} or heads {H} exceed the grid's 65535")
+    if B == 0 or T == 0 or S == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq = torch.empty_like(q)  # the kernels write every element
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    dsum = torch.empty_like(lse)
+    lib = _bwd_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), B, T, S, H, Hk, dh, int(causal),
+            int(window or 0), DTYPES[q.dtype], 1.0 / math.sqrt(dh), stream)
+    if err:
+        raise RuntimeError(
+            "flash_attention_bwd kernel launch failed: "
+            + lib.flash_attention_bwd_error_string(err).decode())
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 __all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "flash_attention",
-           "reset_launches"]
+           "flash_attention_bwd", "reset_launches"]

@@ -1,4 +1,4 @@
-"""Public attention op over the flash-attention kernel.
+"""Public attention op over the flash-attention kernels.
 
 ``mha`` is the port's form of the JAX package's
 ``kernels/flash_attention/ops.py`` ``mha``: the same [B, T, H, dh] /
@@ -8,6 +8,12 @@ takes the layout as it is and indexes kv head h // (H // Hk), so ``mha``
 makes no copy.  The Pallas block sizes (``q_block``, ``kv_block``) have
 no counterpart: the CUDA kernel's tiles are fixed and it masks ragged
 edges itself.
+
+``mha`` is a ``torch.autograd.Function``: its forward is
+``flash_attention`` (q, k, v and the output saved), its backward
+``flash_attention_bwd`` on the same tensors, so a training step
+differentiates through the kernels (the JAX package differentiates its
+jnp attention with XLA).  On the CPU both run their plain versions.
 """
 
 from __future__ import annotations
@@ -16,14 +22,33 @@ from typing import Optional
 
 import torch
 
-from .kernel import flash_attention
+from .kernel import flash_attention, flash_attention_bwd
+
+
+class _MHA(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        # autograd may hand the gradient over strided
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """q: [B, T, H, dh]; k, v: [B, S, Hk, dh] (GQA: H % Hk == 0).
-    Returns [B, T, H, dh]."""
-    return flash_attention(q, k, v, causal=causal, window=window)
+    Returns [B, T, H, dh], differentiable in q, k and v."""
+    return _MHA.apply(q, k, v, causal, window)
 
 
 __all__ = ["mha"]

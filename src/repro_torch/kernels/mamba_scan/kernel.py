@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ... import build
+from ..grad_guard import refuse_grad
 from .ref import ssd_plain
 
 #: CUDA launches since the last ``reset_launches``
@@ -98,6 +99,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     (y [B, T, H, dh] in x's dtype, the final state [B, H, dh, N]
     float32); the input state is not written."""
     _check(x, dt, B_, C_, A, state)
+    refuse_grad("ssd", x, dt, B_, C_, A, state)
     dev = x.device
     if dev.type == "cpu":
         return ssd_plain(x, dt, B_, C_, A, state)

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ... import build
+from ..grad_guard import refuse_grad
 from .ref import paged_attention_plain
 
 #: CUDA launches since the last ``reset_launches``
@@ -148,6 +149,7 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
     with j >= seq_lens[b] - window.  fp32 accumulation; returns [B, H,
     dh] in q's dtype, zeros for a sequence of length 0."""
     _check(q, pages_k, pages_v, block_table, seq_lens, window)
+    refuse_grad("paged_attention", q, pages_k, pages_v)
     dev = q.device
     if dev.type == "cpu":
         return paged_attention_plain(q, pages_k, pages_v, block_table,

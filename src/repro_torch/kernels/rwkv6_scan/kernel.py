@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ... import build
+from ..grad_guard import refuse_grad
 from .ref import wkv6_plain
 
 #: CUDA launches since the last ``reset_launches``
@@ -93,6 +94,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, the final state [B, H, dh, dh] float32); the input state is
     not written."""
     _check(r, k, v, logw, u, state)
+    refuse_grad("wkv6", r, k, v, logw, u, state)
     dev = r.device
     if dev.type == "cpu":
         return wkv6_plain(r, k, v, logw, u, state)

@@ -1,7 +1,8 @@
-"""GQA attention: prefill (causal) and single-token decode against a
+"""GQA attention: full-sequence attention for training
+(``attn_forward``), prefill (causal) and single-token decode against a
 dense per-request KV cache.  The port of ``repro.models.attention``.
 
-Prefill attention runs on the flash-attention kernel
+Training and prefill attention run on the flash-attention kernel
 (``kernels.flash_attention.mha``) and decode attention on the paged
 kernel (``kernels.paged_attention.paged_mqa``): on the card their CUDA
 kernels, on the CPU their plain PyTorch versions.  The JAX package runs
@@ -71,6 +72,24 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg
     return q, k, v
 
 
+def attn_forward(p: Params, x: torch.Tensor, cfg, *,
+                 positions: Optional[torch.Tensor] = None,
+                 causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (a training step's): causal, with the
+    config's sliding window, or bidirectional; differentiable through
+    ``mha``, whose backward runs the flash-attention backward kernel.
+    x: [B, T, D]; returns [B, T, D]."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = mha(q, k, v, causal=causal,
+              window=cfg.sliding_window if causal else None)
+    return torch.matmul(out.reshape(B, T, -1), p["wo"])
+
+
 def attn_prefill(p: Params, x: torch.Tensor, cfg
                  ) -> Tuple[torch.Tensor, Params]:
     """Prefill: causal attention over the prompt (``mha``), and this
@@ -130,5 +149,5 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     return y, cache
 
 
-__all__ = ["PAGE_SIZE", "attn_decode", "attn_prefill", "identity_pages",
-           "init_attn"]
+__all__ = ["PAGE_SIZE", "attn_decode", "attn_forward", "attn_prefill",
+           "identity_pages", "init_attn"]

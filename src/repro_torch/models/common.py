@@ -93,5 +93,14 @@ def causal_mask(q_len: int, kv_len: int, *, window: Optional[int] = None,
     return mask
 
 
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, fp32 accumulation (logits [..., V],
+    labels [...] int)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
 __all__ = ["Params", "apply_rope", "causal_mask", "dense_init", "layernorm",
-           "norm", "norm_params", "rmsnorm", "rope_freqs"]
+           "norm", "norm_params", "rmsnorm", "rope_freqs", "softmax_xent"]

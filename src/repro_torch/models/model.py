@@ -16,6 +16,11 @@ one layer (one superblock for the hybrid); DeepSeek-MoE has ``dense0``
 (layer 0, once) and then ``blocks`` (the MoE layer, ``n_layers - 1``
 times).
 
+Training (``forward`` and ``loss`` over a batch of tokens and labels)
+runs the families whose every mixer is attention, dense or MoE
+(``check_trainable``): the backward of the flash-attention kernel is
+ported, the scans' backward kernels (``wkv6``, ``ssd``) are not yet.
+
 ``LM`` is an ``nn.Module`` holding its parameters under the JAX
 package's names: ``embed``, ``final_norm.w``, ``lm_head`` (untied
 only), and per layer ``layers.<l>.{ln1,<mixer>,ln2,<ffn>}.<name>``
@@ -32,7 +37,21 @@ JAX leaves across).  Its serving surface is the JAX package's without
   returning the last position's logits and the caches;
 * ``decode_step(token, caches, pos)``: one token against the caches,
   written in place;
-* ``init_caches(batch, seq_len)``: zeroed caches.
+* ``init_caches(batch, seq_len)``: zeroed caches;
+
+and its training surface:
+
+* ``forward(batch)``: logits [B, T, V] over ``batch["tokens"]`` and the
+  MoE layers' summed aux loss;
+* ``loss(batch)``: ``softmax_xent`` of the logits against
+  ``batch["labels"]`` plus 0.01 times the aux loss.
+
+Parameters are created frozen (``requires_grad=False``) for serving;
+a trainer turns them on (``requires_grad_(True)``).  ``prefill`` and
+``decode_step`` run under ``no_grad`` either way.  The JAX package's
+``remat`` (recompute activations in the backward) changes memory, not
+values, and has no counterpart: at MiniCPM-2B's training shape (B = 8,
+T = 64) the activations are a fraction of the fp32 logits.
 
 Caches are the JAX package's layout: ``{<group>: {"l<i>": ...}}``, one
 entry per group and pattern position (``{"dense0": {"l0": ...},
@@ -60,7 +79,7 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
-from .common import dense_init, norm, norm_params
+from .common import dense_init, norm, norm_params, softmax_xent
 
 Params = Dict[str, torch.Tensor]
 
@@ -84,6 +103,19 @@ def check_ported(cfg: ArchConfig) -> None:
             f"{cfg.name} ({cfg.family}) is not yet ported: the port runs "
             "decoder-only models (dense, MoE, RWKV6 and the Mamba + "
             "attention + MoE hybrid), not encoder-decoder or VLM")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise for a configuration the port cannot train yet: those it
+    cannot run at all (``check_ported``) and those with an RWKV6 or Mamba
+    mixer, whose scans have no backward kernel yet."""
+    check_ported(cfg)
+    mixers = {mixer for mixer, _ in layer_kinds(cfg)}
+    if mixers != {"attn"}:
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) is not yet ported: its "
+            f"{sorted(mixers - {'attn'})} mixers' scans have no backward "
+            "kernel yet (their scans' backward kernels are the next slice)")
 
 
 def group_plan(cfg: ArchConfig) -> List[Tuple[str, List[Tuple[str, str]],
@@ -185,15 +217,47 @@ class LM(nn.Module):
     def _ffn(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
         """The residual FFN half of a non-RWKV block (MoE's aux loss is
         a training term, dropped here as the JAX decode drops it)."""
+        return self._ffn_aux(blk, x)[0]
+
+    def _ffn_aux(self, blk: Block, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The residual FFN half and its aux loss (None for an MLP)."""
         cfg = self.cfg
         h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
         if blk.kind[1] == "moe":
             p = dict(blk.moe)
             if hasattr(blk, "moe_shared"):
                 p["shared"] = blk.moe_shared
-            y, _ = ffn_mod.moe_forward(p, h2, cfg)
-            return x + y
-        return x + ffn_mod.mlp_forward(blk.ffn, h2, cfg.mlp)
+            y, aux = ffn_mod.moe_forward(p, h2, cfg)
+            return x + y, aux
+        return x + ffn_mod.mlp_forward(blk.ffn, h2, cfg.mlp), None
+
+    # ------------------------------------------------------------------
+    # training: full-sequence forward and the loss
+    # ------------------------------------------------------------------
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``batch["tokens"]``: [B, T] int.  Returns (logits [B, T, V] in
+        the activations' dtype, the MoE layers' summed aux loss, a 0-d
+        fp32 tensor), with ``_apply_block``'s full-sequence semantics:
+        causal attention with the config's window, then the MLP or MoE."""
+        cfg = self.cfg
+        check_trainable(cfg)
+        x = self.embed[batch["tokens"].to(self.device)]
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for blk in self.layers:
+            h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
+            x, a = self._ffn_aux(blk, x + attn.attn_forward(blk.attn, h, cfg))
+            if a is not None:
+                aux = aux + a
+        return self._logits(x), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean token cross-entropy against ``batch["labels"]`` plus 0.01
+        times the aux loss (a 0-d fp32 tensor)."""
+        logits, aux = self.forward(batch)
+        labels = batch["labels"].to(self.device)
+        return softmax_xent(logits, labels) + 0.01 * aux
 
     # ------------------------------------------------------------------
     # caches: one entry per group and pattern position, stacked over the
@@ -334,5 +398,5 @@ def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:
     return LM(cfg, seed=seed, device=device)
 
 
-__all__ = ["Block", "LM", "build_model", "check_ported", "group_plan",
-           "layer_slots"]
+__all__ = ["Block", "LM", "build_model", "check_ported", "check_trainable",
+           "group_plan", "layer_slots"]

@@ -1125,3 +1125,108 @@ def test_crash_sweep_on_card_then_batched_read_back(card):
     assert got == scalar
     assert kprobe.LAUNCHES["probe64_fp"] == before + 1
     assert sum(v is not None for v in got) == len(set(keys)) - 8
+
+
+# the attention backward kernel (csrc/flash_attention_bwd.cu) and the
+# training slice on the card.  fp32: each gradient within 1e-5 of its
+# largest |plain| (the same fp32 arithmetic in another order); bf16: the
+# elementwise ATTN_STEPS limit, as chip_smoke.py holds it
+BWD_SHAPES = [
+    (8, 64, 64, 36, 36, 64, None),    # MiniCPM-2B's training shape
+    (1, 512, 512, 14, 2, 64, None),   # Qwen2-0.5B at T = 512
+    (1, 300, 300, 4, 2, 128, 100),    # a window that masks keys, ragged T
+    (2, 65, 200, 4, 1, 32, 70),       # dh = 32, T < S, a window
+    (1, 100, 100, 1, 1, 64, None),    # B * H = 1
+    (1, 100, 40, 4, 2, 64, None),     # T > S: 60 rows see no key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,S,H,Hk,dh,window", BWD_SHAPES)
+def test_flash_attention_bwd_matches_plain_version(card, B, T, S, H, Hk, dh,
+                                                   window, dtype):
+    rng = np.random.default_rng(T + S + dh + H)
+    q = normal(rng, (B, T, H, dh), dtype, card)
+    k, v = (normal(rng, (B, S, Hk, dh), dtype, card) for _ in range(2))
+    out = kflash.flash_attention(q, k, v, window=window)
+    dout = normal(rng, (B, T, H, dh), dtype, card)
+    before = kflash.LAUNCHES["flash_attention_bwd"]
+    got = kflash.flash_attention_bwd(q, k, v, out, dout, window=window)
+    torch.cuda.synchronize()
+    assert kflash.LAUNCHES["flash_attention_bwd"] == before + 1
+    plain = kflash.attention_bwd_plain(q, k, v, out, dout, window=window)
+    for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+        assert g.dtype == dtype and g.shape == p.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        diff = (g.float() - p.float()).abs()
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 1e-5 * float(p.abs().max()), name
+        else:
+            assert bool((diff <= attn_limit(p)).all()), \
+                (name, float((diff / attn_limit(p)).max()))
+    if T > S:  # rows that see no key take no gradient
+        assert torch.equal(got[0][:, :T - S],
+                           torch.zeros_like(got[0][:, :T - S]))
+
+
+def test_mha_autograd_runs_both_kernels(card):
+    """Autograd through ``mha`` on the card launches the forward once and
+    the backward once, and agrees with autograd of the plain version."""
+    rng = np.random.default_rng(9)
+    q, k, v = (normal(rng, shape, torch.float32, card).requires_grad_()
+               for shape in ((2, 70, 4, 64), (2, 70, 2, 64), (2, 70, 2, 64)))
+    before = dict(kflash.LAUNCHES)
+    out = kflash.mha(q, k, v, window=50)
+    out.square().sum().backward()
+    assert kflash.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert kflash.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    kflash.attention_plain(*ref, window=50).square().sum().backward()
+    for g, r in zip((q.grad, k.grad, v.grad), ref):
+        assert float((g - r.grad).abs().max()) <= \
+            1e-5 * float(r.grad.abs().max())
+
+
+def test_kernels_without_backward_raise_under_grad_on_card(card):
+    rng = np.random.default_rng(1)
+    r = normal(rng, (1, 4, 2, 64), torch.float32, card).requires_grad_()
+    k, v = (normal(rng, (1, 4, 2, 64), torch.float32, card)
+            for _ in range(2))
+    logw = -normal(rng, (1, 4, 2, 64), torch.float32, card).abs()
+    u = normal(rng, (2, 64), torch.float32, card)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        kwkv.wkv6(r, k, v, logw, u)
+    x = normal(rng, (1, 4, 2, 64), torch.float32, card)
+    dt = normal(rng, (1, 4, 2), torch.float32, card).abs().requires_grad_()
+    Bm, Cm = (normal(rng, (1, 4, 16), torch.float32, card) for _ in range(2))
+    A = -normal(rng, (2,), torch.float32, card).abs() - 0.1
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        kssd.ssd(x, dt, Bm, Cm, A)
+    qd = normal(rng, (1, 4, 64), torch.float32, card).requires_grad_()
+    pages = normal(rng, (2, 16, 2, 64), torch.float32, card)
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=card)
+    lens = torch.tensor([20], dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        kpaged.paged_attention(qd, pages, pages, table, lens)
+
+
+def test_train_with_crash_restart_on_card(card):
+    """The JAX test's run on the card: every step's attention forward and
+    backward on the kernels (2 layers), a power failure at step 6, the
+    restart from generation 4 at the committed cursor."""
+    from repro_torch.launch.train import train
+    cfg = get_arch("qwen2-0.5b").reduced()
+    before = dict(kflash.LAUNCHES)
+    out = train("qwen2-0.5b", reduced=True, steps=12, batch=4, seq_len=32,
+                ckpt_every=4, kill_at_step=6, verbose=False, device="cuda")
+    assert out["final_step"] == 12 and out["data"].global_step == 12
+    assert np.isfinite(out["losses"]).all()
+    assert out["store"].latest_step() == 12
+    steps_run = 6 + 6  # steps 0-5, then 6-11 after the restart
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert kflash.LAUNCHES[name] == before[name] + \
+            steps_run * cfg.n_layers, name
+    assert all(t.device.type == "cuda" for t in out["params"].values())

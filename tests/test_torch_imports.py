@@ -1,8 +1,8 @@
 """Guards of the port's boundary: repro_torch imports neither JAX nor
 the JAX package (its scale-out layer, baselines, configs, models,
-serving runtime and launch drivers included), and its entry points run
-on the card unless the caller asks for the CPU, never falling back on
-their own."""
+serving runtime, training slice and launch drivers included), and its
+entry points run on the card unless the caller asks for the CPU, never
+falling back on their own."""
 
 import pathlib
 import re
@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from repro_torch.api import open_index
+from repro_torch.checkpoint import CheckpointStore
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.launch.train import train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -34,7 +37,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.kernels.clht_probe, repro_torch.models.rwkv, "
             "repro_torch.kernels.mamba_scan, repro_torch.models.mamba, "
             "repro_torch.models.ffn, repro_torch.data.workloads, "
-            "repro_torch.obs.trace, repro_torch.core.crash_testing\n"
+            "repro_torch.obs.trace, repro_torch.core.crash_testing, "
+            "repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.optim.schedules, repro_torch.checkpoint, "
+            "repro_torch.checkpoint.store, repro_torch.data.pipeline, "
+            "repro_torch.launch.elastic, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.kernels.grad_guard\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(repr(bad))\n")
@@ -87,3 +95,21 @@ def test_unported_kinds_raise(kind, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         open_index(kind, shards=2)
+
+
+@pytest.mark.parametrize("entry", ["train", "store", "pipeline"])
+def test_training_entry_points_default_to_the_card(monkeypatch, entry):
+    """``train``, ``CheckpointStore`` and ``TokenPipeline`` (whose P-CLHT
+    tables take a device) run on the card unless asked for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {"train": lambda **kw: train("qwen2-0.5b", steps=0,
+                                        verbose=False, **kw),
+            "store": lambda **kw: CheckpointStore(**kw),
+            "pipeline": lambda **kw: TokenPipeline(
+                DataConfig(vocab=100, seq_len=8, global_batch=2, n_docs=16,
+                           mean_doc_len=16), **kw)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    with pytest.raises(RuntimeError):
+        make(device="cuda")
+    make(device="cpu")
