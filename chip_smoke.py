@@ -228,7 +228,10 @@ Phases, each of which exits non-zero on failure:
    training shape, Qwen2-0.5B's heads at T = 512 and StarCoder2-15B's
    heads with a window of 512 over T = 1100, in fp32 and bf16, dq, dk
    and dv within the same limit, which the plain version without the D
-   term breaks; then per-launch
+   term breaks, two calls bit-identical, and the forward's log-sum-exp
+   (its input) within ``LSE_TOL`` of the plain version's, +inf on the
+   same rows; the forward at T = 512 timed with and without its
+   log-sum-exp; then per-launch
    times at the main path's shape (device time from the profiler, call
    time from CUDA events), beside the plain version's, a library call's
    where one computes the same function, and the least time the card
@@ -2407,6 +2410,14 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
                             lambda a, b, c: kflash.flash_attention(a, b, c),
                             lambda a, b, c: kflash.attention_plain(a, b, c),
                             batches, reps=64)
+        # the same forward writing its log-sum-exp, as training runs it
+        lse_dev, lse_call = time_calls(
+            lambda a, b, c: kflash.flash_attention(a, b, c, return_lse=True),
+            batches, 64)
+        timed["with_lse_ms"] = lse_dev if lse_dev is not None else lse_call
+        say(f"flash_attention (T={T}): without its log-sum-exp "
+            f"{timed['ms']} ms, with it {timed['with_lse_ms']} ms (device "
+            f"{lse_dev} ms, call {lse_call:.6f} ms)")
         lib = [(a.transpose(1, 2).contiguous(),
                 b.repeat_interleave(H // Hk, dim=2).transpose(1, 2)
                 .contiguous(),
@@ -2466,6 +2477,7 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
     say(f"flash_attention: main-path launches {launches['flash_attention']}")
     out = row("flash_attention", launches, err, timed, bms, by, library_ms,
               f"{cfg.name} prefill, T=S={T}, H={H}, Hk={Hk}, dh={dh}, bf16")
+    out["with_lse_ms"] = timed["with_lse_ms"]
     out["window"] = {"ms": wtimed["ms"], "plain_ms": wtimed["plain_ms"],
                      "bound_ms": wbms, "bound_by": wby,
                      "library_ms": wlibrary_ms,
@@ -3626,7 +3638,7 @@ def sdpa_bwd(batches, H: int, Hk: int, window, reps: int):
     ``scaled_dot_product_attention`` (kv heads repeated beforehand, the
     window as a boolean mask) on the same inputs, by the profiler."""
     lib = []
-    for q, k, v, _, dout in batches:
+    for q, k, v, _, dout, _ in batches:
         T, S = q.shape[1], k.shape[1]
         qs = q.transpose(1, 2).contiguous().requires_grad_()
         ks, vs = (t.repeat_interleave(H // Hk, dim=2).transpose(1, 2)
@@ -3652,14 +3664,34 @@ BWD_SHAPES = (("MiniCPM-2B training", 8, 64, 36, 36, 64, None),
                512))
 
 
+# the forward's log-sum-exp against the plain version's: each live row
+# within LSE_TOL of max(1, |plain|) (fp32 scores summed in another
+# order; the bf16 kernel converts from log2 units), +inf on the same rows
+LSE_TOL = 1e-5
+
+
+def lse_close(name: str, lse, plain) -> float:
+    live = torch.isfinite(plain)
+    check(torch.equal(torch.isfinite(lse), live)
+          and bool((lse[~live] > 0).all()), f"{name}: the log-sum-exp is "
+          "not +inf on exactly the rows that see no key")
+    gap = float(((lse - plain).abs() / plain.abs().clamp_min(1.0))[live]
+                .max()) if bool(live.any()) else 0.0
+    check(gap <= LSE_TOL, f"{name}: the forward's log-sum-exp differs from "
+          f"the plain version's by {gap:.3e} of max(1, |plain|)")
+    return gap
+
+
 def bwd_vs_plain(seed: int, launches: dict) -> list:
     """flash_attention_bwd against ``attention_bwd_plain`` in fp32 and
     bf16 at ``BWD_SHAPES``: dq, dk, dv each within ``attn_limit`` of the
     plain version elementwise, a limit the plain version without the D
-    term breaks; then, in bf16, the kernel's and the plain version's
-    times, SDPA's backward as the library call, and the bound (bytes
-    over HBM bandwidth against the five products' FLOPs over the seen
-    pairs at the bf16 tensor-core rate)."""
+    term breaks; two calls bit-identical (no atomics); its input, the
+    forward's log-sum-exp, within ``LSE_TOL`` of the plain version's;
+    then, in bf16, the kernel's and the plain version's times, SDPA's
+    backward as the library call, and the bound (bytes over HBM
+    bandwidth against the five products' FLOPs over the seen pairs at
+    the bf16 tensor-core rate)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 24)
@@ -3677,12 +3709,24 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
                         for _ in range(2))
                 dout = torch.randn(B, T, H, dh, generator=gen, device=dev)
                 q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
-                out = kflash.flash_attention(q, k, v, window=W)
-                draws.append((q, k, v, out, dout))
+                out, lse = kflash.flash_attention(q, k, v, window=W,
+                                                  return_lse=True)
+                draws.append((q, k, v, out, dout, lse))
             batches[dtype] = draws
-            q, k, v, out, dout = draws[0]
-            got = kflash.flash_attention_bwd(q, k, v, out, dout, window=W)
+            q, k, v, out, dout, lse = draws[0]
+            gap = lse_close(f"{name} {str(dtype)[6:]}", lse,
+                            kflash.attention_plain(q, k, v, window=W,
+                                                   return_lse=True)[1])
+            got = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
+                                             window=W)
+            again = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
+                                               window=W)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {str(dtype)[6:]}: two calls on the same inputs "
+                  "differ")
+            say(f"{name} {str(dtype)[6:]}: two calls bit-identical; the "
+                f"forward's log-sum-exp within {gap:.3e} of max(1, |plain|)")
             plain = kflash.attention_bwd_plain(q, k, v, out, dout, window=W)
             no_d = kflash.attention_bwd_plain(q, k, v, torch.zeros_like(out),
                                               dout, window=W)
@@ -3707,9 +3751,9 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
                 f"term breaks the limit at {caught} elements")
         bf = batches[torch.bfloat16]
         timed = time_kernel(
-            name, lambda a, b, c, o, d: kflash.flash_attention_bwd(
-                a, b, c, o, d, window=W),
-            lambda a, b, c, o, d: kflash.attention_bwd_plain(
+            name, lambda a, b, c, o, d, l: kflash.flash_attention_bwd(
+                a, b, c, o, d, lse=l, window=W),
+            lambda a, b, c, o, d, l: kflash.attention_bwd_plain(
                 a, b, c, o, d, window=W), bf, reps=64, plain_reps=8)
         lib_dev, lib_call = sdpa_bwd(bf, H, Hk, W, 16)
         library_ms = lib_dev if lib_dev is not None else lib_call
@@ -3777,8 +3821,9 @@ def main(argv=None) -> int:
     logs = "".join(b.log for b in built.values())
     for name in ("partition_cluster_kernel", "partition_count_kernel",
                  "partition_scan_kernel", "partition_scatter_kernel",
-                 "tag_probe_kernel", "clht_probe_kernel", "dq_kernel",
-                 "dkv_kernel"):
+                 "tag_probe_kernel", "clht_probe_kernel", "dq_tc_kernel",
+                 "dkv_tc_kernel", "dkv_group_sum_kernel", "dq_simt_kernel",
+                 "dkv_simt_kernel"):
         check(name in logs, f"{name} is not in the build's kernels")
     for name, b in built.items():
         for line in ptxas_lines(b.log):

@@ -4,7 +4,8 @@ Every ``csrc/<name>.cu`` exposes a plain C interface.  ``build``
 compiles sources with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into shared libraries under ``_build/`` beside this file, one ``nvcc``
 process per source, all started together.  A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt
+carries a hash of its source, the headers beside it (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt
 and a finished build is reused; each is written under a temporary name
 and renamed into place, so processes that build at once never load a
 half-written file; the compiler's output is kept beside it, so a reused
@@ -64,9 +65,14 @@ def sources() -> list:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+    """The library's path: the source's stem and a hash of the source,
+    of every header beside it (``csrc/*.cuh``, which a source may
+    include) and of the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:

@@ -22,6 +22,16 @@
 //   Tiles of keys that lie wholly above the diagonal or before the window
 //   of every row of the block are never loaded.
 //
+// LSE for the backward: where the C interface gets a non-null lse
+// pointer, both kernels write each live row's log-sum-exp of its scaled
+// scores, fp32 [B, H, T], in natural-log units: m + log l, from the
+// running max and sum the softmax already holds (the bf16 kernel keeps
+// them in log2 units and stores (m2 + log2 l2) * ln 2).  A row that sees
+// no key gets +inf, so the backward's P = exp(s - LSE) is 0 there, never
+// NaN.  csrc/flash_attention_bwd.cu reads it in place of recomputing the
+// softmax; the TPU kernel keeps the same m and l in its m_ref / l_ref
+// scratch.  With a null pointer nothing more is stored.
+//
 // What bounds it on an H100: at the prefill shapes of Qwen2-0.5B (H = 14,
 // Hk = 2, dh = 64, T = S = 256-512) a layer's attention is
 // 2 * 2 * T^2 * dh * H / 2 FLOPs, 0.47 GFLOP at T = 512 (0.47 us at the
@@ -73,16 +83,15 @@
 // persistent grid that balances the causal triangle's long and short
 // rows.
 
-#include <cuda.h>  // CUtensorMap and its enums; the CUDA driver via dlsym
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
 constexpr float kNegBig = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---- float32: CUDA cores ------------------------------------------------
 
@@ -93,9 +102,9 @@ constexpr int kSimtThreads = kRows * kLanes;
 template <int kDh>
 __global__ void __launch_bounds__(kSimtThreads)
 simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ out, int t_len,
-            int s_len, int heads, int kv_heads, int causal, int window,
-            float scale) {
+            const float* __restrict__ v, float* __restrict__ out,
+            float* __restrict__ lse, int t_len, int s_len, int heads,
+            int kv_heads, int causal, int window, float scale) {
   constexpr int kCols = kDh / kLanes;          // columns a thread owns
   constexpr int kKeys = kDh <= 64 ? 64 : 32;   // keys per staged tile
   __shared__ float ks[kKeys][kDh];
@@ -191,254 +200,38 @@ simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       out[qbase + lane + kLanes * c] = acc[c] * inv;
+    // the row's four lanes hold the same m and l
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<int64_t>(bh) * t_len + qi] =
+          l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
 template <int kDh>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
-                int batch, int t_len, int s_len, int heads, int kv_heads,
-                int causal, int window, float scale, cudaStream_t stream) {
+                float* lse, int batch, int t_len, int s_len, int heads,
+                int kv_heads, int causal, int window, float scale,
+                cudaStream_t stream) {
   const dim3 grid((t_len + kRows - 1) / kRows, batch * heads);
   simt_kernel<kDh><<<grid, kSimtThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), t_len, s_len,
-      heads, kv_heads, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, t_len,
+      s_len, heads, kv_heads, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- bfloat16: wgmma fed by TMA -----------------------------------------
 
-constexpr int kTile = 64;       // query rows of a block; keys of a stage
 constexpr int kStages = 3;      // ring of k/v stages
 constexpr int kConsumers = 128;  // one warpgroup computes
 constexpr int kTcThreads = kConsumers + 32;  // and one warp loads
 
-// The shared-memory layout of one [64, dh] bf16 tile, as TMA writes it
-// and the wgmma descriptors read it: kAtoms column blocks of kCols
-// columns, each 64 rows of kRowBytes, swizzled at kRowBytes.
+// q, kStages k and v tiles, 1024-byte aligned; the barriers; and the
+// slack to align the dynamic shared memory's base
 template <int kDh>
-struct Tile {
-  static constexpr int kCols = kDh < 64 ? kDh : 64;
-  static constexpr int kRowBytes = 2 * kCols;  // 64 or 128
-  static constexpr int kAtoms = kDh / kCols;
-  static constexpr int kBlockBytes = kTile * kRowBytes;
-  static constexpr int kBytes = kAtoms * kBlockBytes;
-  // descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
-  // q, kStages k and v tiles, 1024-byte aligned; the barriers; and the
-  // slack to align the dynamic shared memory's base
-  static constexpr int kSmem =
-      (1 + 2 * kStages) * kBytes + (2 * kStages + 1) * 8 + 1024;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one TMA box of `map` at (c0, c1, c2), innermost first, into dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads of an accumulator above the wait
-template <int kN>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle layout type
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-// K-major operand (q as A, k as B of Q.K^T), dh columns 16 kk .. 16 kk + 15
-template <int kDh>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  using L = Tile<kDh>;
-  const int col = 16 * kk;
-  return make_desc(tile + (col / L::kCols) * L::kBlockBytes +
-                       (col % L::kCols) * 2,
-                   16, 8 * L::kRowBytes, L::kLayout);
-}
-
-// MN-major operand (v as B of P.V), keys 16 kk .. 16 kk + 15: 8-key
-// groups kRowBytes * 8 apart, column blocks kBlockBytes apart
-template <int kDh>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  using L = Tile<kDh>;
-  return make_desc(tile + 16 * kk * L::kRowBytes, L::kBlockBytes,
-                   8 * L::kRowBytes, L::kLayout);
-}
-
-// d (+)= A . B^T over k = 16: A [64 x 16] and B [64 x 16] K-major in
-// shared memory (descriptors a, b); d is 32 fp32 registers a thread
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A . B over k = 16: A [64 x 16] bf16 in registers (4 a thread), B
-// [16 x 32] MN-major in shared memory (descriptor b, transposed)
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d += A . B over k = 16: A [64 x 16] bf16 in registers (4 a thread), B
-// [16 x 64] MN-major in shared memory (descriptor b, transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d += A . B over k = 16: A [64 x 16] bf16 in registers (4 a thread), B
-// [16 x 128] MN-major in shared memory (descriptor b, transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int kDh>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (kDh == 32) {
-    wgmma_rs_n32(o, a, b);
-  } else if constexpr (kDh == 64) {
-    wgmma_rs_n64(o, a, b);
-  } else {
-    wgmma_rs_n128(o, a, b);
-  }
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi, y - hi),
-// the low half holding x
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x - __low2float(h),
-                                                 y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
-__device__ __forceinline__ bool visible(int kpos, int qpos, int s_len,
-                                        int causal, int window) {
-  return kpos < s_len &&
-         (!causal || (kpos <= qpos && (window <= 0 || kpos > qpos - window)));
+constexpr int tc_smem_bytes() {
+  return (1 + 2 * kStages) * Tile<kDh>::kBytes + (2 * kStages + 1) * 8 +
+         1024;
 }
 
 template <int kDh>
@@ -446,8 +239,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 tc_kernel(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap,
-          __nv_bfloat16* __restrict__ out, int t_len, int s_len, int heads,
-          int kv_heads, int causal, int window, float scale_log2) {
+          __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+          int t_len, int s_len, int heads, int kv_heads, int causal,
+          int window, float scale_log2) {
   using L = Tile<kDh>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -612,8 +406,8 @@ tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       const uint64_t vd = mnmajor_desc<kDh>(vs, kk);
-      wgmma_pv<kDh>(o, &hi[4 * kk], vd);
-      wgmma_pv<kDh>(o, &lo[4 * kk], vd);
+      wgmma_rs<kDh>(o, &hi[4 * kk], vd);
+      wgmma_rs<kDh>(o, &lo[4 * kk], vd);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -643,56 +437,27 @@ tc_kernel(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(base1 + 8 * j + cq) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the CUDA driver's cuTensorMapEncodeTiled, from the libcuda the process has
-// loaded, so that the library needs no -lcuda at build time
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 [batch, rows, width] tensor map with a box of (1, 64, cols)
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base,
-              int width, int rows, int batch, int cols,
-              CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {2ull * width, 2ull * width * rows};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
-                             static_cast<cuuint32_t>(kTile), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  // the log-sum-exp of each live row's scaled scores, in natural-log
+  // units (m and l are in log2 units): +inf where the row sees no key
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lrow = lse + static_cast<int64_t>(bh) * t_len;
+    if (row0 < t_len)
+      lrow[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (row1 < t_len)
+      lrow[row1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
 }
 
 template <int kDh>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              int batch, int t_len, int s_len, int heads, int kv_heads,
-              int causal, int window, float scale, cudaStream_t stream) {
+              float* lse, int batch, int t_len, int s_len, int heads,
+              int kv_heads, int causal, int window, float scale,
+              cudaStream_t stream) {
   using L = Tile<kDh>;
   const EncodeTiled encode = encoder();
   if (encode == nullptr)
     return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  const CUtensorMapSwizzle swizzle = L::kRowBytes == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swizzle = tile_swizzle<kDh>();
   // with no keys no k/v tile is loaded: the maps then describe a part
   // of q, so that they are valid
   const int rows = s_len > 0 ? s_len : 1;
@@ -705,24 +470,26 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
                 batch, L::kCols, swizzle))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = cudaFuncSetAttribute(
-      tc_kernel<kDh>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+      tc_kernel<kDh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc_smem_bytes<kDh>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((t_len + kTile - 1) / kTile, batch * heads);
-  tc_kernel<kDh><<<grid, kTcThreads, L::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), t_len, s_len,
+  tc_kernel<kDh><<<grid, kTcThreads, tc_smem_bytes<kDh>(), stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, t_len, s_len,
       heads, kv_heads, causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kDh>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int t_len, int s_len, int heads, int kv_heads, int causal,
-           int window, int dtype, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int batch, int t_len, int s_len, int heads, int kv_heads,
+           int causal, int window, int dtype, float scale,
+           cudaStream_t stream) {
   if (dtype == 0)
-    return launch_simt<kDh>(q, k, v, out, batch, t_len, s_len, heads,
+    return launch_simt<kDh>(q, k, v, out, lse, batch, t_len, s_len, heads,
                             kv_heads, causal, window, scale, stream);
   if (dtype == 1)
-    return launch_tc<kDh>(q, k, v, out, batch, t_len, s_len, heads,
+    return launch_tc<kDh>(q, k, v, out, lse, batch, t_len, s_len, heads,
                           kv_heads, causal, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -732,31 +499,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 // C interface, loaded with ctypes.  q: [batch, t_len, heads, head_dim];
 // k, v: [batch, s_len, kv_heads, head_dim]; out like q; all contiguous,
 // of one dtype (0 float32: the CUDA-core kernel; 1 bfloat16: the wgmma
-// kernel, whose q, k and v must be 16-byte aligned for TMA).  window <= 0
-// means none.  Launches on `stream`, does not synchronise, and returns
+// kernel, whose q, k and v must be 16-byte aligned for TMA).  lse, where
+// not null, is fp32 [batch, heads, t_len]: each row's log-sum-exp of its
+// scaled scores in natural-log units (+inf for a row that sees no key),
+// the input csrc/flash_attention_bwd.cu reads.  window <= 0 means none.
+// Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a head
 // dim other than 32, 64 or 128, another dtype, heads not a multiple of
 // kv_heads, or a tensor map the CUDA driver refuses).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int batch, int t_len, int s_len,
-                               int heads, int kv_heads, int head_dim,
-                               int causal, int window, int dtype, float scale,
-                               void* stream) {
+                               void* out, void* lse, int batch, int t_len,
+                               int s_len, int heads, int kv_heads,
+                               int head_dim, int causal, int window,
+                               int dtype, float scale, void* stream) {
   if (batch <= 0 || t_len <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || batch * heads > 65535 ||
       s_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, out, batch, t_len, s_len, heads, kv_heads,
-                        causal, window, dtype, scale, s);
+      return launch<32>(q, k, v, out, l, batch, t_len, s_len, heads,
+                        kv_heads, causal, window, dtype, scale, s);
     case 64:
-      return launch<64>(q, k, v, out, batch, t_len, s_len, heads, kv_heads,
-                        causal, window, dtype, scale, s);
+      return launch<64>(q, k, v, out, l, batch, t_len, s_len, heads,
+                        kv_heads, causal, window, dtype, scale, s);
     case 128:
-      return launch<128>(q, k, v, out, batch, t_len, s_len, heads, kv_heads,
-                         causal, window, dtype, scale, s);
+      return launch<128>(q, k, v, out, l, batch, t_len, s_len, heads,
+                         kv_heads, causal, window, dtype, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

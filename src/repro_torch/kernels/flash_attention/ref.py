@@ -9,6 +9,9 @@ dtype, as in the JAX package's Pallas kernel
 ``attention_ref``: causal with right-aligned queries (query i sits at
 position i + S - T), and with a window w also key > position - w.  A
 row that sees no key (T > S) is 0, where ``attention_ref`` gives NaN.
+With ``return_lse`` it also returns each row's log-sum-exp of its
+scaled scores, [B, H, T] in natural-log units (+inf for a row that sees
+no key), what the CUDA forward writes for the backward kernel.
 
 ``attention_bwd_plain`` is the gradient the backward kernel
 (``csrc/flash_attention_bwd.cu``) computes, written out as the kernel's
@@ -16,6 +19,8 @@ formulas in torch ops (not autograd of ``attention_plain``): P from the
 scores, D = rowsum(dO * O) from the forward's output as given, dP =
 dO . V^T, dS = P * (dP - D), dq = scale * dS . K, dk = scale * dS^T . Q
 and dv = P^T . dO, the query heads of a kv head's group summed into it.
+It rebuilds P from the scores and reads no log-sum-exp: the kernel's
+LSE input is held to ``attention_plain``'s on the card, not trusted here.
 """
 
 from __future__ import annotations
@@ -27,14 +32,21 @@ import torch
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    return_lse: bool = False):
     """q: [B, T, H, dh]; k, v: [B, S, Hk, dh] with H % Hk == 0.
-    Returns [B, T, H, dh] in q's dtype."""
+    Returns [B, T, H, dh] in q's dtype, and with ``return_lse`` also the
+    rows' log-sum-exp [B, H, T] (fp32; float64 for float64 inputs)."""
     qf, kf, vf = _heads(q, k, v)
-    p, l = _weights(qf, kf, causal, window)
+    p, l, m = _weights(qf, kf, causal, window)
     out = torch.matmul(p, vf) / l
-    return out.transpose(1, 2).to(q.dtype).contiguous()
+    out = out.transpose(1, 2).to(q.dtype).contiguous()
+    if not return_lse:
+        return out
+    # a live row's largest weight is exp(0) = 1, so l >= 1; a row that
+    # sees no key has l clamped to 1e-30
+    lse = torch.where(l >= 1, m + torch.log(l), float("inf"))
+    return out, lse.squeeze(-1).contiguous()
 
 
 def _acc(t: torch.Tensor) -> torch.dtype:
@@ -53,9 +65,10 @@ def _heads(q, k, v):
 
 
 def _weights(qf, kf, causal: bool, window: Optional[int]):
-    """exp(s - rowmax) [B, H, T, S] and its row sums clamped to 1e-30
-    [B, H, T, 1]: the softmax weights are their quotient, and a row that
-    sees no key has weights 0."""
+    """exp(s - rowmax) [B, H, T, S], its row sums clamped to 1e-30 and
+    the row max clamped to -1e30 [B, H, T, 1]: the softmax weights are
+    the quotient of the first two, and a row that sees no key has
+    weights 0."""
     T, S, dh = qf.shape[2], kf.shape[2], qf.shape[3]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
     if causal:
@@ -67,7 +80,7 @@ def _weights(qf, kf, causal: bool, window: Optional[int]):
         s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)
-    return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30), m
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,7 +95,7 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = qf.dtype
     of = out.to(acc).transpose(1, 2)
     dof = dout.to(acc).transpose(1, 2)
-    p, l = _weights(qf, kf, causal, window)
+    p, l, _ = _weights(qf, kf, causal, window)
     p = p / l
     d = (dof * of).sum(dim=-1, keepdim=True)        # [B, H, T, 1]
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)

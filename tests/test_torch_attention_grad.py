@@ -9,7 +9,11 @@ inputs drawn with numpy from a seed: each gradient within 1e-5 of its
 largest magnitude (the same fp32 arithmetic in another order).  ``mha``
 is a ``torch.autograd.Function`` whose backward runs the backward
 kernel's wrapper; ``torch.autograd.gradcheck`` holds it, in float64, to
-finite differences of its forward.
+finite differences of its forward.  The backward kernel reads the
+forward's log-sum-exp: ``flash_attention_bwd`` rejects one of the wrong
+shape, dtype or device (on the CPU too, where the plain version does
+not read it), and ``mha`` asks the forward for it only when a gradient
+can follow, so ``LM.prefill`` runs the forward without it.
 """
 
 import jax
@@ -146,6 +150,104 @@ def test_flash_attention_bwd_checks_its_inputs():
         kflash.flash_attention_bwd(q, k, k, q,
                                    q.transpose(1, 2).contiguous()
                                    .transpose(1, 2))
+
+
+def _lse_args():
+    q = torch.zeros(1, 4, 2, 32)
+    k = torch.zeros(1, 4, 1, 32)
+    return q, k, torch.zeros(1, 2, 4)
+
+
+@pytest.mark.parametrize("lse,error,match", [
+    (torch.zeros(1, 4, 2), ValueError, "not \\[B, H, T\\]"),     # [B, T, H]
+    (torch.zeros(1, 2, 5), ValueError, "not \\[B, H, T\\]"),
+    (torch.zeros(1, 2, 4, dtype=torch.bfloat16), TypeError, "lse is"),
+    (torch.zeros(1, 2, 4, dtype=torch.float64), TypeError, "lse is"),
+    (torch.zeros(1, 2, 4, device="meta"), ValueError, "lse is on"),
+    (torch.zeros(1, 4, 2).transpose(1, 2), ValueError, "contiguous"),
+], ids=["transposed-shape", "wrong-T", "bf16", "float64", "meta-device",
+        "strided"])
+def test_flash_attention_bwd_rejects_a_wrong_lse(lse, error, match):
+    """The forward's LSE is fp32 [B, H, T] on q's device (float64 for
+    float64 inputs, which only the CPU takes): anything else raises, on
+    the CPU too, where the plain version does not read it."""
+    q, k, good = _lse_args()
+    with pytest.raises(error, match=match):
+        kflash.flash_attention_bwd(q, k, k, q, q, lse=lse)
+    got = kflash.flash_attention_bwd(q, k, k, q, q, lse=good)
+    want = kflash.flash_attention_bwd(q, k, k, q, q)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_flash_attention_bwd_takes_a_float64_lse_for_float64_inputs():
+    q = torch.zeros(1, 4, 2, 32, dtype=torch.float64)
+    k = torch.zeros(1, 4, 1, 32, dtype=torch.float64)
+    kflash.flash_attention_bwd(q, k, k, q, q,
+                               lse=torch.zeros(1, 2, 4, dtype=torch.float64))
+    with pytest.raises(TypeError, match="lse is"):
+        kflash.flash_attention_bwd(q, k, k, q, q, lse=torch.zeros(1, 2, 4))
+
+
+@pytest.fixture
+def lse_calls(monkeypatch):
+    """Records the ``return_lse`` of each forward ``mha`` runs and the
+    ``lse`` each backward receives."""
+    from repro_torch.kernels.flash_attention import ops
+    calls = {"forward": [], "backward": []}
+    fwd, bwd = ops.flash_attention, ops.flash_attention_bwd
+
+    def forward(*args, return_lse=False, **kw):
+        calls["forward"].append(return_lse)
+        return fwd(*args, return_lse=return_lse, **kw)
+
+    def backward(*args, lse=None, **kw):
+        calls["backward"].append(lse)
+        return bwd(*args, lse=lse, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", forward)
+    monkeypatch.setattr(ops, "flash_attention_bwd", backward)
+    return calls
+
+
+def test_mha_saves_lse_under_grad_only(lse_calls):
+    """Grad enabled with an input that requires it: the forward returns
+    its LSE and the backward receives that very tensor.  Under
+    ``no_grad``, or with no input requiring grad, the forward is asked
+    for none."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((2, 40, 4, 32), (2, 40, 2, 32), (2, 40, 2, 32)))
+    kflash.mha(q, k, v)  # nothing requires grad
+    with torch.no_grad():
+        kflash.mha(q.requires_grad_(), k, v, window=9)
+    assert lse_calls["forward"] == [False, False]
+    out = kflash.mha(q, k, v, window=9)
+    assert lse_calls["forward"] == [False, False, True]
+    out.square().sum().backward()
+    (lse,) = lse_calls["backward"]
+    _, want = kflash.attention_plain(q.detach(), k, v, window=9,
+                                     return_lse=True)
+    assert torch.equal(lse, want)
+
+
+def test_lm_prefill_runs_the_forward_without_lse(lse_calls):
+    """``LM.prefill`` (under ``no_grad``) leaves the forward's
+    ``return_lse`` false; ``LM.loss`` on trainable parameters asks for it
+    in every attention layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    cfg = get_arch("qwen2-0.5b").reduced()
+    lm = LM(cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(2, 17)))
+    lm.prefill({"tokens": toks[:, :-1]}, 16)
+    assert lse_calls["forward"] == [False] * cfg.n_layers
+    lm.requires_grad_(True)
+    lm.loss({"tokens": toks[:, :-1], "labels": toks[:, 1:]}).backward()
+    assert lse_calls["forward"] == [False] * cfg.n_layers + \
+        [True] * cfg.n_layers
+    assert len(lse_calls["backward"]) == cfg.n_layers
+    assert all(t is not None for t in lse_calls["backward"])
 
 
 # ----------------------------------------------------------------------

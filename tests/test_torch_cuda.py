@@ -11,7 +11,11 @@ The index kernels have no tolerance: every output is an integer.  The
 two attention kernels and their plain versions do the same fp32
 arithmetic in another order: float32 outputs agree within 1e-5, and
 bfloat16 outputs (the same fp32 value rounded once) within 2e-2, one
-bf16 step at the outputs' magnitude.  The WKV6 kernel sums its chunked
+bf16 step at the outputs' magnitude.  The attention backward holds
+fp32 gradients within 1e-5 of their largest magnitude and bf16 ones
+elementwise within 4 bf16 unit roundoffs (see ``attn_limit``), two
+calls bit-identical; the forward's log-sum-exp, its input, within 1e-5
+of max(1, |plain|).  The WKV6 kernel sums its chunked
 form in fp32 where the plain version runs the step-by-step recurrence:
 float32 outputs and every final state agree within 2e-5 of their
 largest magnitude, and bfloat16 outputs elementwise within 4 bf16 unit
@@ -1138,7 +1142,19 @@ BWD_SHAPES = [
     (2, 65, 200, 4, 1, 32, 70),       # dh = 32, T < S, a window
     (1, 100, 100, 1, 1, 64, None),    # B * H = 1
     (1, 100, 40, 4, 2, 64, None),     # T > S: 60 rows see no key
+    (1, 1100, 1100, 48, 4, 128, 512),  # StarCoder2-15B: G = 12, a window
 ]
+
+
+def bwd_inputs(B, T, S, H, Hk, dh, window, dtype, card):
+    """q, k, v, the forward's output and log-sum-exp, and dout."""
+    rng = np.random.default_rng(T + S + dh + H)
+    q = normal(rng, (B, T, H, dh), dtype, card)
+    k, v = (normal(rng, (B, S, Hk, dh), dtype, card) for _ in range(2))
+    out, lse = kflash.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
+    dout = normal(rng, (B, T, H, dh), dtype, card)
+    return q, k, v, out, lse, dout
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1146,13 +1162,11 @@ BWD_SHAPES = [
 @pytest.mark.parametrize("B,T,S,H,Hk,dh,window", BWD_SHAPES)
 def test_flash_attention_bwd_matches_plain_version(card, B, T, S, H, Hk, dh,
                                                    window, dtype):
-    rng = np.random.default_rng(T + S + dh + H)
-    q = normal(rng, (B, T, H, dh), dtype, card)
-    k, v = (normal(rng, (B, S, Hk, dh), dtype, card) for _ in range(2))
-    out = kflash.flash_attention(q, k, v, window=window)
-    dout = normal(rng, (B, T, H, dh), dtype, card)
+    q, k, v, out, lse, dout = bwd_inputs(B, T, S, H, Hk, dh, window, dtype,
+                                         card)
     before = kflash.LAUNCHES["flash_attention_bwd"]
-    got = kflash.flash_attention_bwd(q, k, v, out, dout, window=window)
+    got = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
+                                     window=window)
     torch.cuda.synchronize()
     assert kflash.LAUNCHES["flash_attention_bwd"] == before + 1
     plain = kflash.attention_bwd_plain(q, k, v, out, dout, window=window)
@@ -1168,6 +1182,72 @@ def test_flash_attention_bwd_matches_plain_version(card, B, T, S, H, Hk, dh,
     if T > S:  # rows that see no key take no gradient
         assert torch.equal(got[0][:, :T - S],
                            torch.zeros_like(got[0][:, :T - S]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,S,H,Hk,dh,window", BWD_SHAPES)
+def test_flash_attention_bwd_is_deterministic(card, B, T, S, H, Hk, dh,
+                                              window, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v, out, lse, dout = bwd_inputs(B, T, S, H, Hk, dh, window, dtype,
+                                         card)
+    first = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
+                                       window=window)
+    second = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
+                                        window=window)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,S,H,Hk,dh,causal,window", [
+    (1, 512, 512, 14, 2, 64, True, None),
+    (2, 37, 37, 4, 2, 32, True, None),
+    (1, 300, 300, 4, 2, 128, True, 100),
+    (1, 100, 40, 4, 2, 64, True, None),     # 60 rows see no key: +inf
+    (1, 70, 90, 4, 2, 64, False, None),
+    (1, 8, 8, 4, 1, 32, True, None),        # the hybrid's 8 tokens
+])
+def test_flash_attention_lse_matches_plain_version(card, B, T, S, H, Hk, dh,
+                                                   causal, window, dtype):
+    """The forward's log-sum-exp within 1e-5 of max(1, |plain|), +inf on
+    the rows that see no key, and the output unchanged by asking."""
+    rng = np.random.default_rng(T * 5 + S + dh)
+    q = normal(rng, (B, T, H, dh), dtype, card)
+    k, v = (normal(rng, (B, S, Hk, dh), dtype, card) for _ in range(2))
+    out, lse = kflash.flash_attention(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    assert torch.equal(out, kflash.flash_attention(q, k, v, causal=causal,
+                                                   window=window))
+    _, plain = kflash.attention_plain(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    live = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert bool((lse[~live] > 0).all())
+    if bool(live.any()):
+        gap = ((lse - plain).abs() / plain.abs().clamp_min(1.0))[live]
+        assert float(gap.max()) <= 1e-5
+
+
+def test_flash_attention_bwd_needs_aligned_bf16_and_an_lse(card):
+    """TMA reads 16-byte-aligned tiles: a bf16 input that is not raises
+    (no fallback), and the card needs the forward's log-sum-exp."""
+    q, k, v, out, lse, dout = bwd_inputs(1, 64, 64, 4, 2, 64, None,
+                                         torch.bfloat16, card)
+    for name in ("q", "k", "v", "out", "dout"):
+        args = dict(q=q, k=k, v=v, out=out, dout=dout)
+        t = args[name]
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        args[name] = flat[1:].view(t.shape)  # 2 bytes off
+        args[name].copy_(t)
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte"):
+            kflash.flash_attention_bwd(args["q"], args["k"], args["v"],
+                                       args["out"], args["dout"], lse=lse)
+    with pytest.raises(ValueError, match="reads the forward's lse"):
+        kflash.flash_attention_bwd(q, k, v, out, dout)
 
 
 def test_mha_autograd_runs_both_kernels(card):
