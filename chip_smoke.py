@@ -188,13 +188,36 @@ The sixteenth, the training path, runs ``repro_torch.launch.train``:
   step 110): it ends at step 200 (cursor and generation too), the loss
   falls, generation 200 restores the live parameters bit for bit.
 
+The seventeenth, the recurrent training path, trains the families whose
+mixers are scans, through the scans' backward kernels
+(``csrc/wkv6_bwd.cu``, ``csrc/ssd_bwd.cu``, behind the autograd of
+``wkv6_heads`` and ``ssd_heads``):
+
+* (a) RWKV6-7B at full width (d_model 4096, 64 heads of 64, d_ff
+  14336, vocabulary 65,536) cut to 8 of its 32 layers as the Mixtral
+  serving path cuts depth (2,282,033,152 parameters, 36.5 GB of
+  training state; 120.3 GB at full depth): 4 steps of
+  ``make_train_step`` on the token pipeline's batches of B = 8, T = 256,
+  as the JAX package's train loop runs a step: every loss finite,
+  exactly 8 ``wkv6`` and 8 ``wkv6_bwd`` launches a step, no plain
+  version, peak card memory under 70 GB, ms a step after the first and
+  one step's device busy share;
+* (b) the trained weights cut to 2 of 32 layers, in fp32, on the card
+  and the CPU over one batch of B = 2, T = 72: the loss within 1e-5 and
+  each leaf's gradient within 1e-4 of its largest magnitude;
+* (c) the hybrid (Jamba-1.5-Large at ``reduced()``: one full-width
+  superblock is 90.3 GB in bf16) through ``train``, 4 steps of B = 8,
+  T = 64: exactly 7 ``ssd`` and ``ssd_bwd`` and one ``flash_attention``
+  and ``flash_attention_bwd`` launch a step, no plain version, then the
+  same fp32 check over every layer.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel; each
    kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
    them;
-3. the sixteen paths, each with every kernel's launch count set to 0 just
+3. the seventeen paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
@@ -222,16 +245,27 @@ Phases, each of which exits non-zero on failure:
    without the carried state breaks; the SSD kernel at Jamba's prefill
    (T = 4096) and decode (T = 1, carried state; bf16, and fp32 as the
    Mamba path runs it) shapes and at the hybrid's reduced decode (fp32),
-   within the same limit in bf16 and 2e-5 of the largest magnitude in
-   fp32, which the plain version without the s = t term or without the
-   carried state breaks; the attention backward kernel at MiniCPM-2B's
-   training shape, Qwen2-0.5B's heads at T = 512 and StarCoder2-15B's
-   heads with a window of 512 over T = 1100, in fp32 and bf16, dq, dk
+   within the same limit in bf16 and ``FP32_TOL`` (2e-5) of the largest
+   magnitude in fp32, which the plain version without the s = t term or
+   without the carried state breaks; the attention backward kernel at
+   MiniCPM-2B's training shape, Qwen2-0.5B's heads at T = 512,
+   StarCoder2-15B's heads with a window of 512 over T = 1100 and the
+   hybrid's reduced() training shape, in fp32 and bf16, dq, dk
    and dv within the same limit, which the plain version without the D
    term breaks, two calls bit-identical, and the forward's log-sum-exp
    (its input) within ``LSE_TOL`` of the plain version's, +inf on the
    same rows; the forward at T = 512 timed with and without its
-   log-sum-exp; then per-launch
+   log-sum-exp; the scans' backward kernels at RWKV6-7B's training shape
+   (B = 8, T = 256, H = 64, dh = 64) and Jamba's full-width mixer shape
+   (B = 1, T = 4096, H = 256, dh = 64, N = 16), in bf16 and fp32, and at
+   a ragged T with a carried state, the final state's gradient and
+   strong decays, at T = 1, and (SSD) at the hybrid's reduced() training
+   and fp32-check shapes: bf16 gradients within the same limit, fp32
+   ones within ``FP32_TOL`` of their largest magnitude (each output's
+   share of its limit printed), which the plain version with the first
+   and last steps' output gradient dropped (and without the final
+   state's gradient) breaks on every output, two calls bit-identical;
+   then per-launch
    times at the main path's shape (device time from the profiler, call
    time from CUDA events), beside the plain version's, a library call's
    where one computes the same function, and the least time the card
@@ -300,6 +334,9 @@ from repro_torch.serving.engine import _pad_caches  # noqa: E402
 from repro_torch.convert import (lm_arrays_from_params,  # noqa: E402
                                  lm_params_from_arrays)
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 PLAN_OPS = 4096
 Q = 4096  # queries per launch on the main path (one full read wave)
@@ -327,7 +364,9 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "clht_probe": "src/repro_torch/csrc/clht_probe.cu",
            "tag_probe": "src/repro_torch/csrc/clht_probe.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu",
-           "ssd": "src/repro_torch/csrc/ssd.cu"}
+           "wkv6_bwd": "src/repro_torch/csrc/wkv6_bwd.cu",
+           "ssd": "src/repro_torch/csrc/ssd.cu",
+           "ssd_bwd": "src/repro_torch/csrc/ssd_bwd.cu"}
 # the sharded search is scan_window with a shard axis; on the JAX
 # package's mesh path it takes the place of a vmapped lower bound
 # (src/repro/distributed/mesh.py:84), which is not a Pallas kernel; the
@@ -339,7 +378,9 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
 # probe that of the window kernel and the gather that feeds it
 # (src/repro/kernels/clht_probe/ops.py:147); the attention backward
 # replaces no TPU kernel: it is the gradient of _sdpa that
-# jax.value_and_grad takes in the JAX package's train step
+# jax.value_and_grad takes in the JAX package's train step; nor do the
+# scans' backward kernels: each is the gradient of the jnp chunked form
+# (_wkv_chunked, _ssd_chunked) that the same call differentiates
 REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "probe64": "src/repro/kernels/probe/kernel.py:108",
             "art_descend": "src/repro/kernels/art_probe/kernel.py:96",
@@ -357,7 +398,9 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "clht_probe": "src/repro/kernels/clht_probe/kernel.py:38",
             "tag_probe": "src/repro/kernels/clht_probe/kernel.py:38",
             "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:60",
-            "ssd": "src/repro/kernels/mamba_scan/kernel.py:58"}
+            "wkv6_bwd": "src/repro/models/rwkv.py:57",
+            "ssd": "src/repro/kernels/mamba_scan/kernel.py:58",
+            "ssd_bwd": "src/repro/models/mamba.py:57"}
 # the paged attention's launches that took a sliding window (the JAX
 # package masks the window outside its kernel,
 # src/repro/models/attention.py:169), counted among its launches and
@@ -439,7 +482,9 @@ PLAIN_VERSIONS = ((kflash.kernel, "attention_plain"),
                   (kflash.kernel, "attention_bwd_plain"),
                   (kpaged.kernel, "paged_attention_plain"),
                   (kwkv.kernel, "wkv6_plain"),
-                  (kssd.kernel, "ssd_plain"))
+                  (kwkv.kernel, "wkv6_bwd_plain"),
+                  (kssd.kernel, "ssd_plain"),
+                  (kssd.kernel, "ssd_bwd_plain"))
 # the tag path: a chained table of 2^18 buckets at two tags a bucket,
 # probed by one read wave
 TAG_BUCKETS = 1 << 18
@@ -470,6 +515,10 @@ CONVERTED = ("P-CLHT", "P-HOT", "P-BwTree", "P-ART", "P-Masstree")
 # dropped newest key moves hundreds of elements past that limit, and
 # the check shows it does on the same inputs.
 ATTN_STEPS = 4
+# an fp32 kernel against its plain version (the same fp32 arithmetic in
+# another order): every output, and every carried state, within FP32_TOL
+# of its largest magnitude
+FP32_TOL = 2e-5
 # the card against the CPU, full width, bf16: 24 layers of Qwen2's
 # products rounded to bf16 at different points by cuBLAS and the CPU's
 # kernels; held to 5% of the largest logit
@@ -505,6 +554,28 @@ TRAIN_LOSS_TOL = 1e-5  # relative, fp32 on both sides
 TRAIN_GRAD_TOL = 1e-4  # of each leaf's largest |g|, fp32 on both sides
 CRASH_RUN = dict(steps=200, batch=8, seq_len=64, ckpt_every=25,
                  kill_at_step=110)
+# the recurrent training path: RWKV6-7B at full width (d_model 4096, 64
+# heads of 64, d_ff 14336, vocabulary 65,536) cut to 8 of its 32 layers
+# as the Mixtral serving path cuts depth: 2,282,033,152 parameter values
+# (the config's param_count says 2,282,094,592: it counts (2L - 1) d more
+# than the model holds), 36.5 GB of training state at 16 bytes a
+# parameter (120.3 GB at full depth, more than the card); 4 steps of B =
+# 8, T = 256 (four of the forward's 64-step chunks); its fp32 check cuts
+# the trained weights to 2 layers over one batch of B = 2, T = 72 (ragged
+# over the backward's 16-step chunks).  The hybrid trains at reduced()
+# (one full-width superblock is 90.3 GB in bf16): 4 steps of B = 8,
+# T = 64 through ``train``, its fp32 check over every layer.
+RECUR_ARCH = "rwkv6-7b"
+RECUR_LAYERS = 8
+RECUR_PARAMS = 2_282_033_152
+RECUR_STEPS = 4
+RECUR_BATCH = 8
+RECUR_SEQ = 256
+RECUR_PEAK_GB = 70.0
+RECUR_CHECK_LAYERS = 2
+RECUR_CHECK_BATCH = 2
+RECUR_CHECK_SEQ = 72
+HYBRID_TRAIN = dict(steps=4, batch=8, seq_len=64, ckpt_every=10)
 
 
 def kernel_name(mangled: str) -> str:
@@ -2365,7 +2436,8 @@ def close(name: str, got, plain, dropped,
     err = float(diff.max())
     say(f"{name}: within {ATTN_STEPS} bf16 unit roundoffs of its plain "
         f"version elementwise (max abs err {err:.6f}, largest |plain| "
-        f"{float(plain.float().abs().max()):.6f}); {variant} "
+        f"{float(plain.float().abs().max()):.6f}, "
+        f"{float((diff / limit).max()):.4f} of the limit); {variant} "
         f"breaks the limit at {caught} of {plain.numel()} elements (max "
         f"abs {float((dropped.float() - plain.float()).abs().max()):.6f})")
     return err
@@ -2815,8 +2887,8 @@ def wkv6_vs_plain(serve: dict, seed: int, launches: dict,
     the seed; elementwise within ``ATTN_STEPS`` bf16 unit roundoffs of
     the plain version, a limit that the plain version without the bonus
     u (prefill) or without the carried state (decode) breaks; the final
-    state within 2e-5 of its largest magnitude.  No PyTorch op computes a
-    WKV scan: no library call."""
+    state within ``FP32_TOL`` of its largest magnitude.  No PyTorch op
+    computes a WKV scan: no library call."""
     cfg = serve["cfg"]
     dh = cfg.rwkv.head_dim
     H = cfg.d_model // dh
@@ -2842,7 +2914,8 @@ def wkv6_vs_plain(serve: dict, seed: int, launches: dict,
         s_err = float((got_state - plain_state).abs().max())
         s_max = float(plain_state.abs().max())
         check(bool(torch.isfinite(got_state).all()) and
-              s_err <= 2e-5 * s_max, f"{name}: the final state differs from "
+              s_err <= FP32_TOL * s_max, f"{name}: the final state differs "
+              f"from "
               f"the plain version's by {s_err} (largest {s_max})")
         say(f"{name}: final state max abs err {s_err:.3e} (largest "
             f"{s_max:.3f}); logw in [{float(logw.min()):.4f}, "
@@ -3029,18 +3102,18 @@ def ssd_draw(gen, T: int, H: int, dh: int, N: int, carried: bool) -> tuple:
 
 
 def close_fp32(name: str, got, plain, broken, variant: str) -> float:
-    """fp32 outputs within 2e-5 of the largest |plain|, a limit that
-    ``broken`` (a plain version without a term) must break."""
-    limit = 2e-5 * float(plain.abs().max())
+    """fp32 outputs within ``FP32_TOL`` of the largest |plain|, a limit
+    that ``broken`` (a plain version without a term) must break."""
+    limit = FP32_TOL * float(plain.abs().max())
     err = float((got - plain).abs().max())
     check(bool(torch.isfinite(got).all()) and err <= limit, f"{name}: "
           f"kernel differs from its plain version by {err} (limit {limit})")
     caught = int(((broken - plain).abs() > limit).sum())
     check(caught > 0, f"{name}: the limit does not see {variant}")
-    say(f"{name}: within 2e-5 of the largest |plain| (max abs err "
-        f"{err:.3e}, largest |plain| {float(plain.abs().max()):.6f}); "
-        f"{variant} breaks the limit at {caught} of {plain.numel()} "
-        "elements")
+    say(f"{name}: within {FP32_TOL} of the largest |plain| (max abs err "
+        f"{err:.3e}, largest |plain| {float(plain.abs().max()):.6f}, "
+        f"{err / limit if limit else 0.0:.4f} of the limit); {variant} "
+        f"breaks the limit at {caught} of {plain.numel()} elements")
     return err
 
 
@@ -3052,10 +3125,10 @@ def ssd_vs_plain(mp: dict, hybrid: dict, seed: int, launches: dict,
     fp32), and at the hybrid's reduced decode (fp32, where 7 of every 8
     of its launches are), on inputs drawn from the seed.  bf16 outputs
     elementwise within ``ATTN_STEPS`` bf16 unit roundoffs of the plain
-    version, fp32 within 2e-5 of the largest, limits that the plain
-    version without the s = t term (prefill) or without the carried state
-    (decode) breaks; the final state within 2e-5 of its largest
-    magnitude.  No PyTorch op computes an SSD scan: no library call."""
+    version, fp32 within ``FP32_TOL`` of the largest, limits that the
+    plain version without the s = t term (prefill) or without the carried
+    state (decode) breaks; the final state within ``FP32_TOL`` of its
+    largest magnitude.  No PyTorch op computes an SSD scan: no library call."""
     def widths(cfg):
         m = cfg.mamba
         return m.expand * cfg.d_model // m.head_dim, m.head_dim, m.d_state
@@ -3100,7 +3173,8 @@ def ssd_vs_plain(mp: dict, hybrid: dict, seed: int, launches: dict,
         s_err = float((got_state - plain_state).abs().max())
         s_max = float(plain_state.abs().max())
         check(bool(torch.isfinite(got_state).all()) and
-              s_err <= 2e-5 * s_max, f"{name}: the final state differs from "
+              s_err <= FP32_TOL * s_max, f"{name}: the final state differs "
+              f"from "
               f"the plain version's by {s_err} (largest {s_max})")
         say(f"{name}: final state max abs err {s_err:.3e} (largest "
             f"{s_max:.3f})")
@@ -3440,37 +3514,43 @@ def matrix_path(seed: int, dev) -> None:
 
 # -- the sixteenth path: training, and the attention backward kernel -------
 
-def train_full_width(seed: int) -> dict:
-    """(a) ``train`` of MiniCPM-2B at full width on the card for
-    ``TRAIN_STEPS`` steps, its train step wrapped to time each step on
-    the host clock (each ends in a synchronise) and to run the last one
-    under the profiler; no plain kernel version may run.  Returns the
-    run's dict, the plain versions' calls, the step times, the profile
-    and the peak card memory."""
-    timing = {"host_s": [], "prof": None}
-    real = train_mod.make_train_step
+def timed_step(step_fn, steps: int, timing: dict):
+    """``step_fn`` (a train step) wrapped to time each call on the host
+    clock into ``timing["host_s"]`` (each call starts and ends with a
+    synchronise) and to run the ``steps``-th call under the profiler,
+    into ``timing["prof"]`` (its host time recorded as None)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
-    def timed_factory(*a, **kw):
-        step_fn = real(*a, **kw)
-
-        def step(batch, state):
-            torch.cuda.synchronize()
-            if len(timing["host_s"]) == TRAIN_STEPS - 1:
-                with torch.profiler.profile(activities=acts) as prof:
-                    out = step_fn(batch, state)
-                    torch.cuda.synchronize()
-                timing["prof"] = prof
-                timing["host_s"].append(None)
-                return out
-            t0 = time.perf_counter()
-            out = step_fn(batch, state)
-            torch.cuda.synchronize()
-            timing["host_s"].append(time.perf_counter() - t0)
+    def step(batch, state):
+        torch.cuda.synchronize()
+        if len(timing["host_s"]) == steps - 1:
+            with torch.profiler.profile(activities=acts) as prof:
+                out = step_fn(batch, state)
+                torch.cuda.synchronize()
+            timing["prof"] = prof
+            timing["host_s"].append(None)
             return out
+        t0 = time.perf_counter()
+        out = step_fn(batch, state)
+        torch.cuda.synchronize()
+        timing["host_s"].append(time.perf_counter() - t0)
+        return out
 
-        return step
+    return step
+
+
+def train_full_width(seed: int) -> dict:
+    """(a) ``train`` of MiniCPM-2B at full width on the card for
+    ``TRAIN_STEPS`` steps, its train step wrapped by ``timed_step``; no
+    plain kernel version may run.  Returns the run's dict, the plain
+    versions' calls, the step times, the profile and the peak card
+    memory."""
+    timing = {"host_s": [], "prof": None}
+    real = train_mod.make_train_step
+
+    def timed_factory(*a, **kw):
+        return timed_step(real(*a, **kw), TRAIN_STEPS, timing)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3511,13 +3591,7 @@ def train_report(trained: dict) -> None:
           f"on the training path: {trained['plain']}")
     check(trained["peak_gb"] < TRAIN_PEAK_GB, f"peak card memory "
           f"{trained['peak_gb']:.3f} GB is over {TRAIN_PEAK_GB} GB")
-    host = [t for t in timing["host_s"][1:] if t is not None]
-    host_ms = sum(host) / len(host) * 1e3
-    kernels = [e for e in timing["prof"].key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
-    n_k = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    host_ms = step_times(TRAIN_ARCH, timing)
     say(f"training {TRAIN_ARCH} at full width: {n:,} parameters (the "
         f"config's count {cfg.param_count():,} and the final norm), B="
         f"{TRAIN_BATCH}, T={TRAIN_SEQ}, {TRAIN_STEPS} steps; losses "
@@ -3527,35 +3601,48 @@ def train_report(trained: dict) -> None:
                     for t in timing["host_s"])
         + f"; {host_ms:.3f} ms a step after the first; peak card memory "
         f"{trained['peak_gb']:.3f} GB")
-    say(f"training {TRAIN_ARCH} step (profiled): {dev_ms:.3f} ms of device "
+
+
+def step_times(tag: str, timing: dict) -> float:
+    """The mean host ms of the timed steps after the first, and a line of
+    the profiled step's device time, kernel count, device busy share
+    (device time over that mean, as ``decode_busy``) and top kernels."""
+    host = [t for t in timing["host_s"][1:] if t is not None]
+    host_ms = sum(host) / len(host) * 1e3
+    kernels = [e for e in timing["prof"].key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+    n_k = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    say(f"training {tag} step (profiled): {dev_ms:.3f} ms of device "
         f"time in {n_k} CUDA kernels; device busy share "
         f"{dev_ms / host_ms:.4f}; top kernels: " + "; ".join(
             f"{e.key[:50]} x{e.count} {e.device_time_total / 1e3:.4f} ms"
             for e in top))
+    return host_ms
 
 
-def train_cpu_check(params: dict, seed: int) -> None:
-    """(b) the trained weights cut to ``TRAIN_CHECK_LAYERS`` layers at
-    full width, upcast to fp32 (exactly), on the card and on the CPU:
-    one batch's loss within ``TRAIN_LOSS_TOL`` of the CPU's and each
-    leaf's gradient within ``TRAIN_GRAD_TOL`` of its largest |g| on the
-    CPU; fp32 products in full fp32 on the card (no TF32).  Frees both
-    models."""
+def grad_check(what: str, cfg, params: dict, seed: int, batch: int,
+               seq: int) -> None:
+    """A model of ``cfg`` holding ``params`` (a trained model's weights,
+    those of ``cfg``'s layers), upcast to fp32 (exactly), on the card and
+    on the CPU: one batch's loss within ``TRAIN_LOSS_TOL`` of the CPU's
+    and each leaf's gradient within ``TRAIN_GRAD_TOL`` of its largest
+    |g| on the CPU; fp32 products in full fp32 on the card (no TF32).
+    Frees both models."""
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
-                              n_layers=TRAIN_CHECK_LAYERS)
     card = LM(cfg, seed=seed, device="cuda")
     card.load_state_dict({name: params[name].float()
                           for name in card.state_dict()}, assign=True)
     cpu = copy.deepcopy(card).to("cpu")
     rng = np.random.default_rng(seed + 24)
-    toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab, size=(TRAIN_CHECK_BATCH, TRAIN_SEQ + 1)))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         size=(batch, seq + 1)))
+    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     losses, grads = [], []
     for lm in (card, cpu):
         lm.requires_grad_(True)
-        loss = lm.loss(batch)
+        loss = lm.loss(data)
         loss.backward()
         losses.append(loss.item())
         grads.append({name: p.grad.detach().cpu()
@@ -3567,19 +3654,27 @@ def train_cpu_check(params: dict, seed: int) -> None:
             float(want.abs().max()), 1e-30)
         if gap >= worst:
             worst, where = gap, name
-    say(f"training {TRAIN_ARCH} fp32 check ({TRAIN_CHECK_LAYERS} of 40 "
-        f"layers, full width, B={TRAIN_CHECK_BATCH}, T={TRAIN_SEQ}): loss "
-        f"card {losses[0]:.9f}, CPU {losses[1]:.9f} (relative "
-        f"{rel_loss:.3e}); worst gradient {worst:.3e} of its leaf's largest "
-        f"({where}), over {len(grads[1])} leaves; "
-        f"{time.perf_counter() - t0:.3f} s")
-    check(rel_loss <= TRAIN_LOSS_TOL, f"the card's fp32 loss differs from "
-          f"the CPU's by {rel_loss:.3e}")
-    check(worst <= TRAIN_GRAD_TOL, f"the card's fp32 gradient of {where} "
-          f"differs from the CPU's by {worst:.3e} of its largest")
+    say(f"{what} fp32 check (B={batch}, T={seq}): loss card "
+        f"{losses[0]:.9f}, CPU {losses[1]:.9f} (relative {rel_loss:.3e}); "
+        f"worst gradient {worst:.3e} of its leaf's largest ({where}), over "
+        f"{len(grads[1])} leaves; {time.perf_counter() - t0:.3f} s")
+    check(rel_loss <= TRAIN_LOSS_TOL, f"{what}: the card's fp32 loss "
+          f"differs from the CPU's by {rel_loss:.3e}")
+    check(worst <= TRAIN_GRAD_TOL, f"{what}: the card's fp32 gradient of "
+          f"{where} differs from the CPU's by {worst:.3e} of its largest")
     del card, cpu, grads
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def train_cpu_check(params: dict, seed: int) -> None:
+    """(b) the trained weights cut to ``TRAIN_CHECK_LAYERS`` layers at
+    full width, held card against CPU by ``grad_check``."""
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    grad_check(f"training {TRAIN_ARCH} ({TRAIN_CHECK_LAYERS} of 40 layers, "
+               "full width)", cfg, params, seed, TRAIN_CHECK_BATCH,
+               TRAIN_SEQ)
 
 
 def crash_restart_path(seed: int) -> dict:
@@ -3625,6 +3720,356 @@ def crash_restart_path(seed: int) -> dict:
     return out
 
 
+# -- the seventeenth path: training the recurrent families ----------------
+
+def recurrent_train(seed: int) -> dict:
+    """(a) RWKV6-7B at full width cut to ``RECUR_LAYERS`` layers:
+    ``RECUR_STEPS`` steps of ``make_train_step`` (AdamW at the
+    architecture's schedule) on the token pipeline's batches of
+    ``RECUR_BATCH`` x ``RECUR_SEQ``, as the JAX package's train loop
+    runs a step, wrapped by ``timed_step``; every plain version's calls
+    counted.
+    Returns the config, the losses, the trained weights, the timing, the
+    peak card memory and the plain versions' calls."""
+    cfg = dataclasses.replace(get_arch(RECUR_ARCH), n_layers=RECUR_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, seed=seed, device="cuda")
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=RECUR_SEQ,
+                                    global_batch=RECUR_BATCH, n_docs=256,
+                                    mean_doc_len=128, seed=seed),
+                         device=lm.device)
+    losses, timing = [], {"host_s": [], "prof": None}
+    step_fn = timed_step(make_train_step(lm, cfg.name,
+                                         total_steps=RECUR_STEPS),
+                         RECUR_STEPS, timing)
+    state = adamw.init(dict(lm.named_parameters()))
+    with counting_plain() as plain:
+        for _ in range(RECUR_STEPS):
+            batch = {k: torch.from_numpy(v).to(lm.device)
+                     for k, v in data.next_batch().items()}
+            loss, state = step_fn(batch, state)
+            losses.append(float(loss))
+            data.commit()
+    return {"cfg": cfg, "losses": losses, "params": lm.state_dict(),
+            "timing": timing, "plain": dict(plain),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def recurrent_report(trained: dict) -> None:
+    """(a)'s checks and numbers: the parameter count, every loss finite,
+    no plain version, peak memory under ``RECUR_PEAK_GB``; ms a step
+    after the first and the profiled step's device time, kernel count
+    and busy share."""
+    cfg, params, timing = trained["cfg"], trained["params"], trained["timing"]
+    n = sum(t.numel() for t in params.values())
+    check(n == RECUR_PARAMS, f"{RECUR_ARCH} at {RECUR_LAYERS} layers holds "
+          f"{n:,} parameters, not {RECUR_PARAMS:,}")
+    check(all(t.device.type == "cuda" for t in params.values()),
+          "the trained parameters are not on the card")
+    losses = trained["losses"]
+    check(len(losses) == RECUR_STEPS and bool(np.isfinite(losses).all()),
+          f"training {RECUR_ARCH} gave losses {losses}")
+    check(not any(trained["plain"].values()), "a plain kernel version ran "
+          f"on the recurrent training path: {trained['plain']}")
+    check(trained["peak_gb"] < RECUR_PEAK_GB, f"peak card memory "
+          f"{trained['peak_gb']:.3f} GB is over {RECUR_PEAK_GB} GB")
+    host_ms = step_times(f"{RECUR_ARCH} ({RECUR_LAYERS} of 32 layers)",
+                         timing)
+    say(f"training {RECUR_ARCH} at full width, {RECUR_LAYERS} of 32 layers: "
+        f"{n:,} parameters ({16 * n / 1e9:.3f} GB of training state at 16 "
+        f"bytes each; the config's count {cfg.param_count():,}), B="
+        f"{RECUR_BATCH}, T={RECUR_SEQ}, {RECUR_STEPS} steps; losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + "; step times (host clock) "
+        + ", ".join("profiled" if t is None else f"{t * 1e3:.3f} ms"
+                    for t in timing["host_s"])
+        + f"; {host_ms:.3f} ms a step after the first; peak card memory "
+        f"{trained['peak_gb']:.3f} GB")
+
+
+def hybrid_train(seed: int) -> dict:
+    """(c) ``train`` of the hybrid at ``reduced()`` on the card for
+    ``HYBRID_TRAIN``'s steps; every loss finite and no plain version.
+    Returns the run's dict."""
+    t0 = time.perf_counter()
+    with counting_plain() as plain:
+        out = train_mod.train(HYBRID_ARCH, reduced=True, seed=seed,
+                              verbose=False, device="cuda", **HYBRID_TRAIN)
+    losses = out["losses"]
+    check(out["final_step"] == HYBRID_TRAIN["steps"] == len(losses)
+          and bool(np.isfinite(losses).all()), f"training {HYBRID_ARCH} "
+          f"gave losses {losses}")
+    check(not any(plain.values()), "a plain kernel version ran on the "
+          f"hybrid's training: {plain}")
+    say(f"training {HYBRID_ARCH} at reduced(): B={HYBRID_TRAIN['batch']}, "
+        f"T={HYBRID_TRAIN['seq_len']}, {len(losses)} steps; losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def wkv_bwd_draw(gen, B: int, T: int, H: int, dh: int, dtype, logw_lo,
+                 carried: bool) -> tuple:
+    """r, k, v, do in ``dtype``; logw fp32 log-uniform in [logw_lo,
+    -0.001]; u fp32; with ``carried`` a state and the final state's
+    gradient fp32."""
+    dev = gen.device
+    r, k, v, do = (torch.randn((B, T, H, dh), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    lo, hi = np.log(1e-3), np.log(-logw_lo)
+    logw = -torch.exp(lo + (hi - lo) * torch.rand(
+        (B, T, H, dh), generator=gen, device=dev))
+    u = torch.randn((H, dh), generator=gen, device=dev)
+    state, dstate = (torch.randn((B, H, dh, dh), generator=gen, device=dev)
+                     if carried else None for _ in range(2))
+    return r, k, v, logw, u, do, state, dstate
+
+
+def ssd_bwd_draw(gen, B: int, T: int, H: int, dh: int, N: int, dtype,
+                 dt_hi: float, carried: bool) -> tuple:
+    """x, dy [B, T, H, dh] and B_, C_ [B, T, N] in ``dtype``; dt fp32 in
+    [0.001, dt_hi], A fp32 in [-1.5, -0.3]; with ``carried`` a state and
+    the final state's gradient fp32."""
+    dev = gen.device
+    x, dy = (torch.randn((B, T, H, dh), generator=gen, device=dev)
+             .to(dtype) for _ in range(2))
+    Bm, Cm = (torch.randn((B, T, N), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    dt = 0.001 + (dt_hi - 0.001) * torch.rand((B, T, H), generator=gen,
+                                              device=dev)
+    A = -(0.3 + 1.2 * torch.rand((H,), generator=gen, device=dev))
+    state, dstate = (torch.randn((B, H, dh, N), generator=gen, device=dev)
+                     if carried else None for _ in range(2))
+    return x, dt, Bm, Cm, A, dy, state, dstate
+
+
+def grads_close(name: str, parts: tuple, got, again, plain, broken,
+                variant: str) -> float:
+    """The backward kernel's outputs ``got`` against ``plain``, each by
+    ``close`` (bf16) or ``close_fp32`` (fp32), whose limit its output of
+    ``broken`` (a plain version with a fault that reaches every output)
+    must break; ``again`` (a second call) bit-identical.  Returns the max
+    abs error."""
+    check(all((a is None and b is None) or torch.equal(a, b)
+              for a, b in zip(got, again)), f"{name}: two calls on the same "
+          "inputs differ")
+    err = 0.0
+    for part, g, p, b in zip(parts, got, plain, broken):
+        if p is None:
+            check(g is None, f"{name} {part}: a gradient where none is due")
+            continue
+        check(g.dtype == p.dtype and g.shape == p.shape, f"{name} {part}: "
+              "an output of the wrong dtype or shape")
+        same = close if g.dtype == torch.bfloat16 else close_fp32
+        err = max(err, same(f"{name} {part}", g, p, b, variant))
+    say(f"{name}: two calls bit-identical")
+    return err
+
+
+def ends_dropped(grad: torch.Tensor) -> torch.Tensor:
+    """``grad`` [B, T, ...] with its first and last steps zeroed: a fault
+    that reaches every output of a scan's backward (the last step's
+    through the adjoint state to every earlier step, the first step's
+    into the input state's gradient however strong the decay)."""
+    cut = grad.clone()
+    cut[:, 0] = 0
+    cut[:, -1] = 0
+    return cut
+
+
+def recurrent_path(seed: int, launches: dict) -> None:
+    """The recurrent training path: (a) RWKV6-7B at full width cut to
+    ``RECUR_LAYERS`` layers, its launches counted and held to 8 of each
+    scan kernel a step; (b) its fp32 check; (c) the hybrid at
+    ``reduced()``, counted on its own, and its fp32 check.  Adds the
+    counts to ``launches``."""
+    t_recur = time.perf_counter()
+    reset_counts()
+    recur = recurrent_train(seed)
+    counts = read_counts()
+    say(f"recurrent training path (a): {time.perf_counter() - t_recur:.3f} "
+        f"s; kernel launches {counts}")
+    for name in ("wkv6", "wkv6_bwd"):
+        check(counts[name] == RECUR_STEPS * RECUR_LAYERS, f"{name} was "
+              f"launched {counts[name]} times in {RECUR_STEPS} training "
+              f"steps of {RECUR_LAYERS} RWKV6 layers")
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
+    recurrent_report(recur)
+    params = recur.pop("params")
+    del recur
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_check(f"training {RECUR_ARCH} ({RECUR_CHECK_LAYERS} of 32 layers, "
+               "full width)", dataclasses.replace(
+                   get_arch(RECUR_ARCH), n_layers=RECUR_CHECK_LAYERS),
+               params, seed, RECUR_CHECK_BATCH, RECUR_CHECK_SEQ)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    hybrid_out = hybrid_train(seed)
+    counts = read_counts()
+    say(f"recurrent training path (c): {time.perf_counter() - t0:.3f} s; "
+        f"kernel launches {counts}")
+    hybrid_cfg = get_arch(HYBRID_ARCH).reduced()
+    mixers = [mixer for mixer, _ in layer_kinds(hybrid_cfg)]
+    for name, mixer in (("ssd", "mamba"), ("ssd_bwd", "mamba"),
+                        ("flash_attention", "attn"),
+                        ("flash_attention_bwd", "attn")):
+        want = HYBRID_TRAIN["steps"] * mixers.count(mixer)
+        check(counts[name] == want, f"{name} was launched {counts[name]} "
+              f"times in the hybrid's training, not {want}")
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
+    grad_check(f"training {HYBRID_ARCH} at reduced()", hybrid_cfg,
+               hybrid_out["params"], seed, RECUR_CHECK_BATCH,
+               RECUR_CHECK_SEQ)
+    del hybrid_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"recurrent training path: {time.perf_counter() - t_recur:.3f} s")
+
+
+# the WKV6 backward's cases: RWKV6-7B's training shape in bf16 (the main
+# path's) and fp32 (the card-vs-CPU check's), then a ragged T with a
+# carried state, the final state's gradient and strong decays, and T = 1
+WKV_BWD_CASES = (
+    ("RWKV6-7B training", 8, 256, 64, 64, torch.bfloat16, -8.0, False),
+    ("RWKV6-7B training", 8, 256, 64, 64, torch.float32, -8.0, False),
+    ("ragged T, carried state, strong decay", 2, 77, 64, 64,
+     torch.bfloat16, -20.0, True),
+    ("T=1, carried state", 8, 1, 64, 64, torch.float32, -8.0, True))
+
+
+def wkv6_bwd_vs_plain(seed: int, launches: dict) -> list:
+    """wkv6_bwd against ``wkv6_bwd_plain`` at ``WKV_BWD_CASES`` within
+    ``grads_close``'s limits, which the plain version with the first and
+    last steps' do dropped (and, with a carried state, without the final
+    state's gradient) breaks on every output; two calls bit-identical;
+    the first case timed beside the plain version.  Bound: the bytes of
+    r, k, v, do, dr, dk, dv (bf16), logw and dlogw (fp32) over HBM
+    bandwidth against 12 FLOPs a state element a step at the fp32 rate.  No single op computes a scan's
+    gradient: no library call."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 26)
+    err, out = 0.0, None
+    for what, B, T, H, dh, dtype, logw_lo, carried in WKV_BWD_CASES:
+        name = (f"wkv6_bwd ({what}, B={B}, T={T}, H={H}, dh={dh}, "
+                f"{str(dtype)[6:]})")
+        draws = [wkv_bwd_draw(gen, B, T, H, dh, dtype, logw_lo, carried)
+                 for _ in range(2)]
+        r, k, v, logw, u, do, state, dstate = draws[0]
+        got = kwkv.wkv6_bwd(*draws[0])
+        again = kwkv.wkv6_bwd(*draws[0])
+        torch.cuda.synchronize()
+        plain = kwkv.wkv6_bwd_plain(*draws[0])
+        broken = kwkv.wkv6_bwd_plain(r, k, v, logw, u, ends_dropped(do),
+                                     state)
+        variant = ("the plain version with the first and last steps' do "
+                   "dropped" + (" and without the final state's gradient"
+                                if carried else ""))
+        err = max(err, grads_close(
+            name, ("dr", "dk", "dv", "dlogw", "du", "dstate"), got, again,
+            plain, broken, variant))
+        del got, again, plain, broken
+        if out is None:
+            timed = time_kernel(name, lambda *a: kwkv.wkv6_bwd(*a),
+                                lambda *a: kwkv.wkv6_bwd_plain(*a), draws,
+                                reps=16, plain_reps=2)
+            n = B * T * H * dh
+            n_bytes = 7 * 2 * n + 2 * 4 * n + 2 * 4 * H * dh
+            bms, by = bound(n_bytes, 12 * dh * dh * T * H * B)
+            say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes); "
+                "library call: none, no single op computes a scan's "
+                "gradient")
+            out = (timed, bms, by, f"{what}, B={B}, T={T}, H={H}, dh={dh}, "
+                   "bf16")
+        del draws
+    timed, bms, by, shape = out
+    say(f"wkv6_bwd: main-path launches {launches['wkv6_bwd']}")
+    return [row("wkv6_bwd", launches, err, timed, bms, by, None, shape)]
+
+
+# the SSD backward's cases: Jamba-1.5-Large's full-width mixer shape (the
+# ssd row's) in bf16 and fp32, then a ragged T with a carried state, the
+# final state's gradient and strong decays (dt A down to -12), T = 1, and
+# the hybrid's reduced() shapes (dh = 32, N = 8: another build of the
+# kernel): its training step's in bf16, from a carried state too, and
+# its fp32 check's (B = 2, T = 72)
+SSD_BWD_CASES = (
+    ("Jamba-1.5-Large Mamba mixer", 1, 4096, 256, 64, 16, torch.bfloat16,
+     0.4, False),
+    ("Jamba-1.5-Large Mamba mixer", 1, 4096, 256, 64, 16, torch.float32,
+     0.4, False),
+    ("ragged T, carried state, strong decay", 2, 1001, 256, 64, 16,
+     torch.bfloat16, 8.0, True),
+    ("T=1, carried state", 2, 1, 256, 64, 16, torch.float32, 0.4, True),
+    ("hybrid reduced() training", 8, 64, 8, 32, 8, torch.bfloat16, 0.4,
+     False),
+    ("hybrid reduced() training, carried state", 8, 64, 8, 32, 8,
+     torch.bfloat16, 0.4, True),
+    ("hybrid reduced() fp32 check, carried state", 2, 72, 8, 32, 8,
+     torch.float32, 0.4, True))
+
+
+def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
+    """ssd_bwd against ``ssd_bwd_plain`` at ``SSD_BWD_CASES`` within
+    ``grads_close``'s limits, which the plain version with the first and
+    last steps' dy dropped (and, with a carried state, without the final
+    state's gradient) breaks on every output; two calls bit-identical;
+    the first case timed beside the plain version.  Bound: the bytes of
+    x, dy, dx (bf16), dt and ddt (fp32), B_, C_, dB_, dC_ (bf16) and A,
+    dA over HBM bandwidth against 12 FLOPs a state element a step at the fp32 rate.
+    No single op computes a scan's gradient: no library call."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 27)
+    err, out = 0.0, None
+    for what, B, T, H, dh, N, dtype, dt_hi, carried in SSD_BWD_CASES:
+        name = (f"ssd_bwd ({what}, B={B}, T={T}, H={H}, dh={dh}, N={N}, "
+                f"{str(dtype)[6:]})")
+        draws = [ssd_bwd_draw(gen, B, T, H, dh, N, dtype, dt_hi, carried)
+                 for _ in range(2 if out is None else 1)]
+        x, dt, Bm, Cm, A, dy, state, dstate = draws[0]
+        got = kssd.ssd_bwd(*draws[0])
+        again = kssd.ssd_bwd(*draws[0])
+        torch.cuda.synchronize()
+        plain = kssd.ssd_bwd_plain(*draws[0])
+        broken = kssd.ssd_bwd_plain(x, dt, Bm, Cm, A, ends_dropped(dy),
+                                    state)
+        variant = ("the plain version with the first and last steps' dy "
+                   "dropped" + (" and without the final state's gradient"
+                                if carried else ""))
+        err = max(err, grads_close(
+            name, ("dx", "ddt", "dB_", "dC_", "dA", "dstate"), got, again,
+            plain, broken, variant))
+        del got, again, plain, broken
+        if out is None:
+            # the plain recurrence launches some 100,000 small kernels a
+            # call at T = 4096: one call gives its device time
+            timed = time_kernel(name, lambda *a: kssd.ssd_bwd(*a),
+                                lambda *a: kssd.ssd_bwd_plain(*a), draws,
+                                reps=16, plain_reps=1)
+            n, es = B * T * H * dh, x.element_size()
+            n_bytes = 3 * es * n + 2 * 4 * B * T * H + 4 * es * B * T * N \
+                + 2 * 4 * H
+            bms, by = bound(n_bytes, 12 * dh * N * T * H * B)
+            say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes); "
+                "library call: none, no single op computes a scan's "
+                "gradient")
+            out = (timed, bms, by, f"{what}, B={B}, T={T}, H={H}, dh={dh}, "
+                   f"N={N}, bf16")
+        del draws
+    timed, bms, by, shape = out
+    say(f"ssd_bwd: main-path launches {launches['ssd_bwd']}")
+    return [row("ssd_bwd", launches, err, timed, bms, by, None, shape)]
+
+
 def seen_pairs(T: int, S: int, window) -> int:
     """(query, key) pairs the causal mask, and the window, leave."""
     off = S - T
@@ -3656,12 +4101,15 @@ def sdpa_bwd(batches, H: int, Hk: int, window, reps: int):
 
 
 # the backward kernel's shapes: MiniCPM-2B's training shape (the main
-# path's), Qwen2-0.5B's heads at T = 512, and StarCoder2-15B's heads with
-# a window of 512 over T = 1100 (not a multiple of 64)
+# path's), Qwen2-0.5B's heads at T = 512, StarCoder2-15B's heads with a
+# window of 512 over T = 1100 (not a multiple of 64), and the hybrid's
+# training shape at reduced() (dh = 32, one kv head)
 BWD_SHAPES = (("MiniCPM-2B training", 8, 64, 36, 36, 64, None),
               ("Qwen2-0.5B T=512", 1, 512, 14, 2, 64, None),
               ("StarCoder2-15B heads, window 512", 1, 1100, 48, 4, 128,
-               512))
+               512),
+              ("Jamba-1.5-Large reduced() training", 8, 64, 4, 1, 32,
+               None))
 
 
 # the forward's log-sum-exp against the plain version's: each live row
@@ -3816,14 +4264,17 @@ def main(argv=None) -> int:
     check(set(built) >= {"probe", "art_descend", "scan_window",
                          "shard_route", "conflict_any", "flash_attention",
                          "flash_attention_bwd", "paged_attention",
-                         "clht_probe", "wkv6", "ssd"},
+                         "clht_probe", "wkv6", "wkv6_bwd", "ssd",
+                         "ssd_bwd"},
           "a kernel source was not built")
     logs = "".join(b.log for b in built.values())
     for name in ("partition_cluster_kernel", "partition_count_kernel",
                  "partition_scan_kernel", "partition_scatter_kernel",
                  "tag_probe_kernel", "clht_probe_kernel", "dq_tc_kernel",
                  "dkv_tc_kernel", "dkv_group_sum_kernel", "dq_simt_kernel",
-                 "dkv_simt_kernel"):
+                 "dkv_simt_kernel", "wkv6_bwd_kernel", "reduce_rows_kernel",
+                 "reduce_du_kernel", "ssd_bwd_kernel", "reduce_heads_kernel",
+                 "reduce_da_kernel"):
         check(name in logs, f"{name} is not in the build's kernels")
     for name, b in built.items():
         for line in ptxas_lines(b.log):
@@ -3977,6 +4428,8 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
 
+    recurrent_path(args.seed, launches)
+
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []
     for check_rows, fargs in (
@@ -3996,8 +4449,10 @@ def main(argv=None) -> int:
             (bwd_vs_plain, (args.seed, launches)),
             (clht_vs_plain, (tag, launches)),
             (wkv6_vs_plain, (rwkv, args.seed, launches, split["wkv6"])),
+            (wkv6_bwd_vs_plain, (args.seed, launches)),
             (ssd_vs_plain, (mamba, hybrid, args.seed, launches,
-                            split["ssd"]))):
+                            split["ssd"])),
+            (ssd_bwd_vs_plain, (args.seed, launches))):
         t0 = time.perf_counter()
         rows += check_rows(*fargs)
         say(f"{check_rows.__name__}: {time.perf_counter() - t0:.3f} s")

@@ -1,12 +1,17 @@
-"""The guard of the kernels that have no backward yet.
+"""The guard of the raw kernel wrappers under grad.
 
 A kernel launched through ctypes returns a tensor with no ``grad_fn``,
-so autograd through it would drop every gradient behind it without a
-word on the card, while on the CPU the plain versions are
-differentiable: the two devices would disagree silently.  The wrappers
-of ``wkv6``, ``ssd`` and ``paged_attention`` therefore refuse, on both
-devices, a call made with grad mode on and a floating input that
-requires grad.  Serving runs under ``no_grad`` and never meets it.
+so autograd through a raw wrapper would drop every gradient behind it
+without a word on the card, while on the CPU the plain versions are
+differentiable: the two devices would disagree silently.  The raw
+wrappers of ``wkv6``, ``ssd`` and ``paged_attention``, and the scans'
+backward wrappers ``wkv6_bwd`` and ``ssd_bwd``, therefore refuse, on
+both devices, a call made with grad mode on and a floating input that
+requires grad.  The public ops carry the gradient: ``wkv6_heads``,
+``ssd_heads`` and ``mha`` are autograd Functions whose forward calls
+the raw wrapper with grad mode off and whose backward launches the
+backward kernel.  ``paged_attention`` (decode) has no backward; serving
+runs under ``no_grad`` and never meets the guard.
 """
 
 from __future__ import annotations
@@ -22,8 +27,9 @@ def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
     if any(t is not None and t.is_floating_point() and t.requires_grad
            for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward kernel yet: call it under "
-            "torch.no_grad(), or with inputs that do not require grad")
+            f"{name} has no backward kernel of its own: call the "
+            "differentiable op (wkv6_heads, ssd_heads, mha), or call it "
+            "under torch.no_grad() or with inputs that do not require grad")
 
 
 __all__ = ["refuse_grad"]

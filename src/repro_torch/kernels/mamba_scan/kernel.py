@@ -1,4 +1,5 @@
-"""The SSD kernel's wrapper (``csrc/ssd.cu``).
+"""The SSD kernels' wrappers: the scan (``csrc/ssd.cu``) and its
+gradient (``csrc/ssd_bwd.cu``).
 
 ``ssd`` is the port's form of the JAX package's
 ``kernels/mamba_scan/kernel.py`` ``ssd``, in the model's layout: x
@@ -12,9 +13,23 @@ prefill (T > 1) runs three CUDA kernels (chunk increments, the pass
 over the chunks, the outputs) over a scratch this wrapper allocates;
 T = 1 and fp32 run one.
 
+``ssd_bwd`` computes (dx, ddt, dB_, dC_, dA, and the input state's
+gradient) of that function from the output's gradient and, optionally,
+the final state's.  No TPU kernel is its counterpart: the JAX package
+trains the hybrid through XLA's autodiff of its jnp chunked form.  On
+CUDA tensors it launches the three CUDA kernels of its source over an
+fp32 scratch it allocates (``ssd_bwd_scratch_floats`` in the source:
+the states entering each 16-step chunk and the heads' dB_, dC_
+partials, 403 MB at Jamba's full-width mixer shape), or raises; on CPU
+tensors it runs ``ref.ssd_bwd_plain``.
+
+Both refuse to run under grad with an input that requires it
+(``grad_guard``): ``ops.ssd_heads`` is the differentiable op.
+
 ``LAUNCHES`` counts calls that launched the kernels, one a call however
-many CUDA kernels it runs, under the TPU kernel's name; a call on CPU
-tensors launches nothing and counts nothing.
+many CUDA kernels it runs, under the TPU kernel's name and the
+backward's under ``ssd_bwd``; a call on CPU tensors launches nothing
+and counts nothing.
 """
 
 from __future__ import annotations
@@ -27,10 +42,10 @@ import torch
 
 from ... import build
 from ..grad_guard import refuse_grad
-from .ref import ssd_plain
+from .ref import ssd_bwd_plain, ssd_plain
 
 #: CUDA launches since the last ``reset_launches``
-LAUNCHES: Dict[str, int] = {"ssd": 0}
+LAUNCHES: Dict[str, int] = {"ssd": 0, "ssd_bwd": 0}
 
 HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
 STATE_DIMS = (8, 16)       # and the state widths
@@ -55,6 +70,18 @@ def _library() -> ctypes.CDLL:
     lib.ssd_scratch_floats.restype = ctypes.c_longlong
     lib.ssd_error_string.argtypes = [_I]
     lib.ssd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("ssd_bwd")
+    lib.ssd_bwd.argtypes = [_P] * 15 + [_I] * 6 + [_P]
+    lib.ssd_bwd.restype = _I
+    lib.ssd_bwd_scratch_floats.argtypes = [_I] * 5
+    lib.ssd_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.ssd_bwd_error_string.argtypes = [_I]
+    lib.ssd_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -87,6 +114,34 @@ def _check(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def _card_check(x: torch.Tensor, N: int, named) -> None:
+    """Raise on what the CUDA kernels do not take: a head width outside
+    ``HEAD_DIMS``, a state width outside ``STATE_DIMS``, a dtype outside
+    ``DTYPES``, a float32 input (dt, A and the states) of another type, a
+    strided input."""
+    dh = x.shape[-1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if N not in STATE_DIMS:
+        raise ValueError(f"the CUDA kernel takes d_state in {STATE_DIMS}, "
+                         f"got {N}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 x, B_, "
+                        f"C_, got {x.dtype}")
+    for name, t in named:
+        if t is None:
+            continue
+        if name in _FP32 and t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes float32 {name}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+_FP32 = ("dt", "A", "state", "dstate")
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
         C_: torch.Tensor, A: torch.Tensor,
         state: Optional[torch.Tensor] = None
@@ -107,24 +162,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
         raise ValueError(f"ssd takes CUDA or CPU tensors, not {dev}")
     Bsz, T, H, dh = x.shape
     N = B_.shape[-1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {dh}")
-    if N not in STATE_DIMS:
-        raise ValueError(f"the CUDA kernel takes d_state in {STATE_DIMS}, "
-                         f"got {N}")
-    if x.dtype not in DTYPES:
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 x, B_, "
-                        f"C_, got {x.dtype}")
-    for name, t in (("dt", dt), ("A", A)) + (
-            (("state", state),) if state is not None else ()):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernel takes float32 {name}, got "
-                            f"{t.dtype}")
-    for name, t in (("x", x), ("dt", dt), ("B_", B_), ("C_", C_), ("A", A),
-                    ("state", state)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _card_check(x, N, (("x", x), ("dt", dt), ("B_", B_), ("C_", C_),
+                       ("A", A), ("state", state)))
     # the state is read as float4s, a bf16 prefill's inputs by cp.async
     wide = (("state", state),) if state is not None else ()
     if x.dtype == torch.bfloat16 and T > 1:
@@ -160,5 +199,73 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     return y, state_out
 
 
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+            C_: torch.Tensor, A: torch.Tensor, dy: torch.Tensor,
+            state: Optional[torch.Tensor] = None,
+            dstate: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd`` over the same inputs, from the output's
+    gradient ``dy`` [B, T, H, dh] (x's dtype) and the final state's,
+    ``dstate`` [B, H, dh, N] float32 (zeros when None, as a trainer that
+    drops the final state leaves it).  Returns (dx in x's dtype, ddt
+    [B, T, H] float32, dB_ and dC_ [B, T, N] in x's dtype, summed over
+    heads, dA [H] float32, and the input state's gradient [B, H, dh, N]
+    float32, or None when ``state`` is None)."""
+    _check(x, dt, B_, C_, A, state)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be x's shape, dtype and device, got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    Bsz, T, H, dh = x.shape
+    N = B_.shape[-1]
+    if dstate is not None and (dstate.shape != (Bsz, H, dh, N)
+                               or dstate.device != x.device):
+        raise ValueError(f"dstate must be [B={Bsz}, H={H}, dh={dh}, N={N}] "
+                         f"on {x.device}, got {tuple(dstate.shape)} on "
+                         f"{dstate.device}")
+    refuse_grad("ssd_bwd", x, dt, B_, C_, A, dy, state, dstate)
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_bwd_plain(x, dt, B_, C_, A, dy, state, dstate)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_bwd takes CUDA or CPU tensors, not {dev}")
+    _card_check(x, N, (("x", x), ("dt", dt), ("B_", B_), ("C_", C_),
+                       ("A", A), ("dy", dy), ("state", state),
+                       ("dstate", dstate)))
+    dx = torch.empty_like(x)
+    ddt = torch.empty(Bsz, T, H, dtype=torch.float32, device=dev)
+    dB, dC = torch.zeros_like(B_), torch.zeros_like(C_)
+    dA = torch.zeros(H, dtype=torch.float32, device=dev)
+    dstate_in = None
+    if state is not None:
+        dstate_in = torch.empty(Bsz, H, dh, N, dtype=torch.float32,
+                                device=dev)
+    if Bsz == 0 or H == 0 or T == 0:
+        if dstate_in is not None:
+            if dstate is None:
+                dstate_in.zero_()
+            else:
+                dstate_in.copy_(dstate)
+        return dx, ddt, dB, dC, dA, dstate_in
+    lib = _bwd_library()
+    scratch = torch.empty(lib.ssd_bwd_scratch_floats(Bsz, T, H, dh, N),
+                          dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_bwd(ptr(x), ptr(dt), ptr(B_), ptr(C_), ptr(A),
+                          ptr(state), ptr(dy), ptr(dstate), ptr(dx),
+                          ptr(ddt), ptr(dB), ptr(dC), ptr(dA),
+                          ptr(dstate_in), ptr(scratch), Bsz, T, H, dh, N,
+                          DTYPES[x.dtype], stream)
+    if err:
+        raise RuntimeError("ssd_bwd kernel launch failed: "
+                           + lib.ssd_bwd_error_string(err).decode())
+    LAUNCHES["ssd_bwd"] += 1
+    return dx, ddt, dB, dC, dA, dstate_in
+
+
 __all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "STATE_DIMS", "reset_launches",
-           "ssd"]
+           "ssd", "ssd_bwd"]

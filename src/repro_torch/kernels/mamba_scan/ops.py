@@ -1,4 +1,4 @@
-"""Public SSD op over the SSD kernel.
+"""Public SSD op over the SSD kernels.
 
 ``ssd_heads`` is the port's form of the JAX package's
 ``kernels/mamba_scan/ops.py`` ``ssd_heads``: the same layout at its
@@ -10,6 +10,13 @@ batch row for every head and carries the state, so ``ssd_heads``
 returns (output, final state) and takes a state in.  The Pallas
 ``chunk`` has no counterpart: the CUDA kernel's chunk is fixed and it
 masks the ragged last chunk itself.
+
+``ssd_heads`` is a ``torch.autograd.Function``: its forward is ``ssd``
+(its inputs saved), its backward ``ssd_bwd`` on the same inputs, so a
+training step differentiates through the kernels (the JAX package
+differentiates its jnp chunked form with XLA).  The final state's
+gradient arrives as zeros, or as None when autograd has none, and the
+backward takes both.  On the CPU both run their plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +25,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from .kernel import ssd
+from .kernel import ssd, ssd_bwd
+
+
+class _SSD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, xh, dt, B_, C_, A, state):
+        y, final = ssd(xh, dt, B_, C_, A, state)
+        ctx.save_for_backward(xh, dt, B_, C_, A, state)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        xh, dt, B_, C_, A, state = ctx.saved_tensors
+        # autograd may hand the gradients over strided
+        return ssd_bwd(xh, dt, B_, C_, A, dy.contiguous(), state,
+                       dfinal.contiguous() if dfinal is not None else None)
 
 
 def ssd_heads(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
@@ -27,8 +50,8 @@ def ssd_heads(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xh: [B, T, H, dh]; dt: [B, T, H]; B_, C_: [B, T, N]; A: [H];
     state: [B, H, dh, N] or None.  Returns (y [B, T, H, dh],
-    state [B, H, dh, N])."""
-    return ssd(xh, dt, B_, C_, A, state)
+    state [B, H, dh, N]), differentiable in every input."""
+    return _SSD.apply(xh, dt, B_, C_, A, state)
 
 
 __all__ = ["ssd_heads"]

@@ -1,4 +1,5 @@
-"""The WKV6 kernel's wrapper (``csrc/wkv6.cu``).
+"""The WKV6 kernels' wrappers: the scan (``csrc/wkv6.cu``) and its
+gradient (``csrc/wkv6_bwd.cu``).
 
 ``wkv6`` is the port's form of the JAX package's
 ``kernels/rwkv6_scan/kernel.py`` ``wkv6``, in the model's layout: r, k,
@@ -11,9 +12,23 @@ selects between the two.  A bf16 prefill (T > 1) runs three CUDA
 kernels (chunk increments, the pass over the chunks, the outputs) over
 a scratch this wrapper allocates; T = 1 and fp32 run one.
 
+``wkv6_bwd`` computes (dr, dk, dv, dlogw, du, and the input state's
+gradient) of that function from the output's gradient and, optionally,
+the final state's.  No TPU kernel is its counterpart: the JAX package
+trains RWKV6 through XLA's autodiff of its jnp chunked form.  On CUDA
+tensors it launches the three CUDA kernels of its source over an fp32
+scratch it allocates (``wkv6_bwd_scratch_floats`` in the source: the
+states entering each 16-step chunk and the column slices' partials,
+537 MB at RWKV6-7B's training shape), or raises; on CPU tensors it
+runs ``ref.wkv6_bwd_plain``.
+
+Both refuse to run under grad with an input that requires it
+(``grad_guard``): ``ops.wkv6_heads`` is the differentiable op.
+
 ``LAUNCHES`` counts calls that launched the kernels, one a call however
-many CUDA kernels it runs, under the TPU kernel's name; a call on CPU
-tensors launches nothing and counts nothing.
+many CUDA kernels it runs, under the TPU kernel's name and the
+backward's under ``wkv6_bwd``; a call on CPU tensors launches nothing
+and counts nothing.
 """
 
 from __future__ import annotations
@@ -26,10 +41,10 @@ import torch
 
 from ... import build
 from ..grad_guard import refuse_grad
-from .ref import wkv6_plain
+from .ref import wkv6_bwd_plain, wkv6_plain
 
 #: CUDA launches since the last ``reset_launches``
-LAUNCHES: Dict[str, int] = {"wkv6": 0}
+LAUNCHES: Dict[str, int] = {"wkv6": 0, "wkv6_bwd": 0}
 
 HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,6 +68,18 @@ def _library() -> ctypes.CDLL:
     lib.wkv6_scratch_floats.restype = ctypes.c_longlong
     lib.wkv6_error_string.argtypes = [_I]
     lib.wkv6_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("wkv6_bwd")
+    lib.wkv6_bwd.argtypes = [_P] * 15 + [_I] * 5 + [_P]
+    lib.wkv6_bwd.restype = _I
+    lib.wkv6_bwd_scratch_floats.argtypes = [_I] * 4
+    lib.wkv6_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.wkv6_bwd_error_string.argtypes = [_I]
+    lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -82,6 +109,30 @@ def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
 
 
+def _card_check(r: torch.Tensor, named) -> None:
+    """Raise on what the CUDA kernels do not take: a head width outside
+    ``HEAD_DIMS``, a dtype outside ``DTYPES``, a float32 input (logw, u
+    and the states) of another type, a strided input."""
+    dh = r.shape[-1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if r.dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 r, k, "
+                        f"v, got {r.dtype}")
+    for name, t in named:
+        if t is None:
+            continue
+        if name in _FP32 and t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes float32 {name}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+_FP32 = ("logw", "u", "state", "dstate")
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor,
          state: Optional[torch.Tensor] = None
@@ -101,21 +152,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"wkv6 takes CUDA or CPU tensors, not {dev}")
     B, T, H, dh = r.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {dh}")
-    if r.dtype not in DTYPES:
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 r, k, "
-                        f"v, got {r.dtype}")
-    for name, t in (("logw", logw), ("u", u)) + (
-            (("state", state),) if state is not None else ()):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernel takes float32 {name}, got "
-                            f"{t.dtype}")
-    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
-                    ("state", state)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _card_check(r, (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
+                    ("state", state)))
     # the state is read as float4s, a bf16 prefill's inputs by cp.async
     wide = (("state", state),) if state is not None else ()
     if r.dtype == torch.bfloat16 and T > 1:
@@ -151,4 +189,70 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, state_out
 
 
-__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "reset_launches", "wkv6"]
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+             state: Optional[torch.Tensor] = None,
+             dstate: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``wkv6`` over the same inputs, from the output's
+    gradient ``do`` [B, T, H, dh] (r's dtype) and the final state's,
+    ``dstate`` [B, H, dh, dh] float32 (zeros when None, as a trainer that
+    drops the final state leaves it).  Returns (dr, dk, dv in r's dtype,
+    dlogw [B, T, H, dh] float32, du [H, dh] float32, and the input
+    state's gradient [B, H, dh, dh] float32, or None when ``state`` is
+    None)."""
+    _check(r, k, v, logw, u, state)
+    if do.shape != r.shape or do.dtype != r.dtype or do.device != r.device:
+        raise ValueError(f"do must be r's shape, dtype and device, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    B, T, H, dh = r.shape
+    if dstate is not None and (dstate.shape != (B, H, dh, dh)
+                               or dstate.device != r.device):
+        raise ValueError(f"dstate must be [B={B}, H={H}, dh, dh] on "
+                         f"{r.device}, got {tuple(dstate.shape)} on "
+                         f"{dstate.device}")
+    refuse_grad("wkv6_bwd", r, k, v, logw, u, do, state, dstate)
+    dev = r.device
+    if dev.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, logw, u, do, state, dstate)
+    if dev.type != "cuda":
+        raise ValueError(f"wkv6_bwd takes CUDA or CPU tensors, not {dev}")
+    _card_check(r, (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
+                    ("do", do), ("state", state), ("dstate", dstate)))
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dlogw = torch.empty(B, T, H, dh, dtype=torch.float32, device=dev)
+    du = torch.zeros(H, dh, dtype=torch.float32, device=dev)
+    dstate_in = None
+    if state is not None:
+        dstate_in = torch.empty(B, H, dh, dh, dtype=torch.float32,
+                                device=dev)
+    if B == 0 or H == 0 or T == 0:
+        if dstate_in is not None:
+            if dstate is None:
+                dstate_in.zero_()
+            else:
+                dstate_in.copy_(dstate)
+        return dr, dk, dv, dlogw, du, dstate_in
+    lib = _bwd_library()
+    scratch = torch.empty(lib.wkv6_bwd_scratch_floats(B, T, H, dh),
+                          dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.wkv6_bwd(ptr(r), ptr(k), ptr(v), ptr(logw), ptr(u),
+                           ptr(state), ptr(do), ptr(dstate), ptr(dr),
+                           ptr(dk), ptr(dv), ptr(dlogw), ptr(du),
+                           ptr(dstate_in), ptr(scratch), B, T, H, dh,
+                           DTYPES[r.dtype], stream)
+    if err:
+        raise RuntimeError("wkv6_bwd kernel launch failed: "
+                           + lib.wkv6_bwd_error_string(err).decode())
+    LAUNCHES["wkv6_bwd"] += 1
+    return dr, dk, dv, dlogw, du, dstate_in
+
+
+__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "reset_launches", "wkv6",
+           "wkv6_bwd"]

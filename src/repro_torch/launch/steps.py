@@ -3,7 +3,8 @@
 
 A train step runs the loss forward and ``loss.backward()`` through the
 port's kernels (attention forward and backward on the flash-attention
-kernels), then AdamW at the architecture's schedule (WSD for MiniCPM,
+kernels, RWKV6's and Mamba's scans forward and backward on the WKV6 and
+SSD kernels), then AdamW at the architecture's schedule (WSD for MiniCPM,
 cosine otherwise) at step ``state.step + 1``; the model's parameters
 are updated in place, where the JAX step returns new ones.
 

@@ -2,7 +2,7 @@
 
 Every layer of the substrate in one loop:
   data pipeline (resumable cursor)  ->  train step (forward, backward on
-  the flash-attention kernels, AdamW + WSD)  ->  RECIPE checkpoint store
+  the attention and scan kernels, AdamW + WSD)  ->  RECIPE checkpoint store
   (atomic generation commit)  ->  fleet monitor (heartbeats, stragglers)
 
 ``kill_at_step`` power-fails the metadata plane mid-run and then
@@ -15,9 +15,9 @@ versions), reduced by default as there, or at full width with
 ``reduced=False``, with weights drawn at random from ``seed``.  A
 configuration whose training state (16 bytes a parameter: bf16 weights
 and gradients, fp32 moments and master copy) does not fit one card is
-refused at full width before anything is allocated.  Families with an
-RWKV6 or Mamba mixer, Whisper and InternVL are not trainable yet
-(``check_trainable``).  The checkpoint store holds a leaf of at most
+refused at full width before anything is allocated.  Every decoder-only
+family trains (attention, RWKV6, and the Mamba + attention + MoE
+hybrid); Whisper and InternVL are not ported (``check_trainable``).  The checkpoint store holds a leaf of at most
 65,528 words (the JAX store's limit too), so a full-width model cannot
 be checkpointed: run it for fewer steps than ``ckpt_every``.
 

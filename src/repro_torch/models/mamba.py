@@ -10,8 +10,10 @@ over a sequence with the jnp chunked form (``_ssd_chunked``) and in
 decode with a one-step update.  The port runs both on the SSD kernel
 (``kernels.mamba_scan.ssd_heads``): over the prompt from a zero state,
 and in decode at T = 1 from the carried ``ssm`` state, one launch per
-layer per step.  On the card that is the CUDA kernel, on the CPU its
-plain PyTorch version.  The kernel keeps the scan in fp32 and rounds
+layer per step; in training ``ssd_heads``' backward runs the SSD
+gradient kernel (``ssd_bwd``), one launch per layer per step.  On the
+card those are the CUDA kernels, on the CPU their plain PyTorch
+versions.  The kernel keeps the scan in fp32 and rounds
 the output once, where ``_ssd_chunked`` rounds its in-chunk terms to
 the activations' dtype: in fp32 the two agree, in bf16 they differ by
 bf16 rounding.  Decode hands the kernel fp32 inputs, so its output, the

@@ -17,9 +17,10 @@ one layer (one superblock for the hybrid); DeepSeek-MoE has ``dense0``
 times).
 
 Training (``forward`` and ``loss`` over a batch of tokens and labels)
-runs the families whose every mixer is attention, dense or MoE
-(``check_trainable``): the backward of the flash-attention kernel is
-ported, the scans' backward kernels (``wkv6``, ``ssd``) are not yet.
+runs every family the port runs (``check_trainable``): attention
+through ``mha`` (the flash-attention kernel and its backward), RWKV6's
+WKV through ``wkv6_heads`` and Mamba's SSD through ``ssd_heads`` (each
+scan kernel and its backward).
 
 ``LM`` is an ``nn.Module`` holding its parameters under the JAX
 package's names: ``embed``, ``final_norm.w``, ``lm_head`` (untied
@@ -106,16 +107,11 @@ def check_ported(cfg: ArchConfig) -> None:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for a configuration the port cannot train yet: those it
-    cannot run at all (``check_ported``) and those with an RWKV6 or Mamba
-    mixer, whose scans have no backward kernel yet."""
+    """Raise for a configuration the port cannot train: exactly those it
+    cannot run (``check_ported``: encoder-decoder and VLM).  Every mixer
+    it runs has a backward kernel: attention, RWKV6's WKV and Mamba's
+    SSD."""
     check_ported(cfg)
-    mixers = {mixer for mixer, _ in layer_kinds(cfg)}
-    if mixers != {"attn"}:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) is not yet ported: its "
-            f"{sorted(mixers - {'attn'})} mixers' scans have no backward "
-            "kernel yet (their scans' backward kernels are the next slice)")
 
 
 def group_plan(cfg: ArchConfig) -> List[Tuple[str, List[Tuple[str, str]],
@@ -240,14 +236,26 @@ class LM(nn.Module):
         """``batch["tokens"]``: [B, T] int.  Returns (logits [B, T, V] in
         the activations' dtype, the MoE layers' summed aux loss, a 0-d
         fp32 tensor), with ``_apply_block``'s full-sequence semantics:
-        causal attention with the config's window, then the MLP or MoE."""
+        causal attention with the config's window or a Mamba mixer (from
+        a zero state), then the MLP or MoE; or RWKV6's time mix and then
+        its channel mix under ``ln2``, with no FFN."""
         cfg = self.cfg
         check_trainable(cfg)
         x = self.embed[batch["tokens"].to(self.device)]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.layers:
             h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            x, a = self._ffn_aux(blk, x + attn.attn_forward(blk.attn, h, cfg))
+            mixer = blk.kind[0]
+            if mixer == "rwkv":
+                x = x + rwkv_mod.rwkv_forward(blk.rwkv, h, cfg)
+                h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
+                x = x + rwkv_mod.channel_mix(blk.rwkv, h2)
+                continue
+            if mixer == "mamba":
+                y = mamba_mod.mamba_forward(blk.mamba, h, cfg)
+            else:
+                y = attn.attn_forward(blk.attn, h, cfg)
+            x, a = self._ffn_aux(blk, x + y)
             if a is not None:
                 aux = aux + a
         return self._logits(x), aux

@@ -12,8 +12,9 @@ The JAX package computes it over a sequence with the jnp chunked form
 einsum (``rwkv_decode``).  The port runs both on the WKV6 kernel
 (``kernels.rwkv6_scan.wkv6_heads``): over the prompt from a zero state,
 and in decode at T = 1 from the carried state, one launch per layer per
-step.  On the card that is the CUDA kernel, on the CPU its plain
-PyTorch version.  The kernel keeps the whole WKV in fp32 and rounds the
+step; in training ``wkv6_heads``' backward runs the WKV6 gradient
+kernel (``wkv6_bwd``), one launch per layer per step.  On the card those
+are the CUDA kernels, on the CPU their plain PyTorch versions.  The kernel keeps the whole WKV in fp32 and rounds the
 output once, where ``_wkv_chunked`` rounds its in-chunk terms to the
 activations' dtype: in fp32 the two agree, in bf16 they differ by bf16
 rounding.

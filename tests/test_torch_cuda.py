@@ -21,7 +21,12 @@ float32 outputs and every final state agree within 2e-5 of their
 largest magnitude, and bfloat16 outputs elementwise within 4 bf16 unit
 roundoffs (2^-8) of the plain value plus 4 * 2^-16 of the largest.  The
 SSD kernel does the same for the Mamba-2 scan (its chunked form against
-the step-by-step recurrence), held to the same limits.
+the step-by-step recurrence), held to the same limits.  The scans'
+backward kernels (``wkv6_bwd``, ``ssd_bwd``) walk the same recurrences
+as their plain versions, summing in another order: bf16 gradients
+elementwise within the attention's 4 bf16 unit roundoffs, float32 ones
+(and every fp32 output: dlogw, du, ddt, dA, the input state's gradient)
+within 2e-5 of their largest magnitude, two calls bit-identical.
 """
 
 import numpy as np
@@ -29,7 +34,7 @@ import pytest
 import torch
 
 from repro_torch.api import Plan, open_index
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, layer_kinds
 from repro_torch.core.ycsb import generate
 from repro_torch.core import PART, PHOT, PMem
 from repro_torch.kernels import art_probe as kart
@@ -1310,3 +1315,168 @@ def test_train_with_crash_restart_on_card(card):
         assert kflash.LAUNCHES[name] == before[name] + \
             steps_run * cfg.n_layers, name
     assert all(t.device.type == "cuda" for t in out["params"].values())
+
+
+# ----------------------------------------------------------------------
+# the scans' backward kernels (wkv6_bwd, ssd_bwd)
+# ----------------------------------------------------------------------
+SCAN_BWD_TOL = 2e-5
+
+
+def scan_grads_close(names, got, plain):
+    for name, g, p in zip(names, got, plain):
+        if p is None:
+            assert g is None, name
+            continue
+        assert g.dtype == p.dtype and g.shape == p.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        diff = (g.float() - p.float()).abs()
+        if g.dtype == torch.bfloat16:
+            assert bool((diff <= attn_limit(p)).all()), \
+                (name, float((diff / attn_limit(p)).max()))
+        else:
+            assert float(diff.max()) <= SCAN_BWD_TOL * \
+                float(p.abs().max()), (name, float(diff.max()))
+
+
+def wkv_bwd_inputs(rng, B, T, H, dh, dtype, device, hi, carried):
+    """r, k, v, do in ``dtype``; logw fp32 in [-hi, -0.001]; u fp32; with
+    ``carried`` a state and the final state's gradient."""
+    r, k, v, do = (normal(rng, (B, T, H, dh), dtype, device)
+                   for _ in range(4))
+    logw = -torch.from_numpy(rng.uniform(0.001, hi, size=(B, T, H, dh))
+                             .astype(np.float32)).to(device)
+    u = normal(rng, (H, dh), torch.float32, device)
+    state, dstate = (normal(rng, (B, H, dh, dh), torch.float32, device)
+                     if carried else None for _ in range(2))
+    return r, k, v, logw, u, do, state, dstate
+
+
+@pytest.mark.parametrize("B,T,H,dh,dtype,hi,carried", [
+    (8, 256, 64, 64, torch.bfloat16, 0.15, False),  # RWKV6-7B training
+    (2, 256, 8, 64, torch.float32, 0.15, False),
+    (2, 37, 4, 32, torch.float32, 20.0, True),      # ragged, strong decay
+    (1, 1, 3, 64, torch.bfloat16, 8.0, True),       # T = 1
+    (1, 1, 3, 128, torch.float32, 8.0, True),
+    (2, 17, 3, 128, torch.bfloat16, 20.0, True),
+    (1, 300, 2, 64, torch.float32, 20.0, True),
+    (2, 32, 4, 32, torch.bfloat16, 0.15, False),    # RWKV6 at reduced()
+])
+def test_wkv6_bwd_matches_plain_version(card, B, T, H, dh, dtype, hi,
+                                        carried):
+    rng = np.random.default_rng(T + H + dh + 11)
+    args = wkv_bwd_inputs(rng, B, T, H, dh, dtype, card, hi, carried)
+    before = kwkv.LAUNCHES["wkv6_bwd"]
+    got = kwkv.wkv6_bwd(*args)
+    again = kwkv.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert kwkv.LAUNCHES["wkv6_bwd"] == before + 2
+    for a, b in zip(got, again):  # no atomics
+        assert (a is None and b is None) or torch.equal(a, b)
+    plain = kwkv.wkv6_bwd_plain(*args)
+    scan_grads_close(("dr", "dk", "dv", "dlogw", "du", "dstate"), got, plain)
+
+
+def ssd_bwd_inputs(rng, B, T, H, dh, N, dtype, device, dt_hi, carried):
+    x, dy = (normal(rng, (B, T, H, dh), dtype, device) for _ in range(2))
+    Bm, Cm = (normal(rng, (B, T, N), dtype, device) for _ in range(2))
+    dt = torch.from_numpy(rng.uniform(0.001, dt_hi, size=(B, T, H))
+                          .astype(np.float32)).to(device)
+    A = -torch.from_numpy(rng.uniform(0.3, 1.5, size=(H,))
+                          .astype(np.float32)).to(device)
+    state, dstate = (normal(rng, (B, H, dh, N), torch.float32, device)
+                     if carried else None for _ in range(2))
+    return x, dt, Bm, Cm, A, dy, state, dstate
+
+
+@pytest.mark.parametrize("B,T,H,dh,N,dtype,dt_hi,carried", [
+    (1, 4096, 256, 64, 16, torch.bfloat16, 0.4, False),  # Jamba's mixer
+    (2, 300, 16, 64, 16, torch.float32, 0.4, True),
+    (2, 37, 8, 32, 8, torch.float32, 8.0, True),   # ragged, strong decay
+    (1, 1, 4, 64, 16, torch.bfloat16, 0.4, True),  # T = 1
+    (1, 1, 4, 128, 8, torch.float32, 0.4, True),
+    (3, 33, 5, 128, 16, torch.bfloat16, 8.0, True),
+    (2, 32, 8, 32, 8, torch.bfloat16, 0.4, False),  # the hybrid reduced()
+])
+def test_ssd_bwd_matches_plain_version(card, B, T, H, dh, N, dtype, dt_hi,
+                                       carried):
+    rng = np.random.default_rng(T + H + dh + N + 13)
+    args = ssd_bwd_inputs(rng, B, T, H, dh, N, dtype, card, dt_hi, carried)
+    before = kssd.LAUNCHES["ssd_bwd"]
+    got = kssd.ssd_bwd(*args)
+    again = kssd.ssd_bwd(*args)
+    torch.cuda.synchronize()
+    assert kssd.LAUNCHES["ssd_bwd"] == before + 2
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    plain = kssd.ssd_bwd_plain(*args)
+    scan_grads_close(("dx", "ddt", "dB_", "dC_", "dA", "dstate"), got, plain)
+
+
+def test_scan_bwd_raises_and_never_falls_back(card):
+    rng = np.random.default_rng(3)
+    r, k, v, logw, u, do, _, _ = wkv_bwd_inputs(rng, 1, 4, 2, 48,
+                                                torch.float32, card, 1.0,
+                                                False)
+    with pytest.raises(ValueError, match="head_dim"):
+        kwkv.wkv6_bwd(r, k, v, logw, u, do)
+    r, k, v, logw, u, do, _, _ = wkv_bwd_inputs(rng, 1, 4, 2, 32,
+                                                torch.float32, card, 1.0,
+                                                False)
+    with pytest.raises(TypeError, match="float32 logw"):
+        kwkv.wkv6_bwd(r, k, v, logw.double(), u, do)
+    with pytest.raises(ValueError, match="contiguous"):
+        kwkv.wkv6_bwd(r, k, v, logw, u, do.transpose(1, 2).contiguous()
+                      .transpose(1, 2))
+    x, dt, Bm, Cm, A, dy, _, _ = ssd_bwd_inputs(rng, 1, 4, 2, 32, 12,
+                                                torch.float32, card, 0.4,
+                                                False)
+    with pytest.raises(ValueError, match="d_state"):
+        kssd.ssd_bwd(x, dt, Bm, Cm, A, dy)
+
+
+def test_scan_heads_autograd_run_both_kernels(card):
+    """Autograd through ``wkv6_heads`` and ``ssd_heads`` on the card
+    launches each forward once and each backward once, and agrees with
+    autograd of the plain versions, the carried state's gradient
+    included."""
+    rng = np.random.default_rng(21)
+    wkv = wkv_bwd_inputs(rng, 2, 70, 3, 64, torch.float32, card, 2.0, True)
+    ssd = ssd_bwd_inputs(rng, 2, 70, 3, 64, 16, torch.float32, card, 0.4,
+                         True)
+    for kmod, op, plain, fwd, (*inputs, g_out, state, g_state) in (
+            (kwkv, kwkv.wkv6_heads, kwkv.wkv6_plain, "wkv6", wkv),
+            (kssd, kssd.ssd_heads, kssd.ssd_plain, "ssd", ssd)):
+        inputs.append(state)
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        before = dict(kmod.LAUNCHES)
+        out, final = op(*leaves)
+        ((out * g_out).sum() + (final * g_state).sum()).backward()
+        assert kmod.LAUNCHES[fwd] == before[fwd] + 1
+        assert kmod.LAUNCHES[fwd + "_bwd"] == before[fwd + "_bwd"] + 1
+        ref = [t.clone().requires_grad_() for t in inputs]
+        o, f = plain(*ref)
+        ((o * g_out).sum() + (f * g_state).sum()).backward()
+        for a, b in zip(leaves, ref):
+            assert float((a.grad - b.grad).abs().max()) <= \
+                SCAN_BWD_TOL * float(b.grad.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_recurrent_families_train_on_card(card, arch):
+    """``train`` at ``reduced()`` on the card: every step's scans
+    forward and backward on the kernels (RWKV6: every layer's WKV;
+    the hybrid: 7 Mamba mixers and one attention layer)."""
+    from repro_torch.launch.train import train
+    cfg = get_arch(arch).reduced()
+    before = {**kwkv.LAUNCHES, **kssd.LAUNCHES, **kflash.LAUNCHES}
+    out = train(arch, reduced=True, steps=3, batch=2, seq_len=32,
+                ckpt_every=10, verbose=False, device="cuda")
+    assert out["final_step"] == 3 and np.isfinite(out["losses"]).all()
+    kinds = [mixer for mixer, _ in layer_kinds(cfg)]
+    after = {**kwkv.LAUNCHES, **kssd.LAUNCHES, **kflash.LAUNCHES}
+    for name, mixer in (("wkv6", "rwkv"), ("wkv6_bwd", "rwkv"),
+                        ("ssd", "mamba"), ("ssd_bwd", "mamba"),
+                        ("flash_attention", "attn"),
+                        ("flash_attention_bwd", "attn")):
+        assert after[name] - before[name] == 3 * kinds.count(mixer), name

@@ -1,7 +1,7 @@
 """The port's training slice (repro_torch, ``device="cpu"``) against the
-JAX package: ``LM.loss`` and its gradients, the train step over several
-steps, the training driver with its crash and restart, and the
-configurations that are refused.
+JAX package: ``LM.loss`` and its gradients (attention, MoE, RWKV6 and
+the Mamba hybrid), the train step over several steps, ``train`` with
+its crash and restart, and the configurations that are refused.
 
 The JAX package initialises each reduced configuration from
 ``PRNGKey(0)``; ``convert.lm_params_from_arrays`` carries its
@@ -76,14 +76,19 @@ def rel(t, j):
 @pytest.mark.parametrize("arch,T", [("qwen2-0.5b", 24),
                                     ("minicpm-2b", 24),
                                     ("starcoder2-15b", 80),
-                                    ("deepseek-moe-16b", 20)],
+                                    ("deepseek-moe-16b", 20),
+                                    ("rwkv6-7b", 37),
+                                    ("jamba-1.5-large-398b", 37)],
                          ids=["qwen2", "minicpm", "starcoder2-window",
-                              "deepseek-moe"])
+                              "deepseek-moe", "rwkv6", "jamba-hybrid"])
 def test_loss_and_grads_match_jax(arch, T):
     """Qwen2 (tied head, qkv biases), MiniCPM (untied head), StarCoder2
     (LayerNorm, GELU; T = 80 past its reduced window of 64, so the
-    window masks keys) and DeepSeek-MoE (a dense layer 0, shared
-    experts, the aux loss in the objective)."""
+    window masks keys), DeepSeek-MoE (a dense layer 0, shared experts,
+    the aux loss in the objective), RWKV6 (the WKV scan and its
+    backward, the channel mix; T = 37 over the JAX chunk of 16, ragged)
+    and the Jamba hybrid (Mamba mixers' SSD scan and its backward,
+    attention, MLP and MoE; T = 37 ragged over the chunk of 16)."""
     jm, jp, lm, cfg = fp32_pair(arch)
     if arch == "starcoder2-15b":
         assert cfg.sliding_window == 64 < T
@@ -109,11 +114,10 @@ def test_loss_and_grads_match_jax(arch, T):
         assert rel(g, want[name].numpy()) <= GRAD_TOL, name
 
 
-def test_train_steps_match_jax():
-    """Five steps of MiniCPM (WSD) from carried-across fp32 params and
+def steps_match_jax(arch, steps):
+    """``steps`` train steps from carried-across fp32 params and
     optimizer state, on the pipelines' batches, against the JAX jit
-    step."""
-    arch, steps = "minicpm-2b", 5
+    step: losses, moments and parameters."""
     jm, jp, lm, cfg = fp32_pair(arch)
     dcfg = dict(vocab=cfg.vocab, seq_len=32, global_batch=2, n_docs=64,
                 mean_doc_len=64, seed=0)
@@ -147,6 +151,17 @@ def test_train_steps_match_jax():
         diff = (p.detach() - params[name]).abs()
         limit = 2 * lr + 1e-6 * params[name].abs().max()
         assert bool((diff <= limit).all()), name
+
+
+def test_train_steps_match_jax():
+    """Five steps of MiniCPM (WSD) against the JAX jit step."""
+    steps_match_jax("minicpm-2b", 5)
+
+
+def test_rwkv6_train_steps_match_jax():
+    """Four steps of RWKV6 (cosine; the WKV scan and its backward, T = 32
+    over the reduced chunk of 16) against the JAX jit step."""
+    steps_match_jax("rwkv6-7b", 4)
 
 
 def test_train_with_injected_crash_restart_matches_jax():
@@ -200,9 +215,9 @@ def test_lm_arrays_from_params_is_the_jax_tree(arch):
         assert np.array_equal(t.float().numpy(), np.asarray(j, np.float32))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b",
-                                  "whisper-tiny", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
 def test_check_trainable_refuses_scans_and_unported(arch):
+    """Only what the port cannot run: encoder-decoder and VLM."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         check_trainable(get_arch(arch).reduced())
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -211,8 +226,10 @@ def test_check_trainable_refuses_scans_and_unported(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "minicpm-2b",
                                   "starcoder2-15b", "deepseek-moe-16b",
-                                  "mixtral-8x22b", "codeqwen1.5-7b"])
+                                  "mixtral-8x22b", "codeqwen1.5-7b",
+                                  "rwkv6-7b", "jamba-1.5-large-398b"])
 def test_check_trainable_takes_attention_families(arch):
+    """Every decoder-only family, the scans' included."""
     check_trainable(get_arch(arch))
 
 
