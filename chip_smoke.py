@@ -259,17 +259,21 @@ Phases, each of which exits non-zero on failure:
    (B = 8, T = 256, H = 64, dh = 64) and Jamba's full-width mixer shape
    (B = 1, T = 4096, H = 256, dh = 64, N = 16), in bf16 and fp32, and at
    a ragged T with a carried state, the final state's gradient and
-   strong decays, at T = 1, and (SSD) at the hybrid's reduced() training
-   and fp32-check shapes: bf16 gradients within the same limit, fp32
-   ones within ``FP32_TOL`` of their largest magnitude (each output's
-   share of its limit printed), which the plain version with the first
-   and last steps' output gradient dropped (and without the final
-   state's gradient) breaks on every output, two calls bit-identical;
-   then per-launch
-   times at the main path's shape (device time from the profiler, call
-   time from CUDA events), beside the plain version's, a library call's
-   where one computes the same function, and the least time the card
-   could take (``bound_ms``).
+   strong decays, at T = 1, at T = 63, 65 and 129 from a carried state
+   (the chunked form's edges), and (SSD) at the hybrid's reduced()
+   training and fp32-check shapes: bf16 gradients within the same
+   limit, fp32 ones within ``FP32_TOL`` of their largest magnitude (each
+   output's share of its limit printed), which the plain version with
+   the first and last steps' output gradient dropped (and without the
+   final state's gradient) breaks on every output, two calls
+   bit-identical, and in bf16 at the main path's shapes the call that
+   takes the forward's chunk states (as the autograd ops make it)
+   bit-identical to the one that recomputes them;
+   then per-launch times at the main path's shape (device time from the
+   profiler over ``PROFILED_REPS`` calls, call time from CUDA events),
+   beside the plain version's (one warm call, then one profiled call), a
+   library call's where one computes the same function, and the least
+   time the card could take (``bound_ms``); each phase's seconds.
 
 The last two lines are the ``kernels`` JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -347,6 +351,12 @@ HIGH = -(1 << 63)  # 2^63 as an int64 bit pattern
 # bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
+# calls a kernel's time is profiled over (its event-timed calls are more)
+PROFILED_REPS = 32
+# what the profiler records: the card's kernels, copies and fills, the
+# only events any reading here takes (host events multiply the trace's
+# size and the time to read it)
+CARD_ACTIVITY = [torch.profiler.ProfilerActivity.CUDA]
 BF16_FLOPS_PER_S = 989e12
 SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "probe64": "src/repro_torch/csrc/probe.cu",
@@ -1124,11 +1134,11 @@ def time_calls(fn, batches, reps: int):
     most rows the batches touch are not in L2 (the main path's plans
     probe different keys each time).  Call ms: CUDA events around
     ``reps`` back-to-back calls, host launch cost included.  Device ms:
-    for each CUDA kernel the profiler records over ``reps`` calls, its
-    mean duration times its launches a call, summed; or None when it
-    records none.  (The profiler may miss a window's first launches: 50
-    of 64 were recorded in one H100 run, so the recorded total over
-    ``reps`` would read low.)"""
+    for each CUDA kernel the profiler records over ``PROFILED_REPS``
+    calls (``reps`` where fewer), its mean duration times its launches a
+    call, summed; or None when it records none.  (The profiler may miss
+    a window's first launches: 50 of 64 were recorded in one H100 run,
+    so the recorded total over the calls would read low.)"""
     for b in batches[-4:]:
         fn(*b)
     torch.cuda.synchronize()
@@ -1140,21 +1150,43 @@ def time_calls(fn, batches, reps: int):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    return profiled(fn, batches, min(reps, PROFILED_REPS)), call_ms
+
+
+def profiled(fn, batches, calls: int):
+    """Device ms a call of ``fn`` over ``calls`` calls under the
+    profiler (see ``time_calls``), its three longest kernels printed;
+    None when it records no device kernel."""
+    acts = CARD_ACTIVITY
     with torch.profiler.profile(activities=acts) as prof:
-        for i in range(reps):
+        for i in range(calls):
             fn(*batches[i % len(batches)])
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.device_time_total / e.count * max(1, round(e.count / reps))
+    dev_us = sum(e.device_time_total / e.count * max(1, round(e.count / calls))
                  for e in kernels if e.count)
     names = sorted(kernels, key=lambda e: -e.device_time_total)[:3]
     say("  profiler: " + ("; ".join(
         f"{e.key[:60]} x{e.count} {e.device_time_total:.1f} us"
         for e in names) or "no device kernels recorded"))
-    return (dev_us / 1e3 if dev_us > 0 else None), call_ms
+    return dev_us / 1e3 if dev_us > 0 else None
+
+
+def time_plain(fn, batches):
+    """(device ms, call ms) of one call of a plain version: one warm
+    call, then one call under the profiler with CUDA events around it
+    (the plain versions are no yardstick of speed, and some take
+    seconds a call)."""
+    fn(*batches[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    dev_ms = profiled(fn, batches[-1:], 1)
+    end.record()
+    torch.cuda.synchronize()
+    return dev_ms, start.elapsed_time(end)
 
 
 def bound(n_bytes: float, ops: float):
@@ -1187,13 +1219,13 @@ def row(name: str, launches: dict, err: int, timed: dict, bms: float,
             "library_ms": library_ms, "shape": shape}
 
 
-def time_kernel(name: str, fn, plain_fn, batches, reps: int = 640,
-                plain_reps: int = 32) -> dict:
+def time_kernel(name: str, fn, plain_fn, batches, reps: int = 640) -> dict:
     """The kernel's and the plain version's time per call: the card's
     time where the profiler saw the kernels, else the event time per
-    call (which then includes the host's launch cost)."""
+    call (which then includes the host's launch cost).  The plain
+    version is timed once (``time_plain``)."""
     dev_ms, call_ms = time_calls(fn, batches, reps)
-    plain_dev, plain_call = time_calls(plain_fn, batches, plain_reps)
+    plain_dev, plain_call = time_plain(plain_fn, batches)
     say(f"{name}: device {dev_ms} ms, call {call_ms:.6f} ms per launch; "
         f"plain: device {plain_dev} ms, call {plain_call:.6f} ms")
     return {"ms": dev_ms if dev_ms is not None else call_ms,
@@ -1419,7 +1451,7 @@ def pack_vs_plain(tag: str, arrays, pages, unit_bits: int) -> tuple:
         return table, hdr
     timed = {"ms": time_in_place(kart.kernel.pack_entries, fresh, 5),
              "plain_ms": time_in_place(kart.ref.pack_entries_plain, fresh,
-                                       3)}
+                                       1)}
     say(f"art_pack_entries ({tag}): {timed['ms']:.6f} ms a call, plain "
         f"{timed['plain_ms']:.6f} ms (CUDA events around the call)")
     # each entry read and written once, each row's header read once;
@@ -2326,8 +2358,7 @@ def decode_busy(serve: dict) -> None:
     t0 = time.perf_counter()
     run(len(prompt))
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = CARD_ACTIVITY
     with torch.profiler.profile(activities=acts) as prof:
         run(len(prompt))
         torch.cuda.synchronize()
@@ -2524,7 +2555,7 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
                                                                 window=W),
                          lambda a, b, c: kflash.attention_plain(a, b, c,
                                                                 window=W),
-                         batches, reps=64, plain_reps=4)
+                         batches, reps=64)
     seen = sum(min(i + 1, W) for i in range(T_long))  # keys the queries see
     wbms, wby = attn_bound(2 * (2 * T_long * cH * cdh
                                 + 2 * T_long * cHk * cdh),
@@ -2745,8 +2776,7 @@ def device_ops(fn, calls: int = 32) -> tuple:
     runs: each CUDA kernel, copy and fill the profiler records over
     ``calls`` calls, after a profiled warm-up (the profiler may miss a
     window's first launches, so a count may read low, never high)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = CARD_ACTIVITY
     for n in (4, calls):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n):
@@ -2930,8 +2960,7 @@ def wkv6_vs_plain(serve: dict, seed: int, launches: dict,
         # minutes, and 4 give its device time as well
         timed = time_kernel(name, lambda *a: kwkv.wkv6(*a),
                             lambda *a: kwkv.wkv6_plain(*a), batches,
-                            reps=64 if T > 1 else 640,
-                            plain_reps=4 if T > 1 else 32)
+                            reps=64 if T > 1 else 640)
         n = T * H * dh
         n_bytes = 2 * 4 * n + 4 * n + 4 * H * dh \
             + 4 * H * dh * dh * (2 if carried else 1)
@@ -3178,12 +3207,9 @@ def ssd_vs_plain(mp: dict, hybrid: dict, seed: int, launches: dict,
               f"the plain version's by {s_err} (largest {s_max})")
         say(f"{name}: final state max abs err {s_err:.3e} (largest "
             f"{s_max:.3f})")
-        # the plain recurrence launches some 25,000 small kernels a call
-        # at T = 4096 (1.4 s): one call gives its device time
         timed = time_kernel(name, lambda *a: kssd.ssd(*a),
                             lambda *a: kssd.ssd_plain(*a), batches,
-                            reps=64 if T > 1 else 640,
-                            plain_reps=1 if T > 1 else 32)
+                            reps=64 if T > 1 else 640)
         n, es = T * H * dh, x.element_size()
         # x and y, dt fp32, B_ and C_, A, the state in (when carried) and
         # out in fp32
@@ -3519,8 +3545,7 @@ def timed_step(step_fn, steps: int, timing: dict):
     clock into ``timing["host_s"]`` (each call starts and ends with a
     synchronise) and to run the ``steps``-th call under the profiler,
     into ``timing["prof"]`` (its host time recorded as None)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = CARD_ACTIVITY
 
     def step(batch, state):
         torch.cuda.synchronize()
@@ -3936,13 +3961,37 @@ def recurrent_path(seed: int, launches: dict) -> None:
 
 # the WKV6 backward's cases: RWKV6-7B's training shape in bf16 (the main
 # path's) and fp32 (the card-vs-CPU check's), then a ragged T with a
-# carried state, the final state's gradient and strong decays, and T = 1
+# carried state, the final state's gradient and strong decays, T = 1, and
+# the chunked form's edges (a chunk of 64 one short, one over, two and
+# one over) with a carried state
 WKV_BWD_CASES = (
     ("RWKV6-7B training", 8, 256, 64, 64, torch.bfloat16, -8.0, False),
     ("RWKV6-7B training", 8, 256, 64, 64, torch.float32, -8.0, False),
     ("ragged T, carried state, strong decay", 2, 77, 64, 64,
      torch.bfloat16, -20.0, True),
-    ("T=1, carried state", 8, 1, 64, 64, torch.float32, -8.0, True))
+    ("T=1, carried state", 8, 1, 64, 64, torch.float32, -8.0, True),
+    ("T=63, carried state", 2, 63, 64, 64, torch.bfloat16, -8.0, True),
+    ("T=65, carried state", 2, 65, 64, 64, torch.bfloat16, -20.0, True),
+    ("T=129, carried state", 2, 129, 64, 64, torch.bfloat16, -8.0, True))
+
+
+def wkv_bwd_flops(B: int, T: int, H: int, dh: int) -> float:
+    """The chunked backward's matrix products, each counted once: per
+    (b, h) and chunk of C = 64 steps the two state increments, dr's,
+    dk's and dv's inter-chunk terms (2 C dh^2 each) and five causal
+    C x C x dh products (D = do v^T, dr's and dk's intra-chunk terms, the
+    scores A and A^T do)."""
+    C, nc = 64, -(-T // 64)
+    return B * H * nc * (12 * C * dh * dh + 5 * C * C * dh)
+
+
+def ssd_bwd_flops(B: int, T: int, H: int, dh: int, N: int) -> float:
+    """The same for the SSD backward: per (b, h) and chunk the two state
+    increments, dC_'s, dx's and dB_'s inter-chunk terms (2 C dh N each),
+    the causal dy x^T and (C B^T * L) dy (C^2 dh each) and the two W
+    products with B_ and C_ (C^2 N each)."""
+    C, nc = 64, -(-T // 64)
+    return B * H * nc * (10 * C * dh * N + 2 * C * C * dh + 2 * C * C * N)
 
 
 def wkv6_bwd_vs_plain(seed: int, launches: dict) -> list:
@@ -3952,8 +4001,10 @@ def wkv6_bwd_vs_plain(seed: int, launches: dict) -> list:
     state's gradient) breaks on every output; two calls bit-identical;
     the first case timed beside the plain version.  Bound: the bytes of
     r, k, v, do, dr, dk, dv (bf16), logw and dlogw (fp32) over HBM
-    bandwidth against 12 FLOPs a state element a step at the fp32 rate.  No single op computes a scan's
-    gradient: no library call."""
+    bandwidth against the chunked form's products (``wkv_bwd_flops``) at
+    the bf16 tensor-core rate; the serial form's 12 FLOPs a state element
+    a step at the fp32 rate printed beside it.  No single op computes a
+    scan's gradient: no library call."""
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 26)
@@ -3978,29 +4029,56 @@ def wkv6_bwd_vs_plain(seed: int, launches: dict) -> list:
             plain, broken, variant))
         del got, again, plain, broken
         if out is None:
-            timed = time_kernel(name, lambda *a: kwkv.wkv6_bwd(*a),
-                                lambda *a: kwkv.wkv6_bwd_plain(*a), draws,
-                                reps=16, plain_reps=2)
+            # the main path's form: the states entering each chunk from
+            # the forward's scratch, as wkv6_heads passes them, the same
+            # bits as when the backward recomputes them
+            kept = [kwkv.wkv6(*d[:5], d[6], keep_states=True)[1:]
+                    for d in draws]
+            again = kwkv.wkv6_bwd(*draws[0], saved=kept[0][1],
+                                  final=kept[0][0])
+            check(all((a is None and b is None) or torch.equal(a, b)
+                      for a, b in zip(again, kwkv.wkv6_bwd(*draws[0]))),
+                  f"{name}: the backward from the forward's chunk states "
+                  "differs from the one that recomputes them")
+            say(f"{name}: from the forward's chunk states bit-identical")
+            del again
+            timed = time_kernel(
+                name, lambda *a: kwkv.wkv6_bwd(*a[:8], saved=a[9],
+                                               final=a[8]),
+                lambda *a: kwkv.wkv6_bwd_plain(*a[:8]),
+                [d + k for d, k in zip(draws, kept)], reps=16)
+            dev_ms, call_ms = time_calls(lambda *a: kwkv.wkv6_bwd(*a), draws,
+                                         16)
+            timed["recompute_ms"] = dev_ms if dev_ms is not None else call_ms
+            say(f"{name}, recomputing the chunk states: device {dev_ms} ms, "
+                f"call {call_ms:.6f} ms per launch")
+            del kept
             n = B * T * H * dh
             n_bytes = 7 * 2 * n + 2 * 4 * n + 2 * 4 * H * dh
-            bms, by = bound(n_bytes, 12 * dh * dh * T * H * B)
-            say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes); "
-                "library call: none, no single op computes a scan's "
-                "gradient")
+            bms, by = attn_bound(n_bytes, wkv_bwd_flops(B, T, H, dh))
+            lane_ms, _ = bound(n_bytes, 12 * dh * dh * T * H * B)
+            scratch = kwkv.kernel._bwd_library().wkv6_bwd_scratch_floats(
+                B, T, H, dh, kwkv.kernel.DTYPES[dtype]) * 4
+            say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes; "
+                f"the serial form's fp32-lane bound {lane_ms:.9f} ms); "
+                f"scratch {scratch / 1e6:.3f} MB a call; library call: "
+                "none, no single op computes a scan's gradient")
             out = (timed, bms, by, f"{what}, B={B}, T={T}, H={H}, dh={dh}, "
                    "bf16")
         del draws
     timed, bms, by, shape = out
     say(f"wkv6_bwd: main-path launches {launches['wkv6_bwd']}")
-    return [row("wkv6_bwd", launches, err, timed, bms, by, None, shape)]
+    return [dict(row("wkv6_bwd", launches, err, timed, bms, by, None, shape),
+                 recompute_ms=timed["recompute_ms"])]
 
 
 # the SSD backward's cases: Jamba-1.5-Large's full-width mixer shape (the
 # ssd row's) in bf16 and fp32, then a ragged T with a carried state, the
-# final state's gradient and strong decays (dt A down to -12), T = 1, and
-# the hybrid's reduced() shapes (dh = 32, N = 8: another build of the
+# final state's gradient and strong decays (dt A down to -12), T = 1, the
+# hybrid's reduced() shapes (dh = 32, N = 8: another build of the
 # kernel): its training step's in bf16, from a carried state too, and
-# its fp32 check's (B = 2, T = 72)
+# its fp32 check's (B = 2, T = 72), and the chunked form's edges (a chunk
+# of 64 one short, one over, two and one over) with a carried state
 SSD_BWD_CASES = (
     ("Jamba-1.5-Large Mamba mixer", 1, 4096, 256, 64, 16, torch.bfloat16,
      0.4, False),
@@ -4014,7 +4092,11 @@ SSD_BWD_CASES = (
     ("hybrid reduced() training, carried state", 8, 64, 8, 32, 8,
      torch.bfloat16, 0.4, True),
     ("hybrid reduced() fp32 check, carried state", 2, 72, 8, 32, 8,
-     torch.float32, 0.4, True))
+     torch.float32, 0.4, True),
+    ("T=63, carried state", 2, 63, 256, 64, 16, torch.bfloat16, 0.4, True),
+    ("T=65, carried state", 2, 65, 256, 64, 16, torch.bfloat16, 8.0, True),
+    ("T=129, carried state", 2, 129, 256, 64, 16, torch.bfloat16, 0.4,
+     True))
 
 
 def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
@@ -4022,19 +4104,24 @@ def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
     ``grads_close``'s limits, which the plain version with the first and
     last steps' dy dropped (and, with a carried state, without the final
     state's gradient) breaks on every output; two calls bit-identical;
-    the first case timed beside the plain version.  Bound: the bytes of
-    x, dy, dx (bf16), dt and ddt (fp32), B_, C_, dB_, dC_ (bf16) and A,
-    dA over HBM bandwidth against 12 FLOPs a state element a step at the fp32 rate.
-    No single op computes a scan's gradient: no library call."""
+    the first case timed beside the plain version, and the hybrid's
+    reduced() training case, where its main-path launches are, timed
+    alone (``reduced_ms``).  Bound: the bytes of x, dy, dx (bf16), dt and
+    ddt (fp32), B_, C_, dB_, dC_ (bf16) and A, dA over HBM bandwidth
+    against the chunked form's products (``ssd_bwd_flops``) at the bf16
+    tensor-core rate; the serial form's 12 FLOPs a state element a step
+    at the fp32 rate printed beside it.  No single op computes a scan's
+    gradient: no library call."""
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 27)
-    err, out = 0.0, None
+    err, out, reduced_ms = 0.0, None, None
     for what, B, T, H, dh, N, dtype, dt_hi, carried in SSD_BWD_CASES:
         name = (f"ssd_bwd ({what}, B={B}, T={T}, H={H}, dh={dh}, N={N}, "
                 f"{str(dtype)[6:]})")
+        timed_here = out is None or (what == "hybrid reduced() training")
         draws = [ssd_bwd_draw(gen, B, T, H, dh, N, dtype, dt_hi, carried)
-                 for _ in range(2 if out is None else 1)]
+                 for _ in range(2 if timed_here else 1)]
         x, dt, Bm, Cm, A, dy, state, dstate = draws[0]
         got = kssd.ssd_bwd(*draws[0])
         again = kssd.ssd_bwd(*draws[0])
@@ -4049,25 +4136,55 @@ def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
             name, ("dx", "ddt", "dB_", "dC_", "dA", "dstate"), got, again,
             plain, broken, variant))
         del got, again, plain, broken
+        if timed_here:
+            # the main path's form: the states entering each chunk from
+            # the forward's scratch, as ssd_heads passes them, the same
+            # bits as when the backward recomputes them
+            kept = [kssd.ssd(*d[:5], d[6], keep_states=True)[2:]
+                    for d in draws]
+            again = kssd.ssd_bwd(*draws[0], saved=kept[0][0])
+            check(all((a is None and b is None) or torch.equal(a, b)
+                      for a, b in zip(again, kssd.ssd_bwd(*draws[0]))),
+                  f"{name}: the backward from the forward's chunk states "
+                  "differs from the one that recomputes them")
+            say(f"{name}: from the forward's chunk states bit-identical")
+            del again
+            with_states = [d + k for d, k in zip(draws, kept)]
         if out is None:
-            # the plain recurrence launches some 100,000 small kernels a
-            # call at T = 4096: one call gives its device time
-            timed = time_kernel(name, lambda *a: kssd.ssd_bwd(*a),
-                                lambda *a: kssd.ssd_bwd_plain(*a), draws,
-                                reps=16, plain_reps=1)
+            timed = time_kernel(
+                name, lambda *a: kssd.ssd_bwd(*a[:8], saved=a[8]),
+                lambda *a: kssd.ssd_bwd_plain(*a[:8]), with_states, reps=16)
+            dev_ms, call_ms = time_calls(lambda *a: kssd.ssd_bwd(*a), draws,
+                                         16)
+            timed["recompute_ms"] = dev_ms if dev_ms is not None else call_ms
+            say(f"{name}, recomputing the chunk states: device {dev_ms} ms, "
+                f"call {call_ms:.6f} ms per launch")
             n, es = B * T * H * dh, x.element_size()
             n_bytes = 3 * es * n + 2 * 4 * B * T * H + 4 * es * B * T * N \
                 + 2 * 4 * H
-            bms, by = bound(n_bytes, 12 * dh * N * T * H * B)
-            say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes); "
-                "library call: none, no single op computes a scan's "
-                "gradient")
+            bms, by = attn_bound(n_bytes, ssd_bwd_flops(B, T, H, dh, N))
+            lane_ms, _ = bound(n_bytes, 12 * dh * N * T * H * B)
+            scratch = kssd.kernel._bwd_library().ssd_bwd_scratch_floats(
+                B, T, H, dh, N, kssd.kernel.DTYPES[dtype]) * 4
+            say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes; "
+                f"the serial form's fp32-lane bound {lane_ms:.9f} ms); "
+                f"scratch {scratch / 1e6:.3f} MB a call; library call: "
+                "none, no single op computes a scan's gradient")
             out = (timed, bms, by, f"{what}, B={B}, T={T}, H={H}, dh={dh}, "
                    f"N={N}, bf16")
+        elif timed_here:
+            dev_ms, call_ms = time_calls(
+                lambda *a: kssd.ssd_bwd(*a[:8], saved=a[8]), with_states, 64)
+            reduced_ms = dev_ms if dev_ms is not None else call_ms
+            say(f"{name}: device {dev_ms} ms, call {call_ms:.6f} ms per "
+                "launch (the hybrid's main-path launches are at this shape)")
         del draws
+        if timed_here:
+            del kept, with_states
     timed, bms, by, shape = out
     say(f"ssd_bwd: main-path launches {launches['ssd_bwd']}")
-    return [row("ssd_bwd", launches, err, timed, bms, by, None, shape)]
+    return [dict(row("ssd_bwd", launches, err, timed, bms, by, None, shape),
+                 recompute_ms=timed["recompute_ms"], reduced_ms=reduced_ms)]
 
 
 def seen_pairs(T: int, S: int, window) -> int:
@@ -4202,7 +4319,7 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
             name, lambda a, b, c, o, d, l: kflash.flash_attention_bwd(
                 a, b, c, o, d, lse=l, window=W),
             lambda a, b, c, o, d, l: kflash.attention_bwd_plain(
-                a, b, c, o, d, window=W), bf, reps=64, plain_reps=8)
+                a, b, c, o, d, window=W), bf, reps=64)
         lib_dev, lib_call = sdpa_bwd(bf, H, Hk, W, 16)
         library_ms = lib_dev if lib_dev is not None else lib_call
         n_bytes = 2 * (4 * B * T * H * dh + 4 * B * T * Hk * dh)
@@ -4246,6 +4363,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    phases = {}  # seconds of each phase, printed before the kernels line
 
     check(torch.cuda.is_available(), "no CUDA device")
     # fp32 products in full fp32 (PyTorch's default), for the fp32 check
@@ -4260,7 +4378,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = build.build()
-    say(f"build: {sorted(built)} in {time.perf_counter() - t0:.3f} s")
+    phases["build"] = time.perf_counter() - t0
+    say(f"build: {sorted(built)} in {phases['build']:.3f} s")
     check(set(built) >= {"probe", "art_descend", "scan_window",
                          "shard_route", "conflict_any", "flash_attention",
                          "flash_attention_bwd", "paged_attention",
@@ -4274,8 +4393,11 @@ def main(argv=None) -> int:
                  "dkv_tc_kernel", "dkv_group_sum_kernel", "dq_simt_kernel",
                  "dkv_simt_kernel", "wkv6_bwd_kernel", "reduce_rows_kernel",
                  "reduce_du_kernel", "ssd_bwd_kernel", "reduce_heads_kernel",
-                 "reduce_da_kernel"):
+                 "reduce_da_kernel", "reduce_da_chunks_kernel"):
         check(name in logs, f"{name} is not in the build's kernels")
+    for source in ("wkv6_bwd", "ssd_bwd"):
+        check("grads_kernel" in built[source].log, f"grads_kernel is not in "
+              f"{source}'s build")
     for name, b in built.items():
         for line in ptxas_lines(b.log):
             say(f"  {name}: {line}")
@@ -4310,7 +4432,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         drive(session)
         counts = read_counts()
-        say(f"{tag} path: {time.perf_counter() - t0:.3f} s; kernel launches "
+        phases[f"{tag} path"] = time.perf_counter() - t0
+        say(f"{tag} path: {phases[f'{tag} path']:.3f} s; kernel launches "
             f"{counts}")
         for name in kernels:
             check(counts[name] > 0, f"{name} was not launched on the {tag} "
@@ -4322,6 +4445,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     scale = scale_out_path(sessions, args)
     counts = read_counts()
+    phases["scale-out path"] = time.perf_counter() - t0
     say(f"scale-out path: {time.perf_counter() - t0:.3f} s; kernel "
         f"launches {counts}")
     for name in ("shard_partition", "conflict_any", "scan_window_sharded",
@@ -4331,12 +4455,16 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
 
+    t0 = time.perf_counter()
     serve = serving_run(SERVE_ARCH, args.seed, launches, split,
                         bf16_check=True)
+    phases[f"{SERVE_ARCH} serving and checks"] = time.perf_counter() - t0
     # a full-width CPU run of a 512-token prompt is slow: the check takes
     # the path's 32-token prompt (the width is not cut)
+    t0 = time.perf_counter()
     rwkv = serving_run(RWKV_ARCH, args.seed, launches, split,
                        extra=RWKV_EXTRA_PROMPTS)
+    phases[f"{RWKV_ARCH} serving and checks"] = time.perf_counter() - t0
 
     reset_counts()
     t0 = time.perf_counter()
@@ -4355,10 +4483,13 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
     mamba_cpu_check(mamba)
+    phases["Mamba path and check"] = time.perf_counter() - t0
 
     # the reduced model is small: the check takes the longest prompt
+    t0 = time.perf_counter()
     hybrid = serving_run(HYBRID_ARCH, args.seed, launches, split,
                          extra=HYBRID_EXTRA_PROMPTS, reduced=True, pick=max)
+    phases[f"{HYBRID_ARCH} serving and checks"] = time.perf_counter() - t0
 
     reset_counts()
     t0 = time.perf_counter()
@@ -4371,11 +4502,13 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
     tag_wave_ops(tag)
+    phases["tag path"] = time.perf_counter() - t0
 
     reset_counts()
     t0 = time.perf_counter()
     matrix_path(args.seed, torch.device("cuda", 0))
     counts = read_counts()
+    phases["matrix path"] = time.perf_counter() - t0
     say(f"matrix path: {time.perf_counter() - t0:.3f} s; kernel launches "
         f"{counts}")
     for name in ("probe64_fp", "art_descend", "art_pack_entries",
@@ -4388,14 +4521,17 @@ def main(argv=None) -> int:
     # the MoE family and sliding windows; each path frees its model before
     # the next one draws (DeepSeek-MoE and StarCoder2 hold 32.6 and 31.9
     # GB of bf16 weights, Mixtral's 4 layers 20.3 GB)
-    wide = {arch: serving_run(arch, args.seed, launches, split, **kw)
-            for arch, kw in WIDE_PATHS.items()}
+    wide = {}
+    for arch, kw in WIDE_PATHS.items():
+        t0 = time.perf_counter()
+        wide[arch] = serving_run(arch, args.seed, launches, split, **kw)
+        phases[f"{arch} serving and checks"] = time.perf_counter() - t0
 
     # the training path: (a) MiniCPM-2B at full width, counted; (b) its
     # fp32 check; (c) the crash and restart run, counted on its own
     n_attn = get_arch(TRAIN_ARCH).n_layers
     reset_counts()
-    t0 = time.perf_counter()
+    t0 = t_train = time.perf_counter()
     trained = train_full_width(args.seed)
     counts = read_counts()
     say(f"training path (a): {time.perf_counter() - t0:.3f} s; kernel "
@@ -4428,7 +4564,10 @@ def main(argv=None) -> int:
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
 
+    phases["training path"] = time.perf_counter() - t_train
+    t0 = time.perf_counter()
     recurrent_path(args.seed, launches)
+    phases["recurrent training path"] = time.perf_counter() - t0
 
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []
@@ -4455,10 +4594,14 @@ def main(argv=None) -> int:
             (ssd_bwd_vs_plain, (args.seed, launches))):
         t0 = time.perf_counter()
         rows += check_rows(*fargs)
-        say(f"{check_rows.__name__}: {time.perf_counter() - t0:.3f} s")
+        phases[check_rows.__name__] = time.perf_counter() - t0
+        say(f"{check_rows.__name__}: {phases[check_rows.__name__]:.3f} s")
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
-    say(f"whole run: {time.perf_counter() - t_start:.3f} s")
+    phases["whole run"] = time.perf_counter() - t_start
+    say("phase seconds: " + json.dumps(
+        {name: round(secs, 3) for name, secs in phases.items()}))
+    say(f"whole run: {phases['whole run']:.3f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

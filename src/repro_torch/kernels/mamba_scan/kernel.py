@@ -17,11 +17,19 @@ T = 1 and fp32 run one.
 gradient) of that function from the output's gradient and, optionally,
 the final state's.  No TPU kernel is its counterpart: the JAX package
 trains the hybrid through XLA's autodiff of its jnp chunked form.  On
-CUDA tensors it launches the three CUDA kernels of its source over an
-fp32 scratch it allocates (``ssd_bwd_scratch_floats`` in the source:
-the states entering each 16-step chunk and the heads' dB_, dC_
-partials, 403 MB at Jamba's full-width mixer shape), or raises; on CPU
-tensors it runs ``ref.ssd_bwd_plain``.
+CUDA tensors it launches the CUDA kernels of its source over an fp32
+scratch it allocates (``ssd_bwd_scratch_floats`` in the source), or
+raises; on CPU tensors it runs ``ref.ssd_bwd_plain``.  A bf16 call with
+T > 1 runs the chunk-parallel form on the tensor cores over 151 MB of
+scratch at Jamba's full-width mixer shape: the adjoint's increments and
+its reverse pass over the 64-step chunks, the chunks' gradients a group
+of 8 heads a block, and the sums of dB_, dC_ over the groups and of dA
+over the chunks, five kernels, with the states entering each chunk
+taken from the forward's scratch where the caller kept it (``ssd(...,
+keep_states=True)``, as ``ops.ssd_heads`` does), else recomputed by the
+prefill's own two kernels; fp32 and T = 1 run the serial form (three
+kernels, a checkpoint every 16 steps and the heads' dB_, dC_ partials:
+403 MB at that shape).
 
 Both refuse to run under grad with an input that requires it
 (``grad_guard``): ``ops.ssd_heads`` is the differentiable op.
@@ -76,9 +84,9 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = build.load("ssd_bwd")
-    lib.ssd_bwd.argtypes = [_P] * 15 + [_I] * 6 + [_P]
+    lib.ssd_bwd.argtypes = [_P] * 16 + [_I] * 6 + [_P]
     lib.ssd_bwd.restype = _I
-    lib.ssd_bwd_scratch_floats.argtypes = [_I] * 5
+    lib.ssd_bwd_scratch_floats.argtypes = [_I] * 6
     lib.ssd_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.ssd_bwd_error_string.argtypes = [_I]
     lib.ssd_bwd_error_string.restype = ctypes.c_char_p
@@ -144,20 +152,24 @@ _FP32 = ("dt", "A", "state", "dstate")
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
         C_: torch.Tensor, A: torch.Tensor,
-        state: Optional[torch.Tensor] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        state: Optional[torch.Tensor] = None, keep_states: bool = False
+        ) -> Tuple[torch.Tensor, ...]:
     """The SSD scan over T steps from ``state`` (zeros when None).
 
     x: [B, T, H, dh], float32 or bfloat16; dt: [B, T, H] float32, each
     entry 0 or more; B_, C_: [B, T, N] in x's dtype; A: [H] float32,
     each entry below 0; state: [B, H, dh, N] float32.  Returns
     (y [B, T, H, dh] in x's dtype, the final state [B, H, dh, N]
-    float32); the input state is not written."""
+    float32); the input state is not written.  With ``keep_states`` a
+    third item: the scratch of a bf16 prefill on the card (the states
+    entering each 64-step chunk and the chunks' decays), which
+    ``ssd_bwd`` takes as ``saved``, or None (the CPU, fp32, T = 1)."""
     _check(x, dt, B_, C_, A, state)
     refuse_grad("ssd", x, dt, B_, C_, A, state)
     dev = x.device
     if dev.type == "cpu":
-        return ssd_plain(x, dt, B_, C_, A, state)
+        out = ssd_plain(x, dt, B_, C_, A, state)
+        return out + (None,) if keep_states else out
     if dev.type != "cuda":
         raise ValueError(f"ssd takes CUDA or CPU tensors, not {dev}")
     Bsz, T, H, dh = x.shape
@@ -174,12 +186,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                              "read it in 16-byte pieces")
     y = torch.empty_like(x)
     state_out = torch.empty(Bsz, H, dh, N, dtype=torch.float32, device=dev)
+    kept = (None,) if keep_states else ()
     if Bsz == 0 or H == 0:
-        return y, state_out
+        return (y, state_out) + kept
     if T == 0:
         if state is None:
-            return y, state_out.zero_()
-        return y, state_out.copy_(state)
+            return (y, state_out.zero_()) + kept
+        return (y, state_out.copy_(state)) + kept
     lib = _library()
     n_scratch = lib.ssd_scratch_floats(Bsz, T, H, dh, N, DTYPES[x.dtype])
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) \
@@ -196,21 +209,25 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
         raise RuntimeError("ssd kernel launch failed: "
                            + lib.ssd_error_string(err).decode())
     LAUNCHES["ssd"] += 1
-    return y, state_out
+    return (y, state_out) + ((scratch,) if keep_states else ())
 
 
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
             C_: torch.Tensor, A: torch.Tensor, dy: torch.Tensor,
             state: Optional[torch.Tensor] = None,
-            dstate: Optional[torch.Tensor] = None
+            dstate: Optional[torch.Tensor] = None,
+            saved: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, ...]:
     """The gradient of ``ssd`` over the same inputs, from the output's
     gradient ``dy`` [B, T, H, dh] (x's dtype) and the final state's,
     ``dstate`` [B, H, dh, N] float32 (zeros when None, as a trainer that
-    drops the final state leaves it).  Returns (dx in x's dtype, ddt
-    [B, T, H] float32, dB_ and dC_ [B, T, N] in x's dtype, summed over
-    heads, dA [H] float32, and the input state's gradient [B, H, dh, N]
-    float32, or None when ``state`` is None)."""
+    drops the final state leaves it).  ``saved``: the scratch that
+    ``ssd(..., keep_states=True)`` returned on these inputs, from which a
+    bf16 call of T > 1 on the card takes the states entering each chunk
+    instead of recomputing them; ignored elsewhere.  Returns (dx in x's
+    dtype, ddt [B, T, H] float32, dB_ and dC_ [B, T, N] in x's dtype,
+    summed over heads, dA [H] float32, and the input state's gradient
+    [B, H, dh, N] float32, or None when ``state`` is None)."""
     _check(x, dt, B_, C_, A, state)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be x's shape, dtype and device, got "
@@ -231,6 +248,14 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     _card_check(x, N, (("x", x), ("dt", dt), ("B_", B_), ("C_", C_),
                        ("A", A), ("dy", dy), ("state", state),
                        ("dstate", dstate)))
+    # a bf16 call of T > 1 loads its inputs by cp.async and reads the
+    # carried state and the final state's gradient as float4s
+    if x.dtype == torch.bfloat16 and T > 1:
+        for name, t in (("x", x), ("B_", B_), ("C_", C_), ("dy", dy),
+                        ("state", state), ("dstate", dstate)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned: the "
+                                 "kernels read it in 16-byte pieces")
     dx = torch.empty_like(x)
     ddt = torch.empty(Bsz, T, H, dtype=torch.float32, device=dev)
     dB, dC = torch.zeros_like(B_), torch.zeros_like(C_)
@@ -247,8 +272,18 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                 dstate_in.copy_(dstate)
         return dx, ddt, dB, dC, dA, dstate_in
     lib = _bwd_library()
-    scratch = torch.empty(lib.ssd_bwd_scratch_floats(Bsz, T, H, dh, N),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        lib.ssd_bwd_scratch_floats(Bsz, T, H, dh, N, DTYPES[x.dtype]),
+        dtype=torch.float32, device=dev)
+    if not (x.dtype == torch.bfloat16 and T > 1):
+        saved = None
+    elif saved is not None:
+        need = _library().ssd_scratch_floats(Bsz, T, H, dh, N,
+                                             DTYPES[x.dtype])
+        if (saved.device != dev or saved.dtype != torch.float32
+                or saved.numel() < need or not saved.is_contiguous()):
+            raise ValueError("saved must be the float32 scratch of ssd on "
+                             "these inputs")
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -258,8 +293,8 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
         err = lib.ssd_bwd(ptr(x), ptr(dt), ptr(B_), ptr(C_), ptr(A),
                           ptr(state), ptr(dy), ptr(dstate), ptr(dx),
                           ptr(ddt), ptr(dB), ptr(dC), ptr(dA),
-                          ptr(dstate_in), ptr(scratch), Bsz, T, H, dh, N,
-                          DTYPES[x.dtype], stream)
+                          ptr(dstate_in), ptr(scratch), ptr(saved), Bsz, T,
+                          H, dh, N, DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("ssd_bwd kernel launch failed: "
                            + lib.ssd_bwd_error_string(err).decode())

@@ -12,11 +12,12 @@ returns (output, final state) and takes a state in.  The Pallas
 masks the ragged last chunk itself.
 
 ``ssd_heads`` is a ``torch.autograd.Function``: its forward is ``ssd``
-(its inputs saved), its backward ``ssd_bwd`` on the same inputs, so a
-training step differentiates through the kernels (the JAX package
-differentiates its jnp chunked form with XLA).  The final state's
-gradient arrives as zeros, or as None when autograd has none, and the
-backward takes both.  On the CPU both run their plain versions.
+(its inputs saved, and on the card the states entering each chunk that
+its bf16 prefill computed), its backward ``ssd_bwd`` on the same inputs
+and those states, so a training step differentiates through the kernels
+(the JAX package differentiates its jnp chunked form with XLA).  The
+final state's gradient arrives as zeros, or as None when autograd has
+none, and the backward takes both.  On the CPU both run their plain versions.
 """
 
 from __future__ import annotations
@@ -32,16 +33,18 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xh, dt, B_, C_, A, state):
-        y, final = ssd(xh, dt, B_, C_, A, state)
-        ctx.save_for_backward(xh, dt, B_, C_, A, state)
+        y, final, saved = ssd(xh, dt, B_, C_, A, state, keep_states=True)
+        # the chunk states the bf16 prefill computed, for the backward
+        ctx.save_for_backward(xh, dt, B_, C_, A, state, saved)
         return y, final
 
     @staticmethod
     def backward(ctx, dy, dfinal):
-        xh, dt, B_, C_, A, state = ctx.saved_tensors
+        xh, dt, B_, C_, A, state, saved = ctx.saved_tensors
         # autograd may hand the gradients over strided
         return ssd_bwd(xh, dt, B_, C_, A, dy.contiguous(), state,
-                       dfinal.contiguous() if dfinal is not None else None)
+                       dfinal.contiguous() if dfinal is not None else None,
+                       saved=saved)
 
 
 def ssd_heads(xh: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,

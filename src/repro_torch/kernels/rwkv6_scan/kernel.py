@@ -16,11 +16,18 @@ a scratch this wrapper allocates; T = 1 and fp32 run one.
 gradient) of that function from the output's gradient and, optionally,
 the final state's.  No TPU kernel is its counterpart: the JAX package
 trains RWKV6 through XLA's autodiff of its jnp chunked form.  On CUDA
-tensors it launches the three CUDA kernels of its source over an fp32
-scratch it allocates (``wkv6_bwd_scratch_floats`` in the source: the
-states entering each 16-step chunk and the column slices' partials,
-537 MB at RWKV6-7B's training shape), or raises; on CPU tensors it
-runs ``ref.wkv6_bwd_plain``.
+tensors it launches the CUDA kernels of its source over an fp32 scratch
+it allocates (``wkv6_bwd_scratch_floats`` in the source), or raises; on
+CPU tensors it runs ``ref.wkv6_bwd_plain``.  A bf16 call with T > 1
+runs the chunk-parallel form on the tensor cores over 144 MB of
+scratch at RWKV6-7B's training shape: the adjoint's increments and its
+reverse pass over the 64-step chunks, the chunks' gradients and du's
+sum, four kernels, with the states entering each chunk taken from the
+forward's scratch where the caller kept it (``wkv6(...,
+keep_states=True)``, as ``ops.wkv6_heads`` does), else recomputed by the
+prefill's own two kernels; fp32 and T = 1 run the serial form (three
+kernels, a checkpoint every 16 steps and the column slices' partials:
+537 MB at that shape).
 
 Both refuse to run under grad with an input that requires it
 (``grad_guard``): ``ops.wkv6_heads`` is the differentiable op.
@@ -74,9 +81,9 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = build.load("wkv6_bwd")
-    lib.wkv6_bwd.argtypes = [_P] * 15 + [_I] * 5 + [_P]
+    lib.wkv6_bwd.argtypes = [_P] * 17 + [_I] * 5 + [_P]
     lib.wkv6_bwd.restype = _I
-    lib.wkv6_bwd_scratch_floats.argtypes = [_I] * 4
+    lib.wkv6_bwd_scratch_floats.argtypes = [_I] * 5
     lib.wkv6_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.wkv6_bwd_error_string.argtypes = [_I]
     lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
@@ -135,20 +142,24 @@ _FP32 = ("logw", "u", "state", "dstate")
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor,
-         state: Optional[torch.Tensor] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
+         state: Optional[torch.Tensor] = None, keep_states: bool = False
+         ) -> Tuple[torch.Tensor, ...]:
     """The RWKV6 WKV over T steps from ``state`` (zeros when None).
 
     r, k, v: [B, T, H, dh], float32 or bfloat16; logw: [B, T, H, dh]
     float32 log decay, each entry 0 or less; u: [H, dh] float32 bonus;
     state: [B, H, dh_k, dh_v] float32.  Returns (o [B, T, H, dh] in r's
     dtype, the final state [B, H, dh, dh] float32); the input state is
-    not written."""
+    not written.  With ``keep_states`` a third item: the scratch of a
+    bf16 prefill on the card (the states entering each 64-step chunk and
+    the chunks' decays), which ``wkv6_bwd`` takes as ``saved``, or None
+    (the CPU, fp32, T = 1)."""
     _check(r, k, v, logw, u, state)
     refuse_grad("wkv6", r, k, v, logw, u, state)
     dev = r.device
     if dev.type == "cpu":
-        return wkv6_plain(r, k, v, logw, u, state)
+        out = wkv6_plain(r, k, v, logw, u, state)
+        return out + (None,) if keep_states else out
     if dev.type != "cuda":
         raise ValueError(f"wkv6 takes CUDA or CPU tensors, not {dev}")
     B, T, H, dh = r.shape
@@ -164,12 +175,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "read it in 16-byte pieces")
     out = torch.empty_like(r)
     state_out = torch.empty(B, H, dh, dh, dtype=torch.float32, device=dev)
+    kept = (None,) if keep_states else ()
     if B == 0 or H == 0:
-        return out, state_out
+        return (out, state_out) + kept
     if T == 0:
         if state is None:
-            return out, state_out.zero_()
-        return out, state_out.copy_(state)
+            return (out, state_out.zero_()) + kept
+        return (out, state_out.copy_(state)) + kept
     lib = _library()
     n_scratch = lib.wkv6_scratch_floats(B, T, H, dh, DTYPES[r.dtype])
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) \
@@ -186,21 +198,26 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("wkv6 kernel launch failed: "
                            + lib.wkv6_error_string(err).decode())
     LAUNCHES["wkv6"] += 1
-    return out, state_out
+    return (out, state_out) + ((scratch,) if keep_states else ())
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              logw: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
              state: Optional[torch.Tensor] = None,
-             dstate: Optional[torch.Tensor] = None
+             dstate: Optional[torch.Tensor] = None,
+             saved: Optional[torch.Tensor] = None,
+             final: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, ...]:
     """The gradient of ``wkv6`` over the same inputs, from the output's
     gradient ``do`` [B, T, H, dh] (r's dtype) and the final state's,
     ``dstate`` [B, H, dh, dh] float32 (zeros when None, as a trainer that
-    drops the final state leaves it).  Returns (dr, dk, dv in r's dtype,
-    dlogw [B, T, H, dh] float32, du [H, dh] float32, and the input
-    state's gradient [B, H, dh, dh] float32, or None when ``state`` is
-    None)."""
+    drops the final state leaves it).  ``saved`` and ``final``: what
+    ``wkv6(..., keep_states=True)`` returned on these inputs (its scratch
+    and final state), from which a bf16 call of T > 1 on the card takes
+    the states entering each chunk instead of recomputing them; ignored
+    elsewhere.  Returns (dr, dk, dv in r's dtype, dlogw [B, T, H, dh]
+    float32, du [H, dh] float32, and the input state's gradient
+    [B, H, dh, dh] float32, or None when ``state`` is None)."""
     _check(r, k, v, logw, u, state)
     if do.shape != r.shape or do.dtype != r.dtype or do.device != r.device:
         raise ValueError(f"do must be r's shape, dtype and device, got "
@@ -219,6 +236,15 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv6_bwd takes CUDA or CPU tensors, not {dev}")
     _card_check(r, (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
                     ("do", do), ("state", state), ("dstate", dstate)))
+    # a bf16 call of T > 1 loads its inputs by cp.async and reads the
+    # carried state and the final state's gradient as float4s
+    if r.dtype == torch.bfloat16 and T > 1:
+        wide = (("r", r), ("k", k), ("v", v), ("logw", logw), ("do", do),
+                ("state", state), ("dstate", dstate))
+        for name, t in wide:
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned: the "
+                                 "kernels read it in 16-byte pieces")
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dlogw = torch.empty(B, T, H, dh, dtype=torch.float32, device=dev)
     du = torch.zeros(H, dh, dtype=torch.float32, device=dev)
@@ -234,8 +260,21 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 dstate_in.copy_(dstate)
         return dr, dk, dv, dlogw, du, dstate_in
     lib = _bwd_library()
-    scratch = torch.empty(lib.wkv6_bwd_scratch_floats(B, T, H, dh),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        lib.wkv6_bwd_scratch_floats(B, T, H, dh, DTYPES[r.dtype]),
+        dtype=torch.float32, device=dev)
+    chunked = r.dtype == torch.bfloat16 and T > 1
+    if not chunked or saved is None:
+        saved = final = None
+    else:
+        need = _library().wkv6_scratch_floats(B, T, H, dh, DTYPES[r.dtype])
+        if (saved.device != dev or saved.dtype != torch.float32
+                or saved.numel() < need or not saved.is_contiguous()
+                or final is None or final.shape != (B, H, dh, dh)
+                or final.device != dev or final.dtype != torch.float32
+                or not final.is_contiguous()):
+            raise ValueError("saved must be the float32 scratch of wkv6 on "
+                             "these inputs and final its final state")
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -245,8 +284,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.wkv6_bwd(ptr(r), ptr(k), ptr(v), ptr(logw), ptr(u),
                            ptr(state), ptr(do), ptr(dstate), ptr(dr),
                            ptr(dk), ptr(dv), ptr(dlogw), ptr(du),
-                           ptr(dstate_in), ptr(scratch), B, T, H, dh,
-                           DTYPES[r.dtype], stream)
+                           ptr(dstate_in), ptr(scratch), ptr(saved),
+                           ptr(final), B, T, H, dh, DTYPES[r.dtype], stream)
     if err:
         raise RuntimeError("wkv6_bwd kernel launch failed: "
                            + lib.wkv6_bwd_error_string(err).decode())

@@ -10,8 +10,10 @@ Pallas ``chunk`` has no counterpart: the CUDA kernel's chunk is fixed
 and it masks the ragged last chunk itself.
 
 ``wkv6_heads`` is a ``torch.autograd.Function``: its forward is
-``wkv6`` (its inputs saved), its backward ``wkv6_bwd`` on the same
-inputs, so a training step differentiates through the kernels (the JAX
+``wkv6`` (its inputs saved, and on the card the states entering each
+chunk that its bf16 prefill computed: 33.5 MB a layer at RWKV6-7B's
+training shape), its backward ``wkv6_bwd`` on the same inputs and those
+states, so a training step differentiates through the kernels (the JAX
 package differentiates its jnp chunked form with XLA).  The final
 state's gradient arrives as zeros, or as None when autograd has none,
 and the backward takes both.  On the CPU both run their plain versions.
@@ -30,17 +32,19 @@ class _WKV6(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state):
-        out, final = wkv6(r, k, v, logw, u, state)
-        ctx.save_for_backward(r, k, v, logw, u, state)
+        out, final, saved = wkv6(r, k, v, logw, u, state, keep_states=True)
+        # the chunk states the bf16 prefill computed, for the backward
+        ctx.save_for_backward(r, k, v, logw, u, state, saved, final)
         return out, final
 
     @staticmethod
     def backward(ctx, dout, dfinal):
-        r, k, v, logw, u, state = ctx.saved_tensors
+        r, k, v, logw, u, state, saved, final = ctx.saved_tensors
         # autograd may hand the gradients over strided
         dr, dk, dv, dlogw, du, dstate = wkv6_bwd(
             r, k, v, logw, u, dout.contiguous(), state,
-            dfinal.contiguous() if dfinal is not None else None)
+            dfinal.contiguous() if dfinal is not None else None,
+            saved=saved, final=final)
         return dr, dk, dv, dlogw, du, dstate
 
 

@@ -22,11 +22,13 @@ largest magnitude, and bfloat16 outputs elementwise within 4 bf16 unit
 roundoffs (2^-8) of the plain value plus 4 * 2^-16 of the largest.  The
 SSD kernel does the same for the Mamba-2 scan (its chunked form against
 the step-by-step recurrence), held to the same limits.  The scans'
-backward kernels (``wkv6_bwd``, ``ssd_bwd``) walk the same recurrences
-as their plain versions, summing in another order: bf16 gradients
-elementwise within the attention's 4 bf16 unit roundoffs, float32 ones
-(and every fp32 output: dlogw, du, ddt, dA, the input state's gradient)
-within 2e-5 of their largest magnitude, two calls bit-identical.
+backward kernels (``wkv6_bwd``, ``ssd_bwd``) compute the same
+gradients as their plain versions in another form (in bf16 at T > 1
+chunk-parallel on the tensor cores, otherwise the serial walk of the
+same recurrences): bf16 gradients elementwise within the attention's 4
+bf16 unit roundoffs, float32 ones (and every fp32 output: dlogw, du,
+ddt, dA, the input state's gradient) within 2e-5 of their largest
+magnitude, two calls bit-identical.
 """
 
 import numpy as np
@@ -1361,6 +1363,11 @@ def wkv_bwd_inputs(rng, B, T, H, dh, dtype, device, hi, carried):
     (2, 17, 3, 128, torch.bfloat16, 20.0, True),
     (1, 300, 2, 64, torch.float32, 20.0, True),
     (2, 32, 4, 32, torch.bfloat16, 0.15, False),    # RWKV6 at reduced()
+    # the chunked form's edges: a chunk of 64 one short, one over, two
+    # and one over, from a carried state
+    (2, 63, 8, 64, torch.bfloat16, 8.0, True),
+    (2, 65, 8, 64, torch.bfloat16, 20.0, True),
+    (2, 129, 8, 64, torch.bfloat16, 8.0, True),
 ])
 def test_wkv6_bwd_matches_plain_version(card, B, T, H, dh, dtype, hi,
                                         carried):
@@ -1397,6 +1404,10 @@ def ssd_bwd_inputs(rng, B, T, H, dh, N, dtype, device, dt_hi, carried):
     (1, 1, 4, 128, 8, torch.float32, 0.4, True),
     (3, 33, 5, 128, 16, torch.bfloat16, 8.0, True),
     (2, 32, 8, 32, 8, torch.bfloat16, 0.4, False),  # the hybrid reduced()
+    # the chunked form's edges, from a carried state
+    (2, 63, 16, 64, 16, torch.bfloat16, 0.4, True),
+    (2, 65, 16, 64, 16, torch.bfloat16, 8.0, True),
+    (2, 129, 16, 64, 16, torch.bfloat16, 0.4, True),
 ])
 def test_ssd_bwd_matches_plain_version(card, B, T, H, dh, N, dtype, dt_hi,
                                        carried):
@@ -1460,6 +1471,47 @@ def test_scan_heads_autograd_run_both_kernels(card):
         for a, b in zip(leaves, ref):
             assert float((a.grad - b.grad).abs().max()) <= \
                 SCAN_BWD_TOL * float(b.grad.abs().max())
+
+
+@pytest.mark.parametrize("T,carried", [(256, False), (129, True)])
+def test_scan_bwd_takes_the_forwards_chunk_states(card, T, carried):
+    """In bf16 the backward takes the states entering each chunk from the
+    forward's scratch (``keep_states``, as the autograd ops pass it) and
+    gives the same bits as when it recomputes them; through the autograd
+    ops both gradients hold the plain versions' limits."""
+    rng = np.random.default_rng(T + 31)
+    wkv = wkv_bwd_inputs(rng, 2, T, 8, 64, torch.bfloat16, card, 8.0,
+                         carried)
+    r, k, v, logw, u, do, state, dstate = wkv
+    _, final, saved = kwkv.wkv6(r, k, v, logw, u, state, keep_states=True)
+    assert saved is not None
+    got = kwkv.wkv6_bwd(*wkv, saved=saved, final=final)
+    for a, b in zip(got, kwkv.wkv6_bwd(*wkv)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    ssd = ssd_bwd_inputs(rng, 2, T, 16, 64, 16, torch.bfloat16, card, 0.4,
+                         carried)
+    x, dt, Bm, Cm, A, dy, state, dstate = ssd
+    _, _, saved = kssd.ssd(x, dt, Bm, Cm, A, state, keep_states=True)
+    assert saved is not None
+    got = kssd.ssd_bwd(*ssd, saved=saved)
+    for a, b in zip(got, kssd.ssd_bwd(*ssd)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    for kmod, op, plain_bwd, names, (*inputs, g_out, state, g_state) in (
+            (kwkv, kwkv.wkv6_heads, kwkv.wkv6_bwd_plain, ("dr", "dk", "dv",
+             "dlogw", "du", "dstate"), wkv),
+            (kssd, kssd.ssd_heads, kssd.ssd_bwd_plain, ("dx", "ddt", "dB_",
+             "dC_", "dA", "dstate"), ssd)):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        st = state.clone().requires_grad_() if carried else None
+        out, fin = op(*leaves, st)
+        loss = (out.float() * g_out.float()).sum()
+        if carried:
+            loss = loss + (fin * g_state).sum()
+        loss.backward()
+        grads = [t.grad for t in leaves] + [st.grad if carried else None]
+        plain = plain_bwd(*inputs, g_out, state,
+                          g_state if carried else None)
+        scan_grads_close(names, grads, plain)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])

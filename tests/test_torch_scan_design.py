@@ -263,12 +263,15 @@ def attn_limit(plain):
 
 
 def test_chunk_lengths_are_the_kernels():
-    """The emulations take the chunk lengths the CUDA sources build."""
+    """The emulations take the chunk lengths the CUDA sources build (in
+    the headers each prefill shares with its backward)."""
     for name in ("wkv6", "ssd"):
-        src = (CSRC / f"{name}.cu").read_text()
+        assert f'#include "{name}_chunk.cuh"' in (CSRC / f"{name}.cu") \
+            .read_text(), name
+        src = (CSRC / f"{name}_chunk.cuh").read_text()
         got = int(re.search(r"constexpr int kChunk = (\d+);", src).group(1))
         assert got == CHUNK, name
-    src = (CSRC / "wkv6.cu").read_text()
+    src = (CSRC / "wkv6_chunk.cuh").read_text()
     assert int(re.search(r"constexpr int kSub = (\d+);", src).group(1)) \
         == SUB
 

@@ -57,8 +57,19 @@ def edited(src: str, edits) -> str:
     return src
 
 
-WKV = (ROOT / "src/repro_torch/csrc/wkv6.cu").read_text()
-SSD = (ROOT / "src/repro_torch/csrc/ssd.cu").read_text()
+def source(name: str) -> str:
+    """csrc/<name>.cu with the header it shares with its backward
+    (csrc/<name>_chunk.cuh) written in, so that an edit may reach either
+    and a variant builds from one file."""
+    csrc = ROOT / "src/repro_torch/csrc"
+    include = f'#include "{name}_chunk.cuh"'
+    header = (csrc / f"{name}_chunk.cuh").read_text()
+    return (csrc / f"{name}.cu").read_text().replace(
+        include, header.replace("#pragma once\n", ""))
+
+
+WKV = source("wkv6")
+SSD = source("ssd")
 # (name, source, computes the same function)
 VARIANTS = [
     ("wkv6", WKV, True),
