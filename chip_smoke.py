@@ -211,13 +211,47 @@ mixers are scans, through the scans' backward kernels
   and ``flash_attention_bwd`` launch a step, no plain version, then the
   same fp32 check over every layer.
 
+The eighteenth and nineteenth paths run the encoder-decoder and VLM
+families at model level, as the JAX package runs them (its ``Server``
+and ``train()`` feed tokens only, and the port's refuse them), each
+phase's launches counted exactly and no plain version on either:
+
+* Whisper-tiny at full width and depth (4 encoder and 4 decoder layers,
+  d_model 384, 6 heads of 64, vocabulary 51,865, 1500 frames drawn from
+  ``--seed``; 56,364,288 parameters): 4 requests of 32-64 tokens, each
+  prefilled with its frames through ``make_prefill_step`` (12
+  ``flash_attention`` a prefill: 4 encoder layers not causal, 4 causal
+  self-attention, 4 cross attention not causal), the encoder's output
+  from ``_encode`` (4), 32 greedy decode steps of the 4 together
+  through ``make_decode_step(with_enc=True)`` (4 ``paged_attention``
+  and 4 ``flash_attention`` a step: T = 1 against 1500 rows); its fp32
+  check over the shortest prompt and 4 decode steps; then 4
+  ``make_train_step`` steps of B = 8, T = 64 (12 ``flash_attention``
+  and 12 ``flash_attention_bwd`` a step) and their fp32 check at B = 2;
+* InternVL2-76B at full width cut to 8 of its 80 layers (d_model 8192,
+  64 heads over 8 KV heads of 128, 1025 patches of width 3200 drawn
+  from ``--seed``; 8,972,804,096 parameters, 17.95 GB bf16): 2 requests
+  of 1025 patches and 96 and 128 text tokens, each prefilled (8
+  ``flash_attention``), then 16 greedy decode steps of the 2 together
+  (8 ``paged_attention`` a step); its fp32 check at 1 of the 8 layers
+  over the shorter prompt and 4 decode steps, the served model freed
+  first; then the model at full width cut to 1 layer (2,983,223,296
+  parameters) through 4 ``make_train_step`` steps of B = 4, T = 64
+  text tokens after the 1025 patches (1 ``flash_attention`` and 1
+  ``flash_attention_bwd`` a step), its peak card memory under
+  ``TRAIN_PEAK_GB``, and their fp32 check at B = 1.
+
+Each prints its prefills' tokens/s and a decode step's ms on the host
+clock and on the card (the last prefill and step profiled), and the
+train steps' ms and busy share.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel; each
    kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
    them;
-3. the seventeen paths, each with every kernel's launch count set to 0 just
+3. the nineteen paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
@@ -255,7 +289,16 @@ Phases, each of which exits non-zero on failure:
    term breaks, two calls bit-identical, and the forward's log-sum-exp
    (its input) within ``LSE_TOL`` of the plain version's, +inf on the
    same rows; the forward at T = 512 timed with and without its
-   log-sum-exp; the scans' backward kernels at RWKV6-7B's training shape
+   log-sum-exp; the forward at Whisper-tiny's encoder (T = S = 1500) and
+   cross attention (64, a prefill's 43 and a decode step's 1 query
+   against 1500 rows), not causal, which the plain version with a
+   causal mask breaks (at one query, the plain version without the last
+   28 keys), and at InternVL2-76B's prefill (T = 1153, 64 heads over 8
+   of 128), causal; the backward at Whisper-tiny's training batch, not
+   causal (its encoder and its cross attention), and at InternVL2-76B's
+   full-width training batch (T = 1089, causal); the paged kernel at
+   Whisper-tiny's and InternVL2-76B's decode shapes; the scans' backward
+   kernels at RWKV6-7B's training shape
    (B = 8, T = 256, H = 64, dh = 64) and Jamba's full-width mixer shape
    (B = 1, T = 4096, H = 256, dh = 64, N = 16), in bf16 and fp32, and at
    a ragged T with a carried state, the final state's gradient and
@@ -269,9 +312,12 @@ Phases, each of which exits non-zero on failure:
    bit-identical, and in bf16 at the main path's shapes the call that
    takes the forward's chunk states (as the autograd ops make it)
    bit-identical to the one that recomputes them;
-   then per-launch times at the main path's shape (device time from the
-   profiler over ``PROFILED_REPS`` calls, call time from CUDA events),
-   beside the plain version's (one warm call, then one profiled call), a
+   then per-launch times at the main path's shape (device time from
+   CUDA events around ``PROFILED_REPS`` calls queued behind a sleep
+   kernel, the profiler's reading over as many calls printed beside it;
+   call time from CUDA events around back-to-back calls), beside the
+   plain version's (one warm call, then one queued call, marked
+   ``plain_host_inclusive`` where host time is in it), a
    library call's where one computes the same function, and the least
    time the card could take (``bound_ms``); each phase's seconds.
 
@@ -338,7 +384,8 @@ from repro_torch.serving.engine import _pad_caches  # noqa: E402
 from repro_torch.convert import (lm_arrays_from_params,  # noqa: E402
                                  lm_params_from_arrays)
 from repro_torch.launch import train as train_mod  # noqa: E402
-from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
+                                      make_prefill_step, make_train_step)
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
@@ -351,7 +398,8 @@ HIGH = -(1 << 63)  # 2^63 as an int64 bit pattern
 # bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
-# calls a kernel's time is profiled over (its event-timed calls are more)
+# calls a kernel's device time is taken over, and profiled over (its
+# back-to-back calls are more)
 PROFILED_REPS = 32
 # what the profiler records: the card's kernels, copies and fills, the
 # only events any reading here takes (host events multiply the trace's
@@ -586,6 +634,46 @@ RECUR_CHECK_LAYERS = 2
 RECUR_CHECK_BATCH = 2
 RECUR_CHECK_SEQ = 72
 HYBRID_TRAIN = dict(steps=4, batch=8, seq_len=64, ckpt_every=10)
+# the encoder-decoder path: Whisper-tiny at full width and depth (4
+# encoder and 4 decoder layers, d_model 384, 6 heads of 64, GELU MLP of
+# 1536, LayerNorm, vocabulary 51,865, 1500 frames; 56,364,288 parameter
+# values, 0.11 GB bf16) at model level, as the JAX package runs it (its
+# Server and train() feed tokens only): 4 requests of 32-64 tokens, each
+# prefilled with its 1500 frames (drawn from --seed: the conv front end
+# is a stub), the encoder's output from ``_encode``, 32 greedy decode
+# steps of the 4 together through ``make_decode_step(with_enc=True)``;
+# then 4 ``make_train_step`` steps of B = 8, T = 64; each fp32 check over
+# the whole model (prefill and 4 decode steps over the shortest prompt;
+# the loss and gradients at B = 2)
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_PARAMS = 56_364_288
+WHISPER_PROMPTS = (32, 43, 54, 64)
+WHISPER_DECODE = 32
+WHISPER_TRAIN = dict(steps=4, batch=8, seq=64)
+WHISPER_CHECK_BATCH = 2
+# the VLM path: InternVL2-76B at full width (d_model 8192, 64 heads over
+# 8 KV heads of 128, SwiGLU MLP of 28672, vocabulary 128,256, a projector
+# from 1025 patch embeddings of width 3200) cut to 8 of its 80 layers as
+# the Mixtral path cuts depth: 8,972,804,096 parameter values, 17.95 GB
+# bf16 (141 GB at full depth): 2 requests of 1025 patches (drawn from
+# --seed: the InternViT front end is a stub) and 96 and 128 text tokens,
+# each prefilled over 1121 and 1153 positions, then 16 greedy decode
+# steps of the 2 together; its fp32 check at 1 of the 8 layers over the
+# shorter prompt and 4 decode steps.  Training runs at full width cut to
+# 1 layer (2,983,223,296 parameter values: 47.7 GB at AdamW's 16 bytes
+# a parameter, the bf16 weight and gradient, two moments and an fp32
+# master): 4 steps of B = 4, T = 64 text tokens after the 1025 patches
+# (1089 positions), its peak under TRAIN_PEAK_GB; its fp32 check at
+# B = 1 over that layer.
+VLM_ARCH = "internvl2-76b"
+VLM_LAYERS = 8
+VLM_PARAMS = 8_972_804_096
+VLM_PROMPTS = (96, 128)
+VLM_DECODE = 16
+VLM_CHECK_LAYERS = 1
+VLM_TRAIN = dict(steps=4, batch=4, seq=64, layers=1)
+VLM_TRAIN_PARAMS = 2_983_223_296
+VLM_CHECK_BATCH = 1
 
 
 def kernel_name(mangled: str) -> str:
@@ -1134,11 +1222,13 @@ def time_calls(fn, batches, reps: int):
     most rows the batches touch are not in L2 (the main path's plans
     probe different keys each time).  Call ms: CUDA events around
     ``reps`` back-to-back calls, host launch cost included.  Device ms:
-    for each CUDA kernel the profiler records over ``PROFILED_REPS``
-    calls (``reps`` where fewer), its mean duration times its launches a
-    call, summed; or None when it records none.  (The profiler may miss
-    a window's first launches: 50 of 64 were recorded in one H100 run,
-    so the recorded total over the calls would read low.)"""
+    ``queued_ms`` over ``PROFILED_REPS`` calls (``reps`` where fewer):
+    the calls' kernels and the gaps between them.  The profiler's
+    reading over as many calls (``profiled``: each kernel's mean
+    duration times its launches a call, summed) is printed beside it,
+    so that the two methods' offset is on record for every row, but not
+    taken: over a long run the profiler loses records, of whole readings
+    (35 of 75 in one H100 run) or of some of a call's kernels."""
     for b in batches[-4:]:
         fn(*b)
     torch.cuda.synchronize()
@@ -1150,15 +1240,60 @@ def time_calls(fn, batches, reps: int):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    return profiled(fn, batches, min(reps, PROFILED_REPS)), call_ms
+    calls = min(reps, PROFILED_REPS)
+    prof_ms = profiled(fn, batches, calls)
+    q_ms, _ = queued_ms(fn, batches, calls, call_ms)
+    say(f"  device ms a call: queued {q_ms:.6f}, profiler {prof_ms}")
+    return q_ms, call_ms
+
+
+# the sleep kernel's cycles a ms at the H100 SXM's largest SM clock, so
+# that a sleep lasts at least the time ``queued_ms`` asks (longer where
+# the card runs slower)
+SLEEP_CYCLES_PER_MS = 1_980_000
+
+
+def queued_ms(fn, batches, calls: int, host_ms: float,
+              tries: int = 3) -> tuple:
+    """(device ms a call of ``fn``, whether every call queued): CUDA
+    events around ``calls`` back-to-back calls, all queued behind a
+    sleep kernel of twice ``host_ms`` a call (the host's cost of a call,
+    or more), so that the host queues every call while the card sleeps
+    and the events time the card's work: the calls' kernels and the gaps
+    between them.  Where the host took longer to queue the calls than
+    the card slept, the reading is taken again behind twice that time,
+    ``tries`` times in all; a call that waits on the card (a host sync,
+    or more kernels than the launch queue holds) never queues whole, and
+    its reading, which then includes host time, says so."""
+    sleep_ms = max(0.5, 2.0 * calls * host_ms)
+    for _ in range(tries):
+        before, start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        before.record()
+        torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(*batches[i % len(batches)])
+        queued = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        slept = before.elapsed_time(start)
+        ms = start.elapsed_time(end) / calls
+        if queued <= slept:
+            return ms, True
+        sleep_ms = 2.0 * queued
+    say(f"  queued_ms: the host took {queued:.3f} ms to queue {calls} "
+        f"calls and the card slept {slept:.3f} ms: {ms:.6f} ms a call "
+        "includes host time")
+    return ms, False
 
 
 def profiled(fn, batches, calls: int):
     """Device ms a call of ``fn`` over ``calls`` calls under the
     profiler (see ``time_calls``), its three longest kernels printed;
     None when it records no device kernel."""
-    acts = CARD_ACTIVITY
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=CARD_ACTIVITY) as prof:
         for i in range(calls):
             fn(*batches[i % len(batches)])
         torch.cuda.synchronize()
@@ -1174,19 +1309,21 @@ def profiled(fn, batches, calls: int):
 
 
 def time_plain(fn, batches):
-    """(device ms, call ms) of one call of a plain version: one warm
-    call, then one call under the profiler with CUDA events around it
-    (the plain versions are no yardstick of speed, and some take
-    seconds a call)."""
+    """(device ms, call ms, whether the device reading is the card's
+    alone) of one call of a plain version (the plain versions are no
+    yardstick of speed, and some take seconds a call): one warm call on
+    the host clock, then one call by ``queued_ms``, once.  Where the
+    plain version runs more kernels than the launch queue holds (the
+    scans' step-by-step loops) or waits on the card, its reading
+    includes host time, and its row says so
+    (``plain_host_inclusive``)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn(*batches[0])
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    dev_ms = profiled(fn, batches[-1:], 1)
-    end.record()
-    torch.cuda.synchronize()
-    return dev_ms, start.elapsed_time(end)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    q_ms, whole = queued_ms(fn, batches[-1:], 1, call_ms, tries=1)
+    return q_ms, call_ms, whole
 
 
 def bound(n_bytes: float, ops: float):
@@ -1215,21 +1352,27 @@ def row(name: str, launches: dict, err: int, timed: dict, bms: float,
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": float(err), "ms": timed["ms"],
-            "plain_ms": timed["plain_ms"], "bound_ms": bms, "bound_by": by,
+            **plain_of(timed), "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "shape": shape}
 
 
+def plain_of(timed: dict) -> dict:
+    """A row's ``plain_ms``, and ``plain_host_inclusive`` where that
+    reading includes host time (see ``time_plain``)."""
+    return {"plain_ms": timed["plain_ms"], **(
+        {"plain_host_inclusive": True} if timed.get("plain_host") else {})}
+
+
 def time_kernel(name: str, fn, plain_fn, batches, reps: int = 640) -> dict:
-    """The kernel's and the plain version's time per call: the card's
-    time where the profiler saw the kernels, else the event time per
-    call (which then includes the host's launch cost).  The plain
-    version is timed once (``time_plain``)."""
+    """The kernel's and the plain version's device time per call
+    (``time_calls``; the plain version timed once, ``time_plain``)."""
     dev_ms, call_ms = time_calls(fn, batches, reps)
-    plain_dev, plain_call = time_plain(plain_fn, batches)
+    plain_dev, plain_call, whole = time_plain(plain_fn, batches)
     say(f"{name}: device {dev_ms} ms, call {call_ms:.6f} ms per launch; "
-        f"plain: device {plain_dev} ms, call {plain_call:.6f} ms")
-    return {"ms": dev_ms if dev_ms is not None else call_ms,
-            "plain_ms": plain_dev if plain_dev is not None else plain_call}
+        f"plain: device {plain_dev} ms" + ("" if whole else
+                                           " (host time included)")
+        + f", call {plain_call:.6f} ms")
+    return {"ms": dev_ms, "plain_ms": plain_dev, "plain_host": not whole}
 
 
 def probe_table(index):
@@ -1676,7 +1819,7 @@ def scan_vs_plain(session, seed: int, launches: dict) -> list:
         out[width] = (timed, bms, by)
     lib_dev, lib_call = time_calls(
         lambda a, c: torch.searchsorted(keys, a), timing, 640)
-    library_ms = lib_dev if lib_dev is not None else lib_call
+    library_ms = lib_dev
     say(f"torch.searchsorted (the lower bound alone): device {lib_dev} ms, "
         f"call {lib_call:.6f} ms; main-path launches "
         f"{launches['scan_window']}")
@@ -1785,7 +1928,7 @@ def sharded_scan_vs_plain(scale, seed: int, launches: dict) -> list:
         lib_batches.append((grid,))
     lib_dev, lib_call = time_calls(
         lambda g: torch.searchsorted(runs2d, g), lib_batches, 640)
-    library_ms = lib_dev if lib_dev is not None else lib_call
+    library_ms = lib_dev
     timed, bms, by = out
     say(f"scan_window_sharded (C=1): bound {bms:.9f} ms ({by}) at Q={Q}; "
         f"torch.searchsorted over [{SHARDS}, {n_max}] runs: device "
@@ -1872,7 +2015,7 @@ def partition_vs_plain(q: np.ndarray, timing: list, launches: dict
     lib_dev, lib_call = time_calls(
         lambda i: (torch.sort(i, stable=True),
                    torch.bincount(i, minlength=SHARDS)), ids, 640)
-    library_ms = lib_dev if lib_dev is not None else lib_call
+    library_ms = lib_dev
     # each key read once (8 bytes), its id and its place written once (4
     # and 4), the offsets; a route and a rank are some 24 operations
     bms, by = bound(Q * 16 + (SHARDS + 1) * 4, Q * 24)
@@ -2053,15 +2196,23 @@ def drive_server(server, phases: list, *, pipelined: bool, tag: str,
     return reqs, first_tok, phases_out, steady
 
 
-def prefilled(model, prompt: list, slots: int):
-    """One request's prefill on ``model``: the logits and the caches
-    ``decode_step`` continues from (k and v padded to ``slots``, the
-    serving path's, as the engine pads them; recurrent state as it
-    comes)."""
+def front_len(cfg) -> int:
+    """The positions before the text: InternVL's patches, or 0."""
+    return cfg.vision.n_patches if cfg.vision is not None else 0
+
+
+def prefilled(model, prompt: list, slots: int, inputs=None):
+    """One request's prefill on ``model``, with its frames or patches
+    (``inputs``, [1, ...] tensors) where the model has a front end: the
+    logits and the caches ``decode_step`` continues from (k and v padded
+    to ``slots``, the serving path's, as the engine pads them; recurrent
+    state as it comes)."""
     dev = model.device
-    logits, caches = model.prefill(
-        {"tokens": torch.tensor([prompt], device=dev)}, len(prompt))
-    return logits, _pad_caches(caches, len(prompt), slots)
+    batch = {"tokens": torch.tensor([prompt], device=dev)}
+    batch.update({k: v.to(dev) for k, v in (inputs or {}).items()})
+    n = front_len(model.cfg) + len(prompt)
+    logits, caches = model.prefill(batch, n)
+    return logits, _pad_caches(caches, n, slots)
 
 
 @contextlib.contextmanager
@@ -2084,27 +2235,35 @@ def routing():
         ffn_mod._route = real
 
 
-def logit_runs(models: list, prompt: list, slots: int) -> list:
+def logit_runs(models: list, prompt: list, slots: int, inputs=None) -> list:
     """One request's prefill logits and 4 decode steps on each model (the
-    first model's greedy tokens fed to all), as fp32 CPU tensors."""
+    first model's greedy tokens fed to all), as fp32 CPU tensors; with
+    ``inputs`` (Whisper's frames or InternVL's patches, [1, ...]) fed to
+    the prefill, each Whisper step given its model's ``_encode`` of the
+    frames, InternVL's positions after its patches."""
     runs = []
     for model in models:
-        logits, caches = prefilled(model, prompt, slots)
-        runs.append((model, [logits.float().cpu()], caches))
+        logits, caches = prefilled(model, prompt, slots, inputs)
+        enc = None
+        if model.cfg.encdec is not None:
+            with torch.no_grad():
+                enc = model._encode(inputs["frames"])
+        runs.append((model, [logits.float().cpu()], caches, enc))
     tokens = [int(torch.argmax(runs[0][1][0][0]))]
     for step in range(4):
-        pos = len(prompt) + step
-        for model, out, caches in runs:
+        for model, out, caches, enc in runs:
             dev = model.device
+            pos = front_len(model.cfg) + len(prompt) + step
             logits, _ = model.decode_step(
                 torch.tensor([tokens[-1]], device=dev), caches,
-                torch.tensor([pos], device=dev), page_size=SERVE_PAGE)
+                torch.tensor([pos], device=dev), enc=enc,
+                page_size=SERVE_PAGE)
             out.append(logits.float().cpu())
         tokens.append(int(torch.argmax(runs[0][1][-1][0])))
     for out in runs:
         check(all(bool(torch.isfinite(x).all()) for x in out[1]),
               "serving: non-finite logits")
-    return [out for _, out, _ in runs]
+    return [out for _, out, _, _ in runs]
 
 
 def worst_rel(got: list, want: list) -> float:
@@ -2265,7 +2424,9 @@ def serving_cpu_check(served: dict, pick, n_layers=None, *,
     ``FP32_LOGIT_REL_TOL``.  Frees the served model first, so that it
     and the check's copies never share the card.  Where the model has
     MoE layers, every token's top-K expert set is compared
-    (``expert_sets_agree``): a printed router near-tie leaves the steps
+    (``expert_sets_agree``).  Where ``served`` holds ``inputs`` (Whisper's
+    frames or InternVL's patches, a row a prompt), each prompt's row goes
+    with it, upcast to fp32.  A printed router near-tie leaves the steps
     from the flip on ungated and sends the check to the path's next
     prompt in ``pick``'s order, up to ``TIE_PROMPTS`` prompts, and the
     check fails unless one prompt ran with every set equal and every
@@ -2288,11 +2449,17 @@ def serving_cpu_check(served: dict, pick, n_layers=None, *,
                              FP32_LOGIT_REL_TOL)
     del small
     n_moe = sum(ffn == "moe" for _, ffn in layer_kinds(card_m.cfg))
-    prompts = sorted(served["prompts"], key=len,
-                     reverse=pick is max)[:TIE_PROMPTS]
-    for prompt in prompts:
+    every = served["prompts"]
+    picked = sorted(range(len(every)), key=lambda i: len(every[i]),
+                    reverse=pick is max)[:TIE_PROMPTS]
+    front = served.get("inputs")
+    for i in picked:
+        prompt = every[i]
+        inputs = None if front is None else {
+            k: v[i:i + 1].float().cpu() for k, v in front.items()}
         with routing() as routes:
-            card, cpu = logit_runs([card_m, cpu_m], prompt, served["slots"])
+            card, cpu = logit_runs([card_m, cpu_m], prompt, served["slots"],
+                                   inputs)
         flip, extra = None, ""
         if n_moe:
             # each step runs the MoE layers in order, on each device
@@ -2316,7 +2483,9 @@ def serving_cpu_check(served: dict, pick, n_layers=None, *,
         check(rel <= tol, f"{name}: card logits differ from the CPU's by "
               f"{rel:.6f} of the largest logit ({what}, {at}, tolerance "
               f"{tol})")
-        say(f"{name}: prefill ({len(prompt)} tokens) and 4 decode steps at "
+        say(f"{name}: prefill ({len(prompt)} tokens"
+            + ("" if front is None else f", with its {', '.join(front)}")
+            + ") and 4 decode steps at "
             f"{at} ({n_params} parameters), {what} "
             f"on the card against the CPU's plain versions: max |diff| / "
             f"max |logit| = {rel:.6f} over {gated} of {len(card)} steps "
@@ -2325,7 +2494,7 @@ def serving_cpu_check(served: dict, pick, n_layers=None, *,
             break
     else:
         check(False, f"{name}: a router near-tie in each of the "
-              f"{len(prompts)} prompts checked: no run compared every "
+              f"{len(picked)} prompts checked: no run compared every "
               "expert set and gated every step")
     del card_m, cpu_m
     gc.collect()
@@ -2358,14 +2527,11 @@ def decode_busy(serve: dict) -> None:
     t0 = time.perf_counter()
     run(len(prompt))
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    acts = CARD_ACTIVITY
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=CARD_ACTIVITY) as prof:
         run(len(prompt))
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
-    n = sum(e.count for e in kernels) / steps
+    dev_ms, n, kernels = device_totals(prof)
+    dev_ms, n = dev_ms / steps, n / steps
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:4]
     say(f"serving {serve['cfg'].name} decode, B=1, position {len(prompt)}: "
         f"{host_ms:.3f} ms a step on the host clock, {dev_ms:.3f} ms of "
@@ -2517,7 +2683,7 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
         lse_dev, lse_call = time_calls(
             lambda a, b, c: kflash.flash_attention(a, b, c, return_lse=True),
             batches, 64)
-        timed["with_lse_ms"] = lse_dev if lse_dev is not None else lse_call
+        timed["with_lse_ms"] = lse_dev
         say(f"flash_attention (T={T}): without its log-sum-exp "
             f"{timed['ms']} ms, with it {timed['with_lse_ms']} ms (device "
             f"{lse_dev} ms, call {lse_call:.6f} ms)")
@@ -2529,7 +2695,7 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
         lib_dev, lib_call = time_calls(
             lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
                 a, b, c, is_causal=True), lib, 64)
-        library_ms = lib_dev if lib_dev is not None else lib_call
+        library_ms = lib_dev
         n_bytes = 2 * (2 * T * H * dh + 2 * T * Hk * dh)
         bms, by = attn_bound(n_bytes, 2 * 2 * T * T * dh * H / 2)
         say(f"flash_attention (T={T}): bound {bms:.9f} ms ({by}); "
@@ -2572,21 +2738,93 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
     wlib_dev, wlib_call = time_calls(
         lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
             a, b, c, attn_mask=wmask), wlib, 16)
-    wlibrary_ms = wlib_dev if wlib_dev is not None else wlib_call
+    wlibrary_ms = wlib_dev
     say(f"flash_attention windowed (T={T_long}, W={W}): bound {wbms:.9f} ms "
         f"({wby}); scaled_dot_product_attention with the window as a "
         f"boolean mask: device {wlib_dev} ms, call {wlib_call:.6f} ms")
     del wlib, wmask
+    others = []
+    for tag, fB, fT, fS, fH, fHk, fdh, causal in FRONT_FWD_SHAPES:
+        mask = "causal" if causal else "not causal"
+        name = (f"flash_attention ({tag}, B={fB}, T={fT}, S={fS}, H={fH}, "
+                f"Hk={fHk}, dh={fdh}, {mask})")
+        batches = [tuple(torch.randn(shape, generator=gen, device=dev)
+                         .to(torch.bfloat16)
+                         for shape in ((fB, fT, fH, fdh), (fB, fS, fHk, fdh),
+                                       (fB, fS, fHk, fdh))) for _ in range(4)]
+        q, k, v = batches[0]
+        got = kflash.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        plain = kflash.attention_plain(q, k, v, causal=causal)
+        if causal:
+            broken = torch.cat([plain[:, :1], kflash.attention_plain(
+                q[:, 1:], k[:, :-1], v[:, :-1])], dim=1)
+            variant = "a dropped newest key"
+        elif fT > 1:
+            broken, variant = kflash.attention_plain(
+                q, k, v), "the plain version with a causal mask"
+        else:
+            # one query sees every key under either mask: drop the last
+            # key tile's rows instead (28 of 1500 = 23 * 64 + 28)
+            tail = fS % 64 or 64
+            broken, variant = kflash.attention_plain(
+                q, k[:, :-tail], v[:, :-tail], causal=False), (
+                f"the plain version without the last {tail} keys")
+        ferr = close(name, got, plain, broken, variant)
+        share = float(((got.float() - plain.float()).abs()
+                       / attn_limit(plain)).max())
+        ftimed = time_kernel(
+            name, lambda a, b, c: kflash.flash_attention(a, b, c,
+                                                         causal=causal),
+            lambda a, b, c: kflash.attention_plain(a, b, c, causal=causal),
+            batches, reps=64)
+        flib = [(a.transpose(1, 2).contiguous(),
+                 b.repeat_interleave(fH // fHk, dim=2).transpose(1, 2)
+                 .contiguous(),
+                 c.repeat_interleave(fH // fHk, dim=2).transpose(1, 2)
+                 .contiguous()) for a, b, c in batches]
+        flib_dev, flib_call = time_calls(
+            lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+                a, b, c, is_causal=causal), flib, 64)
+        pairs = seen_pairs(fT, fS, None) if causal else fT * fS
+        fbms, fby = attn_bound(2 * (2 * fB * fT * fH * fdh
+                                    + 2 * fB * fS * fHk * fdh),
+                               4 * fB * pairs * fH * fdh)
+        say(f"{name}: bound {fbms:.9f} ms ({fby}); "
+            f"scaled_dot_product_attention: device {flib_dev} ms, call "
+            f"{flib_call:.6f} ms")
+        others.append({"max_abs_err": ferr, "limit_share": share,
+                       "ms": ftimed["ms"], **plain_of(ftimed),
+                       "bound_ms": fbms, "bound_by": fby,
+                       "library_ms": flib_dev,
+                       "shape": f"{tag}, B={fB}, T={fT}, S={fS}, H={fH}, "
+                                f"Hk={fHk}, dh={fdh}, {mask}, bf16"})
+        del batches, flib
     say(f"flash_attention: main-path launches {launches['flash_attention']}")
     out = row("flash_attention", launches, err, timed, bms, by, library_ms,
               f"{cfg.name} prefill, T=S={T}, H={H}, Hk={Hk}, dh={dh}, bf16")
     out["with_lse_ms"] = timed["with_lse_ms"]
-    out["window"] = {"ms": wtimed["ms"], "plain_ms": wtimed["plain_ms"],
+    out["window"] = {"ms": wtimed["ms"], **plain_of(wtimed),
                      "bound_ms": wbms, "bound_by": wby,
                      "library_ms": wlibrary_ms,
                      "shape": f"{ccfg.name} prefill, T=S={T_long}, W={W}, "
                               f"H={cH}, Hk={cHk}, dh={cdh}, bf16"}
+    out["other_shapes"] = others
     return [out]
+
+
+# the encoder-decoder and VLM paths' attention shapes: Whisper-tiny's
+# encoder over its 1500 frames and its cross attention, not causal: 64
+# queries of a batch of 4, a one-request prefill's 43 (a partial query
+# tile) and a decode step's one query of each of the 4 requests, each
+# against the 1500 encoder rows; InternVL2-76B's prefill over 1025
+# patches and 128 text tokens, causal
+FRONT_FWD_SHAPES = (
+    ("Whisper-tiny encoder", 1, 1500, 1500, 6, 6, 64, False),
+    ("Whisper-tiny cross", 4, 64, 1500, 6, 6, 64, False),
+    ("Whisper-tiny cross, prefill", 1, 43, 1500, 6, 6, 64, False),
+    ("Whisper-tiny cross, decode", 4, 1, 1500, 6, 6, 64, False),
+    ("InternVL2-76B prefill", 1, 1153, 1153, 64, 8, 128, True))
 
 
 def paged_lengths(tag: str, dims: tuple, slots: int, lengths, gen, dev,
@@ -2640,7 +2878,7 @@ def paged_lengths(tag: str, dims: tuple, slots: int, lengths, gen, dev,
         lib_dev, lib_call = time_calls(
             lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
                 a, b, c), lib, 256)
-        library_ms = lib_dev if lib_dev is not None else lib_call
+        library_ms = lib_dev
         # the live keys and values once, q, the table's live entries, the
         # output
         n_bytes = (2 * (2 * live * Hk * dh + 2 * H * dh)
@@ -2653,13 +2891,15 @@ def paged_lengths(tag: str, dims: tuple, slots: int, lengths, gen, dev,
 
 
 def paged_vs_plain(serve: dict, coder: dict, seed: int,
-                   launches: dict) -> list:
+                   launches: dict, fronts: tuple = ()) -> list:
     """paged_attention at Qwen2-0.5B's decode shape (one sequence, the
     path's dense cache read as pages, at the shortest and longest length
     a request reached), then with a sliding window at StarCoder2-15B's
     (B = 1, its heads and window of 4096, its long prompt's decode
-    lengths over its cache): one row, the windowed shape's numbers under
-    its ``window`` key and the launches split by ``launches_by_shape``."""
+    lengths over its cache), then at the decode shapes of ``fronts``
+    (the Whisper and InternVL paths' dicts): one row, the windowed
+    shape's numbers under its ``window`` key, the others' under
+    ``other_shapes``, and the launches split by ``launches_by_shape``."""
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 13)
@@ -2668,13 +2908,16 @@ def paged_vs_plain(serve: dict, coder: dict, seed: int,
             ("paged_attention", serve, serve["decode_lens"], None),
             ("paged_attention windowed", coder,
              (CODER_LONG + 1, CODER_LONG + SERVE_NEW),
-             coder["cfg"].sliding_window)):
+             coder["cfg"].sliding_window)) + tuple(
+                (f"paged_attention {f['cfg'].name}", f, f["decode_lens"],
+                 None) for f in fronts):
         cfg, slots = served["cfg"], served["slots"]
         dims = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
         pages, n_splits = kpaged.split_plan(
             slots // SERVE_PAGE, 1, cfg.n_heads, cfg.n_kv_heads,
             torch.cuda.get_device_properties(dev).multi_processor_count)
-        say(f"{tag} ({cfg.name}): {n_splits} splits of {pages} pages (one "
+        say(f"{tag}" + ("" if cfg.name in tag else f" ({cfg.name})")
+            + f": {n_splits} splits of {pages} pages (one "
             f"cluster a kv head), {n_splits * cfg.n_kv_heads} blocks")
         err, (timed, bms, by, library_ms) = paged_lengths(
             tag, dims, slots, lengths, gen, dev, window)
@@ -2688,12 +2931,16 @@ def paged_vs_plain(serve: dict, coder: dict, seed: int,
              "window": windowed}
     say(f"paged_attention: main-path launches {launches['paged_attention']}: "
         f"{split}")
-    (err, timed, bms, by, library_ms, shape), w = measured
+    (err, timed, bms, by, library_ms, shape), w, *others = measured
     out = row("paged_attention", launches, max(err, w[0]), timed, bms, by,
               library_ms, shape)
+    out["other_shapes"] = [
+        {"max_abs_err": e, "ms": t["ms"], **plain_of(t),
+         "bound_ms": b, "bound_by": y, "library_ms": lib, "shape": sh}
+        for e, t, b, y, lib, sh in others]
     out["launches_by_shape"] = split
     out["window"] = {"max_abs_err": w[0], "ms": w[1]["ms"],
-                     "plain_ms": w[1]["plain_ms"], "bound_ms": w[2],
+                     **plain_of(w[1]), "bound_ms": w[2],
                      "bound_by": w[3], "library_ms": w[4], "shape": w[5]}
     return [out]
 
@@ -3541,28 +3788,37 @@ def matrix_path(seed: int, dev) -> None:
 # -- the sixteenth path: training, and the attention backward kernel -------
 
 def timed_step(step_fn, steps: int, timing: dict):
-    """``step_fn`` (a train step) wrapped to time each call on the host
-    clock into ``timing["host_s"]`` (each call starts and ends with a
-    synchronise) and to run the ``steps``-th call under the profiler,
-    into ``timing["prof"]`` (its host time recorded as None)."""
-    acts = CARD_ACTIVITY
+    """``step_fn`` (a train, prefill or decode step) wrapped to time each
+    call on the host clock into ``timing["host_s"]`` (each call starts
+    and ends with a synchronise) and to run the ``steps``-th call under
+    the profiler, into ``timing["prof"]`` (its host time recorded as
+    None)."""
 
-    def step(batch, state):
+    def step(*args):
         torch.cuda.synchronize()
         if len(timing["host_s"]) == steps - 1:
-            with torch.profiler.profile(activities=acts) as prof:
-                out = step_fn(batch, state)
+            with torch.profiler.profile(activities=CARD_ACTIVITY) as prof:
+                out = step_fn(*args)
                 torch.cuda.synchronize()
             timing["prof"] = prof
             timing["host_s"].append(None)
             return out
         t0 = time.perf_counter()
-        out = step_fn(batch, state)
+        out = step_fn(*args)
         torch.cuda.synchronize()
         timing["host_s"].append(time.perf_counter() - t0)
         return out
 
     return step
+
+
+def device_totals(prof) -> tuple:
+    """(device ms, CUDA kernel count, the kernels' events) the profiler
+    ``prof`` recorded."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels), kernels)
 
 
 def train_full_width(seed: int) -> dict:
@@ -3634,10 +3890,7 @@ def step_times(tag: str, timing: dict) -> float:
     (device time over that mean, as ``decode_busy``) and top kernels."""
     host = [t for t in timing["host_s"][1:] if t is not None]
     host_ms = sum(host) / len(host) * 1e3
-    kernels = [e for e in timing["prof"].key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
-    n_k = sum(e.count for e in kernels)
+    dev_ms, n_k, kernels = device_totals(timing["prof"])
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
     say(f"training {tag} step (profiled): {dev_ms:.3f} ms of device "
         f"time in {n_k} CUDA kernels; device busy share "
@@ -3648,13 +3901,14 @@ def step_times(tag: str, timing: dict) -> float:
 
 
 def grad_check(what: str, cfg, params: dict, seed: int, batch: int,
-               seq: int) -> None:
+               seq: int, inputs=None) -> None:
     """A model of ``cfg`` holding ``params`` (a trained model's weights,
     those of ``cfg``'s layers), upcast to fp32 (exactly), on the card and
-    on the CPU: one batch's loss within ``TRAIN_LOSS_TOL`` of the CPU's
-    and each leaf's gradient within ``TRAIN_GRAD_TOL`` of its largest
-    |g| on the CPU; fp32 products in full fp32 on the card (no TF32).
-    Frees both models."""
+    on the CPU: one batch's loss (with ``inputs``, CPU tensors of
+    Whisper's frames or InternVL's patches, where the model takes them)
+    within ``TRAIN_LOSS_TOL`` of the CPU's and each leaf's gradient
+    within ``TRAIN_GRAD_TOL`` of its largest |g| on the CPU; fp32
+    products in full fp32 on the card (no TF32).  Frees both models."""
     t0 = time.perf_counter()
     card = LM(cfg, seed=seed, device="cuda")
     card.load_state_dict({name: params[name].float()
@@ -3663,7 +3917,7 @@ def grad_check(what: str, cfg, params: dict, seed: int, batch: int,
     rng = np.random.default_rng(seed + 24)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab,
                                          size=(batch, seq + 1)))
-    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **(inputs or {})}
     losses, grads = [], []
     for lm in (card, cpu):
         lm.requires_grad_(True)
@@ -3959,6 +4213,291 @@ def recurrent_path(seed: int, launches: dict) -> None:
     say(f"recurrent training path: {time.perf_counter() - t_recur:.3f} s")
 
 
+# -- the eighteenth and nineteenth paths: Whisper and InternVL ------------
+
+def front_inputs(cfg, gen, batch: int) -> dict:
+    """Whisper's frames [B, n_audio_frames, d_model] or InternVL's
+    patches [B, n_patches, d_vit]: normals drawn from ``gen`` on its
+    device, bf16."""
+    if cfg.encdec is not None:
+        key, shape = "frames", (batch, cfg.encdec.n_audio_frames,
+                                cfg.d_model)
+    else:
+        key, shape = "patches", (batch, cfg.vision.n_patches,
+                                 cfg.vision.d_vit)
+    return {key: torch.randn(shape, generator=gen, device=gen.device)
+            .to(torch.bfloat16)}
+
+
+def phase_counts(tag: str, launches: dict, want: dict) -> None:
+    """Read the counts of the phase just run, hold each of ``want``
+    exactly, add them all to ``launches`` and set them to 0."""
+    counts = read_counts()
+    for name, n in want.items():
+        check(counts[name] == n, f"{tag}: {name} was launched "
+              f"{counts[name]} times, not {n}")
+    for name, done in counts.items():
+        launches[name] = launches.get(name, 0) + done
+    say(f"{tag}: launches " + json.dumps(
+        {k: v for k, v in counts.items() if v}))
+    reset_counts()
+
+
+def front_serve(lm, prompts: list, inputs: dict, decode: int,
+                launches: dict) -> dict:
+    """One model-level serving run on the card: each request's prefill
+    alone through ``make_prefill_step`` with its frames or patches,
+    Whisper's encoder output from ``_encode``, then ``decode`` greedy
+    steps of all the requests together through ``make_decode_step`` on
+    their caches padded to whole pages and joined; the prefills and the
+    steps timed by ``timed_step`` (the last of each profiled).  Each
+    phase's launches are held exactly: a prefill runs ``flash_attention``
+    once a self-attention, encoder and cross layer; a decode step
+    ``paged_attention`` once a layer and ``flash_attention`` once a cross
+    layer.  Returns the dict ``serving_cpu_check`` takes."""
+    cfg = lm.cfg
+    L, P = cfg.n_layers, front_len(cfg)
+    n_enc = cfg.encdec.n_enc_layers if cfg.encdec is not None else 0
+    n_cross = L if cfg.encdec is not None else 0
+    key = "frames" if cfg.encdec is not None else "patches"
+    dev = lm.device
+    lens = [P + len(p) for p in prompts]
+    slots = -(-(max(lens) + decode) // SERVE_PAGE) * SERVE_PAGE
+    reset_counts()
+    pre = {"host_s": [], "prof": None}
+    prefill = timed_step(lambda i: make_prefill_step(lm, lens[i])(
+        {"tokens": torch.tensor([prompts[i]], device=dev),
+         key: inputs[key][i:i + 1]}), len(prompts), pre)
+    logits, caches = [], []
+    for i in range(len(prompts)):
+        lg, cache = prefill(i)
+        logits.append(lg)
+        caches.append(_pad_caches(cache, lens[i], slots))
+    phase_counts(f"{cfg.name} prefills", launches, {
+        "flash_attention": len(prompts) * (L + n_enc + n_cross),
+        "paged_attention": 0})
+    enc = None
+    if n_enc:
+        with torch.no_grad():
+            enc = lm._encode(inputs[key])
+        phase_counts(f"{cfg.name} _encode", launches,
+                     {"flash_attention": n_enc})
+
+    def join(parts):
+        if isinstance(parts[0], dict):
+            return {k: join([p[k] for p in parts]) for k in parts[0]}
+        return torch.cat(parts, dim=-4)  # k, v: [L, B, S, Hk, dh]
+
+    joined = join(caches)
+    del caches
+    dec = {"host_s": [], "prof": None}
+    step = timed_step(make_decode_step(lm, with_enc=enc is not None),
+                      decode, dec)
+    tok = torch.cat([lg.argmax(-1) for lg in logits])
+    pos = torch.tensor(lens, device=dev)
+    tokens = [tok]
+    for _ in range(decode):
+        out, joined = step(tok, joined, pos, *(() if enc is None else (enc,)))
+        check(bool(torch.isfinite(out.float()).all()), f"{cfg.name}: "
+              "non-finite decode logits")
+        tok = out.argmax(-1)
+        tokens.append(tok)
+        pos = pos + 1
+    phase_counts(f"{cfg.name} decode", launches, {
+        "paged_attention": decode * L, "flash_attention": decode * n_cross})
+    tokens = torch.stack(tokens, 1).cpu()
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"{cfg.name}: a token outside the vocabulary")
+    pre_dev, pre_k, _ = device_totals(pre["prof"])
+    say(f"{cfg.name} prefill, one request a call: " + ", ".join(
+        f"{n} positions in {s * 1e3:.3f} ms ({n / s:.1f} tokens/s)"
+        for n, s in zip(lens, pre["host_s"]) if s is not None)
+        + f" on the host clock (the first includes the shapes' first "
+        f"calls); the last, {lens[-1]} positions, profiled: {pre_dev:.3f} "
+        f"ms of device time in {pre_k} CUDA kernels, "
+        f"{lens[-1] / pre_dev * 1e3:.1f} tokens/s of device time")
+    host = [t for t in dec["host_s"][1:] if t is not None]
+    host_ms = sum(host) / len(host) * 1e3
+    dec_dev, dec_k, _ = device_totals(dec["prof"])
+    say(f"{cfg.name} decode, B={len(prompts)}, positions {lens} to "
+        f"{[n + decode - 1 for n in lens]}, {slots} slots: {host_ms:.3f} ms "
+        f"a step on the host clock (mean of steps 2-{decode - 1}); the "
+        f"last profiled: {dec_dev:.3f} ms of device time in {dec_k} CUDA "
+        f"kernels; device busy share {dec_dev / host_ms:.4f}; first "
+        f"request's tokens {tokens[0, :12].tolist()}")
+    return {"cfg": cfg, "lm": lm, "prompts": prompts, "inputs": inputs,
+            "slots": slots, "decode_lens": (min(lens), max(lens) + decode - 1)}
+
+
+def front_train(lm, gen, seed: int, spec: dict, launches: dict) -> dict:
+    """``spec["steps"]`` steps of ``make_train_step`` on the card at B =
+    ``spec["batch"]``, T = ``spec["seq"]``: tokens from a numpy generator,
+    frames or patches from ``gen``, the steps timed by ``timed_step``
+    (the last profiled), every loss finite; each step launches
+    ``flash_attention`` and ``flash_attention_bwd`` once an attention
+    layer (self, encoder and cross); peak card memory under
+    ``TRAIN_PEAK_GB``.  Returns the trained weights."""
+    cfg = lm.cfg
+    n_attn = cfg.n_layers * (2 if cfg.encdec is not None else 1) + (
+        cfg.encdec.n_enc_layers if cfg.encdec is not None else 0)
+    rng = np.random.default_rng(seed + 28)
+    timing = {"host_s": [], "prof": None}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = timed_step(make_train_step(lm, cfg.name,
+                                         total_steps=spec["steps"]),
+                         spec["steps"], timing)
+    state = adamw.init(dict(lm.named_parameters()))
+    losses = []
+    reset_counts()
+    for _ in range(spec["steps"]):
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab, size=(spec["batch"], spec["seq"] + 1))).to(lm.device)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 **front_inputs(cfg, gen, spec["batch"])}
+        loss, state = step_fn(batch, state)
+        losses.append(float(loss))
+    phase_counts(f"{cfg.name} training", launches, {
+        "flash_attention": spec["steps"] * n_attn,
+        "flash_attention_bwd": spec["steps"] * n_attn})
+    check(bool(np.isfinite(losses).all()), f"training {cfg.name} gave "
+          f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < TRAIN_PEAK_GB, f"training {cfg.name}: peak card memory "
+          f"{peak:.3f} GB is over {TRAIN_PEAK_GB} GB")
+    host_ms = step_times(cfg.name, timing)
+    say(f"training {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}): B={spec['batch']}, T={spec['seq']}, "
+        f"{spec['steps']} steps of make_train_step; losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + "; step times (host clock) "
+        + ", ".join("profiled" if t is None else f"{t * 1e3:.3f} ms"
+                    for t in timing["host_s"])
+        + f"; {host_ms:.3f} ms a step after the first; peak card memory "
+        f"{peak:.3f} GB")
+    del state
+    return {k: t.detach() for k, t in lm.state_dict().items()}
+
+
+def check_inputs(cfg, seed: int, batch: int) -> dict:
+    """A fp32 check's frames or patches: CPU normals from numpy."""
+    rng = np.random.default_rng(seed + 29)
+    if cfg.encdec is not None:
+        return {"frames": torch.from_numpy(rng.normal(size=(
+            batch, cfg.encdec.n_audio_frames, cfg.d_model))
+            .astype(np.float32))}
+    return {"patches": torch.from_numpy(rng.normal(size=(
+        batch, cfg.vision.n_patches, cfg.vision.d_vit)).astype(np.float32))}
+
+
+def whisper_path(seed: int, launches: dict) -> dict:
+    """The encoder-decoder path (see ``WHISPER_ARCH``): Whisper-tiny at
+    full width and depth on the card, served at model level and trained,
+    no plain version on either, each with its fp32 check against the
+    CPU.  Adds the launches to ``launches``; returns the serving run's
+    dict."""
+    t0 = time.perf_counter()
+    cfg = get_arch(WHISPER_ARCH)
+    lm = LM(cfg, seed=seed)
+    check(lm.device.type == "cuda", f"{cfg.name} is not on the card")
+    n = sum(p.numel() for p in lm.parameters())
+    check(n == WHISPER_PARAMS, f"{cfg.name} holds {n:,} parameters, not "
+          f"{WHISPER_PARAMS:,}")
+    say(f"{cfg.name} at full width: {cfg.encdec.n_enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, vocabulary {cfg.vocab}, "
+        f"{cfg.encdec.n_audio_frames} frames; {n:,} parameters, "
+        f"{2 * n / 1e9:.3f} GB bf16")
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(seed + 26)
+    rng = np.random.default_rng(seed + 26)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist()
+               for n in WHISPER_PROMPTS]
+    with counting_plain() as plain:
+        served = front_serve(lm, prompts, front_inputs(cfg, gen, len(prompts)),
+                             WHISPER_DECODE, launches)
+    check(not any(plain.values()), f"serving {cfg.name}: a plain kernel "
+          f"version ran on the path: {plain}")
+    serving_cpu_check(served, min)
+    with counting_plain() as plain:
+        params = front_train(lm, gen, seed, WHISPER_TRAIN, launches)
+    check(not any(plain.values()), f"training {cfg.name}: a plain kernel "
+          f"version ran on the path: {plain}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_check(f"training {cfg.name} (full width and depth)", cfg, params,
+               seed, WHISPER_CHECK_BATCH, WHISPER_TRAIN["seq"],
+               check_inputs(cfg, seed, WHISPER_CHECK_BATCH))
+    del params
+    say(f"{cfg.name} path and its checks: {time.perf_counter() - t0:.3f} s")
+    served.pop("inputs")
+    return served
+
+
+def vlm_path(seed: int, launches: dict) -> dict:
+    """The VLM path (see ``VLM_ARCH``): InternVL2-76B at full width cut to
+    ``VLM_LAYERS`` layers, served at model level on the card with no
+    plain version and its fp32 check at ``VLM_CHECK_LAYERS`` layer (the
+    served model freed first); then at full width cut to
+    ``VLM_TRAIN["layers"]`` layer, trained on the card and its fp32
+    check.  Adds the launches to ``launches``; returns the serving run's
+    dict."""
+    t0 = time.perf_counter()
+    full = get_arch(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, seed=seed)
+    check(lm.device.type == "cuda", f"{cfg.name} is not on the card")
+    n = sum(p.numel() for p in lm.parameters())
+    check(n == VLM_PARAMS, f"{cfg.name} at {VLM_LAYERS} layers holds "
+          f"{n:,} parameters, not {VLM_PARAMS:,}")
+    say(f"{cfg.name} at full width, {VLM_LAYERS} of {full.n_layers} layers: "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocabulary {cfg.vocab}, {cfg.vision.n_patches} patches of "
+        f"{cfg.vision.d_vit}; {n:,} parameters, {2 * n / 1e9:.3f} GB bf16")
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(seed + 27)
+    rng = np.random.default_rng(seed + 27)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in VLM_PROMPTS]
+    with counting_plain() as plain:
+        served = front_serve(lm, prompts, front_inputs(cfg, gen, len(prompts)),
+                             VLM_DECODE, launches)
+    check(not any(plain.values()), f"serving {cfg.name}: a plain kernel "
+          f"version ran on the path: {plain}")
+    say(f"{cfg.name}: peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del lm  # served holds it, and the check frees it
+    serving_cpu_check(served, min, VLM_CHECK_LAYERS)
+    served.pop("inputs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(full, n_layers=VLM_TRAIN["layers"])
+    lm = LM(tcfg, seed=seed)
+    n = sum(p.numel() for p in lm.parameters())
+    check(n == VLM_TRAIN_PARAMS, f"{tcfg.name} at {tcfg.n_layers} layer "
+          f"holds {n:,} parameters, not {VLM_TRAIN_PARAMS:,}")
+    with counting_plain() as plain:
+        params = front_train(lm, gen, seed, VLM_TRAIN, launches)
+    check(not any(plain.values()), f"training {tcfg.name}: a plain kernel "
+          f"version ran on the path: {plain}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_check(f"training {tcfg.name} ({tcfg.n_layers} of {full.n_layers} "
+               "layers, full width)", tcfg, params, seed, VLM_CHECK_BATCH,
+               VLM_TRAIN["seq"], check_inputs(tcfg, seed, VLM_CHECK_BATCH))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"{cfg.name} path and its checks: {time.perf_counter() - t0:.3f} s")
+    return served
+
+
 # the WKV6 backward's cases: RWKV6-7B's training shape in bf16 (the main
 # path's) and fp32 (the card-vs-CPU check's), then a ragged T with a
 # carried state, the final state's gradient and strong decays, T = 1, and
@@ -4049,7 +4588,7 @@ def wkv6_bwd_vs_plain(seed: int, launches: dict) -> list:
                 [d + k for d, k in zip(draws, kept)], reps=16)
             dev_ms, call_ms = time_calls(lambda *a: kwkv.wkv6_bwd(*a), draws,
                                          16)
-            timed["recompute_ms"] = dev_ms if dev_ms is not None else call_ms
+            timed["recompute_ms"] = dev_ms
             say(f"{name}, recomputing the chunk states: device {dev_ms} ms, "
                 f"call {call_ms:.6f} ms per launch")
             del kept
@@ -4156,7 +4695,7 @@ def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
                 lambda *a: kssd.ssd_bwd_plain(*a[:8]), with_states, reps=16)
             dev_ms, call_ms = time_calls(lambda *a: kssd.ssd_bwd(*a), draws,
                                          16)
-            timed["recompute_ms"] = dev_ms if dev_ms is not None else call_ms
+            timed["recompute_ms"] = dev_ms
             say(f"{name}, recomputing the chunk states: device {dev_ms} ms, "
                 f"call {call_ms:.6f} ms per launch")
             n, es = B * T * H * dh, x.element_size()
@@ -4175,7 +4714,7 @@ def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
         elif timed_here:
             dev_ms, call_ms = time_calls(
                 lambda *a: kssd.ssd_bwd(*a[:8], saved=a[8]), with_states, 64)
-            reduced_ms = dev_ms if dev_ms is not None else call_ms
+            reduced_ms = dev_ms
             say(f"{name}: device {dev_ms} ms, call {call_ms:.6f} ms per "
                 "launch (the hybrid's main-path launches are at this shape)")
         del draws
@@ -4195,10 +4734,11 @@ def seen_pairs(T: int, S: int, window) -> int:
                for i in range(T))
 
 
-def sdpa_bwd(batches, H: int, Hk: int, window, reps: int):
+def sdpa_bwd(batches, H: int, Hk: int, window, reps: int,
+             causal: bool = True):
     """The library call's time: the backward kernels of autograd through
     ``scaled_dot_product_attention`` (kv heads repeated beforehand, the
-    window as a boolean mask) on the same inputs, by the profiler."""
+    window as a boolean mask) on the same inputs (``time_calls``)."""
     lib = []
     for q, k, v, _, dout, _ in batches:
         T, S = q.shape[1], k.shape[1]
@@ -4211,22 +4751,33 @@ def sdpa_bwd(batches, H: int, Hk: int, window, reps: int):
             kp = torch.arange(S, device=q.device)[None, :]
             mask = (kp <= qp) & (kp > qp - window)
         o = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, is_causal=mask is None)
+            qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None)
         lib.append((o, qs, ks, vs, dout.transpose(1, 2).contiguous()))
     return time_calls(lambda o, a, b, c, d: torch.autograd.grad(
         o, (a, b, c), d, retain_graph=True), lib, reps)
 
 
-# the backward kernel's shapes: MiniCPM-2B's training shape (the main
-# path's), Qwen2-0.5B's heads at T = 512, StarCoder2-15B's heads with a
-# window of 512 over T = 1100 (not a multiple of 64), and the hybrid's
-# training shape at reduced() (dh = 32, one kv head)
-BWD_SHAPES = (("MiniCPM-2B training", 8, 64, 36, 36, 64, None),
-              ("Qwen2-0.5B T=512", 1, 512, 14, 2, 64, None),
-              ("StarCoder2-15B heads, window 512", 1, 1100, 48, 4, 128,
-               512),
-              ("Jamba-1.5-Large reduced() training", 8, 64, 4, 1, 32,
-               None))
+# the backward kernel's shapes (tag, B, T, S, H, Hk, dh, window, causal):
+# MiniCPM-2B's training shape (the main path's), Qwen2-0.5B's heads at
+# T = 512, StarCoder2-15B's heads with a window of 512 over T = 1100 (not
+# a multiple of 64), the hybrid's training shape at reduced() (dh = 32,
+# one kv head), Whisper-tiny's training batch, not causal: its encoder
+# over 1500 frames (23 key tiles of 64 and 28) and its cross attention,
+# 64 queries against the 1500 encoder rows; and InternVL2-76B's training
+# batch at full width, causal over 1025 patches and 64 text tokens (1089
+# = 17 * 64 + 1), 64 query heads over 8 kv heads of 128
+BWD_SHAPES = (("MiniCPM-2B training", 8, 64, 64, 36, 36, 64, None, True),
+              ("Qwen2-0.5B T=512", 1, 512, 512, 14, 2, 64, None, True),
+              ("StarCoder2-15B heads, window 512", 1, 1100, 1100, 48, 4,
+               128, 512, True),
+              ("Jamba-1.5-Large reduced() training", 8, 64, 64, 4, 1, 32,
+               None, True),
+              ("Whisper-tiny encoder training", 8, 1500, 1500, 6, 6, 64,
+               None, False),
+              ("Whisper-tiny cross training", 8, 64, 1500, 6, 6, 64, None,
+               False),
+              ("InternVL2-76B training", 4, 1089, 1089, 64, 8, 128, None,
+               True))
 
 
 # the forward's log-sum-exp against the plain version's: each live row
@@ -4262,39 +4813,44 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
     gen.manual_seed(seed + 24)
     measured = []
     err = 0.0
-    for tag, B, T, H, Hk, dh, W in BWD_SHAPES:
-        name = f"flash_attention_bwd ({tag}, B={B}, T=S={T}, H={H}, " \
-            f"Hk={Hk}, dh={dh}" + (f", W={W}" if W else "") + ")"
+    for tag, B, T, S, H, Hk, dh, W, causal in BWD_SHAPES:
+        seq = f"T=S={T}" if T == S else f"T={T}, S={S}"
+        name = f"flash_attention_bwd ({tag}, B={B}, {seq}, H={H}, " \
+            f"Hk={Hk}, dh={dh}" + (f", W={W}" if W else "") \
+            + ("" if causal else ", not causal") + ")"
+        shares = []
         batches = {}
         for dtype in (torch.float32, torch.bfloat16):
             draws = []
             for _ in range(4):
                 q = torch.randn(B, T, H, dh, generator=gen, device=dev)
-                k, v = (torch.randn(B, T, Hk, dh, generator=gen, device=dev)
+                k, v = (torch.randn(B, S, Hk, dh, generator=gen, device=dev)
                         for _ in range(2))
                 dout = torch.randn(B, T, H, dh, generator=gen, device=dev)
                 q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
-                out, lse = kflash.flash_attention(q, k, v, window=W,
-                                                  return_lse=True)
+                out, lse = kflash.flash_attention(q, k, v, causal=causal,
+                                                  window=W, return_lse=True)
                 draws.append((q, k, v, out, dout, lse))
             batches[dtype] = draws
             q, k, v, out, dout, lse = draws[0]
             gap = lse_close(f"{name} {str(dtype)[6:]}", lse,
-                            kflash.attention_plain(q, k, v, window=W,
+                            kflash.attention_plain(q, k, v, causal=causal,
+                                                   window=W,
                                                    return_lse=True)[1])
             got = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
-                                             window=W)
+                                             causal=causal, window=W)
             again = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
-                                               window=W)
+                                               causal=causal, window=W)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name} {str(dtype)[6:]}: two calls on the same inputs "
                   "differ")
             say(f"{name} {str(dtype)[6:]}: two calls bit-identical; the "
                 f"forward's log-sum-exp within {gap:.3e} of max(1, |plain|)")
-            plain = kflash.attention_bwd_plain(q, k, v, out, dout, window=W)
+            plain = kflash.attention_bwd_plain(q, k, v, out, dout,
+                                               causal=causal, window=W)
             no_d = kflash.attention_bwd_plain(q, k, v, torch.zeros_like(out),
-                                              dout, window=W)
+                                              dout, causal=causal, window=W)
             caught = 0
             for part, g, p, b in zip(("dq", "dk", "dv"), got, plain, no_d):
                 limit = attn_limit(p)
@@ -4306,6 +4862,8 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
                       f"up to {float((diff / limit).max())} times the limit")
                 caught += int(((b.float() - p.float()).abs() > limit).sum())
                 err = max(err, float(diff.max()))
+                if dtype == torch.bfloat16:
+                    shares.append(float((diff / limit).max()))
                 say(f"{name} {part} {str(dtype)[6:]}: max abs err "
                     f"{float(diff.max()):.6g}, largest |plain| "
                     f"{float(p.float().abs().max()):.6g}, "
@@ -4317,30 +4875,33 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
         bf = batches[torch.bfloat16]
         timed = time_kernel(
             name, lambda a, b, c, o, d, l: kflash.flash_attention_bwd(
-                a, b, c, o, d, lse=l, window=W),
+                a, b, c, o, d, lse=l, causal=causal, window=W),
             lambda a, b, c, o, d, l: kflash.attention_bwd_plain(
-                a, b, c, o, d, window=W), bf, reps=64)
-        lib_dev, lib_call = sdpa_bwd(bf, H, Hk, W, 16)
-        library_ms = lib_dev if lib_dev is not None else lib_call
-        n_bytes = 2 * (4 * B * T * H * dh + 4 * B * T * Hk * dh)
-        flops = 5 * 2 * dh * H * B * seen_pairs(T, T, W)
+                a, b, c, o, d, causal=causal, window=W), bf, reps=64)
+        lib_dev, lib_call = sdpa_bwd(bf, H, Hk, W, 16, causal)
+        library_ms = lib_dev
+        n_bytes = 2 * (4 * B * T * H * dh + 4 * B * S * Hk * dh)
+        pairs = seen_pairs(T, S, W) if causal else T * S
+        flops = 5 * 2 * dh * H * B * pairs
         bms, by = attn_bound(n_bytes, flops)
         say(f"{name}: bound {bms:.9f} ms ({by}); scaled_dot_product_"
             f"attention's backward: device {lib_dev} ms, call "
-            f"{lib_call:.6f} ms")
+            f"{lib_call:.6f} ms; bf16 share of the limit {max(shares):.4f}")
         measured.append((timed, bms, by, library_ms,
-                         f"{tag}, B={B}, T=S={T}, H={H}, Hk={Hk}, dh={dh}"
-                         + (f", W={W}" if W else "") + ", bf16"))
+                         f"{tag}, B={B}, {seq}, H={H}, Hk={Hk}, dh={dh}"
+                         + (f", W={W}" if W else "")
+                         + ("" if causal else ", not causal") + ", bf16",
+                         max(shares)))
         del batches, bf
     say(f"flash_attention_bwd: main-path launches "
         f"{launches['flash_attention_bwd']}")
-    (timed, bms, by, library_ms, shape), *others = measured
+    (timed, bms, by, library_ms, shape, _), *others = measured
     out = row("flash_attention_bwd", launches, err, timed, bms, by,
               library_ms, shape)
     out["other_shapes"] = [
-        {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b,
-         "bound_by": y, "library_ms": lib, "shape": sh}
-        for t, b, y, lib, sh in others]
+        {"ms": t["ms"], **plain_of(t), "bound_ms": b,
+         "bound_by": y, "library_ms": lib, "shape": sh, "limit_share": sr}
+        for t, b, y, lib, sh, sr in others]
     return [out]
 
 
@@ -4569,6 +5130,16 @@ def main(argv=None) -> int:
     recurrent_path(args.seed, launches)
     phases["recurrent training path"] = time.perf_counter() - t0
 
+    # the encoder-decoder and VLM paths at model level; each counts its
+    # phases (prefills, encoder, decode, training) exactly and frees its
+    # models before the next draws
+    t0 = time.perf_counter()
+    whisper = whisper_path(args.seed, launches)
+    phases[f"{WHISPER_ARCH} path and checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vlm = vlm_path(args.seed, launches)
+    phases[f"{VLM_ARCH} path and checks"] = time.perf_counter() - t0
+
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []
     for check_rows, fargs in (
@@ -4582,7 +5153,7 @@ def main(argv=None) -> int:
             (route_vs_plain, (scale, launches)),
             (conflict_vs_plain, (scale, launches)),
             (paged_vs_plain, (serve, wide[CODER_ARCH], args.seed,
-                              launches)),
+                              launches, (whisper, vlm))),
             (flash_vs_plain, (serve, wide[CODER_ARCH], args.seed,
                               launches)),
             (bwd_vs_plain, (args.seed, launches)),

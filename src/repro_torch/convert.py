@@ -11,8 +11,9 @@ to the same table.
 
 ``lm_params_from_arrays`` turns the JAX package's ``LM`` parameter tree
 (as numpy arrays: each group's pattern positions under ``<group>.l<i>``,
-stacked on axis 0 over the group's repeats; dense, MoE, RWKV6 or hybrid)
-into the port ``LM``'s state dict, so both packages run the same
+stacked on axis 0 over the group's repeats; Whisper's ``encoder``
+stacked on axis 0 always; any family of the registry) into the port
+``LM``'s state dict, so both packages run the same
 weights; ``lm_arrays_from_params`` is its inverse (the tree the
 checkpoint store saves and restores), and ``adamw_state_from_arrays``
 carries an optimizer state (step, m, v, master) across the same way.
@@ -94,7 +95,7 @@ def lm_params_from_arrays(params: Mapping, cfg: ArchConfig, *,
                           dtype: Optional[torch.dtype] = None
                           ) -> Dict[str, torch.Tensor]:
     """The port ``LM``'s state dict for ``cfg`` from the JAX package's
-    parameter tree for the dense and MoE families, RWKV6 or the hybrid.
+    parameter tree.
 
     ``params`` is the JAX ``LM.init_params`` tree with numpy leaves:
     ``embed``, ``final_norm.w`` (and ``.b`` for LayerNorm), optionally
@@ -103,9 +104,14 @@ def lm_params_from_arrays(params: Mapping, cfg: ArchConfig, *,
     stacked on axis 0 over the group's repeats (unstacked when the group
     runs once, as the JAX package builds it).  ``layer_slots(cfg)`` says
     which (group, position, repeat) each port layer is.  The parts are
-    ``ln1``, a mixer (``attn``, ``mamba`` or ``rwkv``), ``ln2`` and an
-    FFN (``ffn`` or ``moe``, whose shared experts are nested under
-    ``moe.shared`` and become ``moe_shared``; RWKV6 has none).  Each leaf
+    ``ln1``, a mixer (``attn``, ``mamba`` or ``rwkv``; Whisper's decoder
+    layers also ``ln3`` and ``cross``), ``ln2`` and an FFN (``ffn`` or
+    ``moe``, whose shared experts are nested under ``moe.shared`` and
+    become ``moe_shared``; RWKV6 has none).  Whisper's ``encoder.<part>.
+    <name>`` is stacked on axis 0 over its layers even when there is one
+    (the JAX package builds it with ``jax.vmap``) and becomes
+    ``encoder.<e>.<part>.<name>``; ``enc_norm`` and InternVL's
+    ``projector`` carry over by name.  Each leaf
     keeps its dtype unless ``dtype`` is given.  Load the result with
     ``LM.load_state_dict(sd, assign=True)`` so the dtypes carry over."""
     out = {"embed": _tensor(params["embed"], dtype)}
@@ -113,6 +119,15 @@ def lm_params_from_arrays(params: Mapping, cfg: ArchConfig, *,
         out[f"final_norm.{name}"] = _tensor(leaf, dtype)
     if "lm_head" in params:
         out["lm_head"] = _tensor(params["lm_head"], dtype)
+    if "projector" in params:
+        out["projector"] = _tensor(params["projector"], dtype)
+    if "encoder" in params:
+        for name, leaf in params["enc_norm"].items():
+            out[f"enc_norm.{name}"] = _tensor(leaf, dtype)
+        for e in range(cfg.encdec.n_enc_layers):
+            for part, leaves in params["encoder"].items():
+                for name, leaf in _leaves(leaves, part):
+                    out[f"encoder.{e}.{name}"] = _tensor(leaf[e], dtype)
     for layer, (group, pos, r) in enumerate(layer_slots(cfg)):
         for part, leaves in params[group][pos].items():
             for name, leaf in _leaves(leaves, part):
@@ -128,17 +143,19 @@ def lm_arrays_from_params(params: Mapping[str, torch.Tensor],
     ``lm_params_from_arrays``.  Each group's pattern positions sit under
     ``<group>.l<i>``, stacked on axis 0 over the group's repeats
     (``torch.stack``, a copy) and unstacked when it runs once; a part
-    ``moe_shared`` becomes ``moe.shared``.  Leaves keep their dtype and
-    device."""
-    tree: Dict = {"embed": params["embed"], "final_norm": {}}
-    for name, t in params.items():
-        if name.startswith("final_norm."):
-            tree["final_norm"][name.split(".", 1)[1]] = t
-    if "lm_head" in params:
-        tree["lm_head"] = params["lm_head"]
-    per_slot: Dict = {}  # (group, position) -> one layer dict a repeat
-    for layer, (group, pos, _) in enumerate(layer_slots(cfg)):
-        prefix = f"layers.{layer}."
+    ``moe_shared`` becomes ``moe.shared``; Whisper's ``encoder.<e>`` are
+    stacked on axis 0 (always).  Leaves keep their dtype and device."""
+    tree: Dict = {"embed": params["embed"]}
+    for top in ("final_norm", "enc_norm"):
+        sub = {name.split(".", 1)[1]: t for name, t in params.items()
+               if name.startswith(top + ".")}
+        if sub:
+            tree[top] = sub
+    for top in ("lm_head", "projector"):
+        if top in params:
+            tree[top] = params[top]
+
+    def layer_tree(prefix: str) -> Dict:
         one: Dict = {}
         for name, t in params.items():
             if not name.startswith(prefix):
@@ -149,13 +166,21 @@ def lm_arrays_from_params(params: Mapping[str, torch.Tensor],
                 one.setdefault(part, {}).setdefault(sub, {})[leaf] = t
             else:
                 one.setdefault(part, {})[leaf] = t
-        per_slot.setdefault((group, pos), []).append(one)
-    repeats = {name: repeat for name, _, repeat in group_plan(cfg)}
+        return one
 
     def stack(layers: List):
         if isinstance(layers[0], Mapping):
             return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
         return torch.stack(layers)
+
+    if cfg.encdec is not None:
+        tree["encoder"] = stack([layer_tree(f"encoder.{e}.")
+                                 for e in range(cfg.encdec.n_enc_layers)])
+    per_slot: Dict = {}  # (group, position) -> one layer dict a repeat
+    for layer, (group, pos, _) in enumerate(layer_slots(cfg)):
+        per_slot.setdefault((group, pos), []).append(
+            layer_tree(f"layers.{layer}."))
+    repeats = {name: repeat for name, _, repeat in group_plan(cfg)}
 
     for (group, pos), layers in per_slot.items():
         tree.setdefault(group, {})[pos] = (

@@ -4,7 +4,8 @@ of ``repro.launch.serve``.
 
 The JAX driver always serves the reduced configuration on the CPU; the
 port serves the named architecture (a dense or MoE config, or
-``rwkv6-7b``) at full width on the card by default, with weights drawn
+``rwkv6-7b``; Whisper and InternVL are refused before any weight is
+drawn, ``check_serves``) at full width on the card by default, with weights drawn
 at random from ``seed`` (no checkpoint exists to load).  A
 configuration whose bf16 weights do not fit one card serves only with
 ``reduced=True``: ``mixtral-8x22b`` (281 GB) and the hybrid
@@ -23,7 +24,7 @@ import numpy as np
 
 from ..configs.base import get_arch
 from ..models.model import build_model
-from ..serving.engine import Server
+from ..serving.engine import Server, check_serves
 
 CARD_BYTES = 80e9  # device memory of the one H100 the port targets
 
@@ -56,6 +57,7 @@ def serve(arch: str = "qwen2-0.5b", *, device=None, reduced: bool = False,
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
+    check_serves(cfg)
     check_fits(cfg)
     model = build_model(cfg, seed=seed, device=device)
     server = Server(model, page_size=16, n_pages=256)

@@ -29,8 +29,9 @@ from ..optim.adamw import AdamWState
 def make_train_step(model: LM, arch_name: str, *,
                     total_steps: int = 10_000) -> Callable:
     """``train_step(batch, opt_state) -> (loss, new opt_state)``:
-    ``batch`` holds ``tokens`` and ``labels`` [B, T]; the loss is a 0-d
-    fp32 tensor on the model's device, detached.  Turns the model's
+    ``batch`` holds ``tokens`` and ``labels`` [B, T] (and Whisper's
+    ``frames`` or InternVL's ``patches``); the loss is a 0-d fp32 tensor
+    on the model's device, detached.  Turns the model's
     parameters trainable."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
@@ -61,12 +62,17 @@ def make_prefill_step(model: LM, seq_len: int) -> Callable:
     return prefill_step
 
 
-def make_decode_step(model: LM) -> Callable:
-    """The decoder-only form (the JAX package's ``with_enc`` form serves
-    the encoder-decoder family, which is not ported)."""
-    def decode_step(token, caches, pos):
-        return model.decode_step(token, caches, pos)
-
+def make_decode_step(model: LM, *, with_enc: bool = False) -> Callable:
+    """``decode_step(token, caches, pos)``, or with ``with_enc``
+    ``decode_step(token, caches, pos, enc)`` for the encoder-decoder
+    family (Whisper), whose cross attention reads the encoder's output
+    ``enc`` (``model._encode(frames)``)."""
+    if with_enc:
+        def decode_step(token, caches, pos, enc):
+            return model.decode_step(token, caches, pos, enc=enc)
+    else:
+        def decode_step(token, caches, pos):
+            return model.decode_step(token, caches, pos)
     return decode_step
 
 

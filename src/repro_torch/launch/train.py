@@ -17,9 +17,13 @@ configuration whose training state (16 bytes a parameter: bf16 weights
 and gradients, fp32 moments and master copy) does not fit one card is
 refused at full width before anything is allocated.  Every decoder-only
 family trains (attention, RWKV6, and the Mamba + attention + MoE
-hybrid); Whisper and InternVL are not ported (``check_trainable``).  The checkpoint store holds a leaf of at most
-65,528 words (the JAX store's limit too), so a full-width model cannot
-be checkpointed: run it for fewer steps than ``ckpt_every``.
+hybrid).  Whisper and InternVL are refused before any weight is drawn
+(``check_token_batches``): the token pipeline feeds tokens only, as the
+JAX ``train()`` does; they train at model level (``make_train_step``
+on a batch with ``frames`` or ``patches``).  The checkpoint store
+holds a leaf of at most 65,528 words (the JAX store's limit too), so a
+full-width model cannot be checkpointed: run it for fewer steps than
+``ckpt_every``.
 
 Run ``python -m repro_torch.launch.train`` with ``PYTHONPATH=src``.
 """
@@ -37,7 +41,7 @@ from ..configs.base import get_arch
 from ..convert import lm_arrays_from_params, lm_params_from_arrays
 from ..core import PMem
 from ..data.pipeline import DataConfig, TokenPipeline
-from ..models.model import build_model, check_trainable
+from ..models.model import build_model, check_ported, takes_front_inputs
 from ..optim import adamw
 from .elastic import FleetMonitor
 from .serve import CARD_BYTES
@@ -60,6 +64,17 @@ def check_fits_training(cfg) -> None:
             f"{CARD_BYTES / 1e9:.0f} GB; train it with reduced=True")
 
 
+def check_token_batches(cfg) -> None:
+    """Raise for Whisper and InternVL, whose batches need ``frames`` or
+    ``patches`` beside the tokens."""
+    if takes_front_inputs(cfg):
+        raise NotImplementedError(
+            f"train() does not train {cfg.name} ({cfg.family}): the token "
+            "pipeline feeds tokens only, as the JAX train() does, with no "
+            "frames or patches; train it at model level (make_train_step "
+            "on a batch that holds them)")
+
+
 def train(arch: str = "minicpm-2b", *, steps: int = 50, reduced: bool = True,
           batch: int = 8, seq_len: int = 64, ckpt_every: int = 10,
           kill_at_step: Optional[int] = None, seed: int = 0,
@@ -67,7 +82,8 @@ def train(arch: str = "minicpm-2b", *, steps: int = 50, reduced: bool = True,
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)
+    check_token_batches(cfg)
+    check_ported(cfg)
     if not reduced:
         check_fits_training(cfg)
     model = build_model(cfg, seed=seed, device=device)

@@ -1,10 +1,13 @@
 """GQA attention: full-sequence attention for training
-(``attn_forward``), prefill (causal) and single-token decode against a
-dense per-request KV cache.  The port of ``repro.models.attention``.
+(``attn_forward``), prefill (causal), single-token decode against a
+dense per-request KV cache, and Whisper's decoder-to-encoder cross
+attention (``cross_attn_forward``).  The port of
+``repro.models.attention``.
 
-Training and prefill attention run on the flash-attention kernel
-(``kernels.flash_attention.mha``) and decode attention on the paged
-kernel (``kernels.paged_attention.paged_mqa``): on the card their CUDA
+Training, prefill and cross attention (at decode too) run on the
+flash-attention kernel (``kernels.flash_attention.mha``) and decode
+self-attention on the paged kernel
+(``kernels.paged_attention.paged_mqa``): on the card their CUDA
 kernels, on the CPU their plain PyTorch versions.  The JAX package runs
 both as jnp (``_sdpa`` and the einsums of ``attn_decode``); its Pallas
 kernels compute the same function.  The kernels keep the softmax
@@ -149,5 +152,28 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     return y, cache
 
 
+def init_cross_attn(gen: torch.Generator, cfg) -> Params:
+    return init_attn(gen, cfg)
+
+
+def cross_attn_forward(p: Params, x: torch.Tensor, enc: torch.Tensor,
+                       cfg) -> torch.Tensor:
+    """Decoder-to-encoder cross attention (Whisper): q from x [B, T, D],
+    k and v from the encoder's output enc [B, S, D]; no RoPE, no mask and
+    no biases, as in the JAX package.  Runs on the flash-attention
+    kernel (``mha``, not causal), differentiable in x and enc; at decode
+    T = 1 and k, v are projected from ``enc`` anew each step, as the JAX
+    package does.  Returns [B, T, D]."""
+    B, T, _ = x.shape
+    S = enc.shape[1]
+    dh = cfg.head_dim
+    q = torch.matmul(x, p["wq"]).reshape(B, T, cfg.n_heads, dh)
+    k = torch.matmul(enc, p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
+    v = torch.matmul(enc, p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
+    out = mha(q, k, v, causal=False)
+    return torch.matmul(out.reshape(B, T, -1), p["wo"])
+
+
 __all__ = ["PAGE_SIZE", "attn_decode", "attn_forward", "attn_prefill",
-           "identity_pages", "init_attn"]
+           "cross_attn_forward", "identity_pages", "init_attn",
+           "init_cross_attn"]

@@ -1,26 +1,31 @@
-"""Model assembly: the port of ``repro.models.model``'s ``LM`` for the
-dense family (every layer attention + MLP: Qwen2, CodeQwen1.5, MiniCPM,
-StarCoder2), for the MoE family (every layer attention + MoE: Mixtral;
-DeepSeek-MoE with a dense MLP in layer 0 and shared experts beside the
-routed ones), for RWKV6 (every layer RWKV time mix + channel mix) and
-for the hybrid family (Jamba: superblocks of ``attn_every`` sublayers,
-Mamba mixers around one attention mixer in the middle, MoE on every
-``moe.every``-th sublayer and a dense MLP on the others).  Attention may
-have a sliding window (StarCoder2, Mixtral).  A Python loop over layers
-takes the place of ``lax.scan``.
+"""Model assembly: the port of ``repro.models.model``'s ``LM`` for every
+configuration of the registry: the dense family (every layer attention
++ MLP: Qwen2, CodeQwen1.5, MiniCPM, StarCoder2), the MoE family (every
+layer attention + MoE: Mixtral; DeepSeek-MoE with a dense MLP in layer
+0 and shared experts beside the routed ones), RWKV6 (every layer RWKV
+time mix + channel mix), the hybrid family (Jamba: superblocks of
+``attn_every`` sublayers, Mamba mixers around one attention mixer in
+the middle, MoE on every ``moe.every``-th sublayer and a dense MLP on
+the others), the encoder-decoder Whisper (an encoder of non-causal
+attention + MLP blocks over precomputed frame embeddings; decoder
+layers of causal self-attention, cross attention to the encoder's
+output and an MLP) and the VLM InternVL (a projector from precomputed
+patch embeddings into the decoder's width, the patches put before the
+text).  Attention may have a sliding window (StarCoder2, Mixtral).  A
+Python loop over layers takes the place of ``lax.scan``.
 
 ``group_plan`` gives the layers' groups as the JAX package makes them:
 a group is a pattern of (mixer, ffn) pairs repeated some number of
 times.  Most configurations have one group ``blocks`` whose pattern is
 one layer (one superblock for the hybrid); DeepSeek-MoE has ``dense0``
 (layer 0, once) and then ``blocks`` (the MoE layer, ``n_layers - 1``
-times).
+times); Whisper's decoder layer is ``("cross", "mlp")``, where
+``layer_kinds`` says ``("attn", "mlp")``: the layers follow the plan.
 
-Training (``forward`` and ``loss`` over a batch of tokens and labels)
-runs every family the port runs (``check_trainable``): attention
-through ``mha`` (the flash-attention kernel and its backward), RWKV6's
-WKV through ``wkv6_heads`` and Mamba's SSD through ``ssd_heads`` (each
-scan kernel and its backward).
+Training (``forward`` and ``loss``) runs every family: attention
+(self, the encoder's and cross) through ``mha`` (the flash-attention
+kernel and its backward), RWKV6's WKV through ``wkv6_heads`` and
+Mamba's SSD through ``ssd_heads`` (each scan kernel and its backward).
 
 ``LM`` is an ``nn.Module`` holding its parameters under the JAX
 package's names: ``embed``, ``final_norm.w``, ``lm_head`` (untied
@@ -28,21 +33,28 @@ only), and per layer ``layers.<l>.{ln1,<mixer>,ln2,<ffn>}.<name>``
 with the mixer ``attn``, ``mamba`` or ``rwkv`` and the ffn ``ffn``
 (dense MLP) or ``moe`` (RWKV6 keeps its channel mix in ``rwkv``); a MoE
 layer's shared experts (the JAX package's nested ``moe.shared``) are
-``layers.<l>.moe_shared.<name>``.  The layers run group after group:
-pattern position i of repeat r of a group whose first layer is l0 is
-layer ``l0 + r * P + i`` (``convert.lm_params_from_arrays`` carries the
-JAX leaves across).  Its serving surface is the JAX package's without
-``params``:
+``layers.<l>.moe_shared.<name>``; a Whisper decoder layer also holds
+``ln3`` and ``cross``.  Whisper's encoder is ``encoder.<e>.{ln1, attn,
+ln2, ffn}.<name>`` and ``enc_norm``; InternVL's projector [d_vit,
+d_model] is ``projector``.  The layers run group after group: pattern
+position i of repeat r of a group whose first layer is l0 is layer
+``l0 + r * P + i`` (``convert.lm_params_from_arrays`` carries the JAX
+leaves across).  A batch holds ``tokens`` (and ``labels`` for the
+loss), Whisper's ``frames`` [B, n_audio_frames, d_model] and
+InternVL's ``patches`` [B, n_patches, d_vit].  Its serving surface is
+the JAX package's without ``params``:
 
-* ``prefill(batch, seq_len)``: forward over ``batch["tokens"]``,
-  returning the last position's logits and the caches;
-* ``decode_step(token, caches, pos)``: one token against the caches,
-  written in place;
+* ``prefill(batch, seq_len)``: forward over the batch, returning the
+  last position's logits and the caches (InternVL's cover the patches'
+  positions and the text's; the encoder's output is not cached);
+* ``decode_step(token, caches, pos, *, enc=None)``: one token against
+  the caches, written in place; Whisper's takes the encoder's output
+  (``_encode``);
 * ``init_caches(batch, seq_len)``: zeroed caches;
 
 and its training surface:
 
-* ``forward(batch)``: logits [B, T, V] over ``batch["tokens"]`` and the
+* ``forward(batch)``: logits [B, T, V] over the text positions and the
   MoE layers' summed aux loss;
 * ``loss(batch)``: ``softmax_xent`` of the logits against
   ``batch["labels"]`` plus 0.01 times the aux loss.
@@ -59,12 +71,11 @@ entry per group and pattern position (``{"dense0": {"l0": ...},
 "blocks": {"l0": ...}}`` for DeepSeek-MoE), each leaf stacked on a
 leading repeat axis when the group repeats more than once (as
 ``lax.scan`` stacks them).
-Attention positions hold ``{"k", "v"}`` [B, S, Hk, dh], Mamba positions
-``{"ssm", "conv"}`` (ssm [B, H, dh, N] fp32, conv [B, d_conv - 1,
-d_in]), RWKV6 ``{"wkv", "shift_tm", "shift_cm"}`` (wkv [B, H, dh, dh]
-fp32, the two token shifts [B, D]).  Recurrent state has no token axis.
-Encoder-decoder (Whisper) and VLM (InternVL) configurations raise "not
-yet ported".
+Attention positions (Whisper's cross layers too: their self-attention)
+hold ``{"k", "v"}`` [B, S, Hk, dh], Mamba positions ``{"ssm", "conv"}``
+(ssm [B, H, dh, N] fp32, conv [B, d_conv - 1, d_in]), RWKV6 ``{"wkv",
+"shift_tm", "shift_cm"}`` (wkv [B, H, dh, dh] fp32, the two token
+shifts [B, D]).  Recurrent state has no token axis.
 """
 
 from __future__ import annotations
@@ -96,22 +107,22 @@ PORTED_KINDS = ({("attn", "mlp")}, {("attn", "moe")},
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for a configuration the port cannot run yet: encoder-decoder
-    and VLM."""
-    if set(layer_kinds(cfg)) not in PORTED_KINDS or any(
-            getattr(cfg, f) is not None for f in ("encdec", "vision")):
+    """Raise for a configuration whose set of (mixer, ffn) layer kinds
+    the port does not know.  Every configuration of the registry runs,
+    and trains: every mixer has a backward kernel (attention, RWKV6's
+    WKV and Mamba's SSD)."""
+    if set(layer_kinds(cfg)) not in PORTED_KINDS:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not yet ported: the port runs "
-            "decoder-only models (dense, MoE, RWKV6 and the Mamba + "
-            "attention + MoE hybrid), not encoder-decoder or VLM")
+            f"{cfg.name} ({cfg.family}) has layer kinds "
+            f"{sorted(set(layer_kinds(cfg)))}, which the port does not "
+            "run: it runs attention + MLP or MoE, RWKV6 and the Mamba + "
+            "attention + MoE hybrid")
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for a configuration the port cannot train: exactly those it
-    cannot run (``check_ported``: encoder-decoder and VLM).  Every mixer
-    it runs has a backward kernel: attention, RWKV6's WKV and Mamba's
-    SSD."""
-    check_ported(cfg)
+def takes_front_inputs(cfg: ArchConfig) -> bool:
+    """True for Whisper and InternVL, whose batches hold ``frames`` or
+    ``patches`` beside the tokens."""
+    return cfg.encdec is not None or cfg.vision is not None
 
 
 def group_plan(cfg: ArchConfig) -> List[Tuple[str, List[Tuple[str, str]],
@@ -128,7 +139,16 @@ def group_plan(cfg: ArchConfig) -> List[Tuple[str, List[Tuple[str, str]],
         # DeepSeek-MoE: a dense layer 0, MoE elsewhere
         return [("dense0", [kinds[0]], 1),
                 ("blocks", [kinds[-1]], cfg.n_layers - 1)]
+    if cfg.encdec is not None:  # Whisper's decoder: self + cross
+        return [("blocks", [("cross", "mlp")], cfg.n_layers)]
     return [("blocks", [kinds[0]], cfg.n_layers)]
+
+
+def plan_kinds(cfg: ArchConfig) -> List[Tuple[str, str]]:
+    """Each layer's (mixer, ffn) in layer order, as ``group_plan`` runs
+    them (``layer_kinds`` but for Whisper's ``"cross"`` mixer)."""
+    return [kind for _, pattern, repeat in group_plan(cfg)
+            for _ in range(repeat) for kind in pattern]
 
 
 def layer_slots(cfg: ArchConfig) -> List[Tuple[str, str, Optional[int]]]:
@@ -143,7 +163,9 @@ def layer_slots(cfg: ArchConfig) -> List[Tuple[str, str, Optional[int]]]:
 class Block(nn.Module):
     """One layer's parameters for its (mixer, ffn) pair: attention,
     Mamba or RWKV6 (whose channel mix lives in the same ``rwkv`` tree,
-    as in the JAX package), then a dense MLP or MoE."""
+    as in the JAX package), or Whisper's ``"cross"`` (self-attention
+    ``attn``, then ``ln3`` and the cross attention ``cross``); then a
+    dense MLP or MoE."""
 
     def __init__(self, gen: torch.Generator, cfg: ArchConfig, mixer: str,
                  ffn: str):
@@ -156,6 +178,10 @@ class Block(nn.Module):
             self.mamba = _frozen(mamba_mod.init_mamba(gen, cfg))
         else:
             self.attn = _frozen(attn.init_attn(gen, cfg))
+        if mixer == "cross":
+            self.ln3 = _frozen(norm_params(cfg.d_model, cfg.norm,
+                                           gen.device))
+            self.cross = _frozen(attn.init_cross_attn(gen, cfg))
         self.ln2 = _frozen(norm_params(cfg.d_model, cfg.norm, gen.device))
         if ffn == "moe":
             moe = ffn_mod.init_moe(gen, cfg)
@@ -169,7 +195,7 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder LM for the dense and MoE families, RWKV6 and the hybrid,
+    """Decoder LM (plus Whisper's encoder or InternVL's projector),
     initialised at random from ``seed`` with a ``torch.Generator`` on
     ``device`` (the card unless the caller passes ``device="cpu"``):
     weights bf16; norms, biases, RWKV's decay, bonus and mix vectors and
@@ -193,7 +219,16 @@ class LM(nn.Module):
                 dense_init(gen, (cfg.d_model, cfg.vocab)),
                 requires_grad=False)
         self.layers = nn.ModuleList(Block(gen, cfg, *kind)
-                                    for kind in layer_kinds(cfg))
+                                    for kind in plan_kinds(cfg))
+        if cfg.encdec is not None:
+            self.encoder = nn.ModuleList(
+                Block(gen, cfg, "attn", "mlp")
+                for _ in range(cfg.encdec.n_enc_layers))
+            self.enc_norm = _frozen(norm_params(cfg.d_model, cfg.norm, dev))
+        if cfg.vision is not None:
+            self.projector = nn.Parameter(
+                dense_init(gen, (cfg.vision.d_vit, cfg.d_model)),
+                requires_grad=False)
 
     @property
     def device(self) -> torch.device:
@@ -228,20 +263,64 @@ class LM(nn.Module):
             return x + y, aux
         return x + ffn_mod.mlp_forward(blk.ffn, h2, cfg.mlp), None
 
+    def _cross(self, blk: Block, x: torch.Tensor,
+               enc: Optional[torch.Tensor]) -> torch.Tensor:
+        """A ``"cross"`` layer's residual cross attention to ``enc``
+        under ``ln3`` (``x`` itself for any other layer)."""
+        if blk.kind[0] != "cross":
+            return x
+        cfg = self.cfg
+        h3 = norm(x, blk.ln3, cfg.norm, cfg.norm_eps)
+        return x + attn.cross_attn_forward(blk.cross, h3, enc, cfg)
+
+    # ------------------------------------------------------------------
+    # the front ends: Whisper's encoder, InternVL's projector
+    # ------------------------------------------------------------------
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over precomputed frame embeddings [B, S, D]
+        (the conv front end is a stub, as in the JAX package), cast to
+        the activations' dtype: non-causal attention blocks (RoPE at
+        positions 0 .. S - 1, as ``attn_forward`` applies it) and MLPs,
+        then ``enc_norm``.  Returns [B, S, D]."""
+        cfg = self.cfg
+        x = frames.to(self.device, self.dtype)
+        for blk in self.encoder:
+            h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
+            x = self._ffn(blk, x + attn.attn_forward(blk.attn, h, cfg,
+                                                     causal=False))
+        return norm(x, self.enc_norm, cfg.norm, cfg.norm_eps)
+
+    def _embed_inputs(self, batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the decoder's input [B, P + T, D], the encoder's output or
+        None): the tokens' embeddings, after InternVL's projected
+        patches [B, P, D]; Whisper's frames through ``_encode``."""
+        cfg = self.cfg
+        x = self.embed[batch["tokens"].to(self.device)]
+        enc = None
+        if cfg.encdec is not None:
+            enc = self._encode(batch["frames"])
+        if cfg.vision is not None:
+            vis = torch.matmul(batch["patches"].to(self.device, x.dtype),
+                               self.projector)
+            x = torch.cat([vis, x], dim=1)
+        return x, enc
+
     # ------------------------------------------------------------------
     # training: full-sequence forward and the loss
     # ------------------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``batch["tokens"]``: [B, T] int.  Returns (logits [B, T, V] in
-        the activations' dtype, the MoE layers' summed aux loss, a 0-d
-        fp32 tensor), with ``_apply_block``'s full-sequence semantics:
-        causal attention with the config's window or a Mamba mixer (from
-        a zero state), then the MLP or MoE; or RWKV6's time mix and then
-        its channel mix under ``ln2``, with no FFN."""
+        """``batch["tokens"]``: [B, T] int (and ``frames`` or
+        ``patches``).  Returns (logits [B, T, V] in the activations'
+        dtype, over the text positions only; the MoE layers' summed aux
+        loss, a 0-d fp32 tensor), with ``_apply_block``'s full-sequence
+        semantics: causal attention with the config's window (and, for
+        Whisper, the cross attention) or a Mamba mixer (from a zero
+        state), then the MLP or MoE; or RWKV6's time mix and then its
+        channel mix under ``ln2``, with no FFN."""
         cfg = self.cfg
-        check_trainable(cfg)
-        x = self.embed[batch["tokens"].to(self.device)]
+        x, enc = self._embed_inputs(batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.layers:
             h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
@@ -255,9 +334,11 @@ class LM(nn.Module):
                 y = mamba_mod.mamba_forward(blk.mamba, h, cfg)
             else:
                 y = attn.attn_forward(blk.attn, h, cfg)
-            x, a = self._ffn_aux(blk, x + y)
+            x, a = self._ffn_aux(blk, self._cross(blk, x + y, enc))
             if a is not None:
                 aux = aux + a
+        if cfg.vision is not None:  # only text positions give logits
+            x = x[:, cfg.vision.n_patches:]
         return self._logits(x), aux
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -328,12 +409,14 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], seq_len: int
                 ) -> Tuple[torch.Tensor, Params]:
-        """Run the full prompt (``batch["tokens"]``: [B, T] int64),
-        returning the last position's logits [B, V] and the caches (k, v
-        [B, T, Hk, dh] in the activations' dtype, or the recurrent state
-        after the prompt)."""
+        """Run the full prompt (``batch["tokens"]``: [B, T] int64, and
+        ``frames`` or ``patches``), returning the last position's logits
+        [B, V] and the caches (k, v [B, P + T, Hk, dh] in the activations'
+        dtype, P = InternVL's patches or 0, or the recurrent state after
+        the prompt).  Whisper's frames are encoded inside and the
+        encoder's output is not kept: ``decode_step`` takes it."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"].to(self.device)]
+        x, enc = self._embed_inputs(batch)
         per_layer = []
         for blk in self.layers:
             h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
@@ -355,21 +438,32 @@ class LM(nn.Module):
                 y, cache = attn.attn_prefill(blk.attn, h, cfg)
                 cache = {k: v.to(x.dtype) for k, v in cache.items()}
             per_layer.append(cache)
-            x = self._ffn(blk, x + y)
+            x = self._ffn(blk, self._cross(blk, x + y, enc))
         return self._logits(x[:, -1]), self._stack(per_layer)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches: Params,
                     pos: torch.Tensor, *,
+                    enc: Optional[torch.Tensor] = None,
                     page_size: int = attn.PAGE_SIZE
                     ) -> Tuple[torch.Tensor, Params]:
-        """token: [B] int64; pos: [B] int64 absolute positions; caches as
-        from ``init_caches`` (or a padded prefill) with a slot count that
-        is a multiple of ``page_size``.  Writes each attention layer's
-        new key and value in place and each recurrent layer's new state
-        into ``caches``; returns (logits [B, V], caches).  A model
-        without attention does not read ``pos`` or ``page_size``."""
+        """token: [B] int64; pos: [B] int64 absolute positions (after
+        InternVL's patches: its first decode position is P + T); caches
+        as from ``init_caches`` (or a padded prefill) with a slot count
+        that is a multiple of ``page_size``; ``enc``: Whisper's encoder
+        output [B, S, D] (``_encode``), which its cross attention reads
+        after the self-attention, and which a model with an encoder
+        needs.  Writes each attention layer's new key and value in place
+        and each recurrent layer's new state into ``caches``; returns
+        (logits [B, V], caches).  A model without attention does not
+        read ``pos`` or ``page_size``."""
         cfg = self.cfg
+        if cfg.encdec is not None:
+            if enc is None:
+                raise ValueError(f"{cfg.name} decodes against its "
+                                 "encoder's output: pass enc=_encode("
+                                 "frames)")
+            enc = enc.to(self.device, self.dtype)
         x = self.embed[token.to(self.device)][:, None]
         pos = pos.to(self.device, torch.int64)
         table = lens = None
@@ -398,7 +492,7 @@ class LM(nn.Module):
                 y, _ = attn.attn_decode(blk.attn, h, cache, cfg, pos=pos,
                                         page_size=page_size,
                                         block_table=table, seq_lens=lens)
-            x = self._ffn(blk, x + y)
+            x = self._ffn(blk, self._cross(blk, x + y, enc))
         return self._logits(x)[:, 0], caches
 
 
@@ -406,5 +500,5 @@ def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:
     return LM(cfg, seed=seed, device=device)
 
 
-__all__ = ["Block", "LM", "build_model", "check_ported", "check_trainable",
-           "group_plan", "layer_slots"]
+__all__ = ["Block", "LM", "build_model", "check_ported", "group_plan",
+           "layer_slots", "plan_kinds"]

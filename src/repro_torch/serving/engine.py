@@ -62,6 +62,7 @@ import torch
 
 from ..core import PART, PCLHT, PMem, Plan
 from ..device import resolve_device
+from ..models.model import takes_front_inputs
 from ..obs import RECORDER as _OBS
 from ..obs import MetricsRegistry, MetricsView
 from .pipeline import AsyncExporter
@@ -346,15 +347,29 @@ def _pad_caches(caches: Dict[str, Any], n: int, slots: int
     return out
 
 
+def check_serves(cfg) -> None:
+    """Raise for Whisper (encoder-decoder) and InternVL (VLM): a
+    request is its tokens, with no frames or patches, so the ``Server``
+    cannot feed their encoder or projector.  They run at model level
+    (``LM.prefill``, ``LM.decode_step`` with the encoder's output)."""
+    if cfg is not None and takes_front_inputs(cfg):  # a stub's cfg is None
+        raise NotImplementedError(
+            f"the Server does not serve {cfg.name} ({cfg.family}): the JAX "
+            "Server's prefill batch holds tokens only, with no frames or "
+            "patches; run it at model level (LM.prefill, LM.decode_step)")
+
+
 class Server:
     """Continuous-batching server over the port's ``LM``: on the model's
     device by default (``device=`` overrides; a model without
     parameters, as the stream tests pass, runs on the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU).  Whisper and InternVL are refused
+    (``check_serves``)."""
 
     def __init__(self, model, *, max_batch: int = 8,
                  page_size: int = 16, n_pages: int = 512,
                  pmem: Optional[PMem] = None, device=None):
+        check_serves(model.cfg)
         self.model = model
         self.cfg = model.cfg
         if device is None:

@@ -504,6 +504,10 @@ def normal(rng, shape, dtype, device):
     (1, 100, 40, 4, 2, 64, True, None),     # T > S: 60 rows see no key
     (2, 150, 20, 2, 1, 128, True, None),
     (1, 90, 30, 4, 4, 32, True, None),
+    (1, 1500, 1500, 6, 6, 64, False, None),  # Whisper's encoder, ragged
+    (2, 64, 1500, 6, 6, 64, False, None),   # its cross attention
+    (1, 1, 1500, 6, 6, 64, False, None),    # the cross at decode
+    (1, 1153, 1153, 64, 8, 128, True, None),  # InternVL's prefill
 ])
 def test_flash_attention_matches_plain_version(card, B, T, S, H, Hk, dh,
                                                causal, window, dtype):
@@ -1143,22 +1147,26 @@ def test_crash_sweep_on_card_then_batched_read_back(card):
 # largest |plain| (the same fp32 arithmetic in another order); bf16: the
 # elementwise ATTN_STEPS limit, as chip_smoke.py holds it
 BWD_SHAPES = [
-    (8, 64, 64, 36, 36, 64, None),    # MiniCPM-2B's training shape
-    (1, 512, 512, 14, 2, 64, None),   # Qwen2-0.5B at T = 512
-    (1, 300, 300, 4, 2, 128, 100),    # a window that masks keys, ragged T
-    (2, 65, 200, 4, 1, 32, 70),       # dh = 32, T < S, a window
-    (1, 100, 100, 1, 1, 64, None),    # B * H = 1
-    (1, 100, 40, 4, 2, 64, None),     # T > S: 60 rows see no key
-    (1, 1100, 1100, 48, 4, 128, 512),  # StarCoder2-15B: G = 12, a window
+    (8, 64, 64, 36, 36, 64, True, None),    # MiniCPM-2B's training shape
+    (1, 512, 512, 14, 2, 64, True, None),   # Qwen2-0.5B at T = 512
+    (1, 300, 300, 4, 2, 128, True, 100),    # a window that masks keys
+    (2, 65, 200, 4, 1, 32, True, 70),       # dh = 32, T < S, a window
+    (1, 100, 100, 1, 1, 64, True, None),    # B * H = 1
+    (1, 100, 40, 4, 2, 64, True, None),     # T > S: 60 rows see no key
+    (1, 1100, 1100, 48, 4, 128, True, 512),  # StarCoder2-15B: G = 12
+    (1, 1500, 1500, 6, 6, 64, False, None),  # Whisper's encoder, ragged
+    (2, 64, 1500, 6, 6, 64, False, None),   # its cross attention, S >> T
+    (1, 1, 1500, 6, 6, 64, False, None),    # one query row
+    (1, 70, 90, 4, 2, 64, False, None),     # GQA, no mask, ragged
 ]
 
 
-def bwd_inputs(B, T, S, H, Hk, dh, window, dtype, card):
+def bwd_inputs(B, T, S, H, Hk, dh, causal, window, dtype, card):
     """q, k, v, the forward's output and log-sum-exp, and dout."""
     rng = np.random.default_rng(T + S + dh + H)
     q = normal(rng, (B, T, H, dh), dtype, card)
     k, v = (normal(rng, (B, S, Hk, dh), dtype, card) for _ in range(2))
-    out, lse = kflash.flash_attention(q, k, v, window=window,
+    out, lse = kflash.flash_attention(q, k, v, causal=causal, window=window,
                                       return_lse=True)
     dout = normal(rng, (B, T, H, dh), dtype, card)
     return q, k, v, out, lse, dout
@@ -1166,17 +1174,18 @@ def bwd_inputs(B, T, S, H, Hk, dh, window, dtype, card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,T,S,H,Hk,dh,window", BWD_SHAPES)
+@pytest.mark.parametrize("B,T,S,H,Hk,dh,causal,window", BWD_SHAPES)
 def test_flash_attention_bwd_matches_plain_version(card, B, T, S, H, Hk, dh,
-                                                   window, dtype):
-    q, k, v, out, lse, dout = bwd_inputs(B, T, S, H, Hk, dh, window, dtype,
-                                         card)
+                                                   causal, window, dtype):
+    q, k, v, out, lse, dout = bwd_inputs(B, T, S, H, Hk, dh, causal, window,
+                                         dtype, card)
     before = kflash.LAUNCHES["flash_attention_bwd"]
     got = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
-                                     window=window)
+                                     causal=causal, window=window)
     torch.cuda.synchronize()
     assert kflash.LAUNCHES["flash_attention_bwd"] == before + 1
-    plain = kflash.attention_bwd_plain(q, k, v, out, dout, window=window)
+    plain = kflash.attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                       window=window)
     for name, g, p in zip(("dq", "dk", "dv"), got, plain):
         assert g.dtype == dtype and g.shape == p.shape, name
         assert torch.isfinite(g.float()).all(), name
@@ -1186,23 +1195,23 @@ def test_flash_attention_bwd_matches_plain_version(card, B, T, S, H, Hk, dh,
         else:
             assert bool((diff <= attn_limit(p)).all()), \
                 (name, float((diff / attn_limit(p)).max()))
-    if T > S:  # rows that see no key take no gradient
+    if causal and T > S:  # rows that see no key take no gradient
         assert torch.equal(got[0][:, :T - S],
                            torch.zeros_like(got[0][:, :T - S]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,T,S,H,Hk,dh,window", BWD_SHAPES)
+@pytest.mark.parametrize("B,T,S,H,Hk,dh,causal,window", BWD_SHAPES)
 def test_flash_attention_bwd_is_deterministic(card, B, T, S, H, Hk, dh,
-                                              window, dtype):
+                                              causal, window, dtype):
     """No atomics: two calls on the same inputs give the same bits."""
-    q, k, v, out, lse, dout = bwd_inputs(B, T, S, H, Hk, dh, window, dtype,
-                                         card)
+    q, k, v, out, lse, dout = bwd_inputs(B, T, S, H, Hk, dh, causal, window,
+                                         dtype, card)
     first = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
-                                       window=window)
+                                       causal=causal, window=window)
     second = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse,
-                                        window=window)
+                                        causal=causal, window=window)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -1216,6 +1225,8 @@ def test_flash_attention_bwd_is_deterministic(card, B, T, S, H, Hk, dh,
     (1, 100, 40, 4, 2, 64, True, None),     # 60 rows see no key: +inf
     (1, 70, 90, 4, 2, 64, False, None),
     (1, 8, 8, 4, 1, 32, True, None),        # the hybrid's 8 tokens
+    (1, 1500, 1500, 6, 6, 64, False, None),  # Whisper's encoder
+    (2, 64, 1500, 6, 6, 64, False, None),   # its cross attention
 ])
 def test_flash_attention_lse_matches_plain_version(card, B, T, S, H, Hk, dh,
                                                    causal, window, dtype):
@@ -1242,7 +1253,7 @@ def test_flash_attention_lse_matches_plain_version(card, B, T, S, H, Hk, dh,
 def test_flash_attention_bwd_needs_aligned_bf16_and_an_lse(card):
     """TMA reads 16-byte-aligned tiles: a bf16 input that is not raises
     (no fallback), and the card needs the forward's log-sum-exp."""
-    q, k, v, out, lse, dout = bwd_inputs(1, 64, 64, 4, 2, 64, None,
+    q, k, v, out, lse, dout = bwd_inputs(1, 64, 64, 4, 2, 64, True, None,
                                          torch.bfloat16, card)
     for name in ("q", "k", "v", "out", "dout"):
         args = dict(q=q, k=k, v=v, out=out, dout=dout)
@@ -1532,3 +1543,74 @@ def test_recurrent_families_train_on_card(card, arch):
                         ("flash_attention", "attn"),
                         ("flash_attention_bwd", "attn")):
         assert after[name] - before[name] == 3 * kinds.count(mixer), name
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
+def test_encdec_and_vlm_run_on_card(card, arch):
+    """Whisper and InternVL at ``reduced()`` on the card, fp32 weights:
+    a prefill, 4 decode steps (Whisper's against its encoder's output)
+    and a train step, each attention on its kernel with exact launch
+    counts (Whisper: 2 encoder, 2 self and 2 cross layers; InternVL: 2
+    layers), every logit and the loss within 1e-4 of the same model's
+    run on the CPU, relative to the largest."""
+    from repro_torch.launch.steps import make_decode_step, make_train_step
+    from repro_torch.optim import adamw
+    cfg = get_arch(arch).reduced()
+    gpu = LM(cfg, seed=3, device="cuda").float()
+    cpu = LM(cfg, seed=3, device="cpu").float()
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    rng = np.random.default_rng(5)
+    T, L = 12, cfg.n_layers
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, T)))}
+    P, n_enc = 0, 0
+    if cfg.encdec is not None:
+        n_enc = cfg.encdec.n_enc_layers
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            2, cfg.encdec.n_audio_frames, cfg.d_model)).astype(np.float32))
+    if cfg.vision is not None:
+        P = cfg.vision.n_patches
+        batch["patches"] = torch.from_numpy(rng.normal(size=(
+            2, P, cfg.vision.d_vit)).astype(np.float32))
+    n_cross = L if cfg.encdec is not None else 0
+    runs = []
+    for lm in (gpu, cpu):
+        before = {**kflash.LAUNCHES, **kpaged.LAUNCHES}
+        logits, caches = lm.prefill(batch, P + T)
+        slots = -(-(P + T + 4) // 16) * 16
+        for leaves in caches["blocks"].values():
+            for name, c in leaves.items():
+                pad = c.new_zeros(c.shape[:-3] + (slots,) + c.shape[-2:])
+                pad[..., :P + T, :, :] = c
+                leaves[name] = pad
+        enc = lm._encode(batch["frames"]) if n_enc else None
+        step = make_decode_step(lm, with_enc=enc is not None)
+        out = [logits.cpu()]
+        tok = logits.argmax(-1)
+        for i in range(4):
+            pos = torch.full((2,), P + T + i, device=lm.device)
+            args = (tok, caches, pos) + ((enc,) if n_enc else ())
+            logits, caches = step(*args)
+            out.append(logits.cpu())
+            tok = logits.argmax(-1)
+        after = {**kflash.LAUNCHES, **kpaged.LAUNCHES}
+        if lm is gpu:
+            assert after["flash_attention"] - before["flash_attention"] == \
+                (L + n_cross + n_enc) + n_enc + 4 * n_cross
+            assert after["paged_attention"] - before["paged_attention"] == \
+                4 * L
+        runs.append(out)
+    for g, c in zip(*runs):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, T)))
+    losses = []
+    for lm in (gpu, cpu):
+        before = dict(kflash.LAUNCHES)
+        train_step = make_train_step(lm, cfg.name)
+        state = adamw.init(dict(lm.named_parameters()))
+        loss, _ = train_step({**batch, "labels": labels}, state)
+        losses.append(loss.item())
+        if lm is gpu:
+            for name in ("flash_attention", "flash_attention_bwd"):
+                assert kflash.LAUNCHES[name] - before[name] == \
+                    L + n_cross + n_enc, name
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])

@@ -185,11 +185,28 @@ def test_configs_equal_the_jax_package():
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
-def test_unported_families_raise(arch):
-    """Encoder-decoder and VLM; the MoE family and sliding windows run
-    (tests/test_torch_moe_family.py, tests/test_torch_window.py)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(get_arch(arch).reduced(), device="cpu")
+def test_encdec_and_vlm_build_reduced_and_prefill(arch):
+    """Whisper (encoder-decoder) and InternVL (VLM) build at reduced()
+    and prefill: Whisper's caches cover the text, InternVL's the patches
+    and the text (tests/test_torch_whisper.py and tests/test_torch_vlm.py
+    hold them to the JAX package)."""
+    cfg = get_arch(arch).reduced()
+    lm = build_model(cfg, device="cpu")
+    batch = {"tokens": torch.arange(5)[None]}
+    P = 0
+    if cfg.encdec is not None:
+        assert len(lm.encoder) == cfg.encdec.n_enc_layers
+        batch["frames"] = torch.randn(1, cfg.encdec.n_audio_frames,
+                                      cfg.d_model)
+    if cfg.vision is not None:
+        P = cfg.vision.n_patches
+        assert lm.projector.shape == (cfg.vision.d_vit, cfg.d_model)
+        batch["patches"] = torch.randn(1, P, cfg.vision.d_vit)
+    logits, caches = lm.prefill(batch, 5)
+    assert logits.shape == (1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()
+    assert caches["blocks"]["l0"]["k"].shape == (
+        cfg.n_layers, 1, P + 5, cfg.n_kv_heads, cfg.head_dim)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "codeqwen1.5-7b",

@@ -326,19 +326,15 @@ def test_server_matches_jax(arch, pipelined):
     assert ts.stats["prefix_hits"] > 0 and ts.stats["decode_steps"] == 12
 
 
-def test_check_ported_refuses_only_encdec_and_vlm():
-    """Every configuration of the repo builds but Whisper's
-    (encoder-decoder) and InternVL's (VLM)."""
-    refused = []
+def test_check_ported_takes_every_configuration():
+    """Every configuration of the repo builds, Whisper's
+    (encoder-decoder) and InternVL's (VLM) included, at ``reduced()``
+    with the layer grouping the JAX package gives it."""
     for name in jax_all_archs():
         cfg = get_arch(name).reduced()
-        try:
-            check_ported(cfg)
-        except NotImplementedError as e:
-            assert "not yet ported" in str(e)
-            refused.append(name)
-            assert cfg.encdec is not None or cfg.vision is not None
-    assert sorted(refused) == ["internvl2-76b", "whisper-tiny"]
+        check_ported(cfg)
+        assert group_plan(cfg) == jax_group_plan(jax_get_arch(name)
+                                                 .reduced()), name
 
 
 def test_serve_refuses_full_width_mixtral_and_serves_it_reduced():

@@ -1,7 +1,9 @@
 """The port's training slice (repro_torch, ``device="cpu"``) against the
-JAX package: ``LM.loss`` and its gradients (attention, MoE, RWKV6 and
-the Mamba hybrid), the train step over several steps, ``train`` with
-its crash and restart, and the configurations that are refused.
+JAX package: ``LM.loss`` and its gradients (attention, MoE, RWKV6, the
+Mamba hybrid, Whisper's encoder and cross attention, InternVL's
+projector), the train step over several steps, ``train`` with its crash
+and restart, ``check_ported`` over every configuration, and the
+entry points that refuse Whisper and InternVL.
 
 The JAX package initialises each reduced configuration from
 ``PRNGKey(0)``; ``convert.lm_params_from_arrays`` carries its
@@ -38,8 +40,10 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
+from repro_torch.launch import serve as tserve
 from repro_torch.models import LM
-from repro_torch.models.model import check_trainable
+from repro_torch.models.model import check_ported
+from repro_torch.serving import Server
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -62,9 +66,18 @@ def fp32_pair(arch, seed=0):
     return jm, jp, lm, cfg
 
 
-def draw_batch(rng, vocab, B, T):
-    toks = rng.integers(0, vocab, size=(B, T + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+def draw_batch(rng, cfg, B, T):
+    """Tokens and next-token labels [B, T], and Whisper's ``frames`` or
+    InternVL's ``patches`` (fp32 normals), drawn with numpy."""
+    toks = rng.integers(0, cfg.vocab, size=(B, T + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.encdec is not None:
+        batch["frames"] = rng.normal(size=(
+            B, cfg.encdec.n_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.vision is not None:
+        batch["patches"] = rng.normal(size=(
+            B, cfg.vision.n_patches, cfg.vision.d_vit)).astype(np.float32)
+    return batch
 
 
 def rel(t, j):
@@ -78,21 +91,29 @@ def rel(t, j):
                                     ("starcoder2-15b", 80),
                                     ("deepseek-moe-16b", 20),
                                     ("rwkv6-7b", 37),
-                                    ("jamba-1.5-large-398b", 37)],
+                                    ("jamba-1.5-large-398b", 37),
+                                    ("whisper-tiny", 20),
+                                    ("internvl2-76b", 20)],
                          ids=["qwen2", "minicpm", "starcoder2-window",
-                              "deepseek-moe", "rwkv6", "jamba-hybrid"])
+                              "deepseek-moe", "rwkv6", "jamba-hybrid",
+                              "whisper", "internvl"])
 def test_loss_and_grads_match_jax(arch, T):
     """Qwen2 (tied head, qkv biases), MiniCPM (untied head), StarCoder2
     (LayerNorm, GELU; T = 80 past its reduced window of 64, so the
     window masks keys), DeepSeek-MoE (a dense layer 0, shared experts,
     the aux loss in the objective), RWKV6 (the WKV scan and its
-    backward, the channel mix; T = 37 over the JAX chunk of 16, ragged)
-    and the Jamba hybrid (Mamba mixers' SSD scan and its backward,
-    attention, MLP and MoE; T = 37 ragged over the chunk of 16)."""
+    backward, the channel mix; T = 37 over the JAX chunk of 16, ragged),
+    the Jamba hybrid (Mamba mixers' SSD scan and its backward,
+    attention, MLP and MoE; T = 37 ragged over the chunk of 16), Whisper
+    (the encoder's non-causal attention over 32 frames and the decoder's
+    cross attention, T = 20 against S = 32, both through the attention
+    backward; the encoder stacked on axis 0) and InternVL (16 projected
+    patches before the text, one kv head for four query heads; the loss
+    over the text positions only)."""
     jm, jp, lm, cfg = fp32_pair(arch)
     if arch == "starcoder2-15b":
         assert cfg.sliding_window == 64 < T
-    batch = draw_batch(np.random.default_rng(5), cfg.vocab, 2, T)
+    batch = draw_batch(np.random.default_rng(5), cfg, 2, T)
     jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     lm.requires_grad_(True)
@@ -199,10 +220,13 @@ def test_train_with_injected_crash_restart_matches_jax():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-moe-16b",
-                                  "jamba-1.5-large-398b", "rwkv6-7b"])
+                                  "jamba-1.5-large-398b", "rwkv6-7b",
+                                  "whisper-tiny", "internvl2-76b"])
 def test_lm_arrays_from_params_is_the_jax_tree(arch):
     """The inverse of ``lm_params_from_arrays``: the JAX package's tree,
-    leaf for leaf (groups stacked over repeats, ``moe.shared``)."""
+    leaf for leaf (groups stacked over repeats, ``moe.shared``;
+    Whisper's ``encoder`` stacked, ``enc_norm``, ``ln3`` and ``cross``;
+    InternVL's ``projector``)."""
     cfg, jcfg = get_arch(arch).reduced(), jax_get_arch(arch).reduced()
     jp = to_np(jax_build_model(jcfg).init_params(jax.random.PRNGKey(1)))
     tree = lm_arrays_from_params(lm_params_from_arrays(jp, cfg), cfg)
@@ -216,21 +240,46 @@ def test_lm_arrays_from_params_is_the_jax_tree(arch):
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
-def test_check_trainable_refuses_scans_and_unported(arch):
-    """Only what the port cannot run: encoder-decoder and VLM."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        check_trainable(get_arch(arch).reduced())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_train_and_serve_refuse_encdec_and_vlm(arch, monkeypatch):
+    """The token pipeline and the ``Server``'s requests hold tokens only
+    (as the JAX ``train()`` and ``Server`` do): ``train()``, ``serve()``
+    and ``Server(...)`` refuse Whisper and InternVL, each with its own
+    message, before any weight is drawn."""
+    built = []
+    for mod in (ttrain, tserve):
+        monkeypatch.setattr(mod, "build_model",
+                            lambda *a, **k: built.append(1))
+    with pytest.raises(NotImplementedError, match="token pipeline feeds "
+                       "tokens only"):
         ttrain.train(arch, steps=1, device="cpu", verbose=False)
+    with pytest.raises(NotImplementedError, match="prefill batch holds "
+                       "tokens only"):
+        tserve.serve(arch, reduced=True, device="cpu", verbose=False)
+    assert not built
+    lm = LM(dataclasses.replace(get_arch(arch).reduced(), n_layers=1),
+            device="cpu")
+    with pytest.raises(NotImplementedError, match="prefill batch holds "
+                       "tokens only"):
+        Server(lm, page_size=8, n_pages=32)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "minicpm-2b",
                                   "starcoder2-15b", "deepseek-moe-16b",
                                   "mixtral-8x22b", "codeqwen1.5-7b",
-                                  "rwkv6-7b", "jamba-1.5-large-398b"])
-def test_check_trainable_takes_attention_families(arch):
-    """Every decoder-only family, the scans' included."""
-    check_trainable(get_arch(arch))
+                                  "rwkv6-7b", "jamba-1.5-large-398b",
+                                  "whisper-tiny", "internvl2-76b"])
+def test_check_ported_takes_every_configuration(arch):
+    """Every configuration of the registry runs and trains, at full
+    width and at ``reduced()``; a layer-kind set the port does not know
+    still raises."""
+    check_ported(get_arch(arch))
+    check_ported(get_arch(arch).reduced())
+    # Mamba and attention layers with no MoE: a set no family has
+    odd = dataclasses.replace(get_arch("qwen2-0.5b").reduced(),
+                              attn_every=2, mamba=get_arch(
+                                  "jamba-1.5-large-398b").mamba)
+    with pytest.raises(NotImplementedError, match="does not run"):
+        check_ported(odd)
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-15b", "deepseek-moe-16b",

@@ -7,13 +7,15 @@ it (row 9) on one card, against the parent's.
 
 At ``chip_smoke.py``'s ``BWD_SHAPES`` (MiniCPM-2B's training shape,
 Qwen2-0.5B's heads at T = 512, StarCoder2-15B's heads with a window of
-512 over T = 1100), in bf16 on inputs drawn from ``--seed``:
+512 over T = 1100, the hybrid's reduced() training shape, Whisper-tiny's
+encoder and cross attention not causal), in bf16 on inputs drawn from
+``--seed``:
 
 * this tree's ``flash_attention_bwd`` (fed the forward's log-sum-exp),
   held to ``attention_bwd_plain`` within ``chip_smoke.attn_limit`` and
-  timed with ``chip_smoke.time_calls`` (device time a call, every CUDA
-  kernel of the call summed; the profiler line names the three
-  kernels);
+  timed with ``chip_smoke.time_calls`` (device time a call, CUDA
+  events around calls queued behind a sleep kernel; the profiler line
+  names the three kernels);
 * with ``--parent DIR`` (a checkout of the commit before this design,
   e.g. ``git archive HEAD~1 src/repro_torch | tar -x -C DIR``), the
   parent's backward built from its ``csrc/flash_attention_bwd.cu`` and
@@ -107,7 +109,7 @@ def main(argv=None) -> int:
         parent = (build_parent(args.parent.resolve(), Path(tmp), say)
                   if args.parent is not None else None)
 
-        def parent_bwd(q, k, v, out, dout, window):
+        def parent_bwd(q, k, v, out, dout, window, causal):
             B, T, H, dh = q.shape
             S, Hk = k.shape[1], k.shape[2]
             grads = (torch.empty_like(q), torch.empty_like(k),
@@ -118,7 +120,8 @@ def main(argv=None) -> int:
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), *(g.data_ptr() for g in grads),
                 scratch[0].data_ptr(), scratch[1].data_ptr(), B, T, S, H, Hk,
-                dh, 1, int(window or 0), 1, 1.0 / math.sqrt(dh), stream())
+                dh, int(causal), int(window or 0), 1, 1.0 / math.sqrt(dh),
+                stream())
             cs.check(err == 0, f"the parent's backward failed: {err}")
             return grads
 
@@ -142,25 +145,27 @@ def main(argv=None) -> int:
                 worst = max(worst, ratio)
             return worst
 
-        for tag, B, T, H, Hk, dh, W in cs.BWD_SHAPES:
-            name = f"{tag} (B={B}, T=S={T}, H={H}, Hk={Hk}, dh={dh}" + (
-                f", W={W}" if W else "") + ", bf16)"
+        for tag, B, T, S, H, Hk, dh, W, causal in cs.BWD_SHAPES:
+            name = f"{tag} (B={B}, T={T}, S={S}, H={H}, Hk={Hk}, dh={dh}" + (
+                f", W={W}" if W else "") + ("" if causal else
+                                            ", not causal") + ", bf16)"
             batches = []
             for _ in range(4):
                 q = torch.randn(B, T, H, dh, generator=gen, device=dev)
-                k, v = (torch.randn(B, T, Hk, dh, generator=gen, device=dev)
+                k, v = (torch.randn(B, S, Hk, dh, generator=gen, device=dev)
                         for _ in range(2))
                 dout = torch.randn(B, T, H, dh, generator=gen, device=dev)
                 q, k, v, dout = (t.bfloat16() for t in (q, k, v, dout))
-                out, lse = kflash.flash_attention(q, k, v, window=W,
-                                                  return_lse=True)
+                out, lse = kflash.flash_attention(q, k, v, causal=causal,
+                                                  window=W, return_lse=True)
                 batches.append((q, k, v, out, dout, lse))
             q, k, v, out, dout, lse = batches[0]
-            plain = kflash.attention_bwd_plain(q, k, v, out, dout, window=W)
+            plain = kflash.attention_bwd_plain(q, k, v, out, dout,
+                                               causal=causal, window=W)
 
-            def this(a, b, c, o, d, l, W=W):
+            def this(a, b, c, o, d, l, W=W, causal=causal):
                 return kflash.flash_attention_bwd(a, b, c, o, d, lse=l,
-                                                  window=W)
+                                                  causal=causal, window=W)
 
             worst = within(name, this(*batches[0]), plain)
             if parent is None:
@@ -168,8 +173,8 @@ def main(argv=None) -> int:
                     f"ms ({worst:.3f} of the limit)")
                 continue
 
-            def old(a, b, c, o, d, l, W=W):
-                return parent_bwd(a, b, c, o, d, W)
+            def old(a, b, c, o, d, l, W=W, causal=causal):
+                return parent_bwd(a, b, c, o, d, W, causal)
 
             pworst = within(f"parent {name}", old(*batches[0]), plain)
             ms = [dev_ms(f, batches) for f in (old, this, this, old)]

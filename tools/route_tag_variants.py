@@ -7,8 +7,8 @@ the parent's, and the floors under them.
 
 Builds, from ``csrc/clht_probe.cu`` and edited copies of it (and
 ``tools/index_variants.cu`` for the latency probes), and times with
-``chip_smoke.time_calls`` (device time a call, every CUDA kernel and
-copy of the call summed):
+``chip_smoke.time_calls`` (device time a call, its CUDA kernels and
+copies timed by events around calls queued behind a sleep kernel):
 
 * ``tag_probe`` on ``chip_smoke.py``'s tag path (2^19 tags in 2^18
   buckets, 8 waves of 4096 queries), which reads the table's three

@@ -7,7 +7,7 @@ Builds ``src/repro_torch/csrc/wkv6.cu`` and ``csrc/ssd.cu`` as they stand
 and variants made from them by textual edits (an edit that no longer
 applies fails the run), and times each bf16 prefill with
 ``chip_smoke.time_calls`` (device time a call, the call's kernels
-summed) at RWKV6-7B's shape (B = 1, T = 512, H = 64, dh = 64) and
+timed by events around calls queued behind a sleep kernel) at RWKV6-7B's shape (B = 1, T = 512, H = 64, dh = 64) and
 Jamba's (B = 1, T = 4096, H = 256, dh = 64, N = 16), on inputs drawn
 from a seed as ``chip_smoke.py`` draws them:
 

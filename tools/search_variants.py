@@ -7,7 +7,7 @@ one card, and the latency floor under them.
 Builds, from edited copies of ``csrc/conflict_any.cu`` and
 ``csrc/scan_window.cu`` (and ``tools/index_variants.cu`` for the
 latency probes), and times with ``chip_smoke.time_calls`` (device time
-a call, every CUDA kernel and memset of the call summed), each variant
+a call, its kernels and memsets timed by events around queued calls), each variant
 in turns with the source (source, variant, variant, source), each held
 bit-identical to the source first:
 
