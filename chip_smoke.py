@@ -245,13 +245,30 @@ Each prints its prefills' tokens/s and a decode step's ms on the host
 clock and on the card (the last prefill and step profiled), and the
 train steps' ms and busy share.
 
+The twentieth, the decode cell path, runs the dry run's ``decode_32k``
+cell of Qwen2-0.5B at full width and all 24 layers (B = 128 against
+32,768 slots of cache, ``make_decode_step`` at pos = 32,767, so every
+page is read): first with the ``kv_int8`` cache (25.77 GB of random
+int8; the paged kernel reads the int8 pages and dequantizes in
+registers), then with the bf16 cache (51.54 GB), the caches freed in
+between.  For each: the dry run's count of the same cell on ``meta``
+(``launch.steps.lower_cell``, ``analysis.roofline.count_costs``) and its
+bound on the H100's spec sheet; 4 steps counted, exactly 24 launches of
+the variant's form a step (``paged_attention int8`` or
+``paged_attention``), no other kernel and no plain version, logits
+finite; host ms a step, device ms a step (one step queued behind a
+sleep), the profiler's busy time, the busy share and peak card memory;
+the run fails if a device reading is below the bound.  Then one int8
+decode step at B = 2 over 256 slots with the weights upcast to fp32 on
+the card and the CPU, logits within ``FP32_TOL`` of the largest.
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel; each
    kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
    them;
-3. the nineteen paths, each with every kernel's launch count set to 0 just
+3. the twenty paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
@@ -297,7 +314,10 @@ Phases, each of which exits non-zero on failure:
    of 128), causal; the backward at Whisper-tiny's training batch, not
    causal (its encoder and its cross attention), and at InternVL2-76B's
    full-width training batch (T = 1089, causal); the paged kernel at
-   Whisper-tiny's and InternVL2-76B's decode shapes; the scans' backward
+   Whisper-tiny's and InternVL2-76B's decode shapes, and its int8 form at
+   the decode_32k cell's shape (B = 128, 2,048 pages a sequence) within
+   the same limit, which the plain version at a scale of 1/16 breaks,
+   timed beside the bf16 pages' kernel at the same shape; the scans' backward
    kernels at RWKV6-7B's training shape
    (B = 8, T = 256, H = 64, dh = 64) and Jamba's full-width mixer shape
    (B = 1, T = 4096, H = 256, dh = 64, N = 16), in bf16 and fp32, and at
@@ -377,6 +397,7 @@ from repro_torch.kernels.probe import fp64, fp_partial  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import ffn as ffn_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models.attention import KV_QSCALE  # noqa: E402
 from repro_torch.models.common import norm, norm_params  # noqa: E402
 from repro_torch.obs import RECORDER  # noqa: E402
 from repro_torch.serving import Server  # noqa: E402
@@ -384,20 +405,28 @@ from repro_torch.serving.engine import _pad_caches  # noqa: E402
 from repro_torch.convert import (lm_arrays_from_params,  # noqa: E402
                                  lm_params_from_arrays)
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.analysis import roofline  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    flash_bwd_work, flash_work, paged_work, seen_pairs, ssd_bwd_work,
+    ssd_work, wkv6_bwd_work, wkv6_work)
 
 PLAN_OPS = 4096
 Q = 4096  # queries per launch on the main path (one full read wave)
 SLOTS = 3
 HIGH = -(1 << 63)  # 2^63 as an int64 bit pattern
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the float32 rate outside
-# the tensor cores standing in for 32-bit integer lanes, and the dense
-# bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-LANE_OPS_PER_S = 67e12
+# NVIDIA H100 SXM data sheet (repro_torch.analysis.roofline, their one
+# home): HBM3 bandwidth, the float32 rate outside the tensor cores
+# standing in for 32-bit integer lanes, and the dense bf16 tensor-core
+# rate
+HBM_BYTES_PER_S = roofline.HBM_BW
+LANE_OPS_PER_S = roofline.LANE_OPS
 # calls a kernel's device time is taken over, and profiled over (its
 # back-to-back calls are more)
 PROFILED_REPS = 32
@@ -405,7 +434,7 @@ PROFILED_REPS = 32
 # only events any reading here takes (host events multiply the trace's
 # size and the time to read it)
 CARD_ACTIVITY = [torch.profiler.ProfilerActivity.CUDA]
-BF16_FLOPS_PER_S = 989e12
+BF16_FLOPS_PER_S = roofline.PEAK_FLOPS
 SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "probe64": "src/repro_torch/csrc/probe.cu",
            "art_descend": "src/repro_torch/csrc/art_descend.cu",
@@ -416,6 +445,7 @@ SOURCES = {"probe64_fp": "src/repro_torch/csrc/probe.cu",
            "shard_partition": "src/repro_torch/csrc/shard_route.cu",
            "conflict_any": "src/repro_torch/csrc/conflict_any.cu",
            "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+           "paged_attention int8": "src/repro_torch/csrc/paged_attention.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "flash_attention_bwd":
                "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -449,6 +479,8 @@ REPLACES = {"probe64_fp": "src/repro/kernels/probe/kernel.py:76",
             "shard_partition": "src/repro/kernels/partition/kernel.py:102",
             "conflict_any": "src/repro/kernels/conflict/kernel.py:64",
             "paged_attention":
+                "src/repro/kernels/paged_attention/kernel.py:68",
+            "paged_attention int8":
                 "src/repro/kernels/paged_attention/kernel.py:68",
             "flash_attention":
                 "src/repro/kernels/flash_attention/kernel.py:90",
@@ -674,6 +706,21 @@ VLM_CHECK_LAYERS = 1
 VLM_TRAIN = dict(steps=4, batch=4, seq=64, layers=1)
 VLM_TRAIN_PARAMS = 2_983_223_296
 VLM_CHECK_BATCH = 1
+# the decode_32k cell of Qwen2-0.5B (B = 128 against 32,768 slots, the
+# dry run's shape) at full width and all 24 layers, decoding at pos =
+# 32,767 so that every page is read, as the dry run's count on meta
+# charges them: first with the int8 cache (the kv_int8 variant, 25.77 GB
+# of random int8 on the card), then with the bf16 cache (51.54 GB), the
+# caches freed in between; CELL_STEPS steps counted, each step's launches
+# exact, the device time held to the dry run's bound for the cell
+CELL_ARCH = "qwen2-0.5b"
+CELL_SHAPE = "decode_32k"
+CELL_VARIANTS = ("kv_int8", "base")
+CELL_STEPS = 4
+# the fp32 check: one decode step at B = 2 over 256 slots of int8 cache,
+# fp32 activations, on the card against the CPU
+CELL_CHECK_BATCH = 2
+CELL_CHECK_SLOTS = 256
 
 
 def kernel_name(mangled: str) -> str:
@@ -748,7 +795,8 @@ def reset_counts() -> None:
             counts[name] = 0
     for by_width in kscan.WINDOWS.values():
         by_width.clear()
-    kpaged.WINDOWED["paged_attention"] = 0
+    for name in kpaged.WINDOWED:
+        kpaged.WINDOWED[name] = 0
 
 
 def read_counts() -> dict:
@@ -1329,9 +1377,7 @@ def time_plain(fn, batches):
 def bound(n_bytes: float, ops: float):
     """Least time in ms: bytes over HBM bandwidth against lane
     operations over the lane rate, and which of the two bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / LANE_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roofline.bound(n_bytes, ops, LANE_OPS_PER_S)
 
 
 def compare(name: str, got, plain) -> int:
@@ -2605,9 +2651,13 @@ def serving_run(arch: str, seed: int, launches: dict, split: dict, *,
 def attn_bound(n_bytes: float, flops: float):
     """Least time in ms: bytes over HBM bandwidth against FLOPs over the
     bf16 tensor-core rate, and which of the two bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roofline.bound(n_bytes, flops, BF16_FLOPS_PER_S)
+
+
+def work_bound(work: roofline.Work):
+    """``attn_bound`` of a kernel's work (``analysis.roofline``'s
+    formulas, the dry run's count of the same kernel)."""
+    return attn_bound(work.bytes, work.flops)
 
 
 def attn_limit(plain: torch.Tensor) -> torch.Tensor:
@@ -2696,8 +2746,8 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
             lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
                 a, b, c, is_causal=True), lib, 64)
         library_ms = lib_dev
-        n_bytes = 2 * (2 * T * H * dh + 2 * T * Hk * dh)
-        bms, by = attn_bound(n_bytes, 2 * 2 * T * T * dh * H / 2)
+        # the bound's pairs: half the T x T square
+        bms, by = work_bound(flash_work(1, T, T, H, Hk, dh, T * T / 2))
         say(f"flash_attention (T={T}): bound {bms:.9f} ms ({by}); "
             f"scaled_dot_product_attention: device {lib_dev} ms, call "
             f"{lib_call:.6f} ms")
@@ -2722,10 +2772,8 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
                          lambda a, b, c: kflash.attention_plain(a, b, c,
                                                                 window=W),
                          batches, reps=64)
-    seen = sum(min(i + 1, W) for i in range(T_long))  # keys the queries see
-    wbms, wby = attn_bound(2 * (2 * T_long * cH * cdh
-                                + 2 * T_long * cHk * cdh),
-                           2 * 2 * seen * cdh * cH)
+    wbms, wby = work_bound(flash_work(1, T_long, T_long, cH, cHk, cdh,
+                                      seen_pairs(T_long, T_long, W)))
     # the library call: SDPA with the window as a boolean mask (kv heads
     # repeated beforehand)
     pos = torch.arange(T_long, device=dev)
@@ -2787,9 +2835,7 @@ def flash_vs_plain(serve: dict, coder: dict, seed: int,
             lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
                 a, b, c, is_causal=causal), flib, 64)
         pairs = seen_pairs(fT, fS, None) if causal else fT * fS
-        fbms, fby = attn_bound(2 * (2 * fB * fT * fH * fdh
-                                    + 2 * fB * fS * fHk * fdh),
-                               4 * fB * pairs * fH * fdh)
+        fbms, fby = work_bound(flash_work(fB, fT, fS, fH, fHk, fdh, pairs))
         say(f"{name}: bound {fbms:.9f} ms ({fby}); "
             f"scaled_dot_product_attention: device {flib_dev} ms, call "
             f"{flib_call:.6f} ms")
@@ -2881,9 +2927,9 @@ def paged_lengths(tag: str, dims: tuple, slots: int, lengths, gen, dev,
         library_ms = lib_dev
         # the live keys and values once, q, the table's live entries, the
         # output
-        n_bytes = (2 * (2 * live * Hk * dh + 2 * H * dh)
-                   + 4 * -(-live // SERVE_PAGE) + 4)
-        bms, by = attn_bound(n_bytes, 4 * live * H * dh)
+        work = paged_work([live], H, Hk, dh, SERVE_PAGE)
+        n_bytes = work.bytes
+        bms, by = work_bound(work)
         say(f"{tag} (len={length}, {live} live keys): bound {bms:.9f} ms "
             f"({by}, {n_bytes} bytes); scaled_dot_product_attention over "
             f"the live keys: device {lib_dev} ms, call {lib_call:.6f} ms")
@@ -3208,12 +3254,11 @@ def wkv6_vs_plain(serve: dict, seed: int, launches: dict,
         timed = time_kernel(name, lambda *a: kwkv.wkv6(*a),
                             lambda *a: kwkv.wkv6_plain(*a), batches,
                             reps=64 if T > 1 else 640)
-        n = T * H * dh
-        n_bytes = 2 * 4 * n + 4 * n + 4 * H * dh \
-            + 4 * H * dh * dh * (2 if carried else 1)
         # the state terms: one FMA a state element for r.S and one for
         # the update, per token and head, at the fp32 rate
-        bms, by = bound(n_bytes, 4 * dh * dh * T * H)
+        work = wkv6_work(1, T, H, dh, r.element_size(), carried)
+        n_bytes = work.bytes
+        bms, by = bound(n_bytes, work.lane_ops)
         say(f"{name}: bound {bms:.9f} ms ({by}, {n_bytes} bytes)")
         out = out or (timed, bms, by, T)
     timed, bms, by, T = out
@@ -3457,14 +3502,12 @@ def ssd_vs_plain(mp: dict, hybrid: dict, seed: int, launches: dict,
         timed = time_kernel(name, lambda *a: kssd.ssd(*a),
                             lambda *a: kssd.ssd_plain(*a), batches,
                             reps=64 if T > 1 else 640)
-        n, es = T * H * dh, x.element_size()
         # x and y, dt fp32, B_ and C_, A, the state in (when carried) and
-        # out in fp32
-        n_bytes = 2 * es * n + 4 * T * H + 2 * es * T * N + 4 * H \
-            + 4 * H * dh * N * (2 if carried else 1)
-        # the state terms: one FMA a state element for the update and one
-        # for y, per token and head, at the fp32 rate
-        bms, by = bound(n_bytes, 4 * dh * N * T * H)
+        # out in fp32; the state terms: one FMA a state element for the
+        # update and one for y, per token and head, at the fp32 rate
+        work = ssd_work(1, T, H, dh, N, x.element_size(), carried)
+        n_bytes = work.bytes
+        bms, by = bound(n_bytes, work.lane_ops)
         say(f"{name} [{what}]: bound {bms:.9f} ms ({by}, {n_bytes} bytes); "
             "library call: none, no single op computes an SSD scan")
         out = out or (timed, bms, by, T, H, dh, N)
@@ -4498,6 +4541,300 @@ def vlm_path(seed: int, launches: dict) -> dict:
     return served
 
 
+def cell_form(variant: str) -> str:
+    """The paged kernel's form a variant's decode launches."""
+    return "paged_attention int8" if variant == "kv_int8" \
+        else "paged_attention"
+
+
+def cell_bound(cfg, variant: str) -> dict:
+    """The dry run's count of the cell (``launch.steps.lower_cell`` on
+    meta, ``analysis.roofline.count_costs``) on the one-card mesh: its
+    roofline record."""
+    variants = frozenset() if variant == "base" else frozenset({variant})
+    shape = SHAPES[CELL_SHAPE]
+    lowered, _ = steps_mod.lower_cell(cfg, shape, make_smoke_mesh(),
+                                      variants=variants)
+    costs, _ = roofline.count_costs(lowered.fn, *lowered.args)
+    rec = roofline.cell_costs(cfg, shape, costs, [])
+    say(f"{cfg.name} {CELL_SHAPE} [{variant}] dry run (meta, H100 spec "
+        f"sheet): {rec['gbytes']:.6f} GB, {rec['gflops']:.6f} GFLOP, "
+        f"bound {rec['step_time_bound_ms']:.6f} ms ({rec['dominant']}); "
+        f"kernels {rec['kernels']}")
+    return rec
+
+
+def random_caches(lm, batch: int, slots: int, gen) -> dict:
+    """``lm.init_caches`` filled at random on the card: int8 steps over
+    their whole range, or normals."""
+    caches = lm.init_caches(batch, slots)
+    for leaves in caches.values():
+        for group in leaves.values():
+            for t in group.values():
+                if t.dtype == torch.int8:
+                    t.random_(-127, 128, generator=gen)
+                else:
+                    t.normal_(generator=gen)
+    return caches
+
+
+def event_ms(fn) -> float:
+    """Device ms of one call of ``fn``: CUDA events around it (the
+    card's timeline from its first kernel to its last, gaps included)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def decode_cell(seed: int, launches: dict) -> dict:
+    """Qwen2-0.5B's ``decode_32k`` cell at full width and depth (see
+    ``CELL_ARCH``): for each of ``CELL_VARIANTS`` the dry run's bound,
+    then ``CELL_STEPS`` steps of ``make_decode_step`` counted (exactly
+    ``n_layers`` launches of the variant's paged form a step, no other
+    kernel and no plain version), logits finite; host ms a step, device
+    ms a step (``event_ms``: a step launches some 2,000 kernels, more
+    than the launch queue holds, so it cannot be queued behind a sleep),
+    the profiler's busy time over two steps, peak card memory; each
+    device reading at or above the bound.  Then the fp32
+    check of the int8 decode.  Adds the launches to ``launches``."""
+    t0 = time.perf_counter()
+    cfg = get_arch(CELL_ARCH)
+    shape = SHAPES[CELL_SHAPE]
+    B, S = shape.global_batch, shape.seq_len
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(cfg, seed=seed)
+    check(lm.device.type == "cuda", f"{cfg.name} is not on the card")
+    dev = lm.device
+    n = sum(p.numel() for p in lm.parameters())
+    say(f"{cfg.name} {CELL_SHAPE}: B = {B} against {S} slots at pos "
+        f"{S - 1}, {cfg.n_layers} layers, {n:,} parameters "
+        f"({2 * n / 1e9:.3f} GB bf16)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 29)
+    token = torch.randint(0, cfg.vocab, (B,), generator=gen, device=dev)
+    pos = torch.full((B,), S - 1, dtype=torch.int64, device=dev)
+    step = make_decode_step(lm)
+    out = {"cfg": cfg, "variants": {}}
+    for variant in CELL_VARIANTS:
+        form = cell_form(variant)
+        rec = cell_bound(cfg, variant)
+        bound_ms = rec["step_time_bound_ms"]
+        lm.cache_dtype = torch.int8 if variant == "kv_int8" else None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        caches = random_caches(lm, B, S, gen)
+        cache_gb = sum(t.numel() * t.element_size()
+                       for leaves in caches.values()
+                       for group in leaves.values()
+                       for t in group.values()) / 1e9
+        host = []
+        with counting_plain() as plain:
+            reset_counts()
+            for _ in range(CELL_STEPS):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                logits, caches = step(token, caches, pos)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - ts) * 1e3)
+            counts = read_counts()
+        check(not any(plain.values()), f"{cfg.name} {CELL_SHAPE} "
+              f"[{variant}]: a plain kernel version ran: {plain}")
+        want = CELL_STEPS * cfg.n_layers
+        check(counts[form] == want, f"{cfg.name} {CELL_SHAPE} [{variant}]: "
+              f"{form} launched {counts[form]} times in {CELL_STEPS} steps, "
+              f"not {want}")
+        others = {k: v for k, v in counts.items() if v and k != form}
+        check(not others, f"{cfg.name} {CELL_SHAPE} [{variant}]: other "
+              f"kernels launched: {others}")
+        check(tuple(logits.shape) == (B, cfg.vocab)
+              and bool(torch.isfinite(logits.float()).all()),
+              f"{cfg.name} {CELL_SHAPE} [{variant}]: logits of shape "
+              f"{tuple(logits.shape)} or not finite")
+        launches[form] += counts[form]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        host_ms = min(host[1:])
+        dev_ms = min(event_ms(lambda: step(token, caches, pos))
+                     for _ in range(2))
+        with torch.profiler.profile(activities=CARD_ACTIVITY) as prof:
+            for _ in range(2):
+                step(token, caches, pos)
+            torch.cuda.synchronize()
+        busy, n_kernels, kernels = device_totals(prof)
+        busy, n_kernels = busy / 2, n_kernels / 2
+        top = sorted(kernels, key=lambda e: -e.device_time_total)[:3]
+        say(f"{cfg.name} {CELL_SHAPE} [{variant}]: {cache_gb:.3f} GB of "
+            f"{str(caches['blocks']['l0']['k'].dtype)[6:]} cache; host "
+            f"{host_ms:.3f} ms a step (steps {[round(h, 3) for h in host]})"
+            f"; device {dev_ms:.6f} ms a step (events); profiler busy {busy:.6f} ms in {n_kernels:.0f} kernels "
+            f"a step, busy share {busy / host_ms:.4f}; bound {bound_ms:.6f}"
+            f" ms ({rec['dominant']}), device / bound "
+            f"{dev_ms / bound_ms:.4f}; peak card memory {peak:.3f} GB; "
+            f"launches {counts[form]} {form}; top kernels: " + "; ".join(
+                f"{e.key[:50]} {e.device_time_total / 2e3:.4f} ms"
+                for e in top))
+        check(dev_ms >= bound_ms, f"{cfg.name} {CELL_SHAPE} [{variant}]: "
+              f"device {dev_ms} ms a step is below the dry run's bound "
+              f"{bound_ms} ms: the count is wrong")
+        check(busy == 0 or busy >= bound_ms, f"{cfg.name} {CELL_SHAPE} "
+              f"[{variant}]: profiler busy {busy} ms a step is below the "
+              f"dry run's bound {bound_ms} ms: the count is wrong")
+        out["variants"][variant] = {
+            "host_ms": host_ms, "device_ms": dev_ms, "busy_ms": busy,
+            "bound_ms": bound_ms, "cache_gb": cache_gb, "peak_gb": peak,
+            "launches": counts[form]}
+        del caches, logits
+    del step
+    cell_fp32_check(lm, seed)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"{cfg.name} {CELL_SHAPE} cell and its checks: "
+        f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def cell_fp32_check(lm, seed: int) -> None:
+    """One int8-cache decode step at B = ``CELL_CHECK_BATCH`` over
+    ``CELL_CHECK_SLOTS`` slots with ``lm``'s weights upcast to fp32
+    (exactly) on the card and on the CPU: the same random int8 cache and
+    tokens, positions at the cache's end and inside it; logits within
+    ``FP32_TOL`` of the largest; the int8 slots the step wrote within one
+    quantization step of the CPU's (fp32 products in another order may
+    round a value at a half step the other way); exactly ``n_layers``
+    int8 launches on the card."""
+    cfg = lm.cfg
+    sd = {k: t.detach().float() for k, t in lm.state_dict().items()}
+    card = LM(cfg, device="meta")
+    card.load_state_dict(sd, assign=True)
+    cpu = LM(cfg, device="meta")
+    cpu.load_state_dict({k: t.cpu() for k, t in sd.items()}, assign=True)
+    del sd
+    B, S = CELL_CHECK_BATCH, CELL_CHECK_SLOTS
+    rng = np.random.default_rng(seed + 29)
+    token = torch.from_numpy(rng.integers(0, cfg.vocab, B))
+    pos = torch.tensor([S - 1, S // 3])
+    got = []
+    for m in (card, cpu):
+        m.cache_dtype = torch.int8
+        caches = m.init_caches(B, S)
+        fill = np.random.default_rng(seed + 30).integers(
+            -127, 128, tuple(caches["blocks"]["l0"]["k"].shape)).astype(
+            np.int8)
+        for name in ("k", "v"):
+            caches["blocks"]["l0"][name].copy_(torch.from_numpy(fill))
+        reset_counts()
+        logits, caches = m.decode_step(token.to(m.device), caches,
+                                       pos.to(m.device))
+        counts = read_counts()
+        got.append((logits.float().cpu(), {
+            k: caches["blocks"]["l0"][k].cpu() for k in ("k", "v")},
+            counts))
+    (lc, cc, counts), (lp, cp, _) = got
+    check(counts["paged_attention int8"] == cfg.n_layers,
+          f"the fp32 int8 check launched {counts['paged_attention int8']} "
+          f"int8 paged kernels, not {cfg.n_layers}")
+    err = float((lc - lp).abs().max())
+    ref = float(lp.abs().max())
+    check(bool(torch.isfinite(lc).all()) and err <= FP32_TOL * ref,
+          f"{cfg.name} int8 decode fp32: card differs from the CPU by {err}"
+          f" ({err / ref:.3e} of the largest logit {ref})")
+    steps_off = max(int((cc[k].int() - cp[k].int()).abs().max())
+                    for k in ("k", "v"))
+    flips = sum(int((cc[k] != cp[k]).sum()) for k in ("k", "v"))
+    check(steps_off <= 1, f"{cfg.name} int8 decode fp32: a written slot "
+          f"differs from the CPU's by {steps_off} int8 steps")
+    say(f"{cfg.name} int8 decode fp32 (B = {B}, {S} slots, pos "
+        f"{pos.tolist()}): logits within {err / ref:.3e} of the largest "
+        f"({ref:.4f}) of the CPU's, limit {FP32_TOL}; {flips} int8 slot "
+        f"values one step off the CPU's")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paged_int8_vs_plain(cell: dict, seed: int, launches: dict) -> list:
+    """paged_attention over int8 pages at the decode_32k cell's shape
+    (B = 128, Qwen2-0.5B's heads, 2,048 pages of 16 slots a sequence, every
+    key live): within ``ATTN_STEPS`` of the plain version (which
+    dequantizes as the JAX package does), which the plain version at a
+    scale of 1/16 breaks; timed beside the plain version and the bf16
+    pages' kernel at the same shape (its pages the int8 ones' values).
+    No single op reads int8 pages: no library call."""
+    cfg = cell["cfg"]
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shape = SHAPES[CELL_SHAPE]
+    B, S = shape.global_batch, shape.seq_len
+    n_pages = S // SERVE_PAGE
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    table = torch.arange(B * n_pages, dtype=torch.int32,
+                         device=dev).reshape(B, n_pages)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    scale = 1.0 / KV_QSCALE
+
+    def draw():
+        q = torch.randn((B, H, dh), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        pk, pv = (torch.empty((B * n_pages, SERVE_PAGE, Hk, dh),
+                              dtype=torch.int8, device=dev)
+                  .random_(-127, 128, generator=gen) for _ in range(2))
+        return q, pk, pv
+
+    batches = [draw() for _ in range(2)]
+    q, pk, pv = batches[0]
+    got = kpaged.paged_mqa(q, pk, pv, table, lens, kv_scale=scale)
+    torch.cuda.synchronize()
+    plain = kpaged.paged_attention_plain(q, pk, pv, table, lens,
+                                         kv_scale=scale)
+    broken = kpaged.paged_attention_plain(q, pk, pv, table, lens,
+                                          kv_scale=2 * scale)
+    name = (f"paged_attention int8 ({cfg.name} {CELL_SHAPE}, B={B}, "
+            f"len={S})")
+    err = close(name, got, plain, broken, "a scale of 1/16")
+    del plain, broken
+    timed = time_kernel(
+        name, lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens,
+                                               kv_scale=scale),
+        lambda a, b, c: kpaged.paged_attention_plain(a, b, c, table, lens,
+                                                     kv_scale=scale),
+        batches, reps=64)
+    work = paged_work([S] * B, H, Hk, dh, SERVE_PAGE, 2, 1)
+    bms, by = work_bound(work)
+    # the bf16 pages' kernel at the same shape and values
+    bf = [(a, b.to(torch.bfloat16) * scale, c.to(torch.bfloat16) * scale)
+          for a, b, c in batches[:1]]
+    del batches
+    bf_ms, bf_call = time_calls(
+        lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens), bf, 64)
+    bf_bms, bf_by = work_bound(paged_work([S] * B, H, Hk, dh, SERVE_PAGE))
+    say(f"{name}: bound {bms:.9f} ms ({by}, {work.bytes:.0f} bytes); the "
+        f"bf16 pages' kernel at the same shape: device {bf_ms} ms, call "
+        f"{bf_call:.6f} ms, bound {bf_bms:.9f} ms ({bf_by}); library call: "
+        "none, no single op reads int8 pages")
+    del bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    variants = cell["variants"]
+    say(f"paged_attention int8: main-path launches "
+        f"{launches['paged_attention int8']}")
+    out = row("paged_attention int8", launches, err, timed, bms, by, None,
+              f"{cfg.name} {CELL_SHAPE}, B={B}, H={H}, Hk={Hk}, dh={dh}, "
+              f"len={S}, int8 pages, bf16 q")
+    out["bf16_pages"] = {"ms": bf_ms, "bound_ms": bf_bms, "bound_by": bf_by}
+    out["cell_steps"] = {v: {k: r[k] for k in ("host_ms", "device_ms",
+                                               "busy_ms", "bound_ms")}
+                         for v, r in variants.items()}
+    return [out]
+
+
 # the WKV6 backward's cases: RWKV6-7B's training shape in bf16 (the main
 # path's) and fp32 (the card-vs-CPU check's), then a ragged T with a
 # carried state, the final state's gradient and strong decays, T = 1, and
@@ -4512,25 +4849,6 @@ WKV_BWD_CASES = (
     ("T=63, carried state", 2, 63, 64, 64, torch.bfloat16, -8.0, True),
     ("T=65, carried state", 2, 65, 64, 64, torch.bfloat16, -20.0, True),
     ("T=129, carried state", 2, 129, 64, 64, torch.bfloat16, -8.0, True))
-
-
-def wkv_bwd_flops(B: int, T: int, H: int, dh: int) -> float:
-    """The chunked backward's matrix products, each counted once: per
-    (b, h) and chunk of C = 64 steps the two state increments, dr's,
-    dk's and dv's inter-chunk terms (2 C dh^2 each) and five causal
-    C x C x dh products (D = do v^T, dr's and dk's intra-chunk terms, the
-    scores A and A^T do)."""
-    C, nc = 64, -(-T // 64)
-    return B * H * nc * (12 * C * dh * dh + 5 * C * C * dh)
-
-
-def ssd_bwd_flops(B: int, T: int, H: int, dh: int, N: int) -> float:
-    """The same for the SSD backward: per (b, h) and chunk the two state
-    increments, dC_'s, dx's and dB_'s inter-chunk terms (2 C dh N each),
-    the causal dy x^T and (C B^T * L) dy (C^2 dh each) and the two W
-    products with B_ and C_ (C^2 N each)."""
-    C, nc = 64, -(-T // 64)
-    return B * H * nc * (10 * C * dh * N + 2 * C * C * dh + 2 * C * C * N)
 
 
 def wkv6_bwd_vs_plain(seed: int, launches: dict) -> list:
@@ -4592,9 +4910,9 @@ def wkv6_bwd_vs_plain(seed: int, launches: dict) -> list:
             say(f"{name}, recomputing the chunk states: device {dev_ms} ms, "
                 f"call {call_ms:.6f} ms per launch")
             del kept
-            n = B * T * H * dh
-            n_bytes = 7 * 2 * n + 2 * 4 * n + 2 * 4 * H * dh
-            bms, by = attn_bound(n_bytes, wkv_bwd_flops(B, T, H, dh))
+            work = wkv6_bwd_work(B, T, H, dh, r.element_size())
+            n_bytes = work.bytes
+            bms, by = work_bound(work)
             lane_ms, _ = bound(n_bytes, 12 * dh * dh * T * H * B)
             scratch = kwkv.kernel._bwd_library().wkv6_bwd_scratch_floats(
                 B, T, H, dh, kwkv.kernel.DTYPES[dtype]) * 4
@@ -4698,10 +5016,9 @@ def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
             timed["recompute_ms"] = dev_ms
             say(f"{name}, recomputing the chunk states: device {dev_ms} ms, "
                 f"call {call_ms:.6f} ms per launch")
-            n, es = B * T * H * dh, x.element_size()
-            n_bytes = 3 * es * n + 2 * 4 * B * T * H + 4 * es * B * T * N \
-                + 2 * 4 * H
-            bms, by = attn_bound(n_bytes, ssd_bwd_flops(B, T, H, dh, N))
+            work = ssd_bwd_work(B, T, H, dh, N, x.element_size())
+            n_bytes = work.bytes
+            bms, by = work_bound(work)
             lane_ms, _ = bound(n_bytes, 12 * dh * N * T * H * B)
             scratch = kssd.kernel._bwd_library().ssd_bwd_scratch_floats(
                 B, T, H, dh, N, kssd.kernel.DTYPES[dtype]) * 4
@@ -4724,14 +5041,6 @@ def ssd_bwd_vs_plain(seed: int, launches: dict) -> list:
     say(f"ssd_bwd: main-path launches {launches['ssd_bwd']}")
     return [dict(row("ssd_bwd", launches, err, timed, bms, by, None, shape),
                  recompute_ms=timed["recompute_ms"], reduced_ms=reduced_ms)]
-
-
-def seen_pairs(T: int, S: int, window) -> int:
-    """(query, key) pairs the causal mask, and the window, leave."""
-    off = S - T
-    return sum(max(0, min(S, i + off + 1)
-                   - (0 if window is None else max(0, i + off - window + 1)))
-               for i in range(T))
 
 
 def sdpa_bwd(batches, H: int, Hk: int, window, reps: int,
@@ -4880,10 +5189,8 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
                 a, b, c, o, d, causal=causal, window=W), bf, reps=64)
         lib_dev, lib_call = sdpa_bwd(bf, H, Hk, W, 16, causal)
         library_ms = lib_dev
-        n_bytes = 2 * (4 * B * T * H * dh + 4 * B * S * Hk * dh)
         pairs = seen_pairs(T, S, W) if causal else T * S
-        flops = 5 * 2 * dh * H * B * pairs
-        bms, by = attn_bound(n_bytes, flops)
+        bms, by = work_bound(flash_bwd_work(B, T, S, H, Hk, dh, pairs))
         say(f"{name}: bound {bms:.9f} ms ({by}); scaled_dot_product_"
             f"attention's backward: device {lib_dev} ms, call "
             f"{lib_call:.6f} ms; bf16 share of the limit {max(shares):.4f}")
@@ -5139,6 +5446,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     vlm = vlm_path(args.seed, launches)
     phases[f"{VLM_ARCH} path and checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cell = decode_cell(args.seed, launches)
+    phases[f"{CELL_ARCH} {CELL_SHAPE} cell and checks"] = \
+        time.perf_counter() - t0
 
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []
@@ -5154,6 +5465,7 @@ def main(argv=None) -> int:
             (conflict_vs_plain, (scale, launches)),
             (paged_vs_plain, (serve, wide[CODER_ARCH], args.seed,
                               launches, (whisper, vlm))),
+            (paged_int8_vs_plain, (cell, args.seed, launches)),
             (flash_vs_plain, (serve, wide[CODER_ARCH], args.seed,
                               launches)),
             (bwd_vs_plain, (args.seed, launches)),

@@ -20,7 +20,15 @@
 //     of those are live;
 //   * q and the pages are upcast to fp32; s = (q . k) * scale; softmax
 //     and the P.V product in fp32; out = acc / max(l, 1e-30) in q's
-//     dtype, so len = 0 gives zeros.
+//     dtype, so len = 0 gives zeros;
+//   * the pages hold q's dtype, or int8 (the kv_int8 cache of the JAX
+//     package's src/repro/models/attention.py attn_decode, quantized as
+//     clip(round(x * 32), -127, 127)): each int8 key and value is
+//     converted to fp32 and multiplied by kv_scale (1/32) in registers as
+//     it is loaded from shared memory, so no dequantized copy of the cache
+//     is ever written (the JAX package's "dequant fuses into the attention
+//     dot"); int8 / 32 is exact in bf16 and fp32, so the kernel sees the
+//     JAX package's values k.astype(bf16) * (1/32).
 //
 // What bounds it on an H100: a decode step reads each live key and value
 // once, 2 * len * Hk * dh * 2 bytes in bf16 (0.27 MB per layer at len =
@@ -80,6 +88,20 @@
 //     same grid, and its early splits do no work.  Its first rounds wait
 //     for the length; without a window they go out before it, as above.
 //
+// int8 pages: a 16-byte piece is 16 elements, so a row of dh = 64 is 4
+// pieces (a bf16 row's 8) and a chunk's stage is half the bf16 one's; the
+// teams' partials, which the bf16 and fp32 forms keep in the freed stages,
+// may then be larger than the stages, and the region takes the larger of
+// the two.  A decode step at B = 128 over 32,768 slots moves 1.07 GB of
+// int8 cache a layer (2.15 GB in bf16), but at that shape the bytes do not
+// bound the kernel: B * Hk = 256 blocks fill the SMs, so each sequence's
+// keys take one split, and a block walks its 32,768 keys in 256 rounds of
+// dependent steps (1.76 ms a launch with int8 pages, 1.90 with bf16, on an
+// H100 at 700 W: 5.5x and 3.0x the bytes' time).  Converting the int8
+// values without I2F (PRMT and FADD) read the same, so the plain cast
+// stays.  More splits or more heads a block at a large batch are left for
+// later, below.
+//
 // Left for later: the same work in one block per SM at a large batch
 // (more heads a block), and folding the decode step into a CUDA graph.
 
@@ -112,15 +134,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// the 16 bytes at p as fp32: 4 floats or 8 bf16
-__device__ __forceinline__ void unpack16(const float* p, float* out) {
+// the 16 bytes at p as fp32: 4 floats, 8 bf16 or 16 int8 (times s; the
+// float forms ignore s)
+__device__ __forceinline__ void unpack16(const float* p, float* out, float) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   out[0] = x.x;
   out[1] = x.y;
   out[2] = x.z;
   out[3] = x.w;
 }
-__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* out) {
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* out,
+                                         float) {
   const uint4 x = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
@@ -129,6 +153,22 @@ __device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void unpack16(const int8_t* p, float* out,
+                                         float s) {
+  const int4 x = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(b[i]) * s;
+}
+// one page element as fp32 (an int8 one times s)
+__device__ __forceinline__ float deq(float x, float) { return x; }
+__device__ __forceinline__ float deq(__nv_bfloat16 x, float) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float deq(int8_t x, float s) {
+  return static_cast<float>(x) * s;
 }
 
 // 16 bytes from global src to shared dst, or 16 zero bytes when !live
@@ -188,39 +228,46 @@ struct Layout {
   __device__ static __forceinline__ int swizzle(int p, int j) {
     return kPieces >= 8 ? p ^ (j & 7) : p ^ ((j >> 1) & (kPieces - 1));
   }
-  // bytes of shared memory for a block of block_heads heads: the stages
-  // (which hold the teams' partials once the keys are done), q and the
-  // inbox of partials to merge
+  // the stages, which hold the teams' partials once the keys are done:
+  // the larger of the two (the partials are larger only for int8 pages)
+  __host__ __device__ static constexpr int region(int block_heads) {
+    return kStages * kChunkBytes > kTeams * block_heads * (kDh + 2) * 4
+               ? kStages * kChunkBytes
+               : kTeams * block_heads * (kDh + 2) * 4;
+  }
+  // bytes of shared memory for a block of block_heads heads: the stages'
+  // region, q and the inbox of partials to merge
   static constexpr int bytes(int block_heads) {
-    return kStages * kChunkBytes + block_heads * kDh * 4 +
+    return region(block_heads) + block_heads * kDh * 4 +
            (block_heads + kMaxSplits) * (kDh + 2) * 4;
   }
 };
 
-// kHeads query heads per warp of a team, so up to 4 kHeads heads a block
-template <typename T, int kDh, int kHeads>
+// kHeads query heads per warp of a team, so up to 4 kHeads heads a block;
+// q and out of type T, the pages of type KV (T, or int8 read times
+// kv_scale)
+template <typename T, typename KV, int kDh, int kHeads>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
-                       const T* __restrict__ pages_v,
+paged_attention_kernel(const T* __restrict__ q,
+                       const KV* __restrict__ pages_k,
+                       const KV* __restrict__ pages_v,
                        const int32_t* __restrict__ table,
                        const int32_t* __restrict__ lens, T* __restrict__ out,
                        int heads, int kv_heads, int page_size, int max_pages,
-                       int split_pages, int window, float scale) {
-  using L = Layout<T, kDh>;
+                       int split_pages, int window, float scale,
+                       float kv_scale) {
+  using L = Layout<KV, kDh>;
   constexpr int kVec = L::kVec;
   constexpr int kPieces = L::kPieces;
   constexpr int kDepth = L::kDepth;
   constexpr int kStages = L::kStages;
   constexpr int kCols = kDh / 32;  // adjacent output columns a lane owns
   constexpr int kBlockHeads = kTeamWarps * kHeads;
-  static_assert(kTeams * kBlockHeads * (kDh + 2) * 4 <=
-                    kStages * L::kChunkBytes,
-                "the teams' partials must fit in the stages");
   extern __shared__ __align__(16) unsigned char smem[];
   // stage + ((2 st + kv) * kChunk + j) * kDh: row j of stage st, kv 0
   // for keys, 1 for values, its pieces swizzled
-  T* stage = reinterpret_cast<T*>(smem);
-  float* qs = reinterpret_cast<float*>(smem + kStages * L::kChunkBytes);
+  KV* stage = reinterpret_cast<KV*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + L::region(kBlockHeads));
   // the partials this block merges: [split][slot][kDh + 2], a head's
   // acc, then its m and l
   float* inbox = qs + kBlockHeads * kDh;
@@ -272,7 +319,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
       if (live) {
         const int64_t page = max(__ldg(pages + (key - lo) / page_size), 0);
         src += ((page * page_size + key % page_size) * key_row +
-                static_cast<int64_t>(hk) * kDh) * sizeof(T) + piece * 16;
+                static_cast<int64_t>(hk) * kDh) * sizeof(KV) + piece * 16;
       }
       cp_async16(stage + ((2 * (ci % kStages) + kv) * kChunk + j) * kDh +
                      L::swizzle(piece, j) * kVec,
@@ -322,18 +369,18 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
     // not yet written), so they are masked and never read for P.V
     const int n = min(kChunk, hi - c0);
     if (n > 0) {
-      const T* ks = stage + (2 * (ci % kStages)) * kChunk * kDh;
-      const T* vs = ks + kChunk * kDh;
+      const KV* ks = stage + (2 * (ci % kStages)) * kChunk * kDh;
+      const KV* vs = ks + kChunk * kDh;
 
       // lane j scores key c0 + j against each of the warp's heads
       float d[kHeads][2];
 #pragma unroll
       for (int i = 0; i < kHeads; ++i) d[i][0] = d[i][1] = 0.f;
-      const T* kr = ks + lane * kDh;
+      const KV* kr = ks + lane * kDh;
 #pragma unroll
       for (int p = 0; p < kPieces; ++p) {
         float kf[kVec];
-        unpack16(kr + L::swizzle(p, lane) * kVec, kf);
+        unpack16(kr + L::swizzle(p, lane) * kVec, kf, kv_scale);
 #pragma unroll
         for (int i = 0; i < kHeads; ++i) {
           const float* qg = qs + gi[i] * kDh + p * kVec;
@@ -380,11 +427,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
       const int col = kCols * lane;
 #pragma unroll 8
       for (int j = 0; j < n; ++j) {
-        const T* vr = vs + j * kDh +
-                      L::swizzle(col / kVec, j) * kVec + col % kVec;
+        const KV* vr = vs + j * kDh +
+                       L::swizzle(col / kVec, j) * kVec + col % kVec;
         float v[kCols];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) v[c] = to_f32(vr[c]);
+        for (int c = 0; c < kCols; ++c) v[c] = deq(vr[c], kv_scale);
 #pragma unroll
         for (int i = 0; i < kHeads; ++i) {
           const float pj = __shfl_sync(0xffffffffu, p[i], j);
@@ -472,16 +519,16 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pages_k,
   }
 }
 
-template <typename T, int kDh, int kHeads>
+template <typename T, typename KV, int kDh, int kHeads>
 int launch_heads(const void* q, const void* pages_k, const void* pages_v,
                  const void* table, const void* lens, void* out, int batch,
                  int heads, int kv_heads, int page_size, int max_pages,
                  int split_pages, int n_splits, int window, float scale,
-                 cudaStream_t stream) {
+                 float kv_scale, cudaStream_t stream) {
   constexpr int kBlockHeads = kTeamWarps * kHeads;
   const int groups = (heads / kv_heads + kBlockHeads - 1) / kBlockHeads;
-  const int smem = Layout<T, kDh>::bytes(kBlockHeads);
-  auto* kernel = paged_attention_kernel<T, kDh, kHeads>;
+  const int smem = Layout<KV, kDh>::bytes(kBlockHeads);
+  auto* kernel = paged_attention_kernel<T, KV, kDh, kHeads>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -501,10 +548,10 @@ int launch_heads(const void* q, const void* pages_k, const void* pages_v,
   config.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &config, kernel, static_cast<const T*>(q),
-      static_cast<const T*>(pages_k), static_cast<const T*>(pages_v),
+      static_cast<const KV*>(pages_k), static_cast<const KV*>(pages_v),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
       static_cast<T*>(out), heads, kv_heads, page_size, max_pages,
-      split_pages, window, scale);
+      split_pages, window, scale, kv_scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -512,54 +559,56 @@ int launch_heads(const void* q, const void* pages_k, const void* pages_v,
 // block_heads is the host's choice of query heads a block computes (see
 // heads_per_block in kernels/paged_attention/kernel.py): kHeads a warp of
 // a team, any other count rejected
-template <typename T, int kDh>
+template <typename T, typename KV, int kDh>
 int launch(const void* q, const void* pages_k, const void* pages_v,
            const void* table, const void* lens, void* out, int batch,
            int heads, int kv_heads, int page_size, int max_pages,
            int split_pages, int n_splits, int block_heads, int window,
-           float scale, cudaStream_t stream) {
+           float scale, float kv_scale, cudaStream_t stream) {
   switch (block_heads) {
     case kTeamWarps:
-      return launch_heads<T, kDh, 1>(q, pages_k, pages_v, table, lens, out,
-                                     batch, heads, kv_heads, page_size,
-                                     max_pages, split_pages, n_splits, window,
-                                     scale, stream);
+      return launch_heads<T, KV, kDh, 1>(
+          q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+          page_size, max_pages, split_pages, n_splits, window, scale,
+          kv_scale, stream);
     case 2 * kTeamWarps:
-      return launch_heads<T, kDh, 2>(q, pages_k, pages_v, table, lens, out,
-                                     batch, heads, kv_heads, page_size,
-                                     max_pages, split_pages, n_splits, window,
-                                     scale, stream);
+      return launch_heads<T, KV, kDh, 2>(
+          q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+          page_size, max_pages, split_pages, n_splits, window, scale,
+          kv_scale, stream);
     case 8 * kTeamWarps:
-      return launch_heads<T, kDh, 8>(q, pages_k, pages_v, table, lens, out,
-                                     batch, heads, kv_heads, page_size,
-                                     max_pages, split_pages, n_splits, window,
-                                     scale, stream);
+      return launch_heads<T, KV, kDh, 8>(
+          q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+          page_size, max_pages, split_pages, n_splits, window, scale,
+          kv_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch_dtype(const void* q, const void* pages_k, const void* pages_v,
                  const void* table, const void* lens, void* out, int batch,
                  int heads, int kv_heads, int head_dim, int page_size,
                  int max_pages, int split_pages, int n_splits,
-                 int block_heads, int window, float scale,
+                 int block_heads, int window, float scale, float kv_scale,
                  cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, pages_k, pages_v, table, lens, out, batch,
-                           heads, kv_heads, page_size, max_pages, split_pages,
-                           n_splits, block_heads, window, scale, stream);
+      return launch<T, KV, 32>(q, pages_k, pages_v, table, lens, out, batch,
+                               heads, kv_heads, page_size, max_pages,
+                               split_pages, n_splits, block_heads, window,
+                               scale, kv_scale, stream);
     case 64:
-      return launch<T, 64>(q, pages_k, pages_v, table, lens, out, batch,
-                           heads, kv_heads, page_size, max_pages, split_pages,
-                           n_splits, block_heads, window, scale, stream);
+      return launch<T, KV, 64>(q, pages_k, pages_v, table, lens, out, batch,
+                               heads, kv_heads, page_size, max_pages,
+                               split_pages, n_splits, block_heads, window,
+                               scale, kv_scale, stream);
     case 128:
-      return launch<T, 128>(q, pages_k, pages_v, table, lens, out, batch,
-                            heads, kv_heads, page_size, max_pages,
-                            split_pages, n_splits, block_heads, window, scale,
-                            stream);
+      return launch<T, KV, 128>(q, pages_k, pages_v, table, lens, out, batch,
+                                heads, kv_heads, page_size, max_pages,
+                                split_pages, n_splits, block_heads, window,
+                                scale, kv_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -570,15 +619,16 @@ int launch_dtype(const void* q, const void* pages_k, const void* pages_v,
 // C interface, loaded with ctypes.  q: [batch, heads, head_dim]; pages_k,
 // pages_v: [n_pages, page_size, kv_heads, head_dim]; table: [batch,
 // max_pages] int32 (entries below 0 read page 0); lens: [batch] int32;
-// out like q; all contiguous, q and the pages of one dtype (0 float32,
-// 1 bfloat16), the pages 16-byte aligned.  The keys are cut into
+// out like q; all contiguous, q of `dtype` (0 float32, 1 bfloat16), the
+// pages of `kv_dtype` (q's, or 2 int8, each element read times kv_scale),
+// 16-byte aligned.  The keys are cut into
 // n_splits (1, 2, 4 or 8) splits of split_pages pages, n_splits *
 // split_pages >= max_pages; a block computes block_heads (4, 8 or 32)
 // query heads of a kv head; window > 0 keeps only the last `window` of a
 // sequence's keys live, 0 keeps all.  Launches on `stream`, does not
 // synchronise, and returns the launch's error or cudaGetLastError() after it
 // (cudaErrorInvalidValue for a head dim other than 32, 64 or 128,
-// another dtype, heads not a multiple of kv_heads, another block_heads,
+// another dtype or kv_dtype, heads not a multiple of kv_heads, another block_heads,
 // a negative window, or a split plan that does not cover max_pages).
 extern "C" int paged_attention(const void* q, const void* pages_k,
                                const void* pages_v, const void* table,
@@ -586,7 +636,8 @@ extern "C" int paged_attention(const void* q, const void* pages_k,
                                int heads, int kv_heads, int head_dim,
                                int page_size, int max_pages, int split_pages,
                                int n_splits, int block_heads, int window,
-                               int dtype, float scale, void* stream) {
+                               int dtype, int kv_dtype, float scale,
+                               float kv_scale, void* stream) {
   if (batch <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || page_size <= 0 ||
       max_pages < 0 || split_pages <= 0 || n_splits <= 0 ||
@@ -595,17 +646,26 @@ extern "C" int paged_attention(const void* q, const void* pages_k,
       static_cast<int64_t>(n_splits) * split_pages < max_pages)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dtype<float>(q, pages_k, pages_v, table, lens, out, batch,
-                               heads, kv_heads, head_dim, page_size,
-                               max_pages, split_pages, n_splits, block_heads,
-                               window, scale, s);
-  if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(q, pages_k, pages_v, table, lens, out,
-                                       batch, heads, kv_heads, head_dim,
-                                       page_size, max_pages, split_pages,
-                                       n_splits, block_heads, window, scale,
-                                       s);
+  if (dtype == 0 && kv_dtype == 0)
+    return launch_dtype<float, float>(
+        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
+        window, scale, kv_scale, s);
+  if (dtype == 1 && kv_dtype == 1)
+    return launch_dtype<__nv_bfloat16, __nv_bfloat16>(
+        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
+        window, scale, kv_scale, s);
+  if (dtype == 0 && kv_dtype == 2)
+    return launch_dtype<float, int8_t>(
+        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
+        window, scale, kv_scale, s);
+  if (dtype == 1 && kv_dtype == 2)
+    return launch_dtype<__nv_bfloat16, int8_t>(
+        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
+        window, scale, kv_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

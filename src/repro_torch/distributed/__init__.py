@@ -1,14 +1,15 @@
 """Scale-out layer: ``ShardedIndex`` plan execution with the mesh read
-path, and the multi-stream workload driver.
+path, the multi-stream workload runner (``streams``), and ``sharding``,
+the models' partition rules over the production mesh (specs only: the
+dry run reads them; nothing places a tensor across cards yet).
 
-The port of ``repro.distributed`` without ``sharding``, the LLM-side
-partition rules, which come with the LLM scaffold.  Submodules import
-lazily, as in the JAX package.
+The port of ``repro.distributed``.  Submodules import lazily, as in the
+JAX package.
 """
 
 import importlib
 
-_SUBMODULES = ("mesh", "sharded", "streams")
+_SUBMODULES = ("mesh", "sharded", "sharding", "streams")
 _EXPORTS = {
     "ClientStream": "streams",
     "ShardedIndex": "sharded",

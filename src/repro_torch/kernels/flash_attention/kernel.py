@@ -30,7 +30,10 @@ T = 1100), or raises; on CPU tensors it runs
 
 ``LAUNCHES`` counts kernel launches under the TPU kernel's name and
 the backward's under ``flash_attention_bwd``; a call on CPU tensors
-launches nothing and counts nothing.
+launches nothing and counts nothing.  On ``meta`` tensors (the dry run)
+neither launches: each charges its work (``analysis.roofline``'s
+``flash_work`` and ``flash_bwd_work``) and returns outputs of the right
+shapes.
 """
 
 from __future__ import annotations
@@ -126,11 +129,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                return_lse=return_lse)
+    B, T, H, dh = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    if dev.type == "meta":
+        from ...analysis.roofline import charge, flash_work, seen_pairs
+        pairs = seen_pairs(T, S, window) if causal else T * S
+        charge("flash_attention", flash_work(B, T, S, H, Hk, dh, pairs,
+                                             q.element_size(), return_lse))
+        out = torch.empty_like(q)
+        if return_lse:
+            return out, torch.empty((B, H, T), dtype=torch.float32,
+                                    device=dev)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"flash_attention takes CUDA or CPU tensors, "
                          f"not {dev}")
-    B, T, H, dh = q.shape
-    S, Hk = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {dh}")
@@ -208,11 +221,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return attention_bwd_plain(q, k, v, out, dout, causal=causal,
                                    window=window)
+    B, T, H, dh = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    if dev.type == "meta":
+        from ...analysis.roofline import charge, flash_bwd_work, seen_pairs
+        pairs = seen_pairs(T, S, window) if causal else T * S
+        charge("flash_attention_bwd", flash_bwd_work(
+            B, T, S, H, Hk, dh, pairs, q.element_size()))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd takes CUDA or CPU tensors, "
                          f"not {dev}")
-    B, T, H, dh = q.shape
-    S, Hk = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {dh}")

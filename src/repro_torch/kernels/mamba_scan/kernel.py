@@ -37,7 +37,9 @@ Both refuse to run under grad with an input that requires it
 ``LAUNCHES`` counts calls that launched the kernels, one a call however
 many CUDA kernels it runs, under the TPU kernel's name and the
 backward's under ``ssd_bwd``; a call on CPU tensors launches nothing
-and counts nothing.
+and counts nothing.  On ``meta`` tensors (the dry run) neither launches:
+each charges its work (``analysis.roofline``'s ``ssd_work`` and
+``ssd_bwd_work``) and returns outputs of the right shapes.
 """
 
 from __future__ import annotations
@@ -170,10 +172,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     if dev.type == "cpu":
         out = ssd_plain(x, dt, B_, C_, A, state)
         return out + (None,) if keep_states else out
-    if dev.type != "cuda":
-        raise ValueError(f"ssd takes CUDA or CPU tensors, not {dev}")
     Bsz, T, H, dh = x.shape
     N = B_.shape[-1]
+    if dev.type == "meta":  # the dry run: charge the work, launch nothing
+        from ...analysis.roofline import charge, ssd_work
+        charge("ssd", ssd_work(Bsz, T, H, dh, N, x.element_size(),
+                               state is not None))
+        out = (torch.empty_like(x), torch.empty(
+            Bsz, H, dh, N, dtype=torch.float32, device=dev))
+        return out + (None,) if keep_states else out
+    if dev.type != "cuda":
+        raise ValueError(f"ssd takes CUDA or CPU tensors, not {dev}")
     _card_check(x, N, (("x", x), ("dt", dt), ("B_", B_), ("C_", C_),
                        ("A", A), ("state", state)))
     # the state is read as float4s, a bf16 prefill's inputs by cp.async
@@ -243,6 +252,14 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     dev = x.device
     if dev.type == "cpu":
         return ssd_bwd_plain(x, dt, B_, C_, A, dy, state, dstate)
+    if dev.type == "meta":  # the dry run: charge the work, launch nothing
+        from ...analysis.roofline import charge, ssd_bwd_work
+        charge("ssd_bwd", ssd_bwd_work(Bsz, T, H, dh, N, x.element_size()))
+        f32 = dict(dtype=torch.float32, device=dev)
+        return (torch.empty_like(x), torch.empty(Bsz, T, H, **f32),
+                torch.empty_like(B_), torch.empty_like(C_),
+                torch.empty(H, **f32),
+                None if state is None else torch.empty(Bsz, H, dh, N, **f32))
     if dev.type != "cuda":
         raise ValueError(f"ssd_bwd takes CUDA or CPU tensors, not {dev}")
     _card_check(x, N, (("x", x), ("dt", dt), ("B_", B_), ("C_", C_),

@@ -19,9 +19,19 @@ and starts at the page that holds it: pages wholly before the window are
 never read, and a split that lies wholly before it stores an empty
 partial.
 
-``LAUNCHES`` counts kernel launches under the TPU kernel's name;
-``WINDOWED`` counts those of the same launches that took a sliding
-window.  A call on CPU tensors launches nothing and counts nothing.
+The pages hold q's dtype, or int8 (the ``kv_int8`` cache, q in bf16 or
+fp32): the kernel converts each int8 key and value it loads to fp32 and
+multiplies it by ``kv_scale`` in registers, so no dequantized copy of
+the cache is made.
+
+``LAUNCHES`` counts kernel launches under the TPU kernel's name, those
+over int8 pages under ``"paged_attention int8"``; ``WINDOWED`` counts
+those of the same launches that took a sliding window, by the same
+names.  A call on CPU tensors
+launches nothing and counts nothing.  On ``meta`` tensors (the dry run)
+the wrapper launches nothing either: it charges the kernel's work
+(``analysis.roofline.paged_work``, every page of the table, since a
+``meta`` length has no value) and returns an output of q's shape.
 """
 
 from __future__ import annotations
@@ -38,12 +48,13 @@ from ..grad_guard import refuse_grad
 from .ref import paged_attention_plain
 
 #: CUDA launches since the last ``reset_launches``
-LAUNCHES: Dict[str, int] = {"paged_attention": 0}
+LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_attention int8": 0}
 #: the same launches that took a sliding window
-WINDOWED: Dict[str, int] = {"paged_attention": 0}
+WINDOWED: Dict[str, int] = {"paged_attention": 0, "paged_attention int8": 0}
 
 HEAD_DIMS = (32, 64, 128)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KV_DTYPES = {**DTYPES, torch.int8: 2}  # the pages' types
 MAX_SPLITS = 8  # splits of a sequence: one cluster, the portable size
 
 
@@ -95,14 +106,16 @@ _I = ctypes.c_int
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
-    lib.paged_attention.argtypes = [_P] * 6 + [_I] * 11 + [ctypes.c_float, _P]
+    lib.paged_attention.argtypes = ([_P] * 6 + [_I] * 12
+                                    + [ctypes.c_float] * 2 + [_P])
     lib.paged_attention.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, pages_k, pages_v, block_table, seq_lens, window) -> None:
+def _check(q, pages_k, pages_v, block_table, seq_lens, window,
+           kv_scale) -> None:
     if q.dim() != 3 or pages_k.dim() != 4:
         raise ValueError("q must be [B, H, dh] and the pages [NP, PS, Hk, dh]")
     B, H, dh = q.shape
@@ -122,9 +135,19 @@ def _check(q, pages_k, pages_v, block_table, seq_lens, window) -> None:
                     ("block_table", block_table), ("seq_lens", seq_lens)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("pages_k", pages_k), ("pages_v", pages_v)):
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if pages_v.dtype != pages_k.dtype:
+        raise TypeError(f"pages_v is {pages_v.dtype}, pages_k is "
+                        f"{pages_k.dtype}")
+    if pages_k.dtype == torch.int8:
+        if kv_scale is None:
+            raise ValueError("int8 pages need the kv_scale that dequantizes "
+                             "them")
+    elif pages_k.dtype != q.dtype:
+        raise TypeError(f"the pages are {pages_k.dtype}, q is {q.dtype}: "
+                        "they take q's dtype, or int8")
+    elif kv_scale is not None:
+        raise ValueError(f"kv_scale dequantizes int8 pages; these are "
+                         f"{pages_k.dtype}")
     for name, t in (("block_table", block_table), ("seq_lens", seq_lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -139,26 +162,38 @@ def _check(q, pages_k, pages_v, block_table, seq_lens, window) -> None:
 def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
                     pages_v: torch.Tensor, block_table: torch.Tensor,
                     seq_lens: torch.Tensor,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None, *,
+                    kv_scale: Optional[float] = None) -> torch.Tensor:
     """One-token decode attention over block-table pages.
 
-    q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh], H % Hk == 0,
-    float32 or bfloat16; block_table: [B, MAXP] int32, entries below 0
-    read page 0; seq_lens: [B] int32.  Keys j < seq_lens[b] (at most
-    MAXP * PS) are live, and with a ``window`` (at least 1) only those
-    with j >= seq_lens[b] - window.  fp32 accumulation; returns [B, H,
-    dh] in q's dtype, zeros for a sequence of length 0."""
-    _check(q, pages_k, pages_v, block_table, seq_lens, window)
+    q: [B, H, dh], float32 or bfloat16; pages_k, pages_v: [NP, PS, Hk,
+    dh], H % Hk == 0, in q's dtype, or int8 with ``kv_scale`` (each
+    element read as its value times ``kv_scale``); block_table: [B,
+    MAXP] int32, entries below 0 read page 0; seq_lens: [B] int32.  Keys
+    j < seq_lens[b] (at most MAXP * PS) are live, and with a ``window``
+    (at least 1) only those with j >= seq_lens[b] - window.  fp32
+    accumulation; returns [B, H, dh] in q's dtype, zeros for a sequence
+    of length 0."""
+    _check(q, pages_k, pages_v, block_table, seq_lens, window, kv_scale)
     refuse_grad("paged_attention", q, pages_k, pages_v)
     dev = q.device
+    int8 = pages_k.dtype == torch.int8
     if dev.type == "cpu":
         return paged_attention_plain(q, pages_k, pages_v, block_table,
-                                     seq_lens, window)
+                                     seq_lens, window, kv_scale=kv_scale)
+    B, H, dh = q.shape
+    _, PS, Hk, _ = pages_k.shape
+    if dev.type == "meta":
+        from ...analysis.roofline import charge, paged_work
+        slots = block_table.shape[1] * PS
+        live = min(slots, window) if window is not None else slots
+        charge("paged_attention int8" if int8 else "paged_attention",
+               paged_work([live] * B, H, Hk, dh, PS, q.element_size(),
+                          pages_k.element_size()))
+        return torch.empty_like(q)
     if dev.type != "cuda":
         raise ValueError(f"paged_attention takes CUDA or CPU tensors, "
                          f"not {dev}")
-    B, H, dh = q.shape
-    _, PS, Hk, _ = pages_k.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {dh}")
@@ -168,7 +203,8 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
     for name, t in (("pages_k", pages_k), ("pages_v", pages_v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned: the kernel "
-                             "reads key rows 16 bytes at a time")
+                             "reads key rows 16 bytes (8 bf16, 4 fp32 or "
+                             "16 int8 elements) at a time")
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -181,16 +217,18 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B,
             H, Hk, dh, PS, maxp, pages, n_splits, heads_per_block(H // Hk),
-            int(window or 0), DTYPES[q.dtype], 1.0 / math.sqrt(dh), stream)
+            int(window or 0), DTYPES[q.dtype], KV_DTYPES[pages_k.dtype],
+            1.0 / math.sqrt(dh), float(kv_scale or 1.0), stream)
     if err:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.paged_attention_error_string(err).decode())
-    LAUNCHES["paged_attention"] += 1
+    name = "paged_attention int8" if int8 else "paged_attention"
+    LAUNCHES[name] += 1
     if window is not None:
-        WINDOWED["paged_attention"] += 1
+        WINDOWED[name] += 1
     return out
 
 
-__all__ = ["DTYPES", "HEAD_DIMS", "LAUNCHES", "MAX_SPLITS", "WINDOWED",
-           "heads_per_block", "paged_attention", "reset_launches",
-           "split_plan"]
+__all__ = ["DTYPES", "HEAD_DIMS", "KV_DTYPES", "LAUNCHES", "MAX_SPLITS",
+           "WINDOWED", "heads_per_block", "paged_attention",
+           "reset_launches", "split_plan"]

@@ -21,12 +21,14 @@ from .kernel import paged_attention
 def paged_mqa(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
               block_table: torch.Tensor,
               seq_lens: torch.Tensor,
-              window: Optional[int] = None) -> torch.Tensor:
-    """q: [B, H, dh]; pages_*: [NP, PS, Hk, dh] with H % Hk == 0;
-    block_table: [B, MAXP] int32; seq_lens: [B] int32; ``window``: a
-    sliding window's width, or None."""
+              window: Optional[int] = None, *,
+              kv_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, H, dh]; pages_*: [NP, PS, Hk, dh] with H % Hk == 0, in q's
+    dtype or int8 (then ``kv_scale`` dequantizes them); block_table:
+    [B, MAXP] int32; seq_lens: [B] int32; ``window``: a sliding window's
+    width, or None."""
     return paged_attention(q, pages_k, pages_v, block_table, seq_lens,
-                           window)
+                           window, kv_scale=kv_scale)
 
 
 __all__ = ["paged_mqa"]

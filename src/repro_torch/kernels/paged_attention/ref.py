@@ -10,6 +10,9 @@ head h // (H // Hk).
 fp32 throughout, output in q's dtype, as in the JAX package's Pallas
 kernel (``kernels/paged_attention/kernel.py``); a sequence of length 0
 gives zeros, where the JAX package's ``paged_attention_ref`` gives NaN.
+int8 pages (the ``kv_int8`` cache) are read as int8 * ``kv_scale``, the
+JAX package's dequantization ``k.astype(bf16) * (1 / KV_QSCALE)``: at a
+power-of-two scale the products are exact in bf16 and fp32 alike.
 
 ``merge_partials`` is the plain form of the kernel's last step: the
 kernel cuts the keys into splits, each of which leaves its running max,
@@ -27,30 +30,39 @@ import torch
 def paged_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
                           pages_v: torch.Tensor, block_table: torch.Tensor,
                           seq_lens: torch.Tensor,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh] with H % Hk == 0;
-    block_table: [B, MAXP] int32 (physical page per logical page, -1
-    unused); seq_lens: [B] int32; ``window``: None, or the live keys'
-    count from the end (at least 1).  Returns [B, H, dh] in q's dtype."""
+                          window: Optional[int] = None, *,
+                          kv_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh] with H % Hk == 0,
+    in q's dtype, or int8 with ``kv_scale`` (each element read as its
+    value times ``kv_scale``); block_table: [B, MAXP] int32 (physical
+    page per logical page, -1 unused); seq_lens: [B] int32; ``window``:
+    None, or the live keys' count from the end (at least 1).  Returns
+    [B, H, dh] in q's dtype.  The query heads of a kv head are taken as
+    a group, so no copy of the keys is made per query head."""
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive width, got {window}")
+    if (pages_k.dtype == torch.int8) != (kv_scale is not None):
+        raise ValueError("int8 pages take a kv_scale, other pages none")
     B, H, dh = q.shape
     _, PS, Hk, _ = pages_k.shape
     MAXP = block_table.shape[1]
     safe = block_table.long().clamp_min(0)
-    head = torch.arange(H, device=q.device) // (H // Hk)
-    k = pages_k[safe].reshape(B, MAXP * PS, Hk, dh).float()[:, :, head]
-    v = pages_v[safe].reshape(B, MAXP * PS, Hk, dh).float()[:, :, head]
-    s = torch.einsum("bhd,bshd->bhs", q.float(), k) * (1.0 / math.sqrt(dh))
+    k = pages_k[safe].reshape(B, MAXP * PS, Hk, dh).float()
+    v = pages_v[safe].reshape(B, MAXP * PS, Hk, dh).float()
+    if kv_scale is not None:
+        k, v = k * kv_scale, v * kv_scale
+    qg = q.float().reshape(B, Hk, H // Hk, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * (1.0 / math.sqrt(dh))
     pos = torch.arange(MAXP * PS, device=q.device)[None, :]
     valid = pos < seq_lens.long()[:, None]
     if window is not None:
         valid &= pos >= seq_lens.long()[:, None] - window
-    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)
-    out = torch.einsum("bhs,bshd->bhd", p, v)
-    return (out / p.sum(dim=-1)[..., None].clamp_min(1e-30)).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    out = out / p.sum(dim=-1)[..., None].clamp_min(1e-30)
+    return out.reshape(B, H, dh).to(q.dtype)
 
 
 def merge_partials(m: torch.Tensor, l: torch.Tensor,

@@ -35,7 +35,9 @@ Both refuse to run under grad with an input that requires it
 ``LAUNCHES`` counts calls that launched the kernels, one a call however
 many CUDA kernels it runs, under the TPU kernel's name and the
 backward's under ``wkv6_bwd``; a call on CPU tensors launches nothing
-and counts nothing.
+and counts nothing.  On ``meta`` tensors (the dry run) neither launches:
+each charges its work (``analysis.roofline``'s ``wkv6_work`` and
+``wkv6_bwd_work``) and returns outputs of the right shapes.
 """
 
 from __future__ import annotations
@@ -160,9 +162,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         out = wkv6_plain(r, k, v, logw, u, state)
         return out + (None,) if keep_states else out
+    B, T, H, dh = r.shape
+    if dev.type == "meta":  # the dry run: charge the work, launch nothing
+        from ...analysis.roofline import charge, wkv6_work
+        charge("wkv6", wkv6_work(B, T, H, dh, r.element_size(),
+                                 state is not None))
+        out = (torch.empty_like(r), torch.empty(
+            B, H, dh, dh, dtype=torch.float32, device=dev))
+        return out + (None,) if keep_states else out
     if dev.type != "cuda":
         raise ValueError(f"wkv6 takes CUDA or CPU tensors, not {dev}")
-    B, T, H, dh = r.shape
     _card_check(r, (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
                     ("state", state)))
     # the state is read as float4s, a bf16 prefill's inputs by cp.async
@@ -232,6 +241,14 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = r.device
     if dev.type == "cpu":
         return wkv6_bwd_plain(r, k, v, logw, u, do, state, dstate)
+    if dev.type == "meta":  # the dry run: charge the work, launch nothing
+        from ...analysis.roofline import charge, wkv6_bwd_work
+        charge("wkv6_bwd", wkv6_bwd_work(B, T, H, dh, r.element_size()))
+        f32 = dict(dtype=torch.float32, device=dev)
+        return (torch.empty_like(r), torch.empty_like(r),
+                torch.empty_like(r), torch.empty(B, T, H, dh, **f32),
+                torch.empty(H, dh, **f32),
+                None if state is None else torch.empty(B, H, dh, dh, **f32))
     if dev.type != "cuda":
         raise ValueError(f"wkv6_bwd takes CUDA or CPU tensors, not {dev}")
     _card_check(r, (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),

@@ -25,6 +25,16 @@ masked by the length.  With a sliding window (``cfg.sliding_window``)
 prefill and decode see each query's last ``window`` keys, the JAX
 package's mask ``kpos > pos - window``: the kernels take the window and
 read no page wholly before it.
+
+An int8 cache (``LM.cache_dtype = torch.int8``, the ``kv_int8``
+variant) holds k and v quantized as the JAX package quantizes them,
+``clip(round(x * KV_QSCALE), -127, 127)`` in fp32 (``torch.round``
+rounds half to even, as ``jnp.round`` does).  q stays in the
+activations' dtype, and the paged kernel reads the int8 pages and
+dequantizes each key and value in registers (times ``1 / KV_QSCALE``,
+exact in bf16 and fp32), so no dequantized copy is made.  The JAX
+package dequantizes the whole cache to bf16 first and casts the softmax
+weights to bf16; the kernel keeps them in fp32.
 """
 
 from __future__ import annotations
@@ -40,6 +50,14 @@ from .common import apply_rope, dense_init
 Params = Dict[str, torch.Tensor]
 
 PAGE_SIZE = 16  # default slots per page of a dense cache
+KV_QSCALE = 32.0  # int8 KV-cache quantization scale (kv_int8 variant)
+
+
+def quantize_kv(x: torch.Tensor) -> torch.Tensor:
+    """x in int8 steps of 1 / KV_QSCALE: clip(round(x * KV_QSCALE),
+    -127, 127), computed in fp32."""
+    return torch.clamp(torch.round(x.float() * KV_QSCALE),
+                       -127, 127).to(torch.int8)
 
 
 def init_attn(gen: torch.Generator, cfg) -> Params:
@@ -131,23 +149,28 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     in place and returns (y [B, 1, D], cache).  With a sliding window
     the keys at pos - window + 1 .. pos are live.  ``block_table`` and
     ``seq_lens`` (the identity table and pos + 1) may be passed in when
-    every layer shares them."""
+    every layer shares them.  An int8 cache takes the new k and v
+    quantized (``quantize_kv``) and is read dequantized by the kernel."""
     B = x.shape[0]
     S, Hk, dh = cache["k"].shape[1:]
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     rows = torch.arange(B, device=x.device)
-    cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+    quant = cache["k"].dtype == torch.int8
+    store = quantize_kv if quant else (lambda t: t.to(cache["k"].dtype))
+    cache["k"][rows, pos] = store(k_new[:, 0])
+    cache["v"][rows, pos] = store(v_new[:, 0])
     if block_table is None:
         block_table = identity_pages(B, S, page_size, x.device)
     if seq_lens is None:
         seq_lens = (pos + 1).to(torch.int32)
     pages_k = cache["k"].reshape(-1, page_size, Hk, dh)
     pages_v = cache["v"].reshape(-1, page_size, Hk, dh)
-    out = paged_mqa(q[:, 0].to(cache["k"].dtype).contiguous(), pages_k,
-                    pages_v, block_table, seq_lens, cfg.sliding_window)
+    q_dtype = x.dtype if quant else cache["k"].dtype
+    out = paged_mqa(q[:, 0].to(q_dtype).contiguous(), pages_k, pages_v,
+                    block_table, seq_lens, cfg.sliding_window,
+                    kv_scale=1.0 / KV_QSCALE if quant else None)
     y = torch.matmul(out.to(x.dtype).reshape(B, 1, -1), p["wo"])
     return y, cache
 
@@ -174,6 +197,6 @@ def cross_attn_forward(p: Params, x: torch.Tensor, enc: torch.Tensor,
     return torch.matmul(out.reshape(B, T, -1), p["wo"])
 
 
-__all__ = ["PAGE_SIZE", "attn_decode", "attn_forward", "attn_prefill",
-           "cross_attn_forward", "identity_pages", "init_attn",
-           "init_cross_attn"]
+__all__ = ["KV_QSCALE", "PAGE_SIZE", "attn_decode", "attn_forward",
+           "attn_prefill", "cross_attn_forward", "identity_pages",
+           "init_attn", "init_cross_attn", "quantize_kv"]

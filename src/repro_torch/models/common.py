@@ -49,11 +49,21 @@ def norm_params(d: int, kind: str, device=None) -> Params:
     return {"w": torch.ones(d, dtype=torch.float32, device=device)}
 
 
+class MetaGenerator:
+    """The stand-in for a ``torch.Generator`` on ``meta``, where PyTorch
+    has none: ``dense_init`` reads its device and draws nothing."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
                scale: Optional[float] = None,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Normal(0, 1) in fp32 times ``scale`` (1/sqrt(fan_in) by default),
-    cast to ``dtype``; drawn on the generator's device."""
+    cast to ``dtype``; drawn on the generator's device.  On ``meta``
+    (``MetaGenerator``) nothing is drawn: an empty tensor of the shape."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -102,5 +112,6 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(logz - gold)
 
 
-__all__ = ["Params", "apply_rope", "causal_mask", "dense_init", "layernorm",
-           "norm", "norm_params", "rmsnorm", "rope_freqs", "softmax_xent"]
+__all__ = ["MetaGenerator", "Params", "apply_rope", "causal_mask",
+           "dense_init", "layernorm", "norm", "norm_params", "rmsnorm",
+           "rope_freqs", "softmax_xent"]

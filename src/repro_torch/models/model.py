@@ -91,7 +91,8 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
-from .common import dense_init, norm, norm_params, softmax_xent
+from .common import (MetaGenerator, dense_init, norm, norm_params,
+                     softmax_xent)
 
 Params = Dict[str, torch.Tensor]
 
@@ -200,16 +201,30 @@ class LM(nn.Module):
     ``device`` (the card unless the caller passes ``device="cpu"``):
     weights bf16; norms, biases, RWKV's decay, bonus and mix vectors and
     Mamba's ``dt_bias``, ``A_log`` and ``D`` fp32, as the JAX package's
-    ``init_params`` makes them."""
+    ``init_params`` makes them.  ``device="meta"`` draws nothing: the
+    parameters have their shapes and dtypes and no storage (the dry
+    run's model, ``launch.steps.lower_cell``).
+
+    ``cache_dtype`` is the attention caches' dtype: the activations'
+    unless set, as the JAX package's ``LM.cache_dtype``; ``torch.int8``
+    (the ``kv_int8`` variant) stores k and v quantized by
+    ``attention.KV_QSCALE``.  Recurrent state (RWKV6's token shifts,
+    Mamba's ``conv`` tail) stays in the activations' dtype, where the
+    JAX package gives it the cache's dtype too and truncates it to int8
+    (reference fault R9)."""
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         self.slots = layer_slots(cfg)
+        self._cache_dtype: Optional[torch.dtype] = None
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        if dev.type == "meta":
+            gen = MetaGenerator()
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         self.embed = nn.Parameter(
             dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
             requires_grad=False)
@@ -238,6 +253,15 @@ class LM(nn.Module):
     def dtype(self) -> torch.dtype:
         """The activations' dtype: the embedding's."""
         return self.embed.dtype
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        """The attention caches' dtype (the activations' unless set)."""
+        return self._cache_dtype or self.dtype
+
+    @cache_dtype.setter
+    def cache_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        self._cache_dtype = dtype
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -323,23 +347,30 @@ class LM(nn.Module):
         x, enc = self._embed_inputs(batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.layers:
-            h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            mixer = blk.kind[0]
-            if mixer == "rwkv":
-                x = x + rwkv_mod.rwkv_forward(blk.rwkv, h, cfg)
-                h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
-                x = x + rwkv_mod.channel_mix(blk.rwkv, h2)
-                continue
-            if mixer == "mamba":
-                y = mamba_mod.mamba_forward(blk.mamba, h, cfg)
-            else:
-                y = attn.attn_forward(blk.attn, h, cfg)
-            x, a = self._ffn_aux(blk, self._cross(blk, x + y, enc))
+            x, a = self._forward_layer(blk, x, enc)
             if a is not None:
                 aux = aux + a
         if cfg.vision is not None:  # only text positions give logits
             x = x[:, cfg.vision.n_patches:]
         return self._logits(x), aux
+
+    def _forward_layer(self, blk: Block, x: torch.Tensor,
+                       enc: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One layer of ``forward``: (x after the layer, its MoE aux loss
+        or None)."""
+        cfg = self.cfg
+        h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
+        mixer = blk.kind[0]
+        if mixer == "rwkv":
+            x = x + rwkv_mod.rwkv_forward(blk.rwkv, h, cfg)
+            h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
+            return x + rwkv_mod.channel_mix(blk.rwkv, h2), None
+        if mixer == "mamba":
+            y = mamba_mod.mamba_forward(blk.mamba, h, cfg)
+        else:
+            y = attn.attn_forward(blk.attn, h, cfg)
+        return self._ffn_aux(blk, self._cross(blk, x + y, enc))
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean token cross-entropy against ``batch["labels"]`` plus 0.01
@@ -383,22 +414,28 @@ class LM(nn.Module):
 
     def init_caches(self, batch: int, seq_len: int,
                     dtype: Optional[torch.dtype] = None) -> Params:
+        """Zeroed caches: attention k and v [B, seq_len, Hk, dh] in
+        ``dtype`` (``cache_dtype`` when None), recurrent state in the
+        activations' dtype (fp32 where the JAX package keeps it so)."""
         cfg = self.cfg
-        dtype = dtype if dtype is not None else self.dtype
+        kv_dtype = dtype if dtype is not None else self.cache_dtype
         zeros: Dict[Tuple[str, str], Params] = {}  # one a pattern position
         for (group, pos, _), blk in zip(self.slots, self.layers):
             if (group, pos) in zeros:
                 continue
             mixer = blk.kind[0]
             if mixer == "rwkv":
-                c = rwkv_mod.init_rwkv_state(cfg, batch, dtype, self.device)
+                c = rwkv_mod.init_rwkv_state(cfg, batch, self.dtype,
+                                             self.device)
             elif mixer == "mamba":
-                c = mamba_mod.init_mamba_state(cfg, batch, dtype,
+                c = mamba_mod.init_mamba_state(cfg, batch, self.dtype,
                                                self.device)
             else:
                 shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-                c = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                     "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+                c = {"k": torch.zeros(shape, dtype=kv_dtype,
+                                      device=self.device),
+                     "v": torch.zeros(shape, dtype=kv_dtype,
+                                      device=self.device)}
             zeros[group, pos] = c
         return self._stack([zeros[group, pos]
                             for group, pos, _ in self.slots])
@@ -466,34 +503,47 @@ class LM(nn.Module):
             enc = enc.to(self.device, self.dtype)
         x = self.embed[token.to(self.device)][:, None]
         pos = pos.to(self.device, torch.int64)
-        table = lens = None
+        pages = None
         for layer, blk in enumerate(self.layers):
             cache = self._layer_cache(caches, layer)
-            h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            mixer = blk.kind[0]
-            if mixer == "rwkv":
-                y, tm = rwkv_mod.rwkv_decode(blk.rwkv, h, cache, cfg)
-                x = x + y
-                h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
-                y2, shift_cm = rwkv_mod.channel_mix_decode(
-                    blk.rwkv, h2, cache["shift_cm"])
-                x = x + y2
-                self._store(caches, layer, {**tm, "shift_cm": shift_cm})
-                continue
-            if mixer == "mamba":
-                y, state = mamba_mod.mamba_decode(blk.mamba, h, cache, cfg)
+            if pages is None and "k" in cache:  # every attention layer
+                B, S = cache["k"].shape[:2]    # shares them
+                pages = (attn.identity_pages(B, S, page_size, self.device),
+                         (pos + 1).to(torch.int32))
+            x, state = self._decode_layer(blk, x, cache, pos, enc, pages,
+                                          page_size)
+            if state is not None:
                 self._store(caches, layer, state)
-            else:
-                if table is None:  # every attention layer shares them
-                    B, S = cache["k"].shape[:2]
-                    table = attn.identity_pages(B, S, page_size,
-                                                self.device)
-                    lens = (pos + 1).to(torch.int32)
-                y, _ = attn.attn_decode(blk.attn, h, cache, cfg, pos=pos,
-                                        page_size=page_size,
-                                        block_table=table, seq_lens=lens)
-            x = self._ffn(blk, self._cross(blk, x + y, enc))
         return self._logits(x)[:, 0], caches
+
+    def _decode_layer(self, blk: Block, x: torch.Tensor, cache: Params,
+                      pos: torch.Tensor, enc: Optional[torch.Tensor],
+                      pages: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                      page_size: int = attn.PAGE_SIZE
+                      ) -> Tuple[torch.Tensor, Optional[Params]]:
+        """One layer of ``decode_step`` over its ``cache`` (an attention
+        layer's k and v written in place at ``pos``; ``pages``: the block
+        table and the lengths, or None to make them): (x after the layer,
+        the recurrent layer's new state or None)."""
+        cfg = self.cfg
+        h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
+        mixer = blk.kind[0]
+        if mixer == "rwkv":
+            y, tm = rwkv_mod.rwkv_decode(blk.rwkv, h, cache, cfg)
+            x = x + y
+            h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
+            y2, shift_cm = rwkv_mod.channel_mix_decode(
+                blk.rwkv, h2, cache["shift_cm"])
+            return x + y2, {**tm, "shift_cm": shift_cm}
+        state = None
+        if mixer == "mamba":
+            y, state = mamba_mod.mamba_decode(blk.mamba, h, cache, cfg)
+        else:
+            table, lens = pages if pages is not None else (None, None)
+            y, _ = attn.attn_decode(blk.attn, h, cache, cfg, pos=pos,
+                                    page_size=page_size, block_table=table,
+                                    seq_lens=lens)
+        return self._ffn(blk, self._cross(blk, x + y, enc)), state
 
 
 def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:

@@ -1614,3 +1614,116 @@ def test_encdec_and_vlm_run_on_card(card, arch):
                 assert kflash.LAUNCHES[name] - before[name] == \
                     L + n_cross + n_enc, name
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+
+
+def int8_pages(rng, shape, device):
+    return torch.from_numpy(rng.integers(-127, 128, size=shape)
+                            .astype(np.int8)).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,Hk,dh,lens,window", [
+    (3, 14, 2, 64, (1, 15, 16), None),      # Qwen2-0.5B's heads
+    (2, 14, 2, 64, (17, 2048 * 16), None),  # a page past one; 2,048 pages
+    (2, 4, 1, 32, (40, 63), None),          # the hybrid at reduced()
+    (1, 48, 4, 128, (2048 * 16,), 4096),    # StarCoder2's window
+    (2, 4, 1, 32, (17, 600), 64),           # Mixtral reduced's window
+    (128, 14, 2, 64, None, None),           # decode_32k: B = 128
+])
+def test_paged_attention_int8_matches_plain_version(card, B, H, Hk, dh, lens,
+                                                    window, dtype):
+    """int8 pages (the ``kv_int8`` cache) with q in fp32 or bf16, against
+    the plain version's dequantization (int8 times 1/32, exact in both):
+    the same fp32 arithmetic in another order, within ``ATTN_TOL``.
+    Lengths 1, 15, 16, 17 and 2,048 pages of 16 (``lens``; None: every
+    sequence of a 2,048-page table at random lengths), pages out of order;
+    each call counts one launch under ``paged_attention int8`` and none
+    under ``paged_attention``."""
+    rng = np.random.default_rng(B * H + dh)
+    PS = 16
+    lens = np.array(lens if lens is not None
+                    else rng.integers(1, 2048 * PS + 1, size=B), np.int32)
+    MAXP = -(-int(lens.max()) // PS)
+    NP = B * MAXP
+    q = normal(rng, (B, H, dh), dtype, card)
+    pk, pv = (int8_pages(rng, (NP, PS, Hk, dh), card) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(NP).astype(np.int32)
+                             .reshape(B, MAXP)).to(card)
+    lt = torch.from_numpy(lens).to(card)
+    before = dict(kpaged.LAUNCHES)
+    windowed = kpaged.WINDOWED["paged_attention int8"]
+    got = kpaged.paged_mqa(q, pk, pv, table, lt, window, kv_scale=1 / 32)
+    torch.cuda.synchronize()
+    assert kpaged.LAUNCHES["paged_attention int8"] == \
+        before["paged_attention int8"] + 1
+    assert kpaged.LAUNCHES["paged_attention"] == before["paged_attention"]
+    assert kpaged.WINDOWED["paged_attention int8"] == \
+        windowed + (window is not None)
+    plain = kpaged.paged_attention_plain(q, pk, pv, table, lt, window,
+                                         kv_scale=1 / 32)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    err = float((got.float() - plain.float()).abs().max())
+    assert err < ATTN_TOL[dtype], err
+    # a scale of 1/16 is another function: the check sees it
+    wrong = kpaged.paged_attention_plain(q, pk, pv, table, lt, window,
+                                         kv_scale=1 / 16)
+    assert float((got.float() - wrong.float()).abs().max()) > \
+        100 * ATTN_TOL[dtype]
+
+
+def test_paged_attention_int8_refusals(card):
+    """int8 pages need a scale; float pages take none; int8 q is not a
+    type the kernel computes in."""
+    q = torch.zeros(1, 2, 64, device=card)
+    pages = torch.zeros(2, 16, 2, 64, dtype=torch.int8, device=card)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=card)
+    lens = torch.ones(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="kv_scale"):
+        kpaged.paged_attention(q, pages, pages, table, lens)
+    with pytest.raises(ValueError, match="kv_scale"):
+        kpaged.paged_attention(q, pages.float(), pages.float(), table, lens,
+                               kv_scale=1 / 32)
+    with pytest.raises(TypeError):
+        kpaged.paged_attention(q.to(torch.int8), pages, pages, table, lens,
+                               kv_scale=1 / 32)
+
+
+def test_lm_int8_cache_decode_on_card(card):
+    """Qwen2-0.5B at ``reduced()`` with an int8 cache (``kv_int8``),
+    fp32 weights: 4 decode steps from a random int8 cache on the card and
+    the CPU, exactly 2 ``paged_attention int8`` launches a step, logits
+    within 1e-4 of the largest of the CPU's, the written slots within one
+    int8 step (fp32 products in another order may round a value at a
+    half step the other way)."""
+    cfg = get_arch("qwen2-0.5b").reduced()
+    gpu = LM(cfg, seed=3, device="cuda").float()
+    cpu = LM(cfg, seed=3, device="cpu").float()
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    rng = np.random.default_rng(29)
+    fill = rng.integers(-127, 128, size=(cfg.n_layers, 2, 64,
+                                         cfg.n_kv_heads, cfg.head_dim))
+    runs = []
+    for lm in (gpu, cpu):
+        lm.cache_dtype = torch.int8
+        caches = lm.init_caches(2, 64)
+        for name in ("k", "v"):
+            caches["blocks"]["l0"][name].copy_(
+                torch.from_numpy(fill.astype(np.int8)))
+        tok = torch.tensor([3, 7], device=lm.device)
+        before = kpaged.LAUNCHES["paged_attention int8"]
+        out = []
+        for i in range(4):
+            pos = torch.tensor([40 + i, 63 - 4 + i], device=lm.device)
+            logits, caches = lm.decode_step(tok, caches, pos)
+            out.append(logits.cpu())
+            tok = logits.argmax(-1)
+        if lm is gpu:
+            assert kpaged.LAUNCHES["paged_attention int8"] - before == \
+                4 * cfg.n_layers
+        runs.append((out, caches["blocks"]["l0"]))
+    (g, gc_), (c, cc) = runs
+    for a, b in zip(g, c):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for name in ("k", "v"):
+        assert int((gc_[name].cpu().int() - cc[name].int()).abs().max()) <= 1

@@ -1,6 +1,7 @@
 """Guards of the port's boundary: repro_torch imports neither JAX nor
 the JAX package (its scale-out layer, baselines, configs, models,
-serving runtime, training slice and launch drivers included), and its
+serving runtime, training slice, launch modules and the dry run with its
+sharding rules, meshes and roofline included), and its
 entry points run on the card unless the caller asks for the CPU, never
 falling back on their own."""
 
@@ -42,7 +43,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.optim.schedules, repro_torch.checkpoint, "
             "repro_torch.checkpoint.store, repro_torch.data.pipeline, "
             "repro_torch.launch.elastic, repro_torch.launch.steps, "
-            "repro_torch.launch.train, repro_torch.kernels.grad_guard\n"
+            "repro_torch.launch.train, repro_torch.kernels.grad_guard, "
+            "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.analysis, "
+            "repro_torch.analysis.roofline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(repr(bad))\n")
