@@ -74,10 +74,11 @@ Every serving path runs through one function (``serving_run``) and its
 CPU check through another (``serving_cpu_check``), which frees the
 path's model.
 
-The eighth, the RWKV serving path, runs the same workload on RWKV6-7B at
-full width (32 layers, d_model 4096, 64 heads of 64, d_ff 14336,
-vocabulary 65,536, bf16 from ``--seed``), plus prompts of exactly 32 and
-64 tokens (its layer and head counts) in the last phase: time mixing on
+The eighth, the RWKV serving path, runs the same workload, cut to 8
+requests as the MoE paths run it, on RWKV6-7B at full width (32
+layers, d_model 4096, 64 heads of 64, d_ff 14336, vocabulary 65,536,
+bf16 from ``--seed``), plus prompts of exactly 32 and 64 tokens (its
+layer and head counts) in the last phase: time mixing on
 the WKV6 kernel (``csrc/wkv6.cu``), 32 launches per prefill and per
 decode step, the index kernels as above, no plain version on the path.
 Its CPU check takes the 32-token prompt, in fp32 on both sides.
@@ -262,13 +263,33 @@ the run fails if a device reading is below the bound.  Then one int8
 decode step at B = 2 over 256 slots with the weights upcast to fp32 on
 the card and the CPU, logits within ``FP32_TOL`` of the largest.
 
+The twenty-first, the 32 x 8 share, runs one H100's share of
+CodeQwen1.5-7B on the production mesh (``launch.mesh.
+make_production_mesh``: 32 x 8, as the JAX dry run's 16 x 16), where
+every rule divides at model = 8: rank 0 of a ``fake`` process group of
+256 (``launch.mesh.device_mesh``), its shards of the full width and all
+32 layers drawn on the card from ``--seed`` (4 of the 32 heads and kv
+heads of 128, 1,680 of the 13,440 FFN columns, 11,552 of the 92,416
+words), nothing whole made.  The share is first counted on ``meta``
+(per-device terms, collective MB by kind and axis, the bound), then
+run on the card through ``lower_cell`` under the fake group (its
+collectives move nothing): ``decode_32k`` (4 of the 128 sequences
+against 32,768 slots at pos = 32,767, every page read) and
+``prefill_32k`` (1 of the 32 sequences of 32,768 tokens), 3 steps each,
+exactly 32 launches of ``paged_attention`` or ``flash_attention`` a
+step at H = Hk = 4, dh = 128, no other kernel and no plain version, the
+local logits finite; device ms (events) and profiler busy ms a step,
+neither below the share's compute and memory bound, the collective
+term printed beside them as what the deployment would add.  Rows 8 and
+9 gain those shapes under ``other_shapes`` (phase 4).
+
 Phases, each of which exits non-zero on failure:
 
 1. card check: a CUDA device, its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled in parallel; each
    kernel's registers, shared memory and spills as ``-Xptxas -v`` gives
    them;
-3. the twenty paths, each with every kernel's launch count set to 0 just
+3. the twenty-one paths, each with every kernel's launch count set to 0 just
    before it and read just after; a path fails if a kernel it runs was
    not launched; after each serving path, its CPU check and the device
    busy share of a decode step (host clock against profiled device
@@ -406,7 +427,8 @@ from repro_torch.convert import (lm_arrays_from_params,  # noqa: E402
                                  lm_params_from_arrays)
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
-from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
+from repro_torch.launch.mesh import (device_mesh,  # noqa: E402
+                                     make_production_mesh, make_smoke_mesh)
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
@@ -721,6 +743,20 @@ CELL_STEPS = 4
 # fp32 activations, on the card against the CPU
 CELL_CHECK_BATCH = 2
 CELL_CHECK_SLOTS = 256
+# one device's share of CodeQwen1.5-7B on the 32 x 8 mesh
+# (launch.mesh.make_production_mesh): rank 0 of a fake process group of
+# 256, its shards of the full width and all 32 layers drawn on the card;
+# every rule divides at model = 8 (32 heads and kv heads, d_ff 13,440,
+# vocabulary 92,416), so rank 0 holds 4 of the 32 heads.  decode_32k: 4
+# of the 128 sequences against 32,768 slots at pos = 32,767; prefill_32k:
+# 1 of the 32 sequences of 32,768 tokens.  SHARE_STEPS steps each
+SHARE_ARCH = "codeqwen1.5-7b"
+SHARE_SHAPES = ("decode_32k", "prefill_32k")
+SHARE_STEPS = 3
+# the prefill's plain attention runs in chunks of queries (a whole
+# [4, 32768, 32768] fp32 score matrix is 17.2 GB, and the plain version
+# makes several)
+SHARE_PLAIN_CHUNK = 2048
 
 
 def kernel_name(mangled: str) -> str:
@@ -4700,6 +4736,281 @@ def decode_cell(seed: int, launches: dict) -> dict:
     return out
 
 
+# -- the 32 x 8 share ---------------------------------------------------------
+
+def share_count(cfg, shape_name: str) -> dict:
+    """The dry run's count of one device's share of ``cfg`` x
+    ``shape_name`` on the 32 x 8 mesh (``launch.steps.lower_cell`` on
+    ``meta`` under ``launch.mesh.device_mesh``): its roofline record,
+    printed with its per-device terms and collective bytes by kind and
+    axis."""
+    mesh = make_production_mesh()
+    shape = SHAPES[shape_name]
+    t0 = time.perf_counter()
+    with device_mesh(mesh, "meta"):
+        lowered, _ = steps_mod.lower_cell(cfg, shape, mesh)
+        costs, _ = roofline.count_costs(lowered.fn, *lowered.args)
+    rec = roofline.cell_costs(cfg, shape, costs, [], mesh.size)
+    rec["count_s"] = time.perf_counter() - t0
+    t = rec["terms_ms"]
+    say(f"{cfg.name} {shape_name} on {mesh.name}, one device's share (dry "
+        f"run on meta, H100 spec sheet, {rec['count_s']:.3f} s): "
+        f"{rec['gflops']:.6f} GFLOP, {rec['gbytes']:.6f} GB; compute "
+        f"{t['compute']:.6f} ms, memory {t['memory']:.6f} ms, collective "
+        f"{t['collective']:.6f} ms; collective MB by kind "
+        f"{rec['collective_by_kind_mb']}, by axis "
+        f"{rec['collective_by_axis_mb']}; bound "
+        f"{rec['step_time_bound_ms']:.6f} ms ({rec['dominant']}); kernels "
+        f"{rec['kernels']}")
+    return rec
+
+
+def share_init(cfg, shape, gen):
+    """``lower_cell``'s ``make`` for the share on the card: each shard
+    drawn where it lives, as ``LM`` draws the whole (bf16 weights normal
+    over the square root of their whole fan-in, the embedding's 0.02;
+    fp32 norms 1 and biases 0), random tokens, normal caches, and every
+    position at the cache's last slot, on ``gen``'s device."""
+    dev = gen.device
+
+    def make(name, t, shape_):
+        if name == "pos":
+            return torch.full(shape_, shape.seq_len - 1, dtype=t.dtype,
+                              device=dev)
+        if name == "token" or name.startswith("batch."):
+            return torch.randint(0, cfg.vocab, shape_, generator=gen,
+                                 dtype=t.dtype, device=dev)
+        out = torch.empty(shape_, dtype=t.dtype, device=dev)
+        leaf = name.rsplit(".", 1)[-1]
+        if name.startswith("caches."):
+            return out.normal_(generator=gen)
+        if t.dtype == torch.float32:
+            return out.fill_(1.0 if leaf == "w" else 0.0)
+        fan_in = t.shape[-2] if t.dim() >= 2 else t.shape[-1]
+        return out.normal_(generator=gen).mul_(
+            0.02 if leaf == "embed" else fan_in ** -0.5)
+
+    return make
+
+
+def share_path(seed: int, launches: dict) -> dict:
+    """One H100's share of CodeQwen1.5-7B on the 32 x 8 mesh
+    (``SHARE_ARCH``): for each of ``SHARE_SHAPES`` the dry run's count of
+    the share (``share_count``), then the share run on the card under
+    ``device_mesh(mesh, "cuda")`` (the fake group's collectives move
+    nothing) through ``lower_cell`` with its shards drawn on the card
+    (``share_init``): ``SHARE_STEPS`` steps counted, exactly 32 launches
+    of the shape's attention kernel a step at the local heads (H = Hk =
+    4, dh = 128) and no other kernel, no plain version; the local logits
+    finite and of the share's shape; host ms, device ms (``event_ms``)
+    and the profiler's busy time a step, which must not be below the
+    count's compute and memory bound; the collective term printed beside
+    it as what the deployment would add.  Adds the launches to
+    ``launches``."""
+    t0 = time.perf_counter()
+    cfg = get_arch(SHARE_ARCH)
+    mesh = make_production_mesh()
+    out = {"cfg": cfg, "shapes": {}}
+    for shape_name in SHARE_SHAPES:
+        shape = SHAPES[shape_name]
+        rec = share_count(cfg, shape_name)
+        terms = rec["terms_ms"]
+        bound_ms = max(terms["compute"], terms["memory"])
+        form = "paged_attention" if shape.kind == "decode" \
+            else "flash_attention"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 31)
+        with device_mesh(mesh, "cuda"):
+            low, lm = steps_mod.lower_cell(cfg, shape, mesh,
+                                           make=share_init(cfg, shape, gen))
+            n_local = sum(p.to_local().numel() for p in lm.parameters())
+            check(lm.embed.to_local().device.type == "cuda",
+                  f"{cfg.name} share is not on the card")
+            host = []
+            with counting_plain() as plain:
+                reset_counts()
+                for _ in range(SHARE_STEPS):
+                    torch.cuda.synchronize()
+                    ts = time.perf_counter()
+                    res = low.fn(*low.args)
+                    torch.cuda.synchronize()
+                    host.append((time.perf_counter() - ts) * 1e3)
+                counts = read_counts()
+            check(not any(plain.values()), f"{cfg.name} {shape_name} share: "
+                  f"a plain kernel version ran: {plain}")
+            want = SHARE_STEPS * cfg.n_layers
+            check(counts[form] == want, f"{cfg.name} {shape_name} share: "
+                  f"{form} launched {counts[form]} times in {SHARE_STEPS} "
+                  f"steps, not {want}")
+            others = {k: v for k, v in counts.items() if v and k != form}
+            check(not others, f"{cfg.name} {shape_name} share: other kernels "
+                  f"launched: {others}")
+            logits = res[0].to_local()
+            rows = shape.global_batch // mesh.shape["data"]
+            check(tuple(logits.shape) == (rows, cfg.vocab // 8)
+                  and bool(torch.isfinite(logits.float()).all()),
+                  f"{cfg.name} {shape_name} share: local logits of shape "
+                  f"{tuple(logits.shape)} or not finite")
+            launches[form] += counts[form]
+            del res, logits
+            dev_ms = min(event_ms(lambda: low.fn(*low.args))
+                         for _ in range(2))
+            with torch.profiler.profile(activities=CARD_ACTIVITY) as prof:
+                low.fn(*low.args)
+                torch.cuda.synchronize()
+            busy, n_kernels, kernels = device_totals(prof)
+            top = sorted(kernels, key=lambda e: -e.device_time_total)[:3]
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            host_ms = min(host[1:])
+            say(f"{cfg.name} {shape_name} share on {mesh.name} (rank 0 of "
+                f"{mesh.size}, {n_local:,} parameters of its own, "
+                f"{rows} sequences, H = Hk = {cfg.n_heads // 8}, dh = "
+                f"{cfg.head_dim}): host {host_ms:.3f} ms a step (steps "
+                f"{[round(h, 3) for h in host]}); device {dev_ms:.6f} ms a "
+                f"step (events); profiler busy {busy:.6f} ms in "
+                f"{n_kernels} kernels; compute and memory bound "
+                f"{bound_ms:.6f} ms, device / bound {dev_ms / bound_ms:.4f}"
+                f", busy / bound {busy / bound_ms:.4f}; the collective "
+                f"term the deployment would add {terms['collective']:.6f} "
+                f"ms; peak card memory {peak:.3f} GB; launches "
+                f"{counts[form]} {form}; top kernels: " + "; ".join(
+                    f"{e.key[:50]} {e.device_time_total / 1e3:.4f} ms"
+                    for e in top))
+            check(dev_ms >= bound_ms, f"{cfg.name} {shape_name} share: "
+                  f"device {dev_ms} ms a step is below the count's bound "
+                  f"{bound_ms} ms: the count is wrong")
+            check(busy == 0 or busy >= bound_ms, f"{cfg.name} {shape_name} "
+                  f"share: profiler busy {busy} ms a step is below the "
+                  f"count's bound {bound_ms} ms: the count is wrong")
+            out["shapes"][shape_name] = {
+                "host_ms": host_ms, "device_ms": dev_ms, "busy_ms": busy,
+                "bound_ms": bound_ms, "collective_ms": terms["collective"],
+                "launches": counts[form], "peak_gb": peak,
+                "count_s": rec["count_s"]}
+            del low, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"{cfg.name} 32 x 8 share: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def chunked_plain(q, k, v, drop: bool = False) -> torch.Tensor:
+    """``attention_plain`` (causal) over ``SHARE_PLAIN_CHUNK`` queries at
+    a time, each chunk against the keys up to its last query (the same
+    function, in bounded memory); with ``drop`` each query without its
+    own key."""
+    T, c = q.shape[1], SHARE_PLAIN_CHUNK
+    parts = []
+    for i in range(0, T, c):
+        j = min(T, i + c)
+        if not drop:
+            parts.append(kflash.attention_plain(q[:, i:j], k[:, :j],
+                                                v[:, :j]))
+        elif i == 0:
+            parts.append(torch.cat([kflash.attention_plain(
+                q[:, :1], k[:, :1], v[:, :1]), kflash.attention_plain(
+                q[:, 1:j], k[:, :j - 1], v[:, :j - 1])], dim=1))
+        else:
+            parts.append(kflash.attention_plain(q[:, i:j], k[:, :j - 1],
+                                                v[:, :j - 1]))
+    return torch.cat(parts, dim=1)
+
+
+def share_kernels(share: dict, seed: int) -> dict:
+    """Rows 8 and 9 at the share's local shapes (H = Hk = 4, dh = 128):
+    paged_attention at decode_32k's (4 sequences of 32,768 live keys,
+    2,048 pages each) and flash_attention at prefill_32k's (B = 1, T =
+    S = 32,768, causal), each within ``ATTN_STEPS`` of its plain version
+    (which a dropped newest key breaks), timed beside its plain version,
+    ``scaled_dot_product_attention`` on the same inputs and its bound.
+    Returns an ``other_shapes`` entry for each kernel's row."""
+    cfg = share["cfg"]
+    H = Hk = cfg.n_heads // 8
+    dh = cfg.head_dim
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 32)
+    out = {}
+    S = SHAPES["decode_32k"].seq_len
+    B = SHAPES["decode_32k"].global_batch // 32
+    n_pages = S // SERVE_PAGE
+    table = torch.arange(B * n_pages, dtype=torch.int32,
+                         device=dev).reshape(B, n_pages)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    batches = [tuple(torch.randn(shape, generator=gen, device=dev)
+                     .to(torch.bfloat16)
+                     for shape in ((B, H, dh), (B * n_pages, SERVE_PAGE, Hk,
+                                                dh),
+                                   (B * n_pages, SERVE_PAGE, Hk, dh)))
+               for _ in range(4)]
+    q, pk, pv = batches[0]
+    name = (f"paged_attention ({cfg.name} decode_32k share, B={B}, H={H}, "
+            f"Hk={Hk}, dh={dh}, len={S})")
+    got = kpaged.paged_mqa(q, pk, pv, table, lens, None)
+    torch.cuda.synchronize()
+    err = close(name, got, kpaged.paged_attention_plain(
+        q, pk, pv, table, lens, None), kpaged.paged_attention_plain(
+        q, pk, pv, table, lens - 1, None))
+    timed = time_kernel(
+        name, lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens, None),
+        lambda a, b, c: kpaged.paged_attention_plain(a, b, c, table, lens,
+                                                     None),
+        batches, reps=64)
+    lib = [(a[:, :, None], b.reshape(B, S, Hk, dh).transpose(1, 2),
+            c.reshape(B, S, Hk, dh).transpose(1, 2)) for a, b, c in batches]
+    lib_ms, lib_call = time_calls(
+        lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+            a, b, c), lib, 64)
+    bms, by = work_bound(paged_work([S] * B, H, Hk, dh, SERVE_PAGE))
+    say(f"{name}: bound {bms:.9f} ms ({by}); scaled_dot_product_attention: "
+        f"device {lib_ms} ms, call {lib_call:.6f} ms")
+    out["paged_attention"] = {
+        "max_abs_err": err, "ms": timed["ms"], **plain_of(timed),
+        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+        "launches": share["shapes"]["decode_32k"]["launches"],
+        "shape": f"{cfg.name} decode_32k on 32x8, rank 0's share: B={B}, "
+                 f"H={H}, Hk={Hk}, dh={dh}, len={S}, bf16"}
+    del batches, lib, q, pk, pv, got
+    if "prefill_32k" in share["shapes"]:
+        T = SHAPES["prefill_32k"].seq_len
+        batches = [tuple(torch.randn((1, T, h, dh), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                         for h in (H, Hk, Hk)) for _ in range(2)]
+        q, k, v = batches[0]
+        name = (f"flash_attention ({cfg.name} prefill_32k share, B=1, T=S={T}"
+                f", H={H}, Hk={Hk}, dh={dh}, causal)")
+        got = kflash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ferr = close(name, got, chunked_plain(q, k, v),
+                     chunked_plain(q, k, v, drop=True))
+        ftimed = time_kernel(name, lambda a, b, c: kflash.flash_attention(
+            a, b, c), chunked_plain, batches, reps=16)
+        flib = [tuple(t.transpose(1, 2) for t in b) for b in batches]
+        flib_ms, flib_call = time_calls(
+            lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+                a, b, c, is_causal=True), flib, 16)
+        fbms, fby = work_bound(flash_work(1, T, T, H, Hk, dh,
+                                          seen_pairs(T, T)))
+        say(f"{name}: bound {fbms:.9f} ms ({fby}); "
+            f"scaled_dot_product_attention: device {flib_ms} ms, call "
+            f"{flib_call:.6f} ms; the plain version in chunks of "
+            f"{SHARE_PLAIN_CHUNK} queries")
+        out["flash_attention"] = {
+            "max_abs_err": ferr, "ms": ftimed["ms"], **plain_of(ftimed),
+            "bound_ms": fbms, "bound_by": fby, "library_ms": flib_ms,
+            "launches": share["shapes"]["prefill_32k"]["launches"],
+            "shape": f"{cfg.name} prefill_32k on 32x8, rank 0's share: "
+                     f"B=1, T=S={T}, H={H}, Hk={Hk}, dh={dh}, causal, bf16 "
+                     f"(plain in chunks of {SHARE_PLAIN_CHUNK} queries)"}
+        del batches, flib, q, k, v, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def cell_fp32_check(lm, seed: int) -> None:
     """One int8-cache decode step at B = ``CELL_CHECK_BATCH`` over
     ``CELL_CHECK_SLOTS`` slots with ``lm``'s weights upcast to fp32
@@ -5331,7 +5642,7 @@ def main(argv=None) -> int:
     # the path's 32-token prompt (the width is not cut)
     t0 = time.perf_counter()
     rwkv = serving_run(RWKV_ARCH, args.seed, launches, split,
-                       extra=RWKV_EXTRA_PROMPTS)
+                       extra=RWKV_EXTRA_PROMPTS, **WIDE)
     phases[f"{RWKV_ARCH} serving and checks"] = time.perf_counter() - t0
 
     reset_counts()
@@ -5450,6 +5761,9 @@ def main(argv=None) -> int:
     cell = decode_cell(args.seed, launches)
     phases[f"{CELL_ARCH} {CELL_SHAPE} cell and checks"] = \
         time.perf_counter() - t0
+    t0 = time.perf_counter()
+    share = share_path(args.seed, launches)
+    phases[f"{SHARE_ARCH} 32 x 8 share"] = time.perf_counter() - t0
 
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []
@@ -5479,6 +5793,13 @@ def main(argv=None) -> int:
         rows += check_rows(*fargs)
         phases[check_rows.__name__] = time.perf_counter() - t0
         say(f"{check_rows.__name__}: {phases[check_rows.__name__]:.3f} s")
+    t0 = time.perf_counter()
+    at_share = share_kernels(share, args.seed)
+    for r in rows:
+        if r["name"] in at_share:
+            r.setdefault("other_shapes", []).append(at_share[r["name"]])
+    phases["share_kernels"] = time.perf_counter() - t0
+    say(f"share_kernels: {phases['share_kernels']:.3f} s")
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "
           "from the kernels line")
     phases["whole run"] = time.perf_counter() - t_start

@@ -1,11 +1,13 @@
 """Roofline of the dry run on one H100: the port of
 ``repro.analysis.roofline``.
 
-Per (arch x shape) cell on the one-card mesh:
+Per (arch x shape x mesh) cell, per device:
 
     compute term    = FLOPs / bf16 peak + lane operations / fp32 rate
     memory term     = bytes / HBM bandwidth
-    collective term = 0 (one card)
+    collective term = bytes over "model" / NVLink bandwidth
+                      + bytes over "data" or "pod" / InfiniBand bandwidth
+                      (0 on the one-card mesh)
 
 What is counted, and how (``count_costs``): the step runs once on
 ``meta`` tensors (``launch.steps.lower_cell``) under a
@@ -31,7 +33,19 @@ What is counted, and how (``count_costs``): the step runs once on
   charges every page of its block table, as XLA's einsum over all S
   slots does (a run on the card at pos = S - 1 reads the same);
 * the live bytes of the tensors the step creates, whose peak is the
-  record's ``temp_bytes``.
+  record's ``temp_bytes``;
+* on a production mesh (``launch.mesh.device_mesh``: the parameters,
+  inputs and optimizer state are DTensors over a ``fake`` process group,
+  this process rank 0), one device's program: the mode passes every op
+  on DTensors back to DTensor (``NotImplemented``), which propagates the
+  shardings, inserts the collectives and runs the op on rank 0's shards,
+  and the mode counts those local ops.  The tensors DTensor's
+  propagation computes at the global shape are ``FakeTensor``s and are
+  not counted.  Each ``_c10d_functional`` collective is counted as
+  collective bytes, not HBM bytes, by kind and by mesh axis (its group's
+  axis, ``name_groups``), under the JAX package's convention: the
+  result's bytes (the gathered array for an all-gather, the shard for a
+  reduce-scatter); waiting on one moves nothing.
 
 The port runs its layers in a Python loop, so the count covers every
 layer and ``cell_costs`` adds no scan correction; ``probes`` (one
@@ -42,11 +56,12 @@ between the step at L layers and at L - 1.
 Hardware model: one NVIDIA H100 SXM, spec-sheet figures (below).  No
 figure of the JAX package's TPU carries over.
 
-Not ported: ``collective_bytes`` and ``_while_trip_counts`` parse the
-HLO text of a partitioned XLA program, which the port never produces;
-the production meshes' collective and per-device compute terms wait for a
-partitioner and two or more cards (ROADMAP item 5).
-``normalize_cost_analysis`` has nothing to normalize here.
+The JAX package's ``collective_bytes`` parses the collectives out of a
+partitioned program's HLO text; the counting mode sees them as they are
+issued instead.  Not ported: ``_while_trip_counts`` reads the trip counts
+of the HLO's ``while`` loops, and the port has no ``while`` (its layers
+are a Python loop); ``normalize_cost_analysis`` has nothing to normalize
+here.
 """
 
 from __future__ import annotations
@@ -73,8 +88,11 @@ LANE_OPS = 67e12
 HBM_BW = 3.35e12
 HBM_BYTES = 80e9
 # the same data sheet: NVLink 4, 900 GB/s a card to the others of an HGX
-# node, 450 GB/s each way
+# node, 450 GB/s each way: the "model" axis, inside a node
 NVLINK_BW = 450e9
+# NVIDIA DGX H100 data sheet: one 400 Gb/s ConnectX-7 InfiniBand port a
+# GPU, 50 GB/s: the "data" and "pod" axes, across nodes
+IB_BW = 50e9
 
 
 def bound(n_bytes: float, ops: float, rate: float = PEAK_FLOPS
@@ -221,6 +239,14 @@ class Costs:
     temp_bytes: int = 0  # peak of the live tensors the step created
     output_bytes: int = 0  # the step's outputs that are not arguments
     alias_bytes: int = 0  # the step's outputs that are arguments
+    #: collective bytes: kind ("all-reduce", ...) -> bytes, and mesh
+    #: axis -> bytes
+    coll_by_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
+    coll_by_axis: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def coll_bytes(self) -> float:
+        return sum(self.coll_by_kind.values())
 
     def compute_s(self) -> float:
         return self.flops / PEAK_FLOPS + self.lane_ops / LANE_OPS
@@ -228,8 +254,42 @@ class Costs:
     def memory_s(self) -> float:
         return self.bytes_accessed / HBM_BW
 
+    def collective_s(self) -> float:
+        """The "model" axis's bytes over NVLink, every other axis's over
+        InfiniBand."""
+        return sum(b / (NVLINK_BW if ax == "model" else IB_BW)
+                   for ax, b in self.coll_by_axis.items())
+
 
 _ACTIVE: List["_Counter"] = []
+# process group name -> mesh axis name, of the mesh ``launch.mesh.
+# device_mesh`` made (a group it did not name is its own axis)
+_GROUP_AXES: Dict[str, str] = {}
+
+
+def name_groups(group_axes: Dict[str, str]) -> None:
+    """Set which mesh axis each process group (by name) is."""
+    _GROUP_AXES.clear()
+    _GROUP_AXES.update(group_axes)
+
+
+# the functional collectives DTensor issues, by the JAX package's kinds
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+_KINDS = (("all_reduce", "all-reduce"), ("all_gather", "all-gather"),
+          ("reduce_scatter", "reduce-scatter"), ("all_to_all", "all-to-all"),
+          ("broadcast", "broadcast"), ("permute", "collective-permute"))
+
+
+def _collective(func, args, kwargs) -> Tuple[Any, Any]:
+    """(kind, group name) of a functional collective; (None, None) for
+    an op of those namespaces that moves nothing (``wait_tensor``)."""
+    name = func._overloadpacket.__name__
+    kind = next((k for stem, k in _KINDS if name.startswith(stem)), None)
+    if kind is None:
+        return None, None
+    names = [a.name for a in func._schema.arguments]
+    i = names.index("group_name")
+    return kind, kwargs.get("group_name", args[i] if i < len(args) else None)
 
 # ops that move no bytes: they allocate (``empty``), reshape without a
 # copy (``_unsafe_view``, not marked a view in its schema) or describe
@@ -263,8 +323,11 @@ class _Counter(TorchDispatchMode):
 
     def __init__(self):
         super().__init__()
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
         self.costs = Costs()
         self.live = 0
+        self._dtensor, self._fake = DTensor, FakeTensor
 
     def charge(self, name: str, work: Work) -> None:
         c = self.costs
@@ -282,15 +345,38 @@ class _Counter(TorchDispatchMode):
     def _freed(self, n: int) -> None:
         self.live -= n
 
+    def _live(self, ins, outs) -> None:
+        seen = {id(t) for t in ins}
+        for t in outs:
+            if id(t) in seen:
+                continue
+            n = _nbytes(t)
+            self.live += n
+            self.costs.temp_bytes = max(self.costs.temp_bytes, self.live)
+            weakref.finalize(t, self._freed, n)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented  # DTensor runs it on the local shards
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        packet = func._overloadpacket
-        c = self.costs
-        if packet in flop_registry:
-            c.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
+        if any(isinstance(t, self._fake) for t in outs):
+            return out  # sharding propagation's global-shape shadow
+        packet = func._overloadpacket
+        c = self.costs
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            kind, group = _collective(func, args, kwargs)
+            if kind is not None:
+                n = sum(map(_nbytes, outs))
+                axis = _GROUP_AXES.get(group, group)
+                c.coll_by_kind[kind] = c.coll_by_kind.get(kind, 0.0) + n
+                c.coll_by_axis[axis] = c.coll_by_axis.get(axis, 0.0) + n
+                self._live(ins, outs)
+            return out
+        if packet in flop_registry:
+            c.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         if func.is_view or packet in _NO_TRAFFIC:
             n_bytes = 0
         elif packet in _GATHERS:
@@ -308,14 +394,7 @@ class _Counter(TorchDispatchMode):
             op = str(packet).split(".", 1)[-1]
             c.by_op[op] = c.by_op.get(op, 0.0) + n_bytes
         if not func.is_view:  # new tensors: live until collected
-            seen = {id(t) for t in ins}
-            for t in outs:
-                if id(t) in seen:
-                    continue
-                n = _nbytes(t)
-                self.live += n
-                c.temp_bytes = max(c.temp_bytes, self.live)
-                weakref.finalize(t, self._freed, n)
+            self._live(ins, outs)
         return out
 
 
@@ -330,7 +409,7 @@ def count_costs(fn: Callable, *args, **kwargs) -> Tuple[Costs, Any]:
     """Run ``fn(*args, **kwargs)`` (on ``meta`` tensors) under the
     counting mode: (its Costs, its result).  ``output_bytes`` and
     ``alias_bytes`` split the result's tensors into new ones and
-    arguments written in place."""
+    arguments written in place (a DTensor's by its shard)."""
     counter = _Counter()
     _ACTIVE.append(counter)
     try:
@@ -340,10 +419,11 @@ def count_costs(fn: Callable, *args, **kwargs) -> Tuple[Costs, Any]:
         _ACTIVE.pop()
     given = {id(t) for t in _tensors((args, kwargs))}
     for t in {id(t): t for t in _tensors(out)}.values():
+        n = _nbytes(t.to_local() if isinstance(t, counter._dtensor) else t)
         if id(t) in given:
-            counter.costs.alias_bytes += _nbytes(t)
+            counter.costs.alias_bytes += n
         else:
-            counter.costs.output_bytes += _nbytes(t)
+            counter.costs.output_bytes += n
     return counter.costs, out
 
 
@@ -354,10 +434,9 @@ def cell_costs(cfg, shape, costs: Costs, probes: Iterable[Tuple[str, int,
     and ``probes`` [(group, repeat, Costs of one application of its
     body)], with the JAX package's keys where their meaning carries."""
     compute_s, memory_s = costs.compute_s(), costs.memory_s()
-    # one card: no collective (the production meshes' wait for a
-    # partitioner, at NVLINK_BW)
+    collective_s = costs.collective_s()
     terms = {"compute": compute_s * 1e3, "memory": memory_s * 1e3,
-             "collective": 0.0}
+             "collective": collective_s * 1e3}
     dominant = max(terms, key=terms.get)
     # MODEL_FLOPS: 6 N D for train, 2 N D forward-only (per device)
     n_params = cfg.active_param_count()
@@ -366,14 +445,17 @@ def cell_costs(cfg, shape, costs: Costs, probes: Iterable[Tuple[str, int,
     mult = 6 if shape.kind == "train" else 2
     model_flops = mult * n_params * tokens / n_chips
     useful = model_flops / costs.flops if costs.flops else 0.0
-    bound_s = max(compute_s, memory_s)
+    bound_s = max(compute_s, memory_s, collective_s)
     return {
         "per_device": True,
         "gflops": costs.flops / 1e9,
         "lane_gops": costs.lane_ops / 1e9,
         "gbytes": costs.bytes_accessed / 1e9,
-        "collective_mb": 0.0,
-        "collective_by_kind_mb": {},
+        "collective_mb": costs.coll_bytes / 1e6,
+        "collective_by_kind_mb": {k: v / 1e6
+                                  for k, v in costs.coll_by_kind.items()},
+        "collective_by_axis_mb": {k: v / 1e6
+                                  for k, v in costs.coll_by_axis.items()},
         "terms_ms": terms,
         "dominant": dominant,
         "model_gflops_per_device": model_flops / 1e9,
@@ -384,7 +466,8 @@ def cell_costs(cfg, shape, costs: Costs, probes: Iterable[Tuple[str, int,
         "top_ops_gbytes": {k: v / 1e9 for k, v in sorted(
             costs.by_op.items(), key=lambda kv: -kv[1])[:8]},
         "probes": [{"group": g, "repeat": repeat,
-                    "body_gflops": pc.flops / 1e9}
+                    "body_gflops": pc.flops / 1e9,
+                    "body_coll_mb": pc.coll_bytes / 1e6}
                    for g, repeat, pc in probes],
     }
 
@@ -423,9 +506,9 @@ def table(records: Iterable[dict], mesh: str = "1x1",
     return "\n".join(lines)
 
 
-__all__ = ["Costs", "HBM_BW", "HBM_BYTES", "LANE_OPS", "NVLINK_BW",
+__all__ = ["Costs", "HBM_BW", "HBM_BYTES", "IB_BW", "LANE_OPS", "NVLINK_BW",
            "PEAK_FLOPS", "Work", "bound", "cell_costs", "charge",
            "count_costs", "flash_bwd_work", "flash_work", "load_records",
-           "paged_work", "seen_pairs", "ssd_bwd_flops", "ssd_bwd_work",
-           "ssd_work", "table", "wkv6_bwd_flops", "wkv6_bwd_work",
-           "wkv6_work"]
+           "name_groups", "paged_work", "seen_pairs", "ssd_bwd_flops",
+           "ssd_bwd_work", "ssd_work", "table", "wkv6_bwd_flops",
+           "wkv6_bwd_work", "wkv6_work"]

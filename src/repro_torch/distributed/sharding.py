@@ -27,13 +27,18 @@ names or None (``normalize``: a tuple of one name is the name, an empty
 one None, as ``jax.sharding.PartitionSpec`` holds them);
 ``PartitionSpec(*spec)`` is the JAX package's.  A
 mesh is anything with ``.shape``, a dict of axis name -> size
-(``launch.mesh.MeshSpec``, or a JAX ``Mesh``).  Nothing here places a
-tensor on a card: that waits for a partitioner and two or more cards
-(ROADMAP item 5).
+(``launch.mesh.MeshSpec``, or a JAX ``Mesh``).
+
+``placements`` turns a spec into DTensor placements over a
+``DeviceMesh`` of the same axis names (``launch.mesh.device_mesh``), so
+a tensor placed by a spec is a DTensor and DTensor's sharding
+propagation partitions the program as XLA's SPMD partitioner does the
+JAX package's.
 """
 
 from __future__ import annotations
 
+from itertools import combinations
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 Spec = Tuple
@@ -115,28 +120,35 @@ def _fit(spec: Tuple, shape: Tuple[int, ...],
     return normalize(out)
 
 
+def param_spec(names: List[str], shape: Tuple[int, ...], mesh, *,
+               stacked: bool = False) -> Spec:
+    """The spec of one parameter leaf at ``names`` of ``shape``;
+    ``stacked``: its leading dimension is the layers' (a leaf of a
+    ``SCANNED_GROUPS`` group), which is never sharded."""
+    axis_sizes = dict(mesh.shape)
+    rule = rule_for(names)
+    core_shape = tuple(shape[1:] if stacked else shape)
+    # expert-TP fallback: when the expert count does not divide the
+    # model axis (mixtral: 8 experts, 16-way TP), shard WITHIN each
+    # expert's FFN instead of replicating everything
+    if len(names) >= 2 and names[-2] == "moe" and len(core_shape) == 3 \
+            and core_shape[0] % axis_sizes.get("model", 1) != 0:
+        if names[-1] in ("w_up", "w_gate"):
+            rule = (None, None, "model")
+        elif names[-1] == "w_down":
+            rule = (None, "model", None)
+    if stacked:
+        rule = (None,) + tuple(rule)
+    return _fit(rule, tuple(shape), axis_sizes)
+
+
 def param_specs(params_shape: Any, mesh) -> Any:
     """Spec tree matching a parameter (shape) tree."""
-    axis_sizes = dict(mesh.shape)
-
-    def one(names, leaf):
-        rule = rule_for(names)
-        stacked = bool(names) and names[0] in SCANNED_GROUPS
-        core_shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
-        # expert-TP fallback: when the expert count does not divide the
-        # model axis (mixtral: 8 experts, 16-way TP), shard WITHIN each
-        # expert's FFN instead of replicating everything
-        if len(names) >= 2 and names[-2] == "moe" and len(core_shape) == 3 \
-                and core_shape[0] % axis_sizes.get("model", 1) != 0:
-            if names[-1] in ("w_up", "w_gate"):
-                rule = (None, None, "model")
-            elif names[-1] == "w_down":
-                rule = (None, "model", None)
-        if stacked:
-            rule = (None,) + tuple(rule)
-        return _fit(rule, tuple(leaf.shape), axis_sizes)
-
-    return map_with_path(one, params_shape)
+    return map_with_path(
+        lambda names, leaf: param_spec(
+            names, tuple(leaf.shape), mesh,
+            stacked=bool(names) and names[0] in SCANNED_GROUPS),
+        params_shape)
 
 
 def data_axes(mesh) -> Tuple[str, ...]:
@@ -146,6 +158,27 @@ def data_axes(mesh) -> Tuple[str, ...]:
 def batch_spec(mesh) -> Spec:
     """Tokens/labels: batch over all data axes."""
     return normalize((data_axes(mesh),))
+
+
+def fit_spec(shape: Tuple[int, ...], spec: Spec, mesh) -> Spec:
+    """``spec`` with the divisibility fallback applied to every entry:
+    of an entry's axes, the sub-tuple (in their order) spanning the most
+    devices that still divides its dimension.  The rules apply it to the
+    parameters and caches already; the batch's spec names every data
+    axis, as the JAX package's does, so prefill_32k's 32 sequences over
+    ("pod", "data") = 64 devices shard over "data" and replicate over
+    "pod"."""
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = () if ax is None else (ax,) if isinstance(ax, str) else ax
+        best: Tuple[str, ...] = ()
+        for n in range(len(axes), 0, -1):
+            for sub in combinations(axes, n):
+                size = axis_size(mesh, sub)
+                if dim % size == 0 and size > axis_size(mesh, best):
+                    best = sub
+        out.append(best)
+    return normalize(out)
 
 
 def cache_specs(cache_shape: Any, mesh, *, seq_shard: bool = False,
@@ -235,11 +268,48 @@ def axis_size(mesh, ax) -> int:
     return size
 
 
+def placements(spec: Spec, mesh) -> Tuple:
+    """DTensor placements of ``spec`` over the ``DeviceMesh`` ``mesh``
+    (one entry a mesh dimension, in the mesh's order): ``Shard(d)`` on
+    each mesh dimension that entry d of the spec names, ``Replicate()``
+    on the others.  A tuple of axes shards its dimension on each of
+    them, the first axis outermost, as ``PartitionSpec`` does; the rules'
+    tuples follow the mesh's order, which is DTensor's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out: List[Any] = [Replicate()] * len(names)
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = (ax,) if isinstance(ax, str) else tuple(ax)
+        if list(axes) != sorted(axes, key=names.index):
+            raise ValueError(f"spec {spec}: axes {axes} out of the mesh's "
+                             f"order {names}")
+        for a in axes:
+            out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def is_placed(t) -> bool:
+    """True for a DTensor: a tensor placed over a mesh, of which this
+    process holds one device's shard."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def placed_as(t, like):
+    """``t`` redistributed to ``like``'s placements where both are placed
+    and they differ, else ``t``."""
+    if is_placed(t) and is_placed(like) and t.placements != like.placements:
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
 def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
     """One device's shard of a ``shape`` under ``spec``: each sharded
-    dimension divided by its axes' size (the rules shard only dimensions
-    that divide)."""
-    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    dimension divided by its axes' size, after ``fit_spec``'s fallback."""
+    spec = fit_spec(shape, spec, mesh)
     return tuple(dim // axis_size(mesh, ax) for dim, ax in zip(shape, spec))
 
 
@@ -276,6 +346,7 @@ def named(mesh, tree: Any) -> Any:
 
 
 __all__ = ["NamedSpec", "SCANNED_GROUPS", "axis_size", "batch_spec",
-           "cache_specs", "data_axes", "items", "local_shape",
-           "map_with_path", "named", "normalize", "param_specs",
-           "replicated", "rule_for", "zero_specs"]
+           "cache_specs", "data_axes", "fit_spec", "is_placed", "items",
+           "local_shape", "map_with_path", "named", "normalize", "param_spec",
+           "param_specs", "placed_as", "placements", "replicated", "rule_for",
+           "zero_specs"]

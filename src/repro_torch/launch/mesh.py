@@ -1,10 +1,15 @@
 """The dry run's meshes: the port of ``repro.launch.mesh``.
 
-A ``MeshSpec`` names axes and their sizes and nothing more: ``.shape``
-is the dict of axis name -> size that the sharding rules read (the JAX
-rules take it too), ``.size`` the device count.  It places nothing
-across cards; running a program over such a mesh waits for a
-partitioner and two or more cards (ROADMAP item 5).
+A ``MeshSpec`` names axes and their sizes: ``.shape`` is the dict of
+axis name -> size that the sharding rules read (the JAX rules take it
+too), ``.size`` the device count.  ``device_mesh(spec)`` makes it a
+``DeviceMesh`` over a ``fake`` process group of ``spec.size`` ranks of
+which this process is rank 0, the counterpart of the JAX dry run's
+fake host devices: DTensors over it hold rank 0's shards, DTensor's
+sharding propagation partitions the program, and the collectives it
+inserts are recorded and move nothing.  One process, with one card or
+none, runs one device's share of a production mesh; placing the other
+shards on other cards waits for two or more cards (ROADMAP item 5b).
 
 * ``make_smoke_mesh()``: (1, 1) over ("data", "model"), the one card;
 * ``make_production_mesh(multi_pod)``: the JAX package's 256 and 512
@@ -17,9 +22,10 @@ partitioner and two or more cards (ROADMAP item 5).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 
 @dataclass(frozen=True)
@@ -52,4 +58,50 @@ def make_smoke_mesh() -> MeshSpec:
     return MeshSpec(("data", "model"), (1, 1))
 
 
-__all__ = ["MeshSpec", "make_production_mesh", "make_smoke_mesh"]
+@contextlib.contextmanager
+def device_mesh(spec: MeshSpec, device: str = "meta") -> Iterator:
+    """A ``DeviceMesh`` of ``spec``'s axes over a ``fake`` process group
+    of ``spec.size`` ranks, this process rank 0; the group is destroyed on
+    exit, so one process can count one mesh after another.  ``device``
+    is where the DTensors' shards live: ``"meta"`` (a count; the mesh is a
+    CPU mesh holding meta shards), ``"cuda"`` (rank 0's shards on the
+    card, which ``init_device_mesh`` selects: device 0) or ``"cpu"``.
+    The ``fake`` backend registers itself when
+    ``torch.testing._internal.distributed.fake_pg`` is imported."""
+    import torch.distributed as dist
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..analysis import roofline
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", rank=0, world_size=spec.size,
+                            store=dist.HashStore())
+    try:
+        mesh = init_device_mesh("cpu" if device == "meta" else device,
+                                spec.sizes, mesh_dim_names=spec.axis_names)
+        roofline.name_groups({mesh.get_group(ax).group_name: ax
+                              for ax in spec.axis_names})
+        _CURRENT.append((spec, mesh))
+        yield mesh
+    finally:
+        if _CURRENT:
+            _CURRENT.pop()
+        roofline.name_groups({})
+        dist.destroy_process_group()
+
+
+_CURRENT: list = []  # (MeshSpec, DeviceMesh) of the open device_mesh
+
+
+def current(spec: MeshSpec):
+    """The ``DeviceMesh`` of the ``device_mesh(spec)`` that is open."""
+    if not _CURRENT or _CURRENT[-1][0] != spec:
+        raise RuntimeError(f"the {spec.name} mesh is a DeviceMesh only "
+                           f"inside device_mesh(spec)")
+    return _CURRENT[-1][1]
+
+
+__all__ = ["MeshSpec", "current", "device_mesh", "make_production_mesh",
+           "make_smoke_mesh"]

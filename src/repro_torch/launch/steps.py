@@ -17,7 +17,13 @@ dtypes, ``cell_shardings`` the specs of every argument over a mesh
 (``distributed.sharding``), ``lower_cell`` the model built on ``meta``
 (no weight drawn) with its step and ``meta`` arguments, and
 ``group_probes`` one application of each repeated group's body, in the
-cell's mode.  ``analysis.roofline.count_costs`` runs them.
+cell's mode.  ``analysis.roofline.count_costs`` runs them.  On a
+production mesh both run inside ``launch.mesh.device_mesh(mesh)`` as
+one device's share: the model's parameters (``lm_specs``, one layer's
+spec of the rules), the inputs and AdamW's state (``zero_specs``) are
+DTensors over its ``DeviceMesh`` (``place``), and the step runs under
+``spmd``, so DTensor partitions it as XLA's SPMD partitioner does the
+JAX package's.
 
 ``apply_variants`` takes the JAX package's variants: ``moe_sorted`` and
 ``cf1`` change the MoE config, ``kv_int8`` (in ``lower_cell``) sets
@@ -42,6 +48,7 @@ from ..distributed import sharding as shard_rules
 from ..models.model import LM, group_plan
 from ..optim import adamw, schedules
 from ..optim.adamw import AdamWState
+from . import mesh as mesh_mod
 
 
 def make_train_step(model: LM, arch_name: str, *,
@@ -233,6 +240,108 @@ def cell_shardings(cfg: ArchConfig, shape: ShapeCfg, mesh, model: LM,
     return out
 
 
+# ----------------------------------------------------------------------
+# placing a cell's tensors over a DeviceMesh (launch.mesh.device_mesh)
+# ----------------------------------------------------------------------
+Make = Callable[[str, torch.Tensor, Tuple[int, ...]], torch.Tensor]
+
+
+def _empty(_, t, shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=t.dtype, device=META)
+
+
+def place(t: torch.Tensor, spec, dmesh, make: Make = _empty,
+          name: str = "") -> torch.Tensor:
+    """A DTensor of ``t``'s shape and dtype placed by ``spec`` (after
+    ``sharding.fit_spec``'s fallback) over the ``DeviceMesh`` ``dmesh``,
+    whose rank-0 shard is ``make(name, t, local shape)``: an empty
+    ``meta`` tensor by default, or the shard's values drawn on the card
+    (``chip_smoke.py``), so no whole tensor is made."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    spec = shard_rules.fit_spec(tuple(t.shape), spec, dmesh_spec(dmesh))
+    pl = shard_rules.placements(spec, dmesh)
+    local = list(t.shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= dmesh.size(i)
+    return DTensor.from_local(make(name, t, tuple(local)), dmesh, pl,
+                              run_check=False, shape=t.shape,
+                              stride=torch.empty(t.shape, device=META)
+                              .stride())
+
+
+def dmesh_spec(dmesh):
+    """The ``MeshSpec`` of a ``DeviceMesh``."""
+    return mesh_mod.MeshSpec(tuple(dmesh.mesh_dim_names),
+                             tuple(dmesh.mesh.shape))
+
+
+def place_tree(tree: Any, specs: Any, dmesh, make: Make = _empty,
+               name: str = "") -> Any:
+    """``place`` over every leaf of a nested dict and its spec tree, each
+    named by its path from ``name`` ("caches.blocks.l0.k")."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, specs[k], dmesh, make, f"{name}.{k}")
+                for k, v in tree.items()}
+    return place(tree, specs, dmesh, make, name)
+
+
+def lm_specs(model: LM, mesh) -> Dict[str, Tuple]:
+    """Each of ``model``'s parameters' spec, by its name: the rules'
+    spec of its leaf in the JAX package's tree, without the leading
+    layer dimension of a ``SCANNED_GROUPS`` leaf (one layer's
+    parameters)."""
+    return {name: shard_rules.param_spec(name.split("."), tuple(p.shape),
+                                         mesh)
+            for name, p in model.named_parameters()}
+
+
+def place_model(model: LM, specs: Dict[str, Tuple], dmesh,
+                make: Make = _empty) -> None:
+    """Replace each of ``model``'s parameters by a DTensor placed by its
+    spec (``lm_specs``), its shard made by ``make``; the parameters stay
+    frozen."""
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        new = torch.nn.Parameter(place(p, specs[name], dmesh, make, name),
+                                 requires_grad=False)
+        if isinstance(module, torch.nn.ParameterDict):
+            module[leaf] = new
+        else:
+            setattr(module, leaf, new)
+
+
+def place_opt_state(model: LM, specs: Dict[str, Tuple], mesh, dmesh,
+                    make: Make = _empty) -> AdamWState:
+    """AdamW's state for ``model``'s parameters placed by ``specs``: fp32
+    m, v and master of each parameter's shape placed by
+    ``sharding.zero_specs`` (the ZeRO-3 shard over the data axes)."""
+    params = {n: p for n, p in model.named_parameters()}
+    zspecs = shard_rules.zero_specs(specs, params, mesh)
+
+    def tree(kind):
+        return {n: place(_meta(tuple(p.shape), torch.float32), zspecs[n],
+                         dmesh, make, f"opt.{kind}.{n}")
+                for n, p in params.items()}
+
+    return AdamWState(step=0, m=tree("m"), v=tree("v"),
+                      master=tree("master"))
+
+
+def spmd(fn: Callable) -> Callable:
+    """``fn`` run with plain tensors taken as replicated wherever they
+    meet DTensors (positions, masks and the like made inside the step)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def run(*args, **kwargs):
+        with implicit_replication():
+            return fn(*args, **kwargs)
+
+    return run
+
+
 def named_tree(mesh, tree):
     """Each spec of ``tree`` paired with ``mesh``
     (``sharding.NamedSpec``)."""
@@ -278,32 +387,63 @@ def _cell_model(cfg: ArchConfig, variants: frozenset) -> Tuple[ArchConfig,
 
 
 def lower_cell(cfg: ArchConfig, shape: ShapeCfg, mesh, *,
-               variants: frozenset = frozenset()) -> Tuple[Lowered, LM]:
+               variants: frozenset = frozenset(), make: Make = _empty
+               ) -> Tuple[Lowered, LM]:
     """(the cell's step on ``meta``, the model): a train step (forward,
     backward and AdamW) over the batch, a prefill, or one decode token
-    against ``seq_len`` slots of cache."""
+    against ``seq_len`` slots of cache.  On a production mesh, inside
+    ``launch.mesh.device_mesh(mesh)``, one device's share: the model,
+    the arguments and AdamW's state placed as DTensors (``place``, rank
+    0's shards made by ``make``, named "embed", "layers.0.attn.wq", ...,
+    "batch.tokens", "token", "caches.blocks.l0.k", "pos",
+    "opt.m.embed", ...), the step run under ``spmd``."""
     cfg, model = _cell_model(cfg, variants)
     specs = input_specs(cfg, shape, model)
     shardings = cell_shardings(cfg, shape, mesh, model, specs, variants)
     params = params_tree(model)
+    run, given, pspecs = _placed(model, mesh, shardings, specs, variants,
+                                 make)
     if shape.kind == "train":
         step = make_train_step(model, cfg.name)
-        opt_state = adamw.init(dict(model.named_parameters()))
+        opt_state = (adamw.init(dict(model.named_parameters()))
+                     if mesh.size == 1 else
+                     place_opt_state(model, pspecs, mesh,
+                                     mesh_mod.current(mesh), make))
         arg_specs = {"params": params, "opt": opt_tree(params),
                      "batch": specs["batch"]}
-        return Lowered(step, (specs["batch"], opt_state), arg_specs,
+        return Lowered(run(step), (given["batch"], opt_state), arg_specs,
                        shardings), model
     if shape.kind == "prefill":
         step = make_prefill_step(model, shape.seq_len)
-        return Lowered(step, (specs["batch"],),
+        return Lowered(run(step), (given["batch"],),
                        {"params": params, "batch": specs["batch"]},
                        shardings), model
     with_enc = cfg.encdec is not None
     step = make_decode_step(model, with_enc=with_enc)
     names = ("token", "caches", "pos") + (("enc",) if with_enc else ())
     arg_specs = {"params": params, **{k: specs[k] for k in names}}
-    return Lowered(step, tuple(specs[k] for k in names), arg_specs,
+    return Lowered(run(step), tuple(given[k] for k in names), arg_specs,
                    shardings), model
+
+
+def _placed(model: LM, mesh, shardings: Dict[str, Any],
+            specs: Dict[str, Any], variants: frozenset, make: Make = _empty
+            ) -> Tuple[Callable, Dict[str, Any], Dict[str, Tuple]]:
+    """On the one-card mesh (identity, ``specs``, None); on a production
+    mesh (``spmd``, ``specs`` placed by ``shardings``, the parameters'
+    specs), with ``model``'s parameters placed by ``lm_specs``
+    (replicated under ``dp_only``): one device's share of the cell, over
+    ``launch.mesh.current(mesh)``."""
+    if mesh.size == 1:
+        return (lambda fn: fn), specs, None
+    dmesh = mesh_mod.current(mesh)
+    pspecs = lm_specs(model, mesh)
+    if "dp_only" in variants:
+        pspecs = {n: (None,) * len(s) for n, s in pspecs.items()}
+    place_model(model, pspecs, dmesh, make)
+    given = {k: place_tree(v, shardings[k], dmesh, make, k)
+             for k, v in specs.items()}
+    return spmd, given, pspecs
 
 
 # ----------------------------------------------------------------------
@@ -320,9 +460,18 @@ def group_probes(cfg: ArchConfig, shape: ShapeCfg, mesh,
     cfg, model = _cell_model(cfg, variants)
     B, T = shape.global_batch, shape.seq_len
     layer0, out = 0, []
-    specs = input_specs(cfg, shape, model) if shape.kind == "decode" else {}
+    specs = input_specs(cfg, shape, model)
     enc = (_meta((B, cfg.encdec.n_audio_frames, cfg.d_model), torch.bfloat16)
            if cfg.encdec is not None else None)
+    shardings = cell_shardings(cfg, shape, mesh, model, specs, variants)
+    run, specs, _ = _placed(model, mesh, shardings, specs, variants)
+    if mesh.size > 1:  # x and enc over the batch's axes, as the step's
+        daxes = (tuple(mesh.shape) if "dp_only" in variants
+                 else shard_rules.data_axes(mesh))
+        bspec = (daxes,)
+        dmesh = mesh_mod.current(mesh)
+        enc = (place(enc, bspec + (None, None), dmesh)
+               if enc is not None else None)
     for gname, pattern, repeat in group_plan(cfg):
         blocks = list(model.layers[layer0:layer0 + len(pattern)])
         first = layer0
@@ -331,6 +480,8 @@ def group_probes(cfg: ArchConfig, shape: ShapeCfg, mesh,
             continue
         if shape.kind == "decode":
             x = _meta((B, 1, cfg.d_model), torch.bfloat16)
+            if mesh.size > 1:
+                x = place(x, bspec + (None, None), dmesh)
             caches = [model._layer_cache(specs["caches"], first + i)
                       for i in range(len(pattern))]
 
@@ -343,6 +494,8 @@ def group_probes(cfg: ArchConfig, shape: ShapeCfg, mesh,
             args = (x, caches, specs["pos"], specs.get("enc"))
         else:
             x = _meta((B, T, cfg.d_model), torch.bfloat16)
+            if mesh.size > 1:
+                x = place(x, bspec + (None, None), dmesh)
 
             def body(x, blocks=blocks):
                 for blk in blocks:
@@ -361,11 +514,12 @@ def group_probes(cfg: ArchConfig, shape: ShapeCfg, mesh,
                     with torch.no_grad():
                         return body(x)
             args = (x,)
-        out.append((gname, repeat, Lowered(probe, args, {}, {})))
+        out.append((gname, repeat, Lowered(run(probe), args, {}, {})))
     return out
 
 
 __all__ = ["Lowered", "apply_variants", "batch_specs", "cell_shardings",
-           "group_probes", "input_specs", "lower_cell", "make_decode_step",
-           "make_prefill_step", "make_train_step", "meta_model",
-           "named_tree", "opt_tree", "params_tree"]
+           "group_probes", "input_specs", "lm_specs", "lower_cell",
+           "make_decode_step", "make_prefill_step", "make_train_step",
+           "meta_model", "named_tree", "opt_tree", "params_tree", "place",
+           "place_model", "place_opt_state", "place_tree", "spmd"]

@@ -39,13 +39,16 @@ weights to bf16; the kernel keeps them in fp32.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..kernels.flash_attention import mha
 from ..kernels.paged_attention import paged_mqa
-from .common import apply_rope, dense_init
+from ..distributed.sharding import is_placed
+from .common import (apply_rope, contiguous_meta, dense_init, local_heads,
+                     merge_heads, split_heads)
 
 Params = Dict[str, torch.Tensor]
 
@@ -78,7 +81,6 @@ def init_attn(gen: torch.Generator, cfg) -> Params:
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, T, _ = x.shape
     dh = cfg.head_dim
     q = torch.matmul(x, p["wq"])
     k = torch.matmul(x, p["wk"])
@@ -87,9 +89,9 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, T, cfg.n_heads, dh)
-    k = k.reshape(B, T, cfg.n_kv_heads, dh)
-    v = v.reshape(B, T, cfg.n_kv_heads, dh)
+    q = split_heads(q, cfg.n_heads, dh)
+    k = split_heads(k, cfg.n_kv_heads, dh)
+    v = split_heads(v, cfg.n_kv_heads, dh)
     return q, k, v
 
 
@@ -100,28 +102,39 @@ def attn_forward(p: Params, x: torch.Tensor, cfg, *,
     config's sliding window, or bidirectional; differentiable through
     ``mha``, whose backward runs the flash-attention backward kernel.
     x: [B, T, D]; returns [B, T, D]."""
-    B, T, _ = x.shape
+    T = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg)
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = mha(q, k, v, causal=causal,
-              window=cfg.sliding_window if causal else None)
-    return torch.matmul(out.reshape(B, T, -1), p["wo"])
+    out = _mha(q, k, v, causal=causal,
+               window=cfg.sliding_window if causal else None)
+    return torch.matmul(merge_heads(out), p["wo"])
+
+
+_BHD = (0, 2)  # [B, T, H, dh]: the batch and the heads
+
+
+def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool, window: Optional[int]) -> torch.Tensor:
+    """``mha`` on each device's batch and heads (``local_heads``)."""
+    return local_heads(lambda q, k, v: mha(q, k, v, causal=causal,
+                                           window=window),
+                       (q, k, v), (_BHD,) * 3, (_BHD,))
 
 
 def attn_prefill(p: Params, x: torch.Tensor, cfg
                  ) -> Tuple[torch.Tensor, Params]:
     """Prefill: causal attention over the prompt (``mha``), and this
     layer's KV cache ({"k", "v"}: [B, T, Hk, dh], after RoPE)."""
-    B, T, _ = x.shape
+    T = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg)
     positions = torch.arange(T, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = mha(q, k, v, causal=True, window=cfg.sliding_window)
-    y = torch.matmul(out.reshape(B, T, -1), p["wo"])
+    out = _mha(q, k, v, causal=True, window=cfg.sliding_window)
+    y = torch.matmul(merge_heads(out), p["wo"])
     return y, {"k": k, "v": v}
 
 
@@ -152,27 +165,105 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     every layer shares them.  An int8 cache takes the new k and v
     quantized (``quantize_kv``) and is read dequantized by the kernel."""
     B = x.shape[0]
-    S, Hk, dh = cache["k"].shape[1:]
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
-    rows = torch.arange(B, device=x.device)
     quant = cache["k"].dtype == torch.int8
-    store = quantize_kv if quant else (lambda t: t.to(cache["k"].dtype))
-    cache["k"][rows, pos] = store(k_new[:, 0])
-    cache["v"][rows, pos] = store(v_new[:, 0])
-    if block_table is None:
-        block_table = identity_pages(B, S, page_size, x.device)
-    if seq_lens is None:
-        seq_lens = (pos + 1).to(torch.int32)
-    pages_k = cache["k"].reshape(-1, page_size, Hk, dh)
-    pages_v = cache["v"].reshape(-1, page_size, Hk, dh)
     q_dtype = x.dtype if quant else cache["k"].dtype
-    out = paged_mqa(q[:, 0].to(q_dtype).contiguous(), pages_k, pages_v,
-                    block_table, seq_lens, cfg.sliding_window,
-                    kv_scale=1.0 / KV_QSCALE if quant else None)
+
+    def store_and_attend(q, k_new, v_new, ck, cv, pos):
+        """One device's share: its sequences and heads."""
+        b, S, Hk, dh = ck.shape
+        rows = torch.arange(b, device=q.device)
+        store = quantize_kv if quant else (lambda t: t.to(ck.dtype))
+        ck[rows, pos] = store(k_new[:, 0])
+        cv[rows, pos] = store(v_new[:, 0])
+        table, lens = block_table, seq_lens
+        if table is None:
+            table = identity_pages(b, S, page_size, q.device)
+        if lens is None:
+            lens = (pos + 1).to(torch.int32)
+        return paged_mqa(q[:, 0].to(q_dtype).contiguous(),
+                         ck.reshape(-1, page_size, Hk, dh),
+                         cv.reshape(-1, page_size, Hk, dh), table, lens,
+                         cfg.sliding_window,
+                         kv_scale=1.0 / KV_QSCALE if quant else None)
+
+    args = (q, k_new, v_new, cache["k"], cache["v"], pos)
+    if is_placed(cache["k"]) and any(p.is_shard(1)
+                                     for p in cache["k"].placements):
+        out = _seq_sharded_decode(args, cfg, quant)
+    else:
+        out = local_heads(store_and_attend, args, (_BHD,) * 5 + ((0, None),),
+                          ((0, 1),), in_place=(3, 4))
     y = torch.matmul(out.to(x.dtype).reshape(B, 1, -1), p["wo"])
     return y, cache
+
+
+def _seq_sharded_decode(args, cfg, quant: bool) -> torch.Tensor:
+    """The decode attention over a cache whose slots are sharded (the
+    ``long_500k`` cells' sequence parallelism: the slots over the data
+    axes, the kv heads over "model"), each device on its slots
+    (``local_map``): the new key and value written by the device that
+    holds slot ``pos``, the softmax over its live slots as plain ops
+    (the paged kernel returns no log-sum-exp to combine shards with),
+    then the shards' maxima and sums all-reduced over the slots' mesh
+    dimensions, as flash decoding combines splits.  Returns [B, H, dh]
+    in fp32."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    q, k_new, v_new, ck, cv, pos = args
+    mesh = ck.device_mesh
+    pl = ck.placements
+    seq = [i for i, p in enumerate(pl) if p == Shard(1)]
+
+    def like(p, heads):  # a [B, ..., H, ...] tensor's placement on a dim
+        return (p if p == Shard(0) else Shard(heads) if p == Shard(2)
+                else Replicate())
+
+    bhd = tuple(like(p, 2) for p in pl)
+    batch = tuple(like(p, None) if p != Shard(2) else Replicate()
+                  for p in pl)
+
+    def attend(q, k_new, v_new, ck, cv, pos):
+        b, S, Hk, dh = ck.shape
+        shard = 0
+        for i in seq:
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+        off = shard * S
+        rows = torch.arange(b, device=q.device)
+        slot = (pos - off).clamp(0, S - 1)
+        mine = ((pos >= off) & (pos < off + S))[:, None, None]
+        store = quantize_kv if quant else (lambda t: t.to(ck.dtype))
+        for c, new in ((ck, k_new), (cv, v_new)):
+            c[rows, slot] = torch.where(mine, store(new[:, 0]), c[rows, slot])
+        scale = 1.0 / KV_QSCALE if quant else 1.0
+        H = q.shape[2]
+        qg = q[:, 0].float().reshape(b, Hk, H // Hk, dh)
+        s = torch.einsum("bkgd,bskd->bkgs", qg, ck.float() * scale) \
+            * (1.0 / math.sqrt(dh))
+        at = off + torch.arange(S, device=q.device)[None, :]
+        live = at <= pos[:, None]
+        if cfg.sliding_window is not None:
+            live &= at > pos[:, None] - cfg.sliding_window
+        s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+        m = s.amax(-1, keepdim=True).clamp_min(-1e30)
+        for i in seq:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        w = torch.exp(s - m)
+        o = torch.einsum("bkgs,bskd->bkgd", w, cv.float() * scale)
+        ol = torch.cat([o, w.sum(-1, keepdim=True)], dim=-1)
+        for i in seq:
+            ol = funcol.all_reduce(ol, "sum", (mesh, i))
+        return (ol[..., :dh] / ol[..., dh:]).reshape(b, H, dh)
+
+    out_pl = tuple(Shard(1) if p == Shard(2) else p for p in bhd)
+    return contiguous_meta(local_map(
+        attend, out_placements=list(out_pl),
+        in_placements=(bhd, bhd, bhd, pl, pl, batch), device_mesh=mesh,
+        redistribute_inputs=True)(*args))
 
 
 def init_cross_attn(gen: torch.Generator, cfg) -> Params:
@@ -187,14 +278,12 @@ def cross_attn_forward(p: Params, x: torch.Tensor, enc: torch.Tensor,
     kernel (``mha``, not causal), differentiable in x and enc; at decode
     T = 1 and k, v are projected from ``enc`` anew each step, as the JAX
     package does.  Returns [B, T, D]."""
-    B, T, _ = x.shape
-    S = enc.shape[1]
     dh = cfg.head_dim
-    q = torch.matmul(x, p["wq"]).reshape(B, T, cfg.n_heads, dh)
-    k = torch.matmul(enc, p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
-    v = torch.matmul(enc, p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
-    out = mha(q, k, v, causal=False)
-    return torch.matmul(out.reshape(B, T, -1), p["wo"])
+    q = split_heads(torch.matmul(x, p["wq"]), cfg.n_heads, dh)
+    k = split_heads(torch.matmul(enc, p["wk"]), cfg.n_kv_heads, dh)
+    v = split_heads(torch.matmul(enc, p["wv"]), cfg.n_kv_heads, dh)
+    out = _mha(q, k, v, causal=False, window=None)
+    return torch.matmul(merge_heads(out), p["wo"])
 
 
 __all__ = ["KV_QSCALE", "PAGE_SIZE", "attn_decode", "attn_forward",

@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan import ssd_heads
-from .common import dense_init
+from .common import (dense_init, local_heads, merge_heads, reduce_like,
+                     split_heads)
 
 Params = Dict[str, torch.Tensor]
 
@@ -77,9 +78,17 @@ def _ssm_inputs(p: Params, xs: torch.Tensor):
     from the conv output ``xs`` [..., d_in], contiguous as the SSD
     kernel takes them."""
     B_, C_ = torch.matmul(xs, p["w_bc"]).chunk(2, dim=-1)
-    dt = F.softplus(torch.matmul(xs, p["w_dt"]).float() + p["dt_bias"])
+    dt = F.softplus(reduce_like(torch.matmul(xs, p["w_dt"]), p["dt_bias"])
+                    .float() + p["dt_bias"])
     return (B_.contiguous(), C_.contiguous(), dt.contiguous(),
             -torch.exp(p["A_log"]))
+
+
+# (batch, heads) dimensions of ssd_heads' x [B, T, H, dh], dt [B, T, H],
+# B_ and C_ [B, T, N], A [H] (and a state [B, H, dh, N]), and of its y
+# and final state
+_SSD_DIMS = ((0, 2), (0, 2), (0, None), (0, None), (None, 0))
+_SSD_OUT = ((0, 2), (0, 1))
 
 
 def mamba_forward(p: Params, x: torch.Tensor, cfg, *,
@@ -88,17 +97,18 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, *,
     ``return_state`` also returns {"ssm": [B, H, dh, N] fp32, "conv":
     the last K - 1 pre-conv inputs [B, K - 1, d_in]}."""
     m = cfg.mamba
-    Bsz, T, D = x.shape
+    T, D = x.shape[1:]
     d_in = m.expand * D
     H = d_in // m.head_dim
     xz = torch.matmul(x, p["w_in"])
     xs, z = xz[..., :d_in], xz[..., d_in:]
     xs = F.silu(_conv1d(xs, p["w_conv"]))
     B_, C_, dt, A = _ssm_inputs(p, xs)
-    xh = xs.reshape(Bsz, T, H, m.head_dim).contiguous()
-    y, final = ssd_heads(xh, dt, B_, C_, A)
+    xh = split_heads(xs, H, m.head_dim).contiguous()
+    y, final = local_heads(ssd_heads, (xh, dt, B_, C_, A), _SSD_DIMS,
+                           _SSD_OUT)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
-    y = y.reshape(Bsz, T, d_in) * F.silu(z)
+    y = merge_heads(y) * F.silu(z)
     out = torch.matmul(y, p["w_out"])
     if return_state:
         # decode resumes the conv with the last K - 1 pre-conv inputs
@@ -139,9 +149,10 @@ def mamba_decode(p: Params, x: torch.Tensor, state: Params, cfg
     B_, C_, dt, A = _ssm_inputs(p, h)
     # on the card the conv's einsum may leave h strided: the kernel
     # takes contiguous rows
-    xh = h.reshape(Bsz, 1, H, m.head_dim).float().contiguous()
-    y, ssm = ssd_heads(xh, dt[:, None], B_.float()[:, None],
-                       C_.float()[:, None], A, state["ssm"])
+    xh = split_heads(h, H, m.head_dim)[:, None].float().contiguous()
+    y, ssm = local_heads(ssd_heads, (xh, dt[:, None], B_.float()[:, None],
+                                     C_.float()[:, None], A, state["ssm"]),
+                         _SSD_DIMS + ((0, 1),), _SSD_OUT)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(Bsz, d_in).to(x.dtype) * F.silu(z)
     out = torch.matmul(y, p["w_out"])[:, None]

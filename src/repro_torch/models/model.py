@@ -91,8 +91,8 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
-from .common import (MetaGenerator, dense_init, norm, norm_params,
-                     softmax_xent)
+from .common import (MetaGenerator, dense_init, is_placed, lookup, norm,
+                     norm_params, residual, softmax_xent)
 
 Params = Dict[str, torch.Tensor]
 
@@ -284,8 +284,8 @@ class LM(nn.Module):
             if hasattr(blk, "moe_shared"):
                 p["shared"] = blk.moe_shared
             y, aux = ffn_mod.moe_forward(p, h2, cfg)
-            return x + y, aux
-        return x + ffn_mod.mlp_forward(blk.ffn, h2, cfg.mlp), None
+            return residual(x, y), aux
+        return residual(x, ffn_mod.mlp_forward(blk.ffn, h2, cfg.mlp)), None
 
     def _cross(self, blk: Block, x: torch.Tensor,
                enc: Optional[torch.Tensor]) -> torch.Tensor:
@@ -295,7 +295,7 @@ class LM(nn.Module):
             return x
         cfg = self.cfg
         h3 = norm(x, blk.ln3, cfg.norm, cfg.norm_eps)
-        return x + attn.cross_attn_forward(blk.cross, h3, enc, cfg)
+        return residual(x, attn.cross_attn_forward(blk.cross, h3, enc, cfg))
 
     # ------------------------------------------------------------------
     # the front ends: Whisper's encoder, InternVL's projector
@@ -310,8 +310,8 @@ class LM(nn.Module):
         x = frames.to(self.device, self.dtype)
         for blk in self.encoder:
             h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
-            x = self._ffn(blk, x + attn.attn_forward(blk.attn, h, cfg,
-                                                     causal=False))
+            x = self._ffn(blk, residual(x, attn.attn_forward(
+                blk.attn, h, cfg, causal=False)))
         return norm(x, self.enc_norm, cfg.norm, cfg.norm_eps)
 
     def _embed_inputs(self, batch: Dict[str, torch.Tensor]
@@ -320,7 +320,7 @@ class LM(nn.Module):
         None): the tokens' embeddings, after InternVL's projected
         patches [B, P, D]; Whisper's frames through ``_encode``."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"].to(self.device)]
+        x = lookup(self.embed, batch["tokens"].to(self.device))
         enc = None
         if cfg.encdec is not None:
             enc = self._encode(batch["frames"])
@@ -363,14 +363,14 @@ class LM(nn.Module):
         h = norm(x, blk.ln1, cfg.norm, cfg.norm_eps)
         mixer = blk.kind[0]
         if mixer == "rwkv":
-            x = x + rwkv_mod.rwkv_forward(blk.rwkv, h, cfg)
+            x = residual(x, rwkv_mod.rwkv_forward(blk.rwkv, h, cfg))
             h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
-            return x + rwkv_mod.channel_mix(blk.rwkv, h2), None
+            return residual(x, rwkv_mod.channel_mix(blk.rwkv, h2)), None
         if mixer == "mamba":
             y = mamba_mod.mamba_forward(blk.mamba, h, cfg)
         else:
             y = attn.attn_forward(blk.attn, h, cfg)
-        return self._ffn_aux(blk, self._cross(blk, x + y, enc))
+        return self._ffn_aux(blk, self._cross(blk, residual(x, y), enc))
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean token cross-entropy against ``batch["labels"]`` plus 0.01
@@ -461,9 +461,9 @@ class LM(nn.Module):
             if mixer == "rwkv":
                 y, tm = rwkv_mod.rwkv_forward(blk.rwkv, h, cfg,
                                               return_state=True)
-                x = x + y
+                x = residual(x, y)
                 h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
-                x = x + rwkv_mod.channel_mix(blk.rwkv, h2)
+                x = residual(x, rwkv_mod.channel_mix(blk.rwkv, h2))
                 per_layer.append({"wkv": tm["wkv"],
                                   "shift_tm": tm["shift"].to(x.dtype),
                                   "shift_cm": h2[:, -1].to(x.dtype)})
@@ -475,7 +475,7 @@ class LM(nn.Module):
                 y, cache = attn.attn_prefill(blk.attn, h, cfg)
                 cache = {k: v.to(x.dtype) for k, v in cache.items()}
             per_layer.append(cache)
-            x = self._ffn(blk, self._cross(blk, x + y, enc))
+            x = self._ffn(blk, self._cross(blk, residual(x, y), enc))
         return self._logits(x[:, -1]), self._stack(per_layer)
 
     @torch.no_grad()
@@ -501,13 +501,15 @@ class LM(nn.Module):
                                  "encoder's output: pass enc=_encode("
                                  "frames)")
             enc = enc.to(self.device, self.dtype)
-        x = self.embed[token.to(self.device)][:, None]
+        x = lookup(self.embed, token.to(self.device))[:, None]
         pos = pos.to(self.device, torch.int64)
         pages = None
         for layer, blk in enumerate(self.layers):
             cache = self._layer_cache(caches, layer)
-            if pages is None and "k" in cache:  # every attention layer
-                B, S = cache["k"].shape[:2]    # shares them
+            # every attention layer shares them (a placed cache's
+            # layers make their shares' own)
+            if pages is None and "k" in cache and not is_placed(cache["k"]):
+                B, S = cache["k"].shape[:2]
                 pages = (attn.identity_pages(B, S, page_size, self.device),
                          (pos + 1).to(torch.int32))
             x, state = self._decode_layer(blk, x, cache, pos, enc, pages,
@@ -530,11 +532,11 @@ class LM(nn.Module):
         mixer = blk.kind[0]
         if mixer == "rwkv":
             y, tm = rwkv_mod.rwkv_decode(blk.rwkv, h, cache, cfg)
-            x = x + y
+            x = residual(x, y)
             h2 = norm(x, blk.ln2, cfg.norm, cfg.norm_eps)
             y2, shift_cm = rwkv_mod.channel_mix_decode(
                 blk.rwkv, h2, cache["shift_cm"])
-            return x + y2, {**tm, "shift_cm": shift_cm}
+            return residual(x, y2), {**tm, "shift_cm": shift_cm}
         state = None
         if mixer == "mamba":
             y, state = mamba_mod.mamba_decode(blk.mamba, h, cache, cfg)
@@ -543,7 +545,7 @@ class LM(nn.Module):
             y, _ = attn.attn_decode(blk.attn, h, cache, cfg, pos=pos,
                                     page_size=page_size, block_table=table,
                                     seq_lens=lens)
-        return self._ffn(blk, self._cross(blk, x + y, enc)), state
+        return self._ffn(blk, self._cross(blk, residual(x, y), enc)), state
 
 
 def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:

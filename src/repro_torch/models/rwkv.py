@@ -33,7 +33,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.rwkv6_scan import wkv6_heads
-from .common import dense_init
+from ..distributed.sharding import placed_as
+from .common import dense_init, local_heads, merge_heads, split_heads
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,16 +77,22 @@ def _blend(x: torch.Tensor, xprev: torch.Tensor, mu: torch.Tensor,
 def _time_mix_inputs(p: Params, x: torch.Tensor, xprev: torch.Tensor, cfg):
     """r, k, v [B, T, H, dh] in x's dtype and the log decay logw
     [B, T, H, dh] fp32 (below 0) for inputs x and x_{t-1}: [B, T, D]."""
-    B, T, D = x.shape
+    D = x.shape[-1]
     dh = cfg.rwkv.head_dim
     mu = p["mu"].to(x.dtype)
-    r, k, v = (torch.matmul(_blend(x, xprev, mu, i), p[name])
-               .reshape(B, T, D // dh, dh)
+    r, k, v = (split_heads(torch.matmul(_blend(x, xprev, mu, i), p[name]),
+                           D // dh, dh)
                for i, name in enumerate(("w_r", "w_k", "w_v")))
     # data-dependent decay (Finch): w_t = exp(-exp(decay(x_t)))
     dd = torch.matmul(_blend(x, xprev, mu, 3), p["w_decay"]).float()
     logw = -torch.exp(dd + p["decay_bias"])
-    return r, k, v, logw.reshape(B, T, D // dh, dh)
+    return r, k, v, split_heads(logw, D // dh, dh)
+
+
+# (batch, heads) dimensions of wkv6_heads' r, k, v, logw [B, T, H, dh],
+# u [H, dh] (and a state [B, H, dh, dh]), and of its y and final state
+_WKV_DIMS = ((0, 2),) * 4 + ((None, 0),)
+_WKV_OUT = ((0, 2), (0, 1))
 
 
 def rwkv_forward(p: Params, x: torch.Tensor, cfg, *,
@@ -94,12 +101,13 @@ def rwkv_forward(p: Params, x: torch.Tensor, cfg, *,
     """Time mixing over a full sequence from a zero WKV state.
     x: [B, T, D] (post-norm input).  With ``return_state`` also returns
     {"wkv": [B, H, dh, dh] fp32, "shift": x[:, -1]}."""
-    B, T, D = x.shape
+    B, _, D = x.shape
     prev = prev_token if prev_token is not None \
         else torch.zeros(B, D, dtype=x.dtype, device=x.device)
     r, k, v, logw = _time_mix_inputs(p, x, _token_shift(x, prev), cfg)
-    y, final = wkv6_heads(r, k, v, logw, p["bonus_u"])
-    out = torch.matmul(y.reshape(B, T, D), p["w_o"])
+    y, final = local_heads(wkv6_heads, (r, k, v, logw, p["bonus_u"]),
+                           _WKV_DIMS, _WKV_OUT)
+    out = torch.matmul(merge_heads(y), p["w_o"])
     if return_state:
         return out, {"wkv": final, "shift": x[:, -1]}
     return out
@@ -112,7 +120,9 @@ def _channel_mix(p: Params, x: torch.Tensor,
                                              p["cm_k"])))
     kv = torch.matmul(k, p["cm_v"])
     rgate = torch.sigmoid(torch.matmul(_blend(x, xprev, mu, 1), p["cm_r"]))
-    return rgate * kv
+    # placed: kv's partial sums scattered to rgate's shards of D, which
+    # leaves the tokens where they are
+    return rgate * placed_as(kv, rgate)
 
 
 def channel_mix(p: Params, x: torch.Tensor,
@@ -145,7 +155,9 @@ def rwkv_decode(p: Params, x: torch.Tensor, state: Params, cfg
     B, _, D = x.shape
     xprev = state["shift_tm"].to(x.dtype)[:, None]
     r, k, v, logw = _time_mix_inputs(p, x, xprev, cfg)
-    o, wkv = wkv6_heads(r, k, v, logw, p["bonus_u"], state["wkv"])
+    o, wkv = local_heads(wkv6_heads,
+                         (r, k, v, logw, p["bonus_u"], state["wkv"]),
+                         _WKV_DIMS + ((0, 1),), _WKV_OUT)
     out = torch.matmul(o.reshape(B, 1, D), p["w_o"])
     return out, {"wkv": wkv,
                  "shift_tm": x[:, 0].to(state["shift_tm"].dtype)}

@@ -8,7 +8,16 @@ dicts of tensors keyed by the model's parameter names (the port
 under ``no_grad``: the JAX package builds a new tree, whose whole-tree
 ``g.astype(float32) * scale`` alone would be 12 GB more at MiniCPM-2B;
 here one leaf's fp32 gradient is alive at a time.  The arithmetic is the
-JAX package's, in fp32.  The JAX package's ``init_spec`` (an
+JAX package's, in fp32.
+
+Over a production mesh the parameters, gradients and state are
+DTensors, and ``update`` does the ZeRO step that XLA's partitioner
+inserts in the JAX program: each gradient is redistributed to its
+moment's placement (``launch.steps.place_opt_state``: a reduce-scatter
+over the data axes), the norm and m, v and master are computed on those
+shards, and the new master, cast to the parameter's dtype, is
+redistributed to the parameter's placement (an all-gather) before it is
+copied in.  The JAX package's ``init_spec`` (an
 ``eval_shape`` for the dry run) has no counterpart here.
 """
 
@@ -17,6 +26,8 @@ from __future__ import annotations
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..distributed.sharding import is_placed, placed_as
 
 Params = Dict[str, torch.Tensor]
 
@@ -44,7 +55,8 @@ def init(params: Mapping[str, torch.Tensor]) -> AdamWState:
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32 (a 0-d tensor on
-    the leaves' device)."""
+    the leaves' device); over placed leaves, their shards' sums reduced
+    over the mesh."""
     with torch.no_grad():
         return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in tree.values()))
@@ -65,6 +77,7 @@ def update(grads: Mapping[str, torch.Tensor], state: AdamWState,
     step = state.step + 1
     lr = _f32(float(lr))
     with torch.no_grad():
+        grads = {k: placed_as(grads[k], state.m[k]) for k in params}
         scale = None
         if clip_norm is not None:
             gnorm = global_norm(grads)
@@ -84,7 +97,7 @@ def update(grads: Mapping[str, torch.Tensor], state: AdamWState,
             upd = (m / b1c).div_(torch.sqrt(v / b2c).add_(eps))
             w.sub_(upd.add_(w, alpha=weight_decay).mul_(lr))
             del upd
-            p.copy_(w)
+            p.copy_(placed_as(w.to(p.dtype), p) if is_placed(p) else w)
     return dict(params), AdamWState(step=step, m=state.m, v=state.v,
                                     master=state.master)
 

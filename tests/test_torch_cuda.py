@@ -28,12 +28,17 @@ chunk-parallel on the tensor cores, otherwise the serial walk of the
 same recurrences): bf16 gradients elementwise within the attention's 4
 bf16 unit roundoffs, float32 ones (and every fp32 output: dlogw, du,
 ddt, dA, the input state's gradient) within 2e-5 of their largest
-magnitude, two calls bit-identical.
+magnitude, two calls bit-identical.  The fake process group's mesh on
+the card (``launch.mesh.device_mesh(mesh, "cuda")``) holds rank 0's
+shards there, and ``mha`` over DTensors launches the flash-attention
+kernel once on the local shard, bit-identical to the kernel on the
+local tensors.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Replicate
 
 from repro_torch.api import Plan, open_index
 from repro_torch.configs import get_arch, layer_kinds
@@ -51,7 +56,10 @@ from repro_torch.kernels import probe as kprobe
 from repro_torch.kernels import rwkv6_scan as kwkv
 from repro_torch.kernels import scan as kscan
 from repro_torch.kernels.probe import fp64
-from repro_torch.models import LM
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import (MeshSpec, device_mesh,
+                                     make_production_mesh)
+from repro_torch.models import LM, attention
 from repro_torch.serving import Server
 
 pytestmark = pytest.mark.cuda
@@ -1727,3 +1735,50 @@ def test_lm_int8_cache_decode_on_card(card):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     for name in ("k", "v"):
         assert int((gc_[name].cpu().int() - cc[name].int()).abs().max()) <= 1
+
+
+def test_device_mesh_on_the_card_holds_rank_zeros_shards(card):
+    """``device_mesh(mesh, "cuda")``: a fake group of 256 ranks whose
+    DeviceMesh places rank 0's shards on the card, and whose collectives
+    move nothing."""
+    mesh = make_production_mesh()
+    gen = torch.Generator(device=card).manual_seed(0)
+    with device_mesh(mesh, "cuda") as dm:
+        assert dm.device_type == "cuda" and dm.get_rank() == 0
+        t = steps.place(torch.empty(64, 32, device="meta"), ("data", "model"),
+                        dm, lambda _, t, s: torch.randn(s, generator=gen,
+                                                         device=card))
+        assert tuple(t.to_local().shape) == (2, 4)
+        assert t.to_local().device.type == "cuda"
+        rows = t.redistribute(dm, (t.placements[0], Replicate()))
+        assert tuple(rows.to_local().shape) == (2, 32)  # a fake all-gather
+        assert rows.to_local().device.type == "cuda"
+
+
+def test_local_mapped_mha_launches_on_the_local_shard(card):
+    """``attention._mha`` over DTensors on a (2, 4) fake mesh: one launch
+    of the flash-attention kernel on rank 0's shard (its batch and heads),
+    bit-identical to the kernel on the local tensors, which is within
+    2e-2 of the plain version in bf16."""
+    mesh = MeshSpec(("data", "model"), (2, 4))
+    gen = torch.Generator(device=card).manual_seed(1)
+
+    def draw(_, t, shape):
+        return torch.randn(shape, generator=gen, device=card).to(t.dtype)
+
+    with device_mesh(mesh, "cuda") as dm:
+        q, k, v = (steps.place(torch.empty(4, 128, 8, 64, dtype=torch.bfloat16,
+                                           device="meta"),
+                               ("data", None, "model", None), dm, draw)
+                   for _ in range(3))
+        before = kflash.LAUNCHES["flash_attention"]
+        out = steps.spmd(lambda q, k, v: attention._mha(
+            q, k, v, causal=True, window=None))(q, k, v)
+        torch.cuda.synchronize()
+        assert kflash.LAUNCHES["flash_attention"] == before + 1
+        local = out.to_local()
+        assert tuple(local.shape) == (2, 128, 2, 64)
+        ql, kl, vl = (t.to_local() for t in (q, k, v))
+        assert torch.equal(local, kflash.flash_attention(ql, kl, vl))
+        plain = kflash.attention_plain(ql, kl, vl)
+        assert float((local.float() - plain.float()).abs().max()) <= 2e-2

@@ -40,7 +40,8 @@ from repro_torch.configs.base import SHAPES, ShapeCfg, shape_applicable
 from repro_torch.convert import lm_params_from_arrays
 from repro_torch.device import resolve_device
 from repro_torch.launch import dryrun, steps
-from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
+from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
+                                     make_smoke_mesh)
 from repro_torch.models import LM
 
 CELLS = [(a, s) for a in all_archs() for s in SHAPES
@@ -144,7 +145,8 @@ def test_sharded_argument_bytes_divide_by_the_axes():
     divide 8, not over model."""
     cfg = get_arch("qwen2-0.5b")
     mesh = make_production_mesh()
-    low, _ = steps.lower_cell(cfg, SHAPES["decode_32k"], mesh)
+    with device_mesh(mesh):
+        low, _ = steps.lower_cell(cfg, SHAPES["decode_32k"], mesh)
     caches = low.arg_specs["caches"]["blocks"]["l0"]["k"]
     spec = low.shardings["caches"]["blocks"]["l0"]["k"]
     assert spec == (None, "data", None, None, None)
@@ -220,9 +222,16 @@ def test_table_is_jax_string(tmp_path):
 
 
 def test_pod_record_has_specs_and_no_roofline(tmp_path):
+    """The 32 x 8 record: its specs and fallbacks, and the roofline of
+    one device's share, whose collective term is above 0."""
     rec = dryrun.run_cell("whisper-tiny", "decode_32k", make_production_mesh(),
                           out_dir=str(tmp_path))
-    assert rec["roofline"] is None and "partitioner" in rec["why"]
+    rl = rec["roofline"]
+    assert "why" not in rec and rl["terms_ms"]["collective"] > 0
+    assert rl["collective_mb"] == pytest.approx(
+        sum(rl["collective_by_axis_mb"].values()))
+    assert set(rl["collective_by_axis_mb"]) <= {"data", "model"}
+    assert rec["memory"]["temp_bytes"] > 0 and "fits_80gb" in rec
     assert rec["n_devices"] == 256 and rec["memory"]["argument_bytes"] > 0
     assert "embed: dim 0 (model)" in rec["replicated"]
     on_disk = json.load(open(tmp_path / "whisper-tiny__decode_32k__32x8.json"))

@@ -1,0 +1,456 @@
+"""The port's partitioner on the CPU: DTensor over a ``fake`` process
+group (``launch.mesh.device_mesh``) as the production meshes' per-device
+program, against hand counts, the one-card count, the JAX dry run's
+partitioned program and a real 4-process run.
+
+* (a) Hand-built cases on a fake (2, 4) mesh on ``meta``, exact: a
+  column- then row-parallel MLP counts one all-reduce over "model" of
+  [B/2, T, D] bf16; a replicated weight's gradient is all-reduced over
+  "data"; an all-gather is charged its gathered bytes (the JAX parser's
+  convention, ``tests/test_roofline.py``).
+* (b) On the one-card mesh the count is the seed's, FLOPs, bytes, lane
+  operations and temp bytes bit for bit (the numbers below were counted
+  on the tree before the partitioner), for five families.
+* (c) CodeQwen1.5-7B ``reduced()`` at (2, 4), where no rule falls back:
+  per-device FLOPs times 8 equal the one-card FLOPs within 1e-9
+  (relative).
+* (d) A subprocess with 8 fake XLA host devices runs the JAX package's
+  ``lower_cell`` and ``cell_costs`` at (2, 4) and at (1, 1) for a train
+  and a decode cell of CodeQwen1.5-7B ``reduced()`` widened to d_model
+  1024, d_ff 2048 and 8 heads of 128 (at d_model 128 XLA's count of the
+  replicated elementwise work, which the port counts as bytes, is 6% of
+  a device's FLOPs).  Per-device argument bytes equal JAX's
+  ``memory_analysis()`` exactly.  The train cell's FLOP share (mesh over
+  one card) is within 5% of JAX's; the decode cell's is exactly 1/8 in
+  the port and above it in JAX (23% above, and not monotonic in depth:
+  PERF.md).  The total collective bytes are within a factor of 2 of
+  JAX's (measured: 1.59 train, 2.0 decode); the port's reduce-scatter
+  (the ZeRO step's) and XLA's all-to-all are each present in one alone
+  (PERF.md).
+* (e) Four ``gloo`` processes on a (2, 2) mesh against the unsharded
+  port in one process, fp32: a prefill's logits within 1e-5 of the
+  largest; one decode step's logits and caches (each leaf within 1e-5
+  of its largest), with the caches sharded by batch and, as
+  ``long_500k``'s, by slot; and one train step's updated parameters within 1e-6 of the
+  model's largest parameter and its first moments within 1e-4 of each
+  leaf's largest (one AdamW step moves an element by up to the learning
+  rate, 3e-6 here, ten times that limit; a gradient summed over one data
+  shard alone misses the moments' limit), for CodeQwen1.5-7B and, for
+  their own partitioning (MoE dispatch, the scans' local maps), the MoE,
+  RWKV6 and hybrid families, each ``reduced()``.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.analysis import roofline
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import SHAPES, ShapeCfg
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun, steps
+from repro_torch.launch.mesh import (MeshSpec, device_mesh,
+                                     make_production_mesh, make_smoke_mesh)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESH = MeshSpec(("data", "model"), (2, 4))
+META = torch.device("meta")
+SHARE_TOL = 1e-9
+JAX_SHARE_TOL = 0.05
+COLL_FACTOR = 2.0
+LOGIT_TOL = 1e-5
+PARAM_TOL = 1e-6
+MOMENT_TOL = 1e-4
+WIDE = dict(d_model=1024, d_ff=2048, n_heads=8, n_kv_heads=8, d_head=128)
+
+
+def meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+# -- (a) hand-built cases ----------------------------------------------------
+
+def test_megatron_mlp_counts_one_all_reduce_over_model():
+    B, T, D, F = 4, 8, 64, 256
+    with device_mesh(MESH) as dm:
+        x = steps.place(meta(B, T, D), ("data", None, None), dm)
+        w1 = steps.place(meta(D, F), (None, "model"), dm)
+        w2 = steps.place(meta(F, D), ("model", None), dm)
+
+        def mlp(x, w1, w2):
+            return torch.matmul(torch.matmul(x, w1), w2).redistribute(
+                dm, x.placements)
+
+        costs, y = roofline.count_costs(steps.spmd(mlp), x, w1, w2)
+        assert y.placements == (Shard(0), Replicate())
+        assert tuple(y.to_local().shape) == (B // 2, T, D)
+    one = B // 2 * T * D * 2
+    assert costs.coll_by_kind == {"all-reduce": one}
+    assert costs.coll_by_axis == {"model": one}
+    assert costs.flops == 2 * 2 * (B // 2) * T * D * (F // 4)
+
+
+def test_replicated_weight_gradient_is_reduced_over_data():
+    B, D = 8, 32
+    with device_mesh(MESH) as dm:
+        x = steps.place(meta(B, D, dtype=torch.float32), ("data", None), dm)
+        w = steps.place(meta(D, D, dtype=torch.float32), (None, None), dm)
+        w.requires_grad_(True)
+
+        def grad(x, w):
+            torch.matmul(x, w).sum().backward()
+            assert w.grad.placements[0].is_partial()
+            return w.grad.redistribute(dm, (Replicate(), Replicate()))
+
+        costs, g = roofline.count_costs(steps.spmd(grad), x, w)
+    assert tuple(g.to_local().shape) == (D, D)
+    assert costs.coll_by_axis.get("data") == D * D * 4
+    assert costs.coll_by_kind.get("all-reduce", 0) >= D * D * 4
+
+
+def test_all_gather_is_charged_its_gathered_bytes():
+    with device_mesh(MESH) as dm:
+        t = steps.place(meta(8, 16), ("data", None), dm)
+        costs, out = roofline.count_costs(
+            lambda t: t.redistribute(dm, (Replicate(), Replicate())), t)
+    assert tuple(out.to_local().shape) == (8, 16)
+    assert costs.coll_by_kind == {"all-gather": 8 * 16 * 2}
+    assert costs.coll_by_axis == {"data": 8 * 16 * 2}
+    assert costs.bytes_accessed == 0  # a collective is no HBM traffic
+
+
+def test_device_mesh_leaves_no_group_and_counts_both_meshes():
+    for mesh in (make_production_mesh(multi_pod=True),
+                 make_production_mesh()):
+        with device_mesh(mesh) as dm:
+            assert dist.get_world_size() == mesh.size
+            assert tuple(dm.mesh.shape) == mesh.sizes
+            assert dm.get_rank() == 0
+        assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="inside device_mesh"):
+        steps.lower_cell(get_arch("qwen2-0.5b").reduced(),
+                         ShapeCfg("d", "decode", 64, 4),
+                         make_production_mesh())
+
+
+def test_placements_follow_the_spec():
+    with device_mesh(make_production_mesh(multi_pod=True)) as dm:
+        assert sharding.placements((("pod", "data"), None, "model"), dm) == \
+            (Shard(0), Shard(0), Shard(2))
+        assert sharding.placements((None, None), dm) == \
+            (Replicate(),) * 3
+        with pytest.raises(ValueError, match="order"):
+            sharding.placements((("data", "pod"),), dm)
+
+
+def test_batch_falls_back_to_the_axes_that_divide_it():
+    """prefill_32k's 32 sequences over ("pod", "data") = 64 devices shard
+    over "data" alone; dividing specs are unchanged."""
+    mesh = make_production_mesh(multi_pod=True)
+    assert sharding.fit_spec((32, 8), (("pod", "data"), None), mesh) == \
+        ("data", None)
+    assert sharding.fit_spec((128, 8), (("pod", "data"), None), mesh) == \
+        (("pod", "data"), None)
+    assert sharding.local_shape((32, 8), (("pod", "data"), None),
+                                mesh) == (1, 8)
+
+
+# -- (b) the one-card count is the seed's ------------------------------------
+
+SEED_COUNTS = [  # (arch, kind, FLOPs, bytes, lane ops, temp bytes)
+    ("qwen2-0.5b", "train", 558301184.0, 120404714.0, 0.0, 5683208),
+    ("qwen2-0.5b", "prefill", 151650304.0, 15713376.0, 0.0, 917504),
+    ("qwen2-0.5b", "decode", 3014656.0, 1030576.0, 0.0, 13424),
+    ("codeqwen1.5-7b", "train", 633798656.0, 147111166.0, 0.0, 5879816),
+    ("codeqwen1.5-7b", "prefill", 176816128.0, 19353696.0, 0.0, 1114112),
+    ("codeqwen1.5-7b", "decode", 3407872.0, 1380784.0, 0.0, 13424),
+    ("deepseek-moe-16b", "train", 2480078848.0, 262318134.0, 0.0, 21542916),
+    ("deepseek-moe-16b", "prefill", 885915648.0, 83157356.0, 0.0, 15331328),
+    ("deepseek-moe-16b", "decode", 6100992.0, 1606988.0, 0.0, 74288),
+    ("rwkv6-7b", "train", 650117120.0, 156640078.0, 8388608.0, 6893576),
+    ("rwkv6-7b", "prefill", 168296448.0, 20801120.0, 8388608.0, 1050624),
+    ("rwkv6-7b", "decode", 3145728.0, 1670176.0, 131072.0, 144928),
+    ("jamba-1.5-large-398b", "train", 9853698048.0, 1011590198.0,
+     14680064.0, 65759620),
+    ("jamba-1.5-large-398b", "prefill", 3588816896.0, 343155856.0,
+     14680064.0, 16291840),
+    ("jamba-1.5-large-398b", "decode", 23166976.0, 6251728.0, 229376.0,
+     361008),
+]
+
+
+def one_card(cfg, kind):
+    low, _ = steps.lower_cell(cfg, ShapeCfg(f"{kind}_small", kind, 64, 4),
+                              make_smoke_mesh())
+    return roofline.count_costs(low.fn, *low.args)[0]
+
+
+@pytest.mark.parametrize("arch,kind,flops,n_bytes,lane_ops,temp",
+                         SEED_COUNTS)
+def test_one_card_count_is_unchanged(arch, kind, flops, n_bytes, lane_ops,
+                                     temp):
+    c = one_card(get_arch(arch).reduced(), kind)
+    assert (c.flops, c.bytes_accessed, c.lane_ops, c.temp_bytes) == \
+        (flops, n_bytes, lane_ops, temp)
+    assert c.coll_by_kind == {} and c.collective_s() == 0.0
+
+
+# -- (c) per-device FLOPs divide by the mesh --------------------------------
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_per_device_flops_are_an_eighth(kind):
+    cfg = get_arch("codeqwen1.5-7b").reduced()
+    shape = ShapeCfg(f"{kind}_small", kind, 64, 4)
+    with device_mesh(MESH):
+        low, _ = steps.lower_cell(cfg, shape, MESH)
+        assert sharding.replicated(low.arg_specs["params"], MESH) == []
+        costs, _ = roofline.count_costs(low.fn, *low.args)
+    card = one_card(cfg, kind).flops
+    assert abs(costs.flops * MESH.size - card) <= SHARE_TOL * card
+    assert costs.coll_by_axis["model"] > 0
+
+
+# -- (d) against the JAX package's partitioned program ----------------------
+
+JAX_CELLS = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import dataclasses, json, sys
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    from repro.analysis import roofline
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeCfg
+    from repro.launch import steps
+    cfg = dataclasses.replace(get_arch("codeqwen1.5-7b").reduced(),
+                              **json.loads(sys.argv[1]))
+    devs = np.array(jax.devices())
+    meshes = {"mesh": Mesh(devs.reshape(2, 4), ("data", "model")),
+              "card": Mesh(devs[:1].reshape(1, 1), ("data", "model"))}
+    out = {}
+    for kind in ("train", "decode"):
+        shape = ShapeCfg(f"{kind}_small", kind, 64, 4)
+        for name, mesh in meshes.items():
+            lowered, _ = steps.lower_cell(cfg, shape, mesh)
+            compiled = lowered.compile()
+            rec = roofline.cell_costs(cfg, shape, lowered, compiled,
+                                      steps.group_probes(cfg, shape, mesh),
+                                      mesh)
+            out[kind + "." + name] = {
+                "argument_bytes":
+                    compiled.memory_analysis().argument_size_in_bytes,
+                "gflops": rec["hlo_gflops"],
+                "collective_by_kind_mb": rec["collective_by_kind_mb"]}
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def jax_cells():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    done = subprocess.run([sys.executable, "-c", JAX_CELLS, json.dumps(WIDE)],
+                          capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+    assert done.returncode == 0, done.stderr[-3000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def port_cell(kind):
+    import dataclasses
+    cfg = dataclasses.replace(get_arch("codeqwen1.5-7b").reduced(), **WIDE)
+    shape = ShapeCfg(f"{kind}_small", kind, 64, 4)
+    with device_mesh(MESH):
+        low, _ = steps.lower_cell(cfg, shape, MESH)
+        costs, _ = roofline.count_costs(low.fn, *low.args)
+        args = dryrun.argument_bytes(low.arg_specs, low.shardings, MESH)
+    return args, costs, one_card(cfg, kind).flops
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_per_device_program_against_jax(jax_cells, kind):
+    args, costs, card = port_cell(kind)
+    jm, jc = jax_cells[f"{kind}.mesh"], jax_cells[f"{kind}.card"]
+    assert args == jm["argument_bytes"]
+    share, jshare = costs.flops / card, jm["gflops"] / jc["gflops"]
+    assert share == 1 / MESH.size
+    if kind == "train":
+        assert abs(share - jshare) <= JAX_SHARE_TOL * jshare, (share, jshare)
+    else:  # XLA replicates part of the decode step (PERF.md)
+        assert jshare > share
+    jkinds = jm["collective_by_kind_mb"]
+    port = {k: v / 1e6 for k, v in costs.coll_by_kind.items()}
+    ratio = sum(jkinds.values()) / sum(port.values())
+    assert 1 / COLL_FACTOR <= ratio <= COLL_FACTOR, (port, jkinds)
+    only = set(port) ^ set(jkinds)
+    assert only <= {"reduce-scatter", "all-to-all"}, only
+
+
+# -- (e) four gloo processes against the unsharded port ----------------------
+
+WORKER = textwrap.dedent("""
+    import json
+    import sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw
+
+    rank, port, arch = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    dist.init_process_group("gloo", init_method="tcp://localhost:" + port,
+                            rank=rank, world_size=4)
+    spec = MeshSpec(("data", "model"), (2, 2))
+    dm = init_device_mesh("cpu", spec.sizes, mesh_dim_names=spec.axis_names)
+    cfg = get_arch(arch).reduced()
+
+    def fp32_model():
+        lm = LM(cfg, seed=0, device="cpu")
+        for p in lm.parameters():
+            p.data = p.data.float()
+        return lm
+
+    def put(t, s):
+        s = sharding.fit_spec(tuple(t.shape), s, spec)
+        return distribute_tensor(t, dm, sharding.placements(s, dm))
+
+    ref, lm = fp32_model(), fp32_model()
+    specs = steps.lm_specs(lm, spec)
+    for name, p in list(lm.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = lm.get_submodule(owner) if owner else lm
+        new = torch.nn.Parameter(put(p.data, specs[name]),
+                                 requires_grad=False)
+        if isinstance(mod, torch.nn.ParameterDict):
+            mod[leaf] = new
+        else:
+            setattr(mod, leaf, new)
+    rng = np.random.default_rng(1)
+    B, T = 4, 16
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T))).int()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T))).int()
+    batch = {"tokens": put(tokens, ("data", None)),
+             "labels": put(labels, ("data", None))}
+    with torch.no_grad():
+        want, _ = ref.prefill({"tokens": tokens}, T)
+        got, _ = steps.spmd(lambda b: lm.prefill(b, T))(
+            {"tokens": batch["tokens"]})
+    logit_err = float((got.full_tensor() - want).abs().max()
+                      / want.abs().max())
+    # one decode step against random caches of 64 slots, the caches
+    # sharded by batch and, as long_500k's, by slot
+    gen = torch.Generator().manual_seed(2)
+    caches = ref.init_caches(B, 64)
+    for group in caches.values():
+        for leaves in group.values():
+            for t in leaves.values():
+                t.normal_(generator=gen)
+    token = torch.from_numpy(rng.integers(0, cfg.vocab, (B,))).int()
+    pos = torch.tensor([63, 40, 17, 5], dtype=torch.int32)
+    clone = lambda tree: {k: clone(v) if isinstance(v, dict) else v.clone()
+                          for k, v in tree.items()}
+    with torch.no_grad():
+        want, want_c = ref.decode_step(token, clone(caches), pos)
+    decode_err = 0.0
+    for seq_shard in (False, True):
+        cspecs = sharding.cache_specs(caches, spec, seq_shard=seq_shard)
+        placed = {g: {l: {n: put(t.clone(), cspecs[g][l][n])
+                          for n, t in leaves.items()}
+                      for l, leaves in group.items()}
+                  for g, group in caches.items()}
+        tspec = (None,) if seq_shard else ("data",)
+        with torch.no_grad():
+            got, got_c = steps.spmd(lm.decode_step)(
+                put(token, tspec), placed, put(pos, tspec))
+        errs = [float((got.full_tensor() - want).abs().max()
+                      / want.abs().max())]
+        for g, group in want_c.items():
+            for l, leaves in group.items():
+                for n, t in leaves.items():
+                    errs.append(float((got_c[g][l][n].full_tensor() - t)
+                                      .abs().max() / t.abs().max()))
+        decode_err = max(decode_err, *errs)
+    _, st_ref = steps.make_train_step(ref, cfg.name)(
+        {"tokens": tokens, "labels": labels},
+        adamw.init(dict(ref.named_parameters())))
+    whole = dict(fp32_model().named_parameters())
+    zero = sharding.zero_specs(specs, whole, spec)
+    st = adamw.AdamWState(
+        0, *({n: put(f(whole[n]), zero[n]) for n in specs}
+             for f in (torch.zeros_like, torch.zeros_like,
+                       lambda t: t.detach().clone())))
+    _, st = steps.spmd(steps.make_train_step(lm, cfg.name))(batch, st)
+    params = dict(lm.named_parameters())
+    top = max(float(p.abs().max()) for p in ref.parameters())
+    param_err = max(float((params[n].full_tensor() - p).abs().max()) / top
+                    for n, p in ref.named_parameters())
+    moment_err = max(float((st.m[n].full_tensor() - st_ref.m[n]).abs().max())
+                     / max(float(st_ref.m[n].abs().max()), 1e-30)
+                     for n in specs)
+    if rank == 0:
+        print(json.dumps({"logits": logit_err, "decode": decode_err,
+                          "params": param_err, "moments": moment_err}))
+    dist.destroy_process_group()
+""")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "deepseek-moe-16b",
+                                  "rwkv6-7b", "jamba-1.5-large-398b"])
+def test_gloo_mesh_matches_the_unsharded_port(arch):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), port,
+                               arch], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=ROOT) for r in range(4)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    got = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert got["logits"] <= LOGIT_TOL, got
+    assert got["decode"] <= LOGIT_TOL, got
+    assert got["params"] <= PARAM_TOL, got
+    assert got["moments"] <= MOMENT_TOL, got
+
+
+def test_pod_record_fields_on_both_meshes(tmp_path):
+    """The dry run's production records: per-device temp bytes, the
+    collective MB by kind and axis, the collective term in the bound."""
+    for mesh in (make_production_mesh(), make_production_mesh(
+            multi_pod=True)):
+        rec = dryrun.run_cell("qwen2-0.5b", "decode_32k", mesh,
+                              out_dir=str(tmp_path), probes=False)
+        rl = rec["roofline"]
+        assert rec["memory"]["temp_bytes"] > 0 and rec["fits_80gb"]
+        assert set(rl["collective_by_axis_mb"]) <= set(mesh.axis_names)
+        assert rl["step_time_bound_ms"] == max(rl["terms_ms"].values())
+        assert rec["mesh"] == mesh.name and rec["n_devices"] == mesh.size
+    assert len(roofline.load_records(str(tmp_path))) == 2
+    assert SHAPES["decode_32k"].global_batch == 128
