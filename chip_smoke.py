@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--n-clht 1048576] [--n-art 262144]
-                          [--n-hot 262144] [--n-masstree 262144]
-                          [--n-bwtree 32768] [--n-cceh 32768]
-                          [--n-fastfair 65536] [--n-level 16384]
+    python3 chip_smoke.py [--n-clht 262144] [--n-art 131072]
+                          [--n-hot 131072] [--n-masstree 65536]
+                          [--n-bwtree 16384] [--n-cceh 16384]
+                          [--n-fastfair 32768] [--n-level 16384]
                           [--seed 0]
+
+(the defaults shown).
 
 Each path is a YCSB workload of 4096-op plans through
 ``repro_torch.api.open_index``.  Five paths drive one of RECIPE's
@@ -176,8 +178,10 @@ The sixteenth, the training path, runs ``repro_torch.launch.train``:
   of training state: bf16 weights and gradients, fp32 AdamW moments and
   master copy) for 4 steps of B = 8, T = 64 under WSD, the JAX defaults
   (fewer steps than ``ckpt_every``: the checkpoint store holds no leaf
-  over 65,528 words): every loss finite, the launches exactly 40
-  ``flash_attention`` and 40 ``flash_attention_bwd`` a step (the
+  over 65,528 words), under ``train``'s ``remat="full"`` (each layer's
+  forward recomputed in the backward, as the JAX package's default):
+  every loss finite, the launches exactly 80 ``flash_attention`` (40
+  forward, 40 recomputed) and 40 ``flash_attention_bwd`` a step (the
   backward kernel of ``csrc/flash_attention_bwd.cu``, behind ``mha``'s
   autograd), no plain version, peak card memory under 70 GB, ms a step
   after the first and one step's device busy share;
@@ -188,6 +192,10 @@ The sixteenth, the training path, runs ``repro_torch.launch.train``:
   ``reduced()``, 200 steps, a checkpoint every 25, a power failure at
   step 110): it ends at step 200 (cursor and generation too), the loss
   falls, generation 200 restores the live parameters bit for bit.
+
+Every training path states its model's remat policy; under ``"full"``
+each layer's forward kernel launches twice a step (the forward and its
+recompute) and its backward kernel once.
 
 The seventeenth, the recurrent training path, trains the families whose
 mixers are scans, through the scans' backward kernels
@@ -200,7 +208,7 @@ mixers are scans, through the scans' backward kernels
   training state; 120.3 GB at full depth): 4 steps of
   ``make_train_step`` on the token pipeline's batches of B = 8, T = 256,
   as the JAX package's train loop runs a step: every loss finite,
-  exactly 8 ``wkv6`` and 8 ``wkv6_bwd`` launches a step, no plain
+  exactly 16 ``wkv6`` and 8 ``wkv6_bwd`` launches a step, no plain
   version, peak card memory under 70 GB, ms a step after the first and
   one step's device busy share;
 * (b) the trained weights cut to 2 of 32 layers, in fp32, on the card
@@ -208,8 +216,8 @@ mixers are scans, through the scans' backward kernels
   each leaf's gradient within 1e-4 of its largest magnitude;
 * (c) the hybrid (Jamba-1.5-Large at ``reduced()``: one full-width
   superblock is 90.3 GB in bf16) through ``train``, 4 steps of B = 8,
-  T = 64: exactly 7 ``ssd`` and ``ssd_bwd`` and one ``flash_attention``
-  and ``flash_attention_bwd`` launch a step, no plain version, then the
+  T = 64: exactly 14 ``ssd``, 7 ``ssd_bwd``, 2 ``flash_attention`` and
+  one ``flash_attention_bwd`` launch a step, no plain version, then the
   same fp32 check over every layer.
 
 The eighteenth and nineteenth paths run the encoder-decoder and VLM
@@ -227,8 +235,9 @@ phase's launches counted exactly and no plain version on either:
   through ``make_decode_step(with_enc=True)`` (4 ``paged_attention``
   and 4 ``flash_attention`` a step: T = 1 against 1500 rows); its fp32
   check over the shortest prompt and 4 decode steps; then 4
-  ``make_train_step`` steps of B = 8, T = 64 (12 ``flash_attention``
-  and 12 ``flash_attention_bwd`` a step) and their fp32 check at B = 2;
+  ``make_train_step`` steps of B = 8, T = 64 (20 ``flash_attention``:
+  the encoder's 4 once, the decoder's 8 self and cross twice; 12
+  ``flash_attention_bwd`` a step) and their fp32 check at B = 2;
 * InternVL2-76B at full width cut to 8 of its 80 layers (d_model 8192,
   64 heads over 8 KV heads of 128, 1025 patches of width 3200 drawn
   from ``--seed``; 8,972,804,096 parameters, 17.95 GB bf16): 2 requests
@@ -238,7 +247,7 @@ phase's launches counted exactly and no plain version on either:
   over the shorter prompt and 4 decode steps, the served model freed
   first; then the model at full width cut to 1 layer (2,983,223,296
   parameters) through 4 ``make_train_step`` steps of B = 4, T = 64
-  text tokens after the 1025 patches (1 ``flash_attention`` and 1
+  text tokens after the 1025 patches (2 ``flash_attention`` and 1
   ``flash_attention_bwd`` a step), its peak card memory under
   ``TRAIN_PEAK_GB``, and their fp32 check at B = 1.
 
@@ -271,17 +280,23 @@ every rule divides at model = 8: rank 0 of a ``fake`` process group of
 32 layers drawn on the card from ``--seed`` (4 of the 32 heads and kv
 heads of 128, 1,680 of the 13,440 FFN columns, 11,552 of the 92,416
 words), nothing whole made.  The share is first counted on ``meta``
-(per-device terms, collective MB by kind and axis, the bound), then
-run on the card through ``lower_cell`` under the fake group (its
-collectives move nothing): ``decode_32k`` (4 of the 128 sequences
-against 32,768 slots at pos = 32,767, every page read) and
-``prefill_32k`` (1 of the 32 sequences of 32,768 tokens), 3 steps each,
-exactly 32 launches of ``paged_attention`` or ``flash_attention`` a
-step at H = Hk = 4, dh = 128, no other kernel and no plain version, the
-local logits finite; device ms (events) and profiler busy ms a step,
-neither below the share's compute and memory bound, the collective
-term printed beside them as what the deployment would add.  Rows 8 and
-9 gain those shapes under ``other_shapes`` (phase 4).
+(argument and temp bytes, which must fit the card, per-device terms,
+collective MB by kind and axis, the bound), then run on the card
+through ``lower_cell`` under the fake group (its collectives move
+nothing): ``decode_32k`` (4 of the 128 sequences against 32,768 slots
+at pos = 32,767, every page read) and ``prefill_32k`` (1 of the 32
+sequences of 32,768 tokens), 3 steps each, exactly 32 launches of
+``paged_attention`` or ``flash_attention`` a step, the local logits
+finite; and ``train_4k`` (8 of the 256 sequences of 4,096 tokens: the
+forward, the backward under ``remat="full"`` and the ZeRO AdamW step),
+2 steps, exactly 64 ``flash_attention`` (32 forward, 32 recomputed) and
+32 ``flash_attention_bwd`` a step, the first step's loss finite; all at
+H = Hk = 4, dh = 128, no other kernel and no plain version; device ms
+(events) and profiler busy ms a step, neither below the share's
+compute and memory bound, the collective term printed beside them as
+what the deployment would add, and the peak card memory beside the
+count's argument plus temp bytes.  Rows 8, 9 and 9b gain those shapes
+under ``other_shapes`` (phase 4).
 
 Phases, each of which exits non-zero on failure:
 
@@ -429,6 +444,7 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.launch.mesh import (device_mesh,  # noqa: E402
                                      make_production_mesh, make_smoke_mesh)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
@@ -749,10 +765,14 @@ CELL_CHECK_SLOTS = 256
 # every rule divides at model = 8 (32 heads and kv heads, d_ff 13,440,
 # vocabulary 92,416), so rank 0 holds 4 of the 32 heads.  decode_32k: 4
 # of the 128 sequences against 32,768 slots at pos = 32,767; prefill_32k:
-# 1 of the 32 sequences of 32,768 tokens.  SHARE_STEPS steps each
+# 1 of the 32 sequences of 32,768 tokens; train_4k: 8 of the 256
+# sequences of 4,096 tokens through the train step (forward, backward
+# under the model's remat="full", the ZeRO AdamW step).  SHARE_STEPS
+# steps each (the train step's 2: its host dispatch takes some 2.2 s a
+# step, and the whole run must keep to its time limit on slow hosts)
 SHARE_ARCH = "codeqwen1.5-7b"
-SHARE_SHAPES = ("decode_32k", "prefill_32k")
-SHARE_STEPS = 3
+SHARE_SHAPES = ("decode_32k", "prefill_32k", "train_4k")
+SHARE_STEPS = {"decode_32k": 3, "prefill_32k": 3, "train_4k": 2}
 # the prefill's plain attention runs in chunks of queries (a whole
 # [4, 32768, 32768] fp32 score matrix is 17.2 GB, and the plain version
 # makes several)
@@ -3866,6 +3886,14 @@ def matrix_path(seed: int, dev) -> None:
 
 # -- the sixteenth path: training, and the attention backward kernel -------
 
+def forward_launches(remat: str) -> int:
+    """A layer's forward kernel's launches a train step under the model's
+    remat policy: the forward, and under any policy but ``"none"`` its
+    recompute in the backward (a region relaunches its kernels; ``dots``
+    keeps only the products' outputs)."""
+    return 1 if remat == "none" else 2
+
+
 def timed_step(step_fn, steps: int, timing: dict):
     """``step_fn`` (a train, prefill or decode step) wrapped to time each
     call on the host clock into ``timing["host_s"]`` (each call starts
@@ -3952,9 +3980,10 @@ def train_report(trained: dict) -> None:
     check(trained["peak_gb"] < TRAIN_PEAK_GB, f"peak card memory "
           f"{trained['peak_gb']:.3f} GB is over {TRAIN_PEAK_GB} GB")
     host_ms = step_times(TRAIN_ARCH, timing)
-    say(f"training {TRAIN_ARCH} at full width: {n:,} parameters (the "
-        f"config's count {cfg.param_count():,} and the final norm), B="
-        f"{TRAIN_BATCH}, T={TRAIN_SEQ}, {TRAIN_STEPS} steps; losses "
+    say(f"training {TRAIN_ARCH} at full width, remat {out['remat']}: {n:,} "
+        f"parameters (the config's count {cfg.param_count():,} and the "
+        f"final norm), B={TRAIN_BATCH}, T={TRAIN_SEQ}, {TRAIN_STEPS} steps; "
+        "losses "
         + ", ".join(f"{x:.6f}" for x in losses)
         + f"; step times (host clock) "
         + ", ".join("profiled" if t is None else f"{t * 1e3:.3f} ms"
@@ -4068,8 +4097,8 @@ def crash_restart_path(seed: int) -> dict:
             else got[name], live.view(torch.int16)
             if live.dtype == torch.bfloat16 else live),
             f"generation {steps}'s {name} differs from the live parameter")
-    say(f"training {TRAIN_ARCH} reduced, crash at step "
-        f"{CRASH_RUN['kill_at_step']} and restart: {len(losses)} losses, "
+    say(f"training {TRAIN_ARCH} reduced, remat {out['remat']}, crash at "
+        f"step {CRASH_RUN['kill_at_step']} and restart: {len(losses)} losses, "
         f"{losses[0]:.6f} -> {losses[-1]:.6f}; final step {out['final_step']}"
         f", data cursor {out['data'].cursor}, generation "
         f"{store.latest_step()}; {len(got)} parameters of generation {steps} "
@@ -4111,7 +4140,7 @@ def recurrent_train(seed: int) -> dict:
             losses.append(float(loss))
             data.commit()
     return {"cfg": cfg, "losses": losses, "params": lm.state_dict(),
-            "timing": timing, "plain": dict(plain),
+            "timing": timing, "plain": dict(plain), "remat": lm.remat,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -4135,8 +4164,9 @@ def recurrent_report(trained: dict) -> None:
           f"{trained['peak_gb']:.3f} GB is over {RECUR_PEAK_GB} GB")
     host_ms = step_times(f"{RECUR_ARCH} ({RECUR_LAYERS} of 32 layers)",
                          timing)
-    say(f"training {RECUR_ARCH} at full width, {RECUR_LAYERS} of 32 layers: "
-        f"{n:,} parameters ({16 * n / 1e9:.3f} GB of training state at 16 "
+    say(f"training {RECUR_ARCH} at full width, {RECUR_LAYERS} of 32 layers, "
+        f"remat {trained['remat']}: {n:,} parameters ({16 * n / 1e9:.3f} GB "
+        "of training state at 16 "
         f"bytes each; the config's count {cfg.param_count():,}), B="
         f"{RECUR_BATCH}, T={RECUR_SEQ}, {RECUR_STEPS} steps; losses "
         + ", ".join(f"{x:.6f}" for x in losses)
@@ -4161,7 +4191,8 @@ def hybrid_train(seed: int) -> dict:
           f"gave losses {losses}")
     check(not any(plain.values()), "a plain kernel version ran on the "
           f"hybrid's training: {plain}")
-    say(f"training {HYBRID_ARCH} at reduced(): B={HYBRID_TRAIN['batch']}, "
+    say(f"training {HYBRID_ARCH} at reduced(), remat {out['remat']}: "
+        f"B={HYBRID_TRAIN['batch']}, "
         f"T={HYBRID_TRAIN['seq_len']}, {len(losses)} steps; losses "
         + ", ".join(f"{x:.6f}" for x in losses)
         + f"; {time.perf_counter() - t0:.3f} s")
@@ -4249,10 +4280,12 @@ def recurrent_path(seed: int, launches: dict) -> None:
     counts = read_counts()
     say(f"recurrent training path (a): {time.perf_counter() - t_recur:.3f} "
         f"s; kernel launches {counts}")
-    for name in ("wkv6", "wkv6_bwd"):
-        check(counts[name] == RECUR_STEPS * RECUR_LAYERS, f"{name} was "
-              f"launched {counts[name]} times in {RECUR_STEPS} training "
-              f"steps of {RECUR_LAYERS} RWKV6 layers")
+    for name, per in (("wkv6", forward_launches(recur["remat"])),
+                      ("wkv6_bwd", 1)):
+        check(counts[name] == RECUR_STEPS * RECUR_LAYERS * per, f"{name} "
+              f"was launched {counts[name]} times in {RECUR_STEPS} training "
+              f"steps of {RECUR_LAYERS} RWKV6 layers under remat "
+              f"{recur['remat']}")
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
     recurrent_report(recur)
@@ -4275,10 +4308,11 @@ def recurrent_path(seed: int, launches: dict) -> None:
         f"kernel launches {counts}")
     hybrid_cfg = get_arch(HYBRID_ARCH).reduced()
     mixers = [mixer for mixer, _ in layer_kinds(hybrid_cfg)]
-    for name, mixer in (("ssd", "mamba"), ("ssd_bwd", "mamba"),
-                        ("flash_attention", "attn"),
-                        ("flash_attention_bwd", "attn")):
-        want = HYBRID_TRAIN["steps"] * mixers.count(mixer)
+    fwd = forward_launches(hybrid_out["remat"])
+    for name, mixer, per in (("ssd", "mamba", fwd), ("ssd_bwd", "mamba", 1),
+                             ("flash_attention", "attn", fwd),
+                             ("flash_attention_bwd", "attn", 1)):
+        want = HYBRID_TRAIN["steps"] * mixers.count(mixer) * per
         check(counts[name] == want, f"{name} was launched {counts[name]} "
               f"times in the hybrid's training, not {want}")
     for name, done in counts.items():
@@ -4414,11 +4448,14 @@ def front_train(lm, gen, seed: int, spec: dict, launches: dict) -> dict:
     frames or patches from ``gen``, the steps timed by ``timed_step``
     (the last profiled), every loss finite; each step launches
     ``flash_attention`` and ``flash_attention_bwd`` once an attention
-    layer (self, encoder and cross); peak card memory under
-    ``TRAIN_PEAK_GB``.  Returns the trained weights."""
+    layer (self, encoder and cross), and the decoder's forward again
+    under remat (the encoder runs in no region, as in the JAX package);
+    peak card memory under ``TRAIN_PEAK_GB``.  Returns the trained
+    weights."""
     cfg = lm.cfg
-    n_attn = cfg.n_layers * (2 if cfg.encdec is not None else 1) + (
-        cfg.encdec.n_enc_layers if cfg.encdec is not None else 0)
+    n_dec = cfg.n_layers * (2 if cfg.encdec is not None else 1)
+    n_enc = cfg.encdec.n_enc_layers if cfg.encdec is not None else 0
+    n_attn = n_dec + n_enc
     rng = np.random.default_rng(seed + 28)
     timing = {"host_s": [], "prof": None}
     gc.collect()
@@ -4438,7 +4475,8 @@ def front_train(lm, gen, seed: int, spec: dict, launches: dict) -> dict:
         loss, state = step_fn(batch, state)
         losses.append(float(loss))
     phase_counts(f"{cfg.name} training", launches, {
-        "flash_attention": spec["steps"] * n_attn,
+        "flash_attention": spec["steps"] * (
+            n_dec * forward_launches(lm.remat) + n_enc),
         "flash_attention_bwd": spec["steps"] * n_attn})
     check(bool(np.isfinite(losses).all()), f"training {cfg.name} gave "
           f"losses {losses}")
@@ -4447,7 +4485,8 @@ def front_train(lm, gen, seed: int, spec: dict, launches: dict) -> dict:
           f"{peak:.3f} GB is over {TRAIN_PEAK_GB} GB")
     host_ms = step_times(cfg.name, timing)
     say(f"training {cfg.name} ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}): B={spec['batch']}, T={spec['seq']}, "
+        f"{cfg.d_model}, remat {lm.remat}): B={spec['batch']}, "
+        f"T={spec['seq']}, "
         f"{spec['steps']} steps of make_train_step; losses "
         + ", ".join(f"{x:.6f}" for x in losses)
         + "; step times (host clock) "
@@ -4750,12 +4789,16 @@ def share_count(cfg, shape_name: str) -> dict:
     with device_mesh(mesh, "meta"):
         lowered, _ = steps_mod.lower_cell(cfg, shape, mesh)
         costs, _ = roofline.count_costs(lowered.fn, *lowered.args)
+        args_b = dryrun.argument_bytes(lowered.arg_specs, lowered.shardings,
+                                       mesh)
     rec = roofline.cell_costs(cfg, shape, costs, [], mesh.size)
     rec["count_s"] = time.perf_counter() - t0
+    rec["argument_gb"], rec["temp_gb"] = args_b / 1e9, costs.temp_bytes / 1e9
     t = rec["terms_ms"]
     say(f"{cfg.name} {shape_name} on {mesh.name}, one device's share (dry "
         f"run on meta, H100 spec sheet, {rec['count_s']:.3f} s): "
-        f"{rec['gflops']:.6f} GFLOP, {rec['gbytes']:.6f} GB; compute "
+        f"argument {rec['argument_gb']:.6f} GB + temp {rec['temp_gb']:.6f} "
+        f"GB; {rec['gflops']:.6f} GFLOP, {rec['gbytes']:.6f} GB; compute "
         f"{t['compute']:.6f} ms, memory {t['memory']:.6f} ms, collective "
         f"{t['collective']:.6f} ms; collective MB by kind "
         f"{rec['collective_by_kind_mb']}, by axis "
@@ -4769,8 +4812,10 @@ def share_init(cfg, shape, gen):
     """``lower_cell``'s ``make`` for the share on the card: each shard
     drawn where it lives, as ``LM`` draws the whole (bf16 weights normal
     over the square root of their whole fan-in, the embedding's 0.02;
-    fp32 norms 1 and biases 0), random tokens, normal caches, and every
-    position at the cache's last slot, on ``gen``'s device."""
+    fp32 norms 1 and biases 0; AdamW's fp32 master copies drawn as their
+    parameters, its moments 0), random tokens and labels, normal caches,
+    and every position at the cache's last slot, on ``gen``'s
+    device."""
     dev = gen.device
 
     def make(name, t, shape_):
@@ -4784,78 +4829,115 @@ def share_init(cfg, shape, gen):
         leaf = name.rsplit(".", 1)[-1]
         if name.startswith("caches."):
             return out.normal_(generator=gen)
-        if t.dtype == torch.float32:
+        if name.startswith(("opt.m.", "opt.v.")):  # AdamW's init
+            return out.zero_()
+        # a parameter, or its fp32 master copy (``opt.master.<name>``)
+        if t.dim() == 1:  # norms' weights 1, biases 0
             return out.fill_(1.0 if leaf == "w" else 0.0)
-        fan_in = t.shape[-2] if t.dim() >= 2 else t.shape[-1]
+        fan_in = t.shape[-2]
         return out.normal_(generator=gen).mul_(
             0.02 if leaf == "embed" else fan_in ** -0.5)
 
     return make
 
 
+def share_launches(cfg, kind: str, remat: str) -> dict:
+    """The kernels one step of the share launches, by name: each of the
+    32 layers' attention once (the train step: its forward again under
+    remat, and its backward)."""
+    n = cfg.n_layers
+    if kind == "decode":
+        return {"paged_attention": n}
+    if kind == "prefill":
+        return {"flash_attention": n}
+    return {"flash_attention": n * forward_launches(remat),
+            "flash_attention_bwd": n}
+
+
 def share_path(seed: int, launches: dict) -> dict:
     """One H100's share of CodeQwen1.5-7B on the 32 x 8 mesh
     (``SHARE_ARCH``): for each of ``SHARE_SHAPES`` the dry run's count of
-    the share (``share_count``), then the share run on the card under
-    ``device_mesh(mesh, "cuda")`` (the fake group's collectives move
-    nothing) through ``lower_cell`` with its shards drawn on the card
-    (``share_init``): ``SHARE_STEPS`` steps counted, exactly 32 launches
-    of the shape's attention kernel a step at the local heads (H = Hk =
-    4, dh = 128) and no other kernel, no plain version; the local logits
-    finite and of the share's shape; host ms, device ms (``event_ms``)
-    and the profiler's busy time a step, which must not be below the
-    count's compute and memory bound; the collective term printed beside
-    it as what the deployment would add.  Adds the launches to
-    ``launches``."""
+    the share (``share_count``), whose argument plus temp bytes must fit
+    the card, then the share run on the card under ``device_mesh(mesh,
+    "cuda")`` (the fake group's collectives move nothing) through
+    ``lower_cell`` with its shards drawn on the card (``share_init``):
+    ``SHARE_STEPS`` steps counted, exactly ``share_launches`` a step at
+    the local heads (H = Hk = 4, dh = 128) and no other kernel, no plain
+    version; the local logits finite and of the share's shape, or the
+    train step's first loss finite (an all-gather over the fake group
+    leaves its output as allocated, so the parameters after the first
+    update, and the losses after it, are not held); host ms, device ms
+    (``event_ms``) and the profiler's busy time a step, which must not
+    be below the count's compute and memory bound; the collective term
+    printed beside it as what the deployment would add, and the peak
+    card memory beside the count's argument plus temp bytes.  Adds the
+    launches to ``launches``."""
     t0 = time.perf_counter()
     cfg = get_arch(SHARE_ARCH)
     mesh = make_production_mesh()
     out = {"cfg": cfg, "shapes": {}}
     for shape_name in SHARE_SHAPES:
+        t_shape = time.perf_counter()
         shape = SHAPES[shape_name]
         rec = share_count(cfg, shape_name)
+        count_gb = rec["argument_gb"] + rec["temp_gb"]
+        check(count_gb < roofline.HBM_BYTES / 1e9, f"{cfg.name} {shape_name} "
+              f"share: the count's argument plus temp bytes, {count_gb:.3f} "
+              "GB, do not fit the card")
         terms = rec["terms_ms"]
         bound_ms = max(terms["compute"], terms["memory"])
-        form = "paged_attention" if shape.kind == "decode" \
-            else "flash_attention"
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9  # earlier paths' leftovers
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed + 31)
+        n_steps = SHARE_STEPS[shape_name]
         with device_mesh(mesh, "cuda"):
             low, lm = steps_mod.lower_cell(cfg, shape, mesh,
                                            make=share_init(cfg, shape, gen))
             n_local = sum(p.to_local().numel() for p in lm.parameters())
             check(lm.embed.to_local().device.type == "cuda",
                   f"{cfg.name} share is not on the card")
+            want = {k: n_steps * v for k, v in share_launches(
+                cfg, shape.kind, lm.remat).items()}
             host = []
             with counting_plain() as plain:
                 reset_counts()
-                for _ in range(SHARE_STEPS):
+                for i in range(n_steps):
                     torch.cuda.synchronize()
                     ts = time.perf_counter()
                     res = low.fn(*low.args)
                     torch.cuda.synchronize()
                     host.append((time.perf_counter() - ts) * 1e3)
+                    if i == 0:
+                        first = res[0]
+                        first = (first.to_local() if hasattr(
+                            first, "to_local") else first).float()
                 counts = read_counts()
             check(not any(plain.values()), f"{cfg.name} {shape_name} share: "
                   f"a plain kernel version ran: {plain}")
-            want = SHARE_STEPS * cfg.n_layers
-            check(counts[form] == want, f"{cfg.name} {shape_name} share: "
-                  f"{form} launched {counts[form]} times in {SHARE_STEPS} "
-                  f"steps, not {want}")
-            others = {k: v for k, v in counts.items() if v and k != form}
+            got = {k: counts[k] for k in want}
+            check(got == want, f"{cfg.name} {shape_name} share: launches "
+                  f"{got} in {n_steps} steps, not {want}")
+            others = {k: v for k, v in counts.items() if v and k not in want}
             check(not others, f"{cfg.name} {shape_name} share: other kernels "
                   f"launched: {others}")
-            logits = res[0].to_local()
             rows = shape.global_batch // mesh.shape["data"]
-            check(tuple(logits.shape) == (rows, cfg.vocab // 8)
-                  and bool(torch.isfinite(logits.float()).all()),
-                  f"{cfg.name} {shape_name} share: local logits of shape "
-                  f"{tuple(logits.shape)} or not finite")
-            launches[form] += counts[form]
-            del res, logits
+            if shape.kind == "train":
+                check(first.dim() == 0 and bool(torch.isfinite(first)),
+                      f"{cfg.name} {shape_name} share: the first step's "
+                      f"loss {first} is not a finite scalar")
+                what = f"first loss {float(first):.6f}"
+            else:
+                check(tuple(first.shape) == (rows, cfg.vocab // 8)
+                      and bool(torch.isfinite(first).all()),
+                      f"{cfg.name} {shape_name} share: local logits of shape "
+                      f"{tuple(first.shape)} or not finite")
+                what = f"local logits {tuple(first.shape)} finite"
+            for k, v in got.items():
+                launches[k] += v
+            del res, first
             dev_ms = min(event_ms(lambda: low.fn(*low.args))
                          for _ in range(2))
             with torch.profiler.profile(activities=CARD_ACTIVITY) as prof:
@@ -4865,18 +4947,23 @@ def share_path(seed: int, launches: dict) -> dict:
             top = sorted(kernels, key=lambda e: -e.device_time_total)[:3]
             peak = torch.cuda.max_memory_allocated() / 1e9
             host_ms = min(host[1:])
+            secs = time.perf_counter() - t_shape
             say(f"{cfg.name} {shape_name} share on {mesh.name} (rank 0 of "
                 f"{mesh.size}, {n_local:,} parameters of its own, "
                 f"{rows} sequences, H = Hk = {cfg.n_heads // 8}, dh = "
-                f"{cfg.head_dim}): host {host_ms:.3f} ms a step (steps "
+                f"{cfg.head_dim}" + (f", remat {lm.remat}"
+                                     if shape.kind == "train" else "")
+                + f"): {what}; host {host_ms:.3f} ms a step (steps "
                 f"{[round(h, 3) for h in host]}); device {dev_ms:.6f} ms a "
                 f"step (events); profiler busy {busy:.6f} ms in "
                 f"{n_kernels} kernels; compute and memory bound "
                 f"{bound_ms:.6f} ms, device / bound {dev_ms / bound_ms:.4f}"
                 f", busy / bound {busy / bound_ms:.4f}; the collective "
                 f"term the deployment would add {terms['collective']:.6f} "
-                f"ms; peak card memory {peak:.3f} GB; launches "
-                f"{counts[form]} {form}; top kernels: " + "; ".join(
+                f"ms; peak card memory {peak:.3f} GB ({held:.3f} GB held "
+                f"before the share) against the count's argument + temp "
+                f"{count_gb:.3f} GB; launches {got}; "
+                f"{secs:.3f} s; top kernels: " + "; ".join(
                     f"{e.key[:50]} {e.device_time_total / 1e3:.4f} ms"
                     for e in top))
             check(dev_ms >= bound_ms, f"{cfg.name} {shape_name} share: "
@@ -4888,8 +4975,9 @@ def share_path(seed: int, launches: dict) -> dict:
             out["shapes"][shape_name] = {
                 "host_ms": host_ms, "device_ms": dev_ms, "busy_ms": busy,
                 "bound_ms": bound_ms, "collective_ms": terms["collective"],
-                "launches": counts[form], "peak_gb": peak,
-                "count_s": rec["count_s"]}
+                "launches": got, "peak_gb": peak, "held_gb": held,
+                "count_gb": count_gb,
+                "count_s": rec["count_s"], "seconds": secs}
             del low, lm
         gc.collect()
         torch.cuda.empty_cache()
@@ -4920,13 +5008,14 @@ def chunked_plain(q, k, v, drop: bool = False) -> torch.Tensor:
 
 
 def share_kernels(share: dict, seed: int) -> dict:
-    """Rows 8 and 9 at the share's local shapes (H = Hk = 4, dh = 128):
-    paged_attention at decode_32k's (4 sequences of 32,768 live keys,
-    2,048 pages each) and flash_attention at prefill_32k's (B = 1, T =
-    S = 32,768, causal), each within ``ATTN_STEPS`` of its plain version
-    (which a dropped newest key breaks), timed beside its plain version,
-    ``scaled_dot_product_attention`` on the same inputs and its bound.
-    Returns an ``other_shapes`` entry for each kernel's row."""
+    """Rows 8, 9 and 9b at the share's local shapes (H = Hk = 4, dh =
+    128): paged_attention at decode_32k's (4 sequences of 32,768 live
+    keys, 2,048 pages each), flash_attention at prefill_32k's (B = 1, T
+    = S = 32,768, causal) and, with flash_attention_bwd, at train_4k's
+    (``share_train_kernels``), each within ``ATTN_STEPS`` of its plain
+    version (which a dropped newest key breaks), timed beside its plain
+    version, ``scaled_dot_product_attention`` on the same inputs and its
+    bound.  Returns the ``other_shapes`` entries of each kernel's row."""
     cfg = share["cfg"]
     H = Hk = cfg.n_heads // 8
     dh = cfg.head_dim
@@ -4967,12 +5056,13 @@ def share_kernels(share: dict, seed: int) -> dict:
     bms, by = work_bound(paged_work([S] * B, H, Hk, dh, SERVE_PAGE))
     say(f"{name}: bound {bms:.9f} ms ({by}); scaled_dot_product_attention: "
         f"device {lib_ms} ms, call {lib_call:.6f} ms")
-    out["paged_attention"] = {
+    out["paged_attention"] = [{
         "max_abs_err": err, "ms": timed["ms"], **plain_of(timed),
         "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-        "launches": share["shapes"]["decode_32k"]["launches"],
+        "launches": share["shapes"]["decode_32k"]["launches"][
+            "paged_attention"],
         "shape": f"{cfg.name} decode_32k on 32x8, rank 0's share: B={B}, "
-                 f"H={H}, Hk={Hk}, dh={dh}, len={S}, bf16"}
+                 f"H={H}, Hk={Hk}, dh={dh}, len={S}, bf16"}]
     del batches, lib, q, pk, pv, got
     if "prefill_32k" in share["shapes"]:
         T = SHAPES["prefill_32k"].seq_len
@@ -4998,17 +5088,115 @@ def share_kernels(share: dict, seed: int) -> dict:
             f"scaled_dot_product_attention: device {flib_ms} ms, call "
             f"{flib_call:.6f} ms; the plain version in chunks of "
             f"{SHARE_PLAIN_CHUNK} queries")
-        out["flash_attention"] = {
+        out["flash_attention"] = [{
             "max_abs_err": ferr, "ms": ftimed["ms"], **plain_of(ftimed),
             "bound_ms": fbms, "bound_by": fby, "library_ms": flib_ms,
-            "launches": share["shapes"]["prefill_32k"]["launches"],
+            "launches": share["shapes"]["prefill_32k"]["launches"][
+                "flash_attention"],
             "shape": f"{cfg.name} prefill_32k on 32x8, rank 0's share: "
                      f"B=1, T=S={T}, H={H}, Hk={Hk}, dh={dh}, causal, bf16 "
-                     f"(plain in chunks of {SHARE_PLAIN_CHUNK} queries)"}
+                     f"(plain in chunks of {SHARE_PLAIN_CHUNK} queries)"}]
         del batches, flib, q, k, v, got
     gc.collect()
     torch.cuda.empty_cache()
+    if "train_4k" in share["shapes"]:
+        for name, entry in share_train_kernels(share, gen, dev).items():
+            out.setdefault(name, []).append(entry)
     return out
+
+
+def share_train_kernels(share: dict, gen, dev) -> dict:
+    """Rows 9 and 9b at train_4k's share (B = 8 sequences, T = S = 4,096,
+    H = Hk = 4, dh = 128, causal, bf16): the forward with its
+    log-sum-exp, as the train step calls it, within ``ATTN_STEPS`` of
+    ``chunked_plain`` (a dropped newest key breaking it) and its LSE
+    within ``LSE_TOL``; the backward's dq, dk, dv each within
+    ``attn_limit`` of ``attention_bwd_plain`` (which the plain version
+    without the D term breaks); each timed beside its plain version,
+    SDPA's forward or autograd backward and its bound.  Returns each
+    row's entry."""
+    cfg = share["cfg"]
+    H = Hk = cfg.n_heads // 8
+    dh = cfg.head_dim
+    shape = SHAPES["train_4k"]
+    T, B = shape.seq_len, shape.global_batch // 32
+    seq = f"B={B}, T=S={T}, H={H}, Hk={Hk}, dh={dh}, causal, bf16"
+    launches = share["shapes"]["train_4k"]["launches"]
+    batches = []
+    for _ in range(2):
+        q, k, v, dout = (torch.randn((B, T, h, dh), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                         for h in (H, Hk, Hk, H))
+        o, lse = kflash.flash_attention(q, k, v, return_lse=True)
+        batches.append((q, k, v, o, dout, lse))
+    q, k, v, o, dout, lse = batches[0]
+    torch.cuda.synchronize()
+    name = f"flash_attention ({cfg.name} train_4k share, {seq}, with LSE)"
+    plain_o, plain_lse = kflash.attention_plain(q, k, v, return_lse=True)
+    gap = lse_close(name, lse, plain_lse)
+    del plain_o, plain_lse
+    ferr = close(name, o, chunked_plain(q, k, v),
+                 chunked_plain(q, k, v, drop=True))
+    ftimed = time_kernel(name, lambda a, b, c, *_: kflash.flash_attention(
+        a, b, c, return_lse=True), lambda a, b, c, *_: chunked_plain(a, b, c),
+        batches, reps=16)
+    flib = [tuple(t.transpose(1, 2) for t in b[:3]) for b in batches]
+    flib_ms, flib_call = time_calls(
+        lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+            a, b, c, is_causal=True), flib, 16)
+    pairs = seen_pairs(T, T)
+    fbms, fby = work_bound(flash_work(B, T, T, H, Hk, dh, pairs, lse=True))
+    say(f"{name}: LSE within {gap:.3e} of max(1, |plain|); bound "
+        f"{fbms:.9f} ms ({fby}); scaled_dot_product_attention: device "
+        f"{flib_ms} ms, call {flib_call:.6f} ms")
+    del flib
+    bname = f"flash_attention_bwd ({cfg.name} train_4k share, {seq})"
+    got = kflash.flash_attention_bwd(q, k, v, o, dout, lse=lse)
+    plain = kflash.attention_bwd_plain(q, k, v, o, dout)
+    no_d = kflash.attention_bwd_plain(q, k, v, torch.zeros_like(o), dout)
+    berr, shares, caught = 0.0, [], 0
+    for part, g, p, b in zip(("dq", "dk", "dv"), got, plain, no_d):
+        limit = attn_limit(p)
+        diff = (g.float() - p.float()).abs()
+        check(bool(torch.isfinite(g.float()).all()), f"{bname} {part}: "
+              "non-finite output")
+        check(bool((diff <= limit).all()), f"{bname} {part}: kernel differs "
+              f"from its plain version by up to "
+              f"{float((diff / limit).max())} times the limit")
+        caught += int(((b.float() - p.float()).abs() > limit).sum())
+        berr = max(berr, float(diff.max()))
+        shares.append(float((diff / limit).max()))
+    check(caught > 0, f"{bname}: the limit does not see the plain version "
+          "without the D term")
+    say(f"{bname}: dq, dk, dv within {max(shares):.4f} of the limit of "
+        f"{ATTN_STEPS} bf16 unit roundoffs (max abs err {berr:.6g}); the "
+        f"plain version without the D term breaks it at {caught} elements")
+    del got, plain, no_d
+    btimed = time_kernel(
+        bname, lambda a, b, c, oo, d, ll: kflash.flash_attention_bwd(
+            a, b, c, oo, d, lse=ll),
+        lambda a, b, c, oo, d, ll: kflash.attention_bwd_plain(
+            a, b, c, oo, d), batches, reps=16)
+    blib_ms, blib_call = sdpa_bwd(batches, H, Hk, None, 16)
+    bbms, bby = work_bound(flash_bwd_work(B, T, T, H, Hk, dh, pairs))
+    say(f"{bname}: bound {bbms:.9f} ms ({bby}); scaled_dot_product_"
+        f"attention's backward: device {blib_ms} ms, call "
+        f"{blib_call:.6f} ms")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    where = f"{cfg.name} train_4k on 32x8, rank 0's share: {seq}"
+    return {"flash_attention": {
+                "max_abs_err": ferr, "ms": ftimed["ms"], **plain_of(ftimed),
+                "bound_ms": fbms, "bound_by": fby, "library_ms": flib_ms,
+                "launches": launches["flash_attention"],
+                "shape": where + f", with LSE (plain in chunks of "
+                                 f"{SHARE_PLAIN_CHUNK} queries)"},
+            "flash_attention_bwd": {
+                "max_abs_err": berr, "ms": btimed["ms"], **plain_of(btimed),
+                "bound_ms": bbms, "bound_by": bby, "library_ms": blib_ms,
+                "launches": launches["flash_attention_bwd"],
+                "shape": where, "limit_share": max(shares)}}
 
 
 def cell_fp32_check(lm, seed: int) -> None:
@@ -5526,18 +5714,20 @@ def bwd_vs_plain(seed: int, launches: dict) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # the index loads run on the host at 1.3-36 kops/s (BwTree slowest):
-    # these depths keep the whole run, with the MoE and sliding-window
-    # serving paths, within its time limit on the slower machines
-    ap.add_argument("--n-clht", type=int, default=1 << 19)
-    ap.add_argument("--n-art", type=int, default=1 << 18)
+    # these depths keep the whole run, with the serving, training and
+    # share paths, within its time limit on the slower machines (an
+    # H100 machine with a slow host took 1013 s at twice the P-CLHT,
+    # P-ART, P-Masstree, CCEH and FAST&FAIR depths)
+    ap.add_argument("--n-clht", type=int, default=1 << 18)
+    ap.add_argument("--n-art", type=int, default=1 << 17)
     ap.add_argument("--n-hot", type=int, default=1 << 17)
-    ap.add_argument("--n-masstree", type=int, default=1 << 17)
+    ap.add_argument("--n-masstree", type=int, default=1 << 16)
     ap.add_argument("--n-bwtree", type=int, default=1 << 14)
     # one CCEH directory and one Level hashing level must each fit an
     # arena segment (65,528 words): a 2^16-key CCEH load and a
     # 20,480-key Level hashing load overflow it
-    ap.add_argument("--n-cceh", type=int, default=1 << 15)
-    ap.add_argument("--n-fastfair", type=int, default=1 << 16)
+    ap.add_argument("--n-cceh", type=int, default=1 << 14)
+    ap.add_argument("--n-fastfair", type=int, default=1 << 15)
     ap.add_argument("--n-level", type=int, default=1 << 14)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -5715,10 +5905,12 @@ def main(argv=None) -> int:
     counts = read_counts()
     say(f"training path (a): {time.perf_counter() - t0:.3f} s; kernel "
         f"launches {counts}")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        check(counts[name] == TRAIN_STEPS * n_attn, f"{name} was launched "
-              f"{counts[name]} times in {TRAIN_STEPS} training steps of "
-              f"{n_attn} attention layers")
+    remat = trained["out"]["remat"]
+    for name, per in (("flash_attention", forward_launches(remat)),
+                      ("flash_attention_bwd", 1)):
+        check(counts[name] == TRAIN_STEPS * n_attn * per, f"{name} was "
+              f"launched {counts[name]} times in {TRAIN_STEPS} training "
+              f"steps of {n_attn} attention layers under remat {remat}")
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
     train_report(trained)
@@ -5732,14 +5924,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     reset_counts()
     t0 = time.perf_counter()
-    crash_restart_path(args.seed)
+    remat = crash_restart_path(args.seed)["remat"]
     counts = read_counts()
     say(f"training path (c): {time.perf_counter() - t0:.3f} s; kernel "
         f"launches {counts}")
     want = CRASH_RUN["steps"] * get_arch(TRAIN_ARCH).reduced().n_layers
-    for name in ("flash_attention", "flash_attention_bwd"):
-        check(counts[name] == want, f"{name} was launched {counts[name]} "
-              f"times in the crash and restart run, not {want}")
+    for name, per in (("flash_attention", forward_launches(remat)),
+                      ("flash_attention_bwd", 1)):
+        check(counts[name] == want * per, f"{name} was launched "
+              f"{counts[name]} times in the crash and restart run, not "
+              f"{want * per}")
     for name, done in counts.items():
         launches[name] = launches.get(name, 0) + done
 
@@ -5797,7 +5991,7 @@ def main(argv=None) -> int:
     at_share = share_kernels(share, args.seed)
     for r in rows:
         if r["name"] in at_share:
-            r.setdefault("other_shapes", []).append(at_share[r["name"]])
+            r.setdefault("other_shapes", []).extend(at_share[r["name"]])
     phases["share_kernels"] = time.perf_counter() - t0
     say(f"share_kernels: {phases['share_kernels']:.3f} s")
     check([r["name"] for r in rows] == list(SOURCES), "a kernel is missing "

@@ -7,7 +7,8 @@ batched-plan sweep).  The three hand-crafted PM baselines (CCEH, FAST&FAIR,
 Level hashing) are in ``core.baselines``."""
 
 from .pmem import (CACHELINE_BYTES, WORD_BYTES, WORDS_PER_LINE, CrashPoint,
-                   DeadlockError, NULL, OpCounters, PMem, Region)
+                   DeadlockError, NULL, OpCounters, PMem, Region,
+                   count_stores, measure_op)
 from .conditions import (CONVERSION_TABLE, PROBE_STAT_KEYS, Condition,
                          ConversionSpec, IndexSnapshot, RecipeIndex,
                          crash_detect_fix, register)
@@ -26,7 +27,8 @@ from .crash_testing import (CrashReport, PMSnapshot, audit_durability,
 
 __all__ = [
     "CACHELINE_BYTES", "WORD_BYTES", "WORDS_PER_LINE", "CrashPoint",
-    "DeadlockError", "NULL", "OpCounters", "PMem", "Region",
+    "DeadlockError", "NULL", "OpCounters", "PMem", "Region", "count_stores",
+    "measure_op",
     "CONVERSION_TABLE", "PROBE_STAT_KEYS", "Condition", "ConversionSpec",
     "IndexSnapshot", "RecipeIndex", "crash_detect_fix", "register",
     "Op", "OpKind", "Plan", "PlanResult", "Wave", "run_plan",

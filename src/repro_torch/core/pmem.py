@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -495,3 +495,17 @@ class _GroupCommit:
                 self._span = None
         return False
 
+
+def measure_op(pmem: PMem, fn: Callable[[], object]
+               ) -> Tuple[object, OpCounters]:
+    """Run ``fn`` and return (its result, the op's counters)."""
+    start = pmem.begin_op()
+    result = fn()
+    return result, pmem.end_op(start)
+
+
+def count_stores(pmem: PMem, fn: Callable[[], object]) -> int:
+    """Run ``fn`` and return how many atomic stores it made."""
+    start = pmem.counters.stores
+    fn()
+    return pmem.counters.stores - start

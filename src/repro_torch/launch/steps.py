@@ -130,10 +130,10 @@ def batch_specs(cfg: ArchConfig, B: int, T: int) -> Dict[str, torch.Tensor]:
     return batch
 
 
-def meta_model(cfg: ArchConfig) -> LM:
-    """``LM(cfg)`` on ``meta``: the parameters' shapes and dtypes, no
-    weights drawn."""
-    return LM(cfg, device="meta")
+def meta_model(cfg: ArchConfig, remat: str = "full") -> LM:
+    """``LM(cfg, remat=remat)`` on ``meta``: the parameters' shapes and
+    dtypes, no weights drawn."""
+    return LM(cfg, device="meta", remat=remat)
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeCfg,
@@ -377,27 +377,28 @@ class Lowered:
     shardings: Dict[str, Any]
 
 
-def _cell_model(cfg: ArchConfig, variants: frozenset) -> Tuple[ArchConfig,
-                                                             LM]:
+def _cell_model(cfg: ArchConfig, variants: frozenset, remat: str = "full"
+                ) -> Tuple[ArchConfig, LM]:
     cfg = apply_variants(cfg, variants)
-    model = meta_model(cfg)
+    model = meta_model(cfg, remat)
     if "kv_int8" in variants:
         model.cache_dtype = torch.int8
     return cfg, model
 
 
 def lower_cell(cfg: ArchConfig, shape: ShapeCfg, mesh, *,
-               variants: frozenset = frozenset(), make: Make = _empty
-               ) -> Tuple[Lowered, LM]:
+               variants: frozenset = frozenset(), make: Make = _empty,
+               remat: str = "full") -> Tuple[Lowered, LM]:
     """(the cell's step on ``meta``, the model): a train step (forward,
-    backward and AdamW) over the batch, a prefill, or one decode token
-    against ``seq_len`` slots of cache.  On a production mesh, inside
+    backward under ``remat``, the JAX package's default ``"full"``, and
+    AdamW) over the batch, a prefill, or one decode token against
+    ``seq_len`` slots of cache.  On a production mesh, inside
     ``launch.mesh.device_mesh(mesh)``, one device's share: the model,
     the arguments and AdamW's state placed as DTensors (``place``, rank
     0's shards made by ``make``, named "embed", "layers.0.attn.wq", ...,
     "batch.tokens", "token", "caches.blocks.l0.k", "pos",
     "opt.m.embed", ...), the step run under ``spmd``."""
-    cfg, model = _cell_model(cfg, variants)
+    cfg, model = _cell_model(cfg, variants, remat)
     specs = input_specs(cfg, shape, model)
     shardings = cell_shardings(cfg, shape, mesh, model, specs, variants)
     params = params_tree(model)
@@ -456,6 +457,7 @@ def group_probes(cfg: ArchConfig, shape: ShapeCfg, mesh,
     group's first pattern's layers) in the cell's mode: train, forward
     and backward (the gradients of the layers' parameters and of x);
     prefill, forward; decode, one token against the group's caches.
+    The body runs without remat regions, as the JAX package's probes do.
     Returns [(group name, repeat, Lowered)]."""
     cfg, model = _cell_model(cfg, variants)
     B, T = shape.global_batch, shape.seq_len

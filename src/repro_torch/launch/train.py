@@ -2,8 +2,10 @@
 
 Every layer of the substrate in one loop:
   data pipeline (resumable cursor)  ->  train step (forward, backward on
-  the attention and scan kernels, AdamW + WSD)  ->  RECIPE checkpoint store
-  (atomic generation commit)  ->  fleet monitor (heartbeats, stragglers)
+  the attention and scan kernels, each layer's forward recomputed in the
+  backward under the model's ``remat="full"``, AdamW + WSD)  ->  RECIPE
+  checkpoint store (atomic generation commit)  ->  fleet monitor
+  (heartbeats, stragglers)
 
 ``kill_at_step`` power-fails the metadata plane mid-run and then
 RESTARTS from the last committed generation and the exact data cursor
@@ -86,7 +88,7 @@ def train(arch: str = "minicpm-2b", *, steps: int = 50, reduced: bool = True,
     check_ported(cfg)
     if not reduced:
         check_fits_training(cfg)
-    model = build_model(cfg, seed=seed, device=device)
+    model = build_model(cfg, seed=seed, device=device, remat="full")
     pmem = pmem or PMem()
     store = CheckpointStore(pmem, device=model.device)
     data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
@@ -139,7 +141,7 @@ def train(arch: str = "minicpm-2b", *, steps: int = 50, reduced: bool = True,
                          kill_at_step=None, seed=seed, pmem=pmem,
                          verbose=verbose, device=device)
     return {"losses": losses, "params": model.state_dict(), "store": store,
-            "data": data, "final_step": steps}
+            "data": data, "final_step": steps, "remat": model.remat}
 
 
 def main() -> None:

@@ -61,10 +61,22 @@ and its training surface:
 
 Parameters are created frozen (``requires_grad=False``) for serving;
 a trainer turns them on (``requires_grad_(True)``).  ``prefill`` and
-``decode_step`` run under ``no_grad`` either way.  The JAX package's
-``remat`` (recompute activations in the backward) changes memory, not
-values, and has no counterpart: at MiniCPM-2B's training shape (B = 8,
-T = 64) the activations are a fraction of the fp32 logits.
+``decode_step`` run under ``no_grad`` either way.
+
+``remat`` is the JAX package's rematerialization policy
+(``REMAT_POLICIES``), over the regions its ``_run_groups`` checkpoints
+(``remat_regions``): one region a block of a group that runs once
+(DeepSeek-MoE's ``dense0``), one a pattern period of a repeated group
+(a layer; the hybrid's superblock).  ``"full"`` (the default, as the
+JAX package's) keeps a region's inputs and recomputes its forward in
+the backward (``torch.utils.checkpoint``, the kernels relaunched);
+``"dots"`` keeps the outputs of the products without batch dimensions
+(``mm``, ``addmm``) and recomputes the rest, as JAX's
+``dots_with_no_batch_dims_saveable``; ``"none"`` keeps everything.
+Regions run only under grad; Whisper's encoder and InternVL's projector
+have none, as in the JAX package.  The policy changes memory and work,
+not values: the loss and gradients are those of ``"none"``, bit for
+bit.
 
 Caches are the JAX package's layout: ``{<group>: {"l<i>": ...}}``, one
 entry per group and pattern position (``{"dense0": {"l0": ...},
@@ -80,10 +92,14 @@ shifts [B, D]).  Recurrent state has no token axis.
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig, layer_kinds
 from ..device import resolve_device
@@ -161,6 +177,38 @@ def layer_slots(cfg: ArchConfig) -> List[Tuple[str, str, Optional[int]]]:
             for r in range(repeat) for i in range(len(pattern))]
 
 
+def remat_regions(cfg: ArchConfig) -> List[Tuple[int, int]]:
+    """The layers [start, stop) of each region the JAX package's
+    ``_run_groups`` checkpoints, in order: one a layer of a group that
+    runs once, one a repeat of a repeated group (its pattern's layers,
+    consecutive in ``layer_slots``)."""
+    def region(slot):
+        group, pos, r = slot[1]
+        return group, pos if r is None else r
+
+    out = []
+    for _, slots in itertools.groupby(enumerate(layer_slots(cfg)),
+                                      key=region):
+        layers = [layer for layer, _ in slots]
+        out.append((layers[0], layers[-1] + 1))
+    return out
+
+
+REMAT_POLICIES = ("full", "dots", "none")
+# the products JAX's ``dots_with_no_batch_dims_saveable`` keeps: a
+# batched product (``bmm``, attention's einsums) is recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_saveable)
+
+
 class Block(nn.Module):
     """One layer's parameters for its (mixer, ffn) pair: attention,
     Mamba or RWKV6 (whose channel mix lives in the same ``rwkv`` tree,
@@ -211,13 +259,21 @@ class LM(nn.Module):
     ``attention.KV_QSCALE``.  Recurrent state (RWKV6's token shifts,
     Mamba's ``conv`` tail) stays in the activations' dtype, where the
     JAX package gives it the cache's dtype too and truncates it to int8
-    (reference fault R9)."""
+    (reference fault R9).
 
-    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
+    ``remat``: one of ``REMAT_POLICIES`` (the module docstring)."""
+
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None,
+                 remat: str = "full"):
         super().__init__()
         check_ported(cfg)
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={remat!r}: the policies are "
+                             f"{REMAT_POLICIES}")
         self.cfg = cfg
+        self.remat = remat
         self.slots = layer_slots(cfg)
+        self.regions = remat_regions(cfg)
         self._cache_dtype: Optional[torch.dtype] = None
         dev = resolve_device(device)
         if dev.type == "meta":
@@ -346,13 +402,34 @@ class LM(nn.Module):
         cfg = self.cfg
         x, enc = self._embed_inputs(batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for blk in self.layers:
-            x, a = self._forward_layer(blk, x, enc)
-            if a is not None:
-                aux = aux + a
+        for start, stop in self.regions:
+            x, aux = self._run_region(start, stop, x, aux, enc)
         if cfg.vision is not None:  # only text positions give logits
             x = x[:, cfg.vision.n_patches:]
         return self._logits(x), aux
+
+    def _run_region(self, start: int, stop: int, x: torch.Tensor,
+                    aux: torch.Tensor, enc: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layers ``start`` to ``stop`` of ``forward`` under the remat
+        policy: (x after them, ``aux`` plus their MoE aux losses)."""
+        fn = functools.partial(self._region, start, stop)
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn(x, aux, enc)
+        context = {"context_fn": _DOTS_CONTEXT} if self.remat == "dots" \
+            else {}
+        # the model draws no random numbers: no RNG state to replay
+        return checkpoint(fn, x, aux, enc, use_reentrant=False,
+                          preserve_rng_state=False, **context)
+
+    def _region(self, start: int, stop: int, x: torch.Tensor,
+                aux: torch.Tensor, enc: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        for blk in self.layers[start:stop]:
+            x, a = self._forward_layer(blk, x, enc)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _forward_layer(self, blk: Block, x: torch.Tensor,
                        enc: Optional[torch.Tensor]
@@ -548,9 +625,10 @@ class LM(nn.Module):
         return self._ffn(blk, self._cross(blk, residual(x, y), enc)), state
 
 
-def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:
-    return LM(cfg, seed=seed, device=device)
+def build_model(cfg: ArchConfig, *, seed: int = 0, device=None,
+                remat: str = "full") -> LM:
+    return LM(cfg, seed=seed, device=device, remat=remat)
 
 
-__all__ = ["Block", "LM", "build_model", "check_ported", "group_plan",
-           "layer_slots", "plan_kinds"]
+__all__ = ["Block", "LM", "REMAT_POLICIES", "build_model", "check_ported",
+           "group_plan", "layer_slots", "plan_kinds", "remat_regions"]

@@ -233,7 +233,8 @@ def test_mha_saves_lse_under_grad_only(lse_calls):
 def test_lm_prefill_runs_the_forward_without_lse(lse_calls):
     """``LM.prefill`` (under ``no_grad``) leaves the forward's
     ``return_lse`` false; ``LM.loss`` on trainable parameters asks for it
-    in every attention layer."""
+    in every attention layer, twice under the default ``remat="full"``
+    (the forward, and its recompute in the backward)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import LM
     cfg = get_arch("qwen2-0.5b").reduced()
@@ -244,8 +245,9 @@ def test_lm_prefill_runs_the_forward_without_lse(lse_calls):
     assert lse_calls["forward"] == [False] * cfg.n_layers
     lm.requires_grad_(True)
     lm.loss({"tokens": toks[:, :-1], "labels": toks[:, 1:]}).backward()
+    assert lm.remat == "full"
     assert lse_calls["forward"] == [False] * cfg.n_layers + \
-        [True] * cfg.n_layers
+        [True] * cfg.n_layers * 2
     assert len(lse_calls["backward"]) == cfg.n_layers
     assert all(t is not None for t in lse_calls["backward"])
 

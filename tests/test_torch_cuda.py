@@ -32,7 +32,10 @@ magnitude, two calls bit-identical.  The fake process group's mesh on
 the card (``launch.mesh.device_mesh(mesh, "cuda")``) holds rank 0's
 shards there, and ``mha`` over DTensors launches the flash-attention
 kernel once on the local shard, bit-identical to the kernel on the
-local tensors.
+local tensors.  Training runs under the model's remat policy, ``"full"``
+by default: each layer's forward kernel launches again in the backward
+(the backward kernels once), and the loss and gradients equal those
+without remat bit for bit on the card too.
 """
 
 import numpy as np
@@ -1332,10 +1335,46 @@ def test_train_with_crash_restart_on_card(card):
     assert np.isfinite(out["losses"]).all()
     assert out["store"].latest_step() == 12
     steps_run = 6 + 6  # steps 0-5, then 6-11 after the restart
-    for name in ("flash_attention", "flash_attention_bwd"):
+    assert out["remat"] == "full"  # the forward again in the backward
+    for name, per in (("flash_attention", 2), ("flash_attention_bwd", 1)):
         assert kflash.LAUNCHES[name] == before[name] + \
-            steps_run * cfg.n_layers, name
+            steps_run * cfg.n_layers * per, name
     assert all(t.device.type == "cuda" for t in out["params"].values())
+
+
+def test_remat_full_equals_none_on_card(card):
+    """MiniCPM-2B at full width cut to 2 layers (``chip_smoke.py``'s
+    ``TRAIN_CHECK_LAYERS``), bf16 weights from one seed, one batch of B =
+    8, T = 64: the loss and every gradient under ``remat="full"`` equal
+    those under ``"none"`` bit for bit (the recompute relaunches the same
+    kernels and products on the same inputs); ``full`` launches the
+    attention forward twice a layer, ``none`` once, the backward once."""
+    import dataclasses
+    cfg = dataclasses.replace(get_arch("minicpm-2b"), n_layers=2)
+    rng = np.random.default_rng(31)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 65))).to(card)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    for remat in ("full", "none"):
+        lm = LM(cfg, seed=3, device="cuda", remat=remat)
+        lm.requires_grad_(True)
+        before = dict(kflash.LAUNCHES)
+        loss = lm.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (loss.detach(), {n: p.grad for n, p in
+                                       lm.named_parameters()})
+        per = 2 if remat == "full" else 1
+        assert kflash.LAUNCHES["flash_attention"] - \
+            before["flash_attention"] == per * cfg.n_layers
+        assert kflash.LAUNCHES["flash_attention_bwd"] - \
+            before["flash_attention_bwd"] == cfg.n_layers
+        del lm
+    (loss, grads), (want_loss, want) = runs["full"], runs["none"]
+    assert torch.isfinite(loss) and torch.equal(loss, want_loss)
+    assert sorted(grads) == sorted(want)
+    for name, g in grads.items():
+        assert g is not None and torch.equal(g, want[name]), name
 
 
 # ----------------------------------------------------------------------
@@ -1537,20 +1576,24 @@ def test_scan_bwd_takes_the_forwards_chunk_states(card, T, carried):
 def test_recurrent_families_train_on_card(card, arch):
     """``train`` at ``reduced()`` on the card: every step's scans
     forward and backward on the kernels (RWKV6: every layer's WKV;
-    the hybrid: 7 Mamba mixers and one attention layer)."""
+    the hybrid: 7 Mamba mixers and one attention layer), each forward
+    kernel twice a step under ``remat="full"``."""
     from repro_torch.launch.train import train
     cfg = get_arch(arch).reduced()
     before = {**kwkv.LAUNCHES, **kssd.LAUNCHES, **kflash.LAUNCHES}
     out = train(arch, reduced=True, steps=3, batch=2, seq_len=32,
                 ckpt_every=10, verbose=False, device="cuda")
     assert out["final_step"] == 3 and np.isfinite(out["losses"]).all()
+    assert out["remat"] == "full"
     kinds = [mixer for mixer, _ in layer_kinds(cfg)]
     after = {**kwkv.LAUNCHES, **kssd.LAUNCHES, **kflash.LAUNCHES}
     for name, mixer in (("wkv6", "rwkv"), ("wkv6_bwd", "rwkv"),
                         ("ssd", "mamba"), ("ssd_bwd", "mamba"),
                         ("flash_attention", "attn"),
                         ("flash_attention_bwd", "attn")):
-        assert after[name] - before[name] == 3 * kinds.count(mixer), name
+        per = 1 if name.endswith("_bwd") else 2
+        assert after[name] - before[name] == \
+            3 * kinds.count(mixer) * per, name
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
@@ -1559,8 +1602,9 @@ def test_encdec_and_vlm_run_on_card(card, arch):
     a prefill, 4 decode steps (Whisper's against its encoder's output)
     and a train step, each attention on its kernel with exact launch
     counts (Whisper: 2 encoder, 2 self and 2 cross layers; InternVL: 2
-    layers), every logit and the loss within 1e-4 of the same model's
-    run on the CPU, relative to the largest."""
+    layers; the train step's decoder forward twice under ``remat="full"``,
+    the encoder's once), every logit and the loss within 1e-4 of the same
+    model's run on the CPU, relative to the largest."""
     from repro_torch.launch.steps import make_decode_step, make_train_step
     from repro_torch.optim import adamw
     cfg = get_arch(arch).reduced()
@@ -1618,9 +1662,11 @@ def test_encdec_and_vlm_run_on_card(card, arch):
         loss, _ = train_step({**batch, "labels": labels}, state)
         losses.append(loss.item())
         if lm is gpu:
-            for name in ("flash_attention", "flash_attention_bwd"):
-                assert kflash.LAUNCHES[name] - before[name] == \
-                    L + n_cross + n_enc, name
+            assert lm.remat == "full"
+            assert kflash.LAUNCHES["flash_attention"] - \
+                before["flash_attention"] == 2 * (L + n_cross) + n_enc
+            assert kflash.LAUNCHES["flash_attention_bwd"] - \
+                before["flash_attention_bwd"] == L + n_cross + n_enc
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
 
 

@@ -10,7 +10,9 @@ partitioned program and a real 4-process run.
   convention, ``tests/test_roofline.py``).
 * (b) On the one-card mesh the count is the seed's, FLOPs, bytes, lane
   operations and temp bytes bit for bit (the numbers below were counted
-  on the tree before the partitioner), for five families.
+  on the tree before the partitioner, which had no remat: they are the
+  ``remat="none"`` step's), for five families; the train step under the
+  default ``"full"`` has its own rows, counted when remat came in.
 * (c) CodeQwen1.5-7B ``reduced()`` at (2, 4), where no rule falls back:
   per-device FLOPs times 8 equal the one-card FLOPs within 1e-9
   (relative).
@@ -19,14 +21,26 @@ partitioned program and a real 4-process run.
   and a decode cell of CodeQwen1.5-7B ``reduced()`` widened to d_model
   1024, d_ff 2048 and 8 heads of 128 (at d_model 128 XLA's count of the
   replicated elementwise work, which the port counts as bytes, is 6% of
-  a device's FLOPs).  Per-device argument bytes equal JAX's
-  ``memory_analysis()`` exactly.  The train cell's FLOP share (mesh over
-  one card) is within 5% of JAX's; the decode cell's is exactly 1/8 in
-  the port and above it in JAX (23% above, and not monotonic in depth:
-  PERF.md).  The total collective bytes are within a factor of 2 of
-  JAX's (measured: 1.59 train, 2.0 decode); the port's reduce-scatter
-  (the ZeRO step's) and XLA's all-to-all are each present in one alone
-  (PERF.md).
+  a device's FLOPs), the train cell under each remat policy.  Per-device
+  argument bytes equal JAX's ``memory_analysis()`` exactly.  The train
+  cell's FLOP share (mesh over one card) is within 5% of JAX's.  The
+  decode cell's is exactly 1/8 in the port; XLA's CPU backend computes
+  bf16 products in fp32 and counts each ``convert`` of an operand as a
+  FLOP, and the weights it converts are sharded over "model" only, so
+  its share is 0.15381: XLA's FLOPs less its converts' divide by 8
+  within 5% (PERF.md).  The one-card train FLOPs match JAX's within 1%
+  under each policy, once JAX's count is given the recomputes its scan
+  correction leaves out (``cell_costs`` adds ``repeat - 1`` probes of
+  the body without remat, so it counts one body's recompute: the
+  correction adds ``repeat - 1`` times the program's FLOPs under the
+  policy less under ``"none"``).  Temp bytes: JAX's are full < dots <
+  none on both meshes; the port's full and dots are below none, and
+  dots reads no higher than full, since the count follows tensor
+  objects and selective checkpointing keeps its saved products as
+  ``detach`` aliases (PERF.md).  The total collective bytes are within
+  a factor of 2 of JAX's (measured: 1.59 train, 2.0 decode); the port's
+  reduce-scatter (the ZeRO step's) and XLA's all-to-all are each present
+  in one alone (PERF.md).
 * (e) Four ``gloo`` processes on a (2, 2) mesh against the unsharded
   port in one process, fp32: a prefill's logits within 1e-5 of the
   largest; one decode step's logits and caches (each leaf within 1e-5
@@ -40,6 +54,7 @@ partitioned program and a real 4-process run.
   RWKV6 and hybrid families, each ``reduced()``.
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -65,6 +80,7 @@ MESH = MeshSpec(("data", "model"), (2, 4))
 META = torch.device("meta")
 SHARE_TOL = 1e-9
 JAX_SHARE_TOL = 0.05
+JAX_FLOP_TOL = 0.01
 COLL_FACTOR = 2.0
 LOGIT_TOL = 1e-5
 PARAM_TOL = 1e-6
@@ -187,9 +203,19 @@ SEED_COUNTS = [  # (arch, kind, FLOPs, bytes, lane ops, temp bytes)
 ]
 
 
-def one_card(cfg, kind):
+FULL_REMAT_COUNTS = [  # the train step under remat="full", as above
+    ("qwen2-0.5b", 675872768.0, 134786282.0, 0.0, 3082252),
+    ("codeqwen1.5-7b", 776536064.0, 164739838.0, 0.0, 3082252),
+    ("deepseek-moe-16b", 3348692992.0, 344536822.0, 0.0, 17317904),
+    ("rwkv6-7b", 817889280.0, 176093006.0, 16777216.0, 3082252),
+    ("jamba-1.5-large-398b", 13374881792.0, 1349958966.0, 29360128.0,
+     17690656),
+]
+
+
+def one_card(cfg, kind, remat="full"):
     low, _ = steps.lower_cell(cfg, ShapeCfg(f"{kind}_small", kind, 64, 4),
-                              make_smoke_mesh())
+                              make_smoke_mesh(), remat=remat)
     return roofline.count_costs(low.fn, *low.args)[0]
 
 
@@ -197,10 +223,24 @@ def one_card(cfg, kind):
                          SEED_COUNTS)
 def test_one_card_count_is_unchanged(arch, kind, flops, n_bytes, lane_ops,
                                      temp):
-    c = one_card(get_arch(arch).reduced(), kind)
+    c = one_card(get_arch(arch).reduced(), kind, remat="none")
     assert (c.flops, c.bytes_accessed, c.lane_ops, c.temp_bytes) == \
         (flops, n_bytes, lane_ops, temp)
     assert c.coll_by_kind == {} and c.collective_s() == 0.0
+
+
+@pytest.mark.parametrize("arch,flops,n_bytes,lane_ops,temp",
+                         FULL_REMAT_COUNTS)
+def test_one_card_full_remat_count(arch, flops, n_bytes, lane_ops, temp):
+    """Under the default ``"full"`` the train step recomputes each
+    region's forward: more FLOPs, bytes and (scans) lane operations than
+    ``"none"``, fewer temp bytes."""
+    c = one_card(get_arch(arch).reduced(), "train")
+    assert (c.flops, c.bytes_accessed, c.lane_ops, c.temp_bytes) == \
+        (flops, n_bytes, lane_ops, temp)
+    none = next(r for r in SEED_COUNTS if r[:2] == (arch, "train"))
+    assert c.flops > none[2] and c.bytes_accessed > none[3]
+    assert c.temp_bytes < none[5]
 
 
 # -- (c) per-device FLOPs divide by the mesh --------------------------------
@@ -225,7 +265,7 @@ JAX_CELLS = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8")
     os.environ["JAX_PLATFORMS"] = "cpu"
-    import dataclasses, json, sys
+    import dataclasses, json, re, sys
     import jax
     import numpy as np
     from jax.sharding import Mesh
@@ -233,25 +273,45 @@ JAX_CELLS = textwrap.dedent("""
     from repro.configs import get_arch
     from repro.configs.base import ShapeCfg
     from repro.launch import steps
+    from repro.models.model import LM
+
+    def convert_flops(text):
+        # XLA's CPU backend upcasts bf16 operands: one FLOP an element
+        shapes = re.findall(r"= \\w+\\[([\\d,]*)\\]\\S* convert\\(", text)
+        return sum(int(np.prod([int(d) for d in dims.split(",") if d]))
+                   for dims in shapes)
+
     cfg = dataclasses.replace(get_arch("codeqwen1.5-7b").reduced(),
                               **json.loads(sys.argv[1]))
     devs = np.array(jax.devices())
     meshes = {"mesh": Mesh(devs.reshape(2, 4), ("data", "model")),
               "card": Mesh(devs[:1].reshape(1, 1), ("data", "model"))}
     out = {}
-    for kind in ("train", "decode"):
+    for kind, policies in (("train", ("full", "dots", "none")),
+                           ("decode", ("full",))):
         shape = ShapeCfg(f"{kind}_small", kind, 64, 4)
-        for name, mesh in meshes.items():
-            lowered, _ = steps.lower_cell(cfg, shape, mesh)
-            compiled = lowered.compile()
-            rec = roofline.cell_costs(cfg, shape, lowered, compiled,
-                                      steps.group_probes(cfg, shape, mesh),
-                                      mesh)
-            out[kind + "." + name] = {
-                "argument_bytes":
-                    compiled.memory_analysis().argument_size_in_bytes,
-                "gflops": rec["hlo_gflops"],
-                "collective_by_kind_mb": rec["collective_by_kind_mb"]}
+        for policy in policies:
+            steps.build_model = lambda c, _p=policy: LM(c, remat=_p)
+            for name, mesh in meshes.items():
+                lowered, _ = steps.lower_cell(cfg, shape, mesh)
+                compiled = lowered.compile()
+                probes = steps.group_probes(cfg, shape, mesh)
+                rec = roofline.cell_costs(cfg, shape, lowered, compiled,
+                                          probes, mesh)
+                mem = compiled.memory_analysis()
+                key = ".".join([kind, name] + ([policy] * (policy != "full")))
+                out[key] = {
+                    "argument_bytes": mem.argument_size_in_bytes,
+                    "temp_bytes": mem.temp_size_in_bytes,
+                    "gflops": rec["hlo_gflops"],
+                    "base_gflops": roofline.costs_of(compiled).flops / 1e9,
+                    "extra_reps": sum(r for _, r, _ in probes),
+                    "collective_by_kind_mb": rec["collective_by_kind_mb"]}
+                if kind == "decode":
+                    out[key]["convert_gflops"] = (
+                        convert_flops(compiled.as_text()) + sum(
+                            r * convert_flops(p.compile().as_text())
+                            for _, r, p in probes)) / 1e9
     print(json.dumps(out))
 """)
 
@@ -266,15 +326,17 @@ def jax_cells():
     return json.loads(done.stdout.strip().splitlines()[-1])
 
 
-def port_cell(kind):
-    import dataclasses
-    cfg = dataclasses.replace(get_arch("codeqwen1.5-7b").reduced(), **WIDE)
+def wide_cfg():
+    return dataclasses.replace(get_arch("codeqwen1.5-7b").reduced(), **WIDE)
+
+
+def port_cell(kind, remat="full"):
     shape = ShapeCfg(f"{kind}_small", kind, 64, 4)
     with device_mesh(MESH):
-        low, _ = steps.lower_cell(cfg, shape, MESH)
+        low, _ = steps.lower_cell(wide_cfg(), shape, MESH, remat=remat)
         costs, _ = roofline.count_costs(low.fn, *low.args)
         args = dryrun.argument_bytes(low.arg_specs, low.shardings, MESH)
-    return args, costs, one_card(cfg, kind).flops
+    return args, costs, one_card(wide_cfg(), kind, remat)
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])
@@ -282,18 +344,44 @@ def test_per_device_program_against_jax(jax_cells, kind):
     args, costs, card = port_cell(kind)
     jm, jc = jax_cells[f"{kind}.mesh"], jax_cells[f"{kind}.card"]
     assert args == jm["argument_bytes"]
-    share, jshare = costs.flops / card, jm["gflops"] / jc["gflops"]
+    share, jshare = costs.flops / card.flops, jm["gflops"] / jc["gflops"]
     assert share == 1 / MESH.size
     if kind == "train":
         assert abs(share - jshare) <= JAX_SHARE_TOL * jshare, (share, jshare)
-    else:  # XLA replicates part of the decode step (PERF.md)
-        assert jshare > share
+    else:  # XLA's converts of the weights divide by "model" alone
+        assert jshare > share * (1 + JAX_SHARE_TOL), jshare
+        dots = ((jm["gflops"] - jm["convert_gflops"])
+                / (jc["gflops"] - jc["convert_gflops"]))
+        assert abs(dots - share) <= JAX_SHARE_TOL * share, (dots, share)
     jkinds = jm["collective_by_kind_mb"]
     port = {k: v / 1e6 for k, v in costs.coll_by_kind.items()}
     ratio = sum(jkinds.values()) / sum(port.values())
     assert 1 / COLL_FACTOR <= ratio <= COLL_FACTOR, (port, jkinds)
     only = set(port) ^ set(jkinds)
     assert only <= {"reduce-scatter", "all-to-all"}, only
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "none"])
+def test_one_card_train_flops_against_jax_per_policy(jax_cells, policy):
+    """JAX's count with its scan's ``repeat - 1`` missing recomputes
+    added; under ``"none"`` that is JAX's count itself."""
+    suffix = "" if policy == "full" else "." + policy
+    j, jn = jax_cells["train.card" + suffix], jax_cells["train.card.none"]
+    want = j["gflops"] + j["extra_reps"] * (j["base_gflops"]
+                                            - jn["base_gflops"])
+    got = one_card(wide_cfg(), "train", policy).flops / 1e9
+    assert abs(got - want) <= JAX_FLOP_TOL * want, (got, want, j["gflops"])
+
+
+def test_temp_bytes_order_per_policy(jax_cells):
+    for mesh in ("card", "mesh"):
+        jt = [jax_cells[f"train.{mesh}{s}"]["temp_bytes"]
+              for s in ("", ".dots", ".none")]
+        assert jt[0] < jt[1] < jt[2], (mesh, jt)
+    temps = {p: port_cell("train", p) for p in ("full", "dots", "none")}
+    for at in (lambda c: c[1].temp_bytes, lambda c: c[2].temp_bytes):
+        full, dots, none = (at(temps[p]) for p in ("full", "dots", "none"))
+        assert full <= dots < none and full < none, (full, dots, none)
 
 
 # -- (e) four gloo processes against the unsharded port ----------------------
