@@ -191,7 +191,11 @@ The sixteenth, the training path, runs ``repro_torch.launch.train``:
 * (c) the crash and restart example's run on the card (MiniCPM-2B at
   ``reduced()``, 200 steps, a checkpoint every 25, a power failure at
   step 110): it ends at step 200 (cursor and generation too), the loss
-  falls, generation 200 restores the live parameters bit for bit.
+  falls, generation 200 restores the live parameters bit for bit;
+* between (b) and (c), one step of (a)'s shape under each remat policy
+  (``full``, ``dots``, ``none``): its peak card memory less what was
+  held before its model was drawn, beside the dry run's argument plus
+  temp bytes for that step, the launches of each policy exact.
 
 Every training path states its model's remat policy; under ``"full"``
 each layer's forward kernel launches twice a step (the forward and its
@@ -291,12 +295,25 @@ finite; and ``train_4k`` (8 of the 256 sequences of 4,096 tokens: the
 forward, the backward under ``remat="full"`` and the ZeRO AdamW step),
 2 steps, exactly 64 ``flash_attention`` (32 forward, 32 recomputed) and
 32 ``flash_attention_bwd`` a step, the first step's loss finite; all at
-H = Hk = 4, dh = 128, no other kernel and no plain version; device ms
-(events) and profiler busy ms a step, neither below the share's
-compute and memory bound, the collective term printed beside them as
-what the deployment would add, and the peak card memory beside the
-count's argument plus temp bytes.  Rows 8, 9 and 9b gain those shapes
-under ``other_shapes`` (phase 4).
+H = Hk = 4, dh = 128; then ``decode_32k`` under the ``kv_seqshard``
+variant (the cache's slots over "model": rank 0 holds 4 sequences'
+first 4,096 slots of all 32 kv heads, q's 32 heads gathered; every
+pos at 32,767, on the last "model" rank's shard, so rank 0's slots
+are all live and it writes nothing), 3 steps and one more at pos =
+2,047 (rank 0 writes that slot of each sequence and nothing else),
+exactly 32 ``paged_attention`` a step, each device's slots attended
+by the kernel with its log-sum-exp and the shards merged by it; no
+other kernel and no plain version; device ms (events) and profiler
+busy ms a step, neither below the share's compute and memory bound,
+the collective term printed beside them as what the deployment would
+add, and the card's peak memory less what was held before the share
+beside the count's argument plus temp bytes.  Rows 8, 9 and 9b gain
+those shapes under ``other_shapes`` (phase 4); row 8 also its form
+with the log-sum-exp at the slot-sharded shape (B = 4, H = Hk = 32,
+4,096 slots), with the library call that returns its log-sum-exp too,
+the edges a slot shard meets and 8 shards merged against the
+unsharded kernel, and the log-sum-exp's store timed at the base
+share's shape.
 
 Phases, each of which exits non-zero on failure:
 
@@ -431,6 +448,7 @@ from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.kernels.clht_probe import mix64  # noqa: E402
 from repro_torch.kernels.probe import fp64, fp_partial  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models.model import REMAT_POLICIES  # noqa: E402
 from repro_torch.models import ffn as ffn_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models.attention import KV_QSCALE  # noqa: E402
@@ -441,7 +459,7 @@ from repro_torch.serving.engine import _pad_caches  # noqa: E402
 from repro_torch.convert import (lm_arrays_from_params,  # noqa: E402
                                  lm_params_from_arrays)
 from repro_torch.launch import train as train_mod  # noqa: E402
-from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeCfg  # noqa: E402
 from repro_torch.launch.mesh import (device_mesh,  # noqa: E402
                                      make_production_mesh, make_smoke_mesh)
 from repro_torch.launch import dryrun  # noqa: E402
@@ -767,12 +785,20 @@ CELL_CHECK_SLOTS = 256
 # of the 128 sequences against 32,768 slots at pos = 32,767; prefill_32k:
 # 1 of the 32 sequences of 32,768 tokens; train_4k: 8 of the 256
 # sequences of 4,096 tokens through the train step (forward, backward
-# under the model's remat="full", the ZeRO AdamW step).  SHARE_STEPS
-# steps each (the train step's 2: its host dispatch takes some 2.2 s a
-# step, and the whole run must keep to its time limit on slow hosts)
+# under the model's remat="full", the ZeRO AdamW step); decode_32k under
+# the kv_seqshard variant: the cache's slots over "model", so rank 0 holds
+# 4 sequences' first 4,096 slots of all 32 kv heads, q's heads gathered.
+# SHARE_STEPS steps each (the train step's 2: its host dispatch takes
+# some 2.2 s a step, and the whole run must keep to its time limit on
+# slow hosts); the slot-sharded decode then one more at SEQSHARD_POS,
+# a slot of rank 0's own (at pos = 32,767 its slots are all live and it
+# writes nothing, the new key lying on the last "model" rank's shard)
 SHARE_ARCH = "codeqwen1.5-7b"
-SHARE_SHAPES = ("decode_32k", "prefill_32k", "train_4k")
-SHARE_STEPS = {"decode_32k": 3, "prefill_32k": 3, "train_4k": 2}
+SHARE_CELLS = (("decode_32k", ()), ("prefill_32k", ()), ("train_4k", ()),
+               ("decode_32k", ("kv_seqshard",)))
+SHARE_STEPS = {"decode_32k": 3, "prefill_32k": 3, "train_4k": 2,
+               "decode_32k kv_seqshard": 3}
+SEQSHARD_POS = 2047
 # the prefill's plain attention runs in chunks of queries (a whole
 # [4, 32768, 32768] fp32 score matrix is 17.2 GB, and the plain version
 # makes several)
@@ -3894,6 +3920,72 @@ def forward_launches(remat: str) -> int:
     return 1 if remat == "none" else 2
 
 
+def remat_memory(seed: int, launches: dict) -> dict:
+    """The count's temp bytes against the card (ROADMAP F3): one train
+    step of MiniCPM-2B at full width on one card (``TRAIN_BATCH``
+    sequences of ``TRAIN_SEQ`` tokens, fp32 AdamW state) under each
+    remat policy, its peak memory (``max_memory_allocated``) less what
+    was held before its model was drawn, printed beside the dry run's
+    argument plus temp bytes for the same step (``lower_cell`` on the
+    one-card mesh, on ``meta``); each step's loss finite, its forward
+    kernels ``forward_launches`` a layer, its backward's once, no plain
+    version.  Adds the launches to ``launches``; returns the readings by
+    policy."""
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeCfg("train_small", "train", TRAIN_SEQ, TRAIN_BATCH)
+    card_mesh = make_smoke_mesh()
+    out = {}
+    for policy in REMAT_POLICIES:
+        t0 = time.perf_counter()
+        low, _ = steps_mod.lower_cell(cfg, shape, card_mesh, remat=policy)
+        costs, _ = roofline.count_costs(low.fn, *low.args)
+        count = (dryrun.argument_bytes(low.arg_specs, low.shardings,
+                                       card_mesh) + costs.temp_bytes) / 1e9
+        del low, costs
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        lm = LM(cfg, seed=seed, device="cuda", remat=policy)
+        state = adamw.init(dict(lm.named_parameters()))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        batch = {k: torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        step = make_train_step(lm, cfg.name)
+        with counting_plain() as plain:
+            reset_counts()
+            loss, state = step(batch, state)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(not any(plain.values()), f"{cfg.name} step under remat "
+              f"{policy}: a plain kernel version ran: {plain}")
+        check(bool(torch.isfinite(loss)), f"{cfg.name} step under remat "
+              f"{policy}: loss {loss}")
+        want = {"flash_attention": cfg.n_layers * forward_launches(policy),
+                "flash_attention_bwd": cfg.n_layers}
+        got = {k: counts[k] for k in want}
+        check(got == want, f"{cfg.name} step under remat {policy}: "
+              f"launches {got}, not {want}")
+        for k, v in got.items():
+            launches[k] += v
+        card = peak - held
+        out[policy] = {"count_gb": count, "card_gb": card, "held_gb": held}
+        say(f"{cfg.name} one-card train step (B = {TRAIN_BATCH}, T = "
+            f"{TRAIN_SEQ}) under remat {policy}: loss {float(loss):.6f}; "
+            f"peak card memory {peak:.3f} GB ({held:.3f} GB held before), "
+            f"{card:.3f} GB the step's, against the count's argument + "
+            f"temp {count:.3f} GB (count / card {count / card:.4f}); "
+            f"launches {got}; {time.perf_counter() - t0:.3f} s")
+        del lm, state, batch, step, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def timed_step(step_fn, steps: int, timing: dict):
     """``step_fn`` (a train, prefill or decode step) wrapped to time each
     call on the host clock into ``timing["host_s"]`` (each call starts
@@ -4777,17 +4869,23 @@ def decode_cell(seed: int, launches: dict) -> dict:
 
 # -- the 32 x 8 share ---------------------------------------------------------
 
-def share_count(cfg, shape_name: str) -> dict:
+def share_key(shape_name: str, variants: tuple) -> str:
+    """A share cell's name: its shape, and its variants after it."""
+    return " ".join((shape_name,) + variants)
+
+
+def share_count(cfg, shape_name: str, variants: tuple = ()) -> dict:
     """The dry run's count of one device's share of ``cfg`` x
-    ``shape_name`` on the 32 x 8 mesh (``launch.steps.lower_cell`` on
-    ``meta`` under ``launch.mesh.device_mesh``): its roofline record,
-    printed with its per-device terms and collective bytes by kind and
-    axis."""
+    ``shape_name`` (under ``variants``) on the 32 x 8 mesh
+    (``launch.steps.lower_cell`` on ``meta`` under
+    ``launch.mesh.device_mesh``): its roofline record, printed with its
+    per-device terms and collective bytes by kind and axis."""
     mesh = make_production_mesh()
     shape = SHAPES[shape_name]
     t0 = time.perf_counter()
     with device_mesh(mesh, "meta"):
-        lowered, _ = steps_mod.lower_cell(cfg, shape, mesh)
+        lowered, _ = steps_mod.lower_cell(cfg, shape, mesh,
+                                          variants=frozenset(variants))
         costs, _ = roofline.count_costs(lowered.fn, *lowered.args)
         args_b = dryrun.argument_bytes(lowered.arg_specs, lowered.shardings,
                                        mesh)
@@ -4795,8 +4893,9 @@ def share_count(cfg, shape_name: str) -> dict:
     rec["count_s"] = time.perf_counter() - t0
     rec["argument_gb"], rec["temp_gb"] = args_b / 1e9, costs.temp_bytes / 1e9
     t = rec["terms_ms"]
-    say(f"{cfg.name} {shape_name} on {mesh.name}, one device's share (dry "
-        f"run on meta, H100 spec sheet, {rec['count_s']:.3f} s): "
+    say(f"{cfg.name} {share_key(shape_name, variants)} on {mesh.name}, one "
+        f"device's share (dry run on meta, H100 spec sheet, "
+        f"{rec['count_s']:.3f} s): "
         f"argument {rec['argument_gb']:.6f} GB + temp {rec['temp_gb']:.6f} "
         f"GB; {rec['gflops']:.6f} GFLOP, {rec['gbytes']:.6f} GB; compute "
         f"{t['compute']:.6f} ms, memory {t['memory']:.6f} ms, collective "
@@ -4854,34 +4953,55 @@ def share_launches(cfg, kind: str, remat: str) -> dict:
             "flash_attention_bwd": n}
 
 
+def first_layer_keys(caches: dict):
+    """Rank 0's first-layer keys [B, S, Hk, dh] of a tree of placed
+    caches (a stacked group's leaf holds every layer's)."""
+    for v in caches.values():
+        if isinstance(v, dict):
+            got = first_layer_keys(v)
+            if got is not None:
+                return got
+    if "k" not in caches:
+        return None
+    k = caches["k"].to_local()
+    return k[0] if k.dim() == 5 else k
+
+
 def share_path(seed: int, launches: dict) -> dict:
     """One H100's share of CodeQwen1.5-7B on the 32 x 8 mesh
-    (``SHARE_ARCH``): for each of ``SHARE_SHAPES`` the dry run's count of
+    (``SHARE_ARCH``): for each of ``SHARE_CELLS`` the dry run's count of
     the share (``share_count``), whose argument plus temp bytes must fit
     the card, then the share run on the card under ``device_mesh(mesh,
     "cuda")`` (the fake group's collectives move nothing) through
     ``lower_cell`` with its shards drawn on the card (``share_init``):
     ``SHARE_STEPS`` steps counted, exactly ``share_launches`` a step at
-    the local heads (H = Hk = 4, dh = 128) and no other kernel, no plain
-    version; the local logits finite and of the share's shape, or the
-    train step's first loss finite (an all-gather over the fake group
-    leaves its output as allocated, so the parameters after the first
-    update, and the losses after it, are not held); host ms, device ms
-    (``event_ms``) and the profiler's busy time a step, which must not
-    be below the count's compute and memory bound; the collective term
-    printed beside it as what the deployment would add, and the peak
-    card memory beside the count's argument plus temp bytes.  Adds the
-    launches to ``launches``."""
+    the local heads (H = Hk = 4, dh = 128; the slot-sharded decode's H =
+    Hk = 32) and no other kernel, no plain version; the local logits
+    finite and of the share's shape, or the train step's first loss
+    finite (an all-gather over the fake group leaves its output as
+    allocated, so the parameters after the first update, and the losses
+    after it, are not held); host ms, device ms (``event_ms``) and the
+    profiler's busy time a step, which must not be below the count's
+    compute and memory bound; the collective term printed beside it as
+    what the deployment would add, and the card's peak memory less what
+    was held before the share beside the count's argument plus temp
+    bytes.  The slot-sharded decode (``kv_seqshard``) leaves rank 0's
+    cache as it was at pos = 32,767 (held against a copy of its first
+    layer's keys, whose bytes the peak's reading leaves out) and takes
+    one step more at ``SEQSHARD_POS``, counted alike, which writes each
+    sequence's slot there and nothing else.  Adds the launches to
+    ``launches``."""
     t0 = time.perf_counter()
     cfg = get_arch(SHARE_ARCH)
     mesh = make_production_mesh()
     out = {"cfg": cfg, "shapes": {}}
-    for shape_name in SHARE_SHAPES:
+    for shape_name, variants in SHARE_CELLS:
         t_shape = time.perf_counter()
+        key = share_key(shape_name, variants)
         shape = SHAPES[shape_name]
-        rec = share_count(cfg, shape_name)
+        rec = share_count(cfg, shape_name, variants)
         count_gb = rec["argument_gb"] + rec["temp_gb"]
-        check(count_gb < roofline.HBM_BYTES / 1e9, f"{cfg.name} {shape_name} "
+        check(count_gb < roofline.HBM_BYTES / 1e9, f"{cfg.name} {key} "
               f"share: the count's argument plus temp bytes, {count_gb:.3f} "
               "GB, do not fit the card")
         terms = rec["terms_ms"]
@@ -4892,15 +5012,20 @@ def share_path(seed: int, launches: dict) -> dict:
         held = torch.cuda.memory_allocated() / 1e9  # earlier paths' leftovers
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed + 31)
-        n_steps = SHARE_STEPS[shape_name]
+        n_steps = SHARE_STEPS[key]
         with device_mesh(mesh, "cuda"):
             low, lm = steps_mod.lower_cell(cfg, shape, mesh,
+                                           variants=frozenset(variants),
                                            make=share_init(cfg, shape, gen))
             n_local = sum(p.to_local().numel() for p in lm.parameters())
             check(lm.embed.to_local().device.type == "cuda",
                   f"{cfg.name} share is not on the card")
-            want = {k: n_steps * v for k, v in share_launches(
-                cfg, shape.kind, lm.remat).items()}
+            per_step = share_launches(cfg, shape.kind, lm.remat)
+            want = {k: n_steps * v for k, v in per_step.items()}
+            slotted = "kv_seqshard" in variants
+            if slotted:
+                k0 = first_layer_keys(low.args[1])
+                k_before = k0.clone()
             host = []
             with counting_plain() as plain:
                 reset_counts()
@@ -4915,26 +5040,30 @@ def share_path(seed: int, launches: dict) -> dict:
                         first = (first.to_local() if hasattr(
                             first, "to_local") else first).float()
                 counts = read_counts()
-            check(not any(plain.values()), f"{cfg.name} {shape_name} share: "
+            check(not any(plain.values()), f"{cfg.name} {key} share: "
                   f"a plain kernel version ran: {plain}")
             got = {k: counts[k] for k in want}
-            check(got == want, f"{cfg.name} {shape_name} share: launches "
+            check(got == want, f"{cfg.name} {key} share: launches "
                   f"{got} in {n_steps} steps, not {want}")
             others = {k: v for k, v in counts.items() if v and k not in want}
-            check(not others, f"{cfg.name} {shape_name} share: other kernels "
+            check(not others, f"{cfg.name} {key} share: other kernels "
                   f"launched: {others}")
             rows = shape.global_batch // mesh.shape["data"]
             if shape.kind == "train":
                 check(first.dim() == 0 and bool(torch.isfinite(first)),
-                      f"{cfg.name} {shape_name} share: the first step's "
+                      f"{cfg.name} {key} share: the first step's "
                       f"loss {first} is not a finite scalar")
                 what = f"first loss {float(first):.6f}"
             else:
                 check(tuple(first.shape) == (rows, cfg.vocab // 8)
                       and bool(torch.isfinite(first).all()),
-                      f"{cfg.name} {shape_name} share: local logits of shape "
+                      f"{cfg.name} {key} share: local logits of shape "
                       f"{tuple(first.shape)} or not finite")
                 what = f"local logits {tuple(first.shape)} finite"
+            if slotted:
+                check(torch.equal(k0, k_before), f"{cfg.name} {key} share: "
+                      f"rank 0 wrote its cache at pos = {shape.seq_len - 1}"
+                      ", a slot of another rank's")
             for k, v in got.items():
                 launches[k] += v
             del res, first
@@ -4946,11 +5075,19 @@ def share_path(seed: int, launches: dict) -> dict:
             busy, n_kernels, kernels = device_totals(prof)
             top = sorted(kernels, key=lambda e: -e.device_time_total)[:3]
             peak = torch.cuda.max_memory_allocated() / 1e9
+            if slotted:  # less the check's copy of the first layer's keys
+                peak -= k_before.numel() * k_before.element_size() / 1e9
+                seen, more = seqshard_step(cfg, key, low, per_step, k_before,
+                                           launches)
+                what += "; " + seen
+                got = {k: v + more[k] for k, v in got.items()}
+                del k0, k_before
             host_ms = min(host[1:])
             secs = time.perf_counter() - t_shape
-            say(f"{cfg.name} {shape_name} share on {mesh.name} (rank 0 of "
+            heads = cfg.n_heads // (1 if slotted else 8)
+            say(f"{cfg.name} {key} share on {mesh.name} (rank 0 of "
                 f"{mesh.size}, {n_local:,} parameters of its own, "
-                f"{rows} sequences, H = Hk = {cfg.n_heads // 8}, dh = "
+                f"{rows} sequences, H = Hk = {heads}, dh = "
                 f"{cfg.head_dim}" + (f", remat {lm.remat}"
                                      if shape.kind == "train" else "")
                 + f"): {what}; host {host_ms:.3f} ms a step (steps "
@@ -4961,18 +5098,19 @@ def share_path(seed: int, launches: dict) -> dict:
                 f", busy / bound {busy / bound_ms:.4f}; the collective "
                 f"term the deployment would add {terms['collective']:.6f} "
                 f"ms; peak card memory {peak:.3f} GB ({held:.3f} GB held "
-                f"before the share) against the count's argument + temp "
-                f"{count_gb:.3f} GB; launches {got}; "
-                f"{secs:.3f} s; top kernels: " + "; ".join(
+                f"before the share), {peak - held:.3f} GB the share's, "
+                f"against the count's argument + temp {count_gb:.3f} GB "
+                f"(count / card {count_gb / (peak - held):.4f}); launches "
+                f"{got}; {secs:.3f} s; top kernels: " + "; ".join(
                     f"{e.key[:50]} {e.device_time_total / 1e3:.4f} ms"
                     for e in top))
-            check(dev_ms >= bound_ms, f"{cfg.name} {shape_name} share: "
+            check(dev_ms >= bound_ms, f"{cfg.name} {key} share: "
                   f"device {dev_ms} ms a step is below the count's bound "
                   f"{bound_ms} ms: the count is wrong")
-            check(busy == 0 or busy >= bound_ms, f"{cfg.name} {shape_name} "
+            check(busy == 0 or busy >= bound_ms, f"{cfg.name} {key} "
                   f"share: profiler busy {busy} ms a step is below the "
                   f"count's bound {bound_ms} ms: the count is wrong")
-            out["shapes"][shape_name] = {
+            out["shapes"][key] = {
                 "host_ms": host_ms, "device_ms": dev_ms, "busy_ms": busy,
                 "bound_ms": bound_ms, "collective_ms": terms["collective"],
                 "launches": got, "peak_gb": peak, "held_gb": held,
@@ -4983,6 +5121,43 @@ def share_path(seed: int, launches: dict) -> dict:
         torch.cuda.empty_cache()
     say(f"{cfg.name} 32 x 8 share: {time.perf_counter() - t0:.3f} s")
     return out
+
+
+def seqshard_step(cfg, key: str, low, per_step: dict, k_before,
+                  launches: dict) -> str:
+    """The slot-sharded decode's step at ``SEQSHARD_POS`` (every
+    sequence's pos set there in place): ``per_step`` launches and no
+    plain version, finite local logits, and rank 0's first-layer keys
+    changed at that slot of every sequence and nowhere else.  Adds the
+    launches to ``launches``; returns what it saw and the launches."""
+    low.args[2].to_local().fill_(SEQSHARD_POS)
+    k0 = first_layer_keys(low.args[1])
+    with counting_plain() as plain:
+        reset_counts()
+        res = low.fn(*low.args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    check(not any(plain.values()), f"{cfg.name} {key} share at pos "
+          f"{SEQSHARD_POS}: a plain kernel version ran: {plain}")
+    got = {k: counts[k] for k in per_step}
+    check(got == per_step and not any(
+        v for k, v in counts.items() if k not in per_step),
+        f"{cfg.name} {key} share at pos {SEQSHARD_POS}: launches {counts}, "
+        f"not {per_step}")
+    logits = res[0].to_local().float()
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name} {key} share at "
+          f"pos {SEQSHARD_POS}: local logits not finite")
+    moved = (k0 != k_before).any(-1).any(-1)  # [sequence, slot]
+    check(bool(moved[:, SEQSHARD_POS].all()) and int(moved.sum())
+          == moved.shape[0], f"{cfg.name} {key} share at pos "
+          f"{SEQSHARD_POS}: rank 0 changed slots "
+          f"{moved.nonzero().tolist()[:8]}, not slot {SEQSHARD_POS} of each "
+          "sequence")
+    for k, v in got.items():
+        launches[k] += v
+    return (f"at pos {SEQSHARD_POS} one step more: rank 0 wrote slot "
+            f"{SEQSHARD_POS} of each of its {moved.shape[0]} sequences and "
+            f"nothing else, launches {got}, local logits finite"), got
 
 
 def chunked_plain(q, k, v, drop: bool = False) -> torch.Tensor:
@@ -5056,14 +5231,21 @@ def share_kernels(share: dict, seed: int) -> dict:
     bms, by = work_bound(paged_work([S] * B, H, Hk, dh, SERVE_PAGE))
     say(f"{name}: bound {bms:.9f} ms ({by}); scaled_dot_product_attention: "
         f"device {lib_ms} ms, call {lib_call:.6f} ms")
+    with_lse = lse_store_cost(name, batches, table, lens)
     out["paged_attention"] = [{
         "max_abs_err": err, "ms": timed["ms"], **plain_of(timed),
         "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
         "launches": share["shapes"]["decode_32k"]["launches"][
-            "paged_attention"],
+            "paged_attention"], **with_lse,
         "shape": f"{cfg.name} decode_32k on 32x8, rank 0's share: B={B}, "
                  f"H={H}, Hk={Hk}, dh={dh}, len={S}, bf16"}]
     del batches, lib, q, pk, pv, got
+    seq_key = share_key("decode_32k", ("kv_seqshard",))
+    if seq_key in share["shapes"]:
+        out["paged_attention"].append(seqshard_kernel(
+            cfg, share["shapes"][seq_key], gen, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
     if "prefill_32k" in share["shapes"]:
         T = SHAPES["prefill_32k"].seq_len
         batches = [tuple(torch.randn((1, T, h, dh), generator=gen,
@@ -5103,6 +5285,205 @@ def share_kernels(share: dict, seed: int) -> dict:
         for name, entry in share_train_kernels(share, gen, dev).items():
             out.setdefault(name, []).append(entry)
     return out
+
+
+def lse_store_cost(name: str, batches, table, lens) -> dict:
+    """Row 8 with and without its log-sum-exp at one shape, in turns
+    (without, with, with, without), each ``queued_ms`` over 32 calls;
+    the outputs bit for bit the same.  Returns the readings."""
+    bare = lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens, None)
+    lse = lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens, None,
+                                           return_lse=True)
+    for b in batches:
+        check(torch.equal(bare(*b), lse(*b)[0]), f"{name}: the output with "
+              "the log-sum-exp differs from the output without it")
+    torch.cuda.synchronize()
+    turns = [queued_ms(fn, batches, 32, 0.1)[0]
+             for fn in (bare, lse, lse, bare)]
+    say(f"{name}: the log-sum-exp's store: without {turns[0]:.6f}, with "
+        f"{turns[1]:.6f}, with {turns[2]:.6f}, without {turns[3]:.6f} ms "
+        "a call (queued, 32 calls each); outputs bit for bit equal")
+    return {"ms_without_lse": [turns[0], turns[3]],
+            "ms_with_lse": [turns[1], turns[2]]}
+
+
+def paged_lse_close(name: str, lse, plain) -> float:
+    """Row 8's log-sum-exp within ``LSE_TOL`` of max(1, |plain|), -inf
+    on exactly the rows where no key is live; the largest gap."""
+    live = torch.isfinite(plain)
+    check(torch.equal(torch.isfinite(lse), live)
+          and bool((lse[~live] < 0).all()) and not bool(lse.isnan().any()),
+          f"{name}: the log-sum-exp is not -inf on exactly the rows that "
+          "see no key")
+    gap = float(((lse - plain).abs() / plain.abs().clamp_min(1.0))[live]
+                .max()) if bool(live.any()) else 0.0
+    check(gap <= LSE_TOL, f"{name}: the log-sum-exp differs from the plain "
+          f"version's by {gap:.3e} of max(1, |plain|)")
+    return gap
+
+
+def seqshard_kernel(cfg, timing: dict, gen, dev) -> dict:
+    """Row 8 with its log-sum-exp at the slot-sharded decode's shape:
+    rank 0's 4 sequences over its 4,096 slots (256 pages of 16) of all
+    32 kv heads, H = Hk = 32, dh = 128, bf16, each length 32,768 as the
+    share's step passes it (past the shard's table: every slot live).
+    The output within ``ATTN_STEPS`` of the plain version (which the
+    shard's newest key dropped breaks), the log-sum-exp within
+    ``LSE_TOL``; timed beside the plain version, SDPA over the same keys
+    and ``aten._scaled_dot_product_flash_attention``, which also returns
+    its log-sum-exp (the library call); its bound; then the edge inputs
+    (``seqshard_edges``).  Returns the row's entry."""
+    H = Hk = cfg.n_heads
+    dh = cfg.head_dim
+    B = SHAPES["decode_32k"].global_batch // 32
+    S = SHAPES["decode_32k"].seq_len // 8
+    n_pages = S // SERVE_PAGE
+    table = torch.arange(B * n_pages, dtype=torch.int32,
+                         device=dev).reshape(B, n_pages)
+    lens = torch.full((B,), SHAPES["decode_32k"].seq_len, dtype=torch.int32,
+                      device=dev)
+    batches = [tuple(torch.randn(shape, generator=gen, device=dev)
+                     .to(torch.bfloat16)
+                     for shape in ((B, H, dh), (B * n_pages, SERVE_PAGE, Hk,
+                                                dh),
+                                   (B * n_pages, SERVE_PAGE, Hk, dh)))
+               for _ in range(4)]
+    q, pk, pv = batches[0]
+    name = (f"paged_attention ({cfg.name} decode_32k kv_seqshard share, "
+            f"B={B}, H={H}, Hk={Hk}, dh={dh}, {S} slots, with LSE)")
+    got, lse = kpaged.paged_mqa(q, pk, pv, table, lens, None,
+                                return_lse=True)
+    torch.cuda.synchronize()
+    plain, plain_lse = kpaged.paged_attention_plain(
+        q, pk, pv, table, lens, None, return_lse=True)
+    err = close(name, got, plain, kpaged.paged_attention_plain(
+        q, pk, pv, table, torch.full_like(lens, S - 1), None),
+        "the shard's newest key dropped")
+    gap = paged_lse_close(name, lse, plain_lse)
+    del got, lse, plain, plain_lse
+    timed = time_kernel(
+        name, lambda a, b, c: kpaged.paged_mqa(a, b, c, table, lens, None,
+                                               return_lse=True),
+        lambda a, b, c: kpaged.paged_attention_plain(
+            a, b, c, table, lens, None, return_lse=True), batches, reps=64)
+    lib = [(a[:, :, None], b.reshape(B, S, Hk, dh).transpose(1, 2),
+            c.reshape(B, S, Hk, dh).transpose(1, 2)) for a, b, c in batches]
+    sdpa_ms, sdpa_call = time_calls(
+        lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+            a, b, c), lib, 64)
+    lib_ms, lib_call = time_calls(
+        lambda a, b, c: torch.ops.aten._scaled_dot_product_flash_attention(
+            a, b, c), lib, 64)
+    bms, by = work_bound(paged_work([S] * B, H, Hk, dh, SERVE_PAGE,
+                                    lse=True))
+    say(f"{name}: LSE within {gap:.3e} of max(1, |plain|); bound "
+        f"{bms:.9f} ms ({by}); scaled_dot_product_attention: device "
+        f"{sdpa_ms} ms, call {sdpa_call:.6f} ms; aten._scaled_dot_product_"
+        f"flash_attention (with its LSE): device {lib_ms} ms, call "
+        f"{lib_call:.6f} ms")
+    del batches, lib, q, pk, pv
+    edges = seqshard_edges(dev)
+    return {"max_abs_err": err, "ms": timed["ms"], **plain_of(timed),
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "sdpa_ms": sdpa_ms, "lse_gap": gap, "edges": edges,
+            "launches": timing["launches"]["paged_attention"],
+            "shape": f"{cfg.name} decode_32k kv_seqshard on 32x8, rank 0's "
+                     f"share: B={B}, H={H}, Hk={Hk}, dh={dh}, {S} slots, "
+                     "len 32768, bf16, with LSE"}
+
+
+def seqshard_edges(dev) -> int:
+    """Row 8's log-sum-exp at the edges a slot shard meets, at H = Hk =
+    32, dh = 128: for fp32, bf16 and int8 pages over a 256-slot shard,
+    lengths 0, -100 (the new key on an earlier shard), 1, 300 and 1,000
+    (past the shard) without a window and with one of 64 (1,000 - 64
+    lies past the shard: wholly behind the window); out and LSE against
+    the plain version (``ATTN_TOL``-like: ``attn_limit``; ``LSE_TOL``),
+    zeros and -inf where no key is live, no NaN; then a 32,768-slot
+    cache cut into 8 shards of 4,096, each through the kernel with its
+    own length and merged by LSE (``attention.merge_by_lse``), against
+    the kernel over the whole cache, fp32 within ``FP32_TOL`` of the
+    largest output and bf16 within 2^-7 of it, without a window and
+    with one of 4,096 across the shards' borders.  Returns the number
+    of calls checked."""
+    from repro_torch.models import attention as attn_mod
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    B, H, dh, S, PS = 5, 32, 128, 256, SERVE_PAGE
+    lens = torch.tensor([0, -100, 1, 300, 1000], dtype=torch.int32,
+                        device=dev)
+    table = torch.arange(B * S // PS, dtype=torch.int32,
+                         device=dev).reshape(B, S // PS)
+    n = 0
+    for kind, (qdt, scale) in {"fp32": (torch.float32, None),
+                               "bf16": (torch.bfloat16, None),
+                               "int8": (torch.bfloat16, 1 / 32)}.items():
+        q = torch.randn((B, H, dh), generator=gen, device=dev).to(qdt)
+        if scale is None:
+            pk, pv = (torch.randn((B * S // PS, PS, H, dh), generator=gen,
+                                  device=dev).to(qdt) for _ in range(2))
+        else:
+            pk, pv = (torch.randint(-127, 128, (B * S // PS, PS, H, dh),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+        for window in (None, 64):
+            name = f"paged_attention edges ({kind} pages, window {window})"
+            out, lse = kpaged.paged_mqa(q, pk, pv, table, lens, window,
+                                        kv_scale=scale, return_lse=True)
+            torch.cuda.synchronize()
+            p_out, p_lse = kpaged.paged_attention_plain(
+                q, pk, pv, table, lens, window, kv_scale=scale,
+                return_lse=True)
+            paged_lse_close(name, lse, p_lse)
+            dead = ~torch.isfinite(p_lse).all(-1)
+            want = [True, True, False, False, window is not None]
+            check(dead.tolist() == want, f"{name}: sequences without a live "
+                  f"key {dead.tolist()}, not {want}")
+            check(not bool(out.float().isnan().any()) and torch.equal(
+                out[dead], torch.zeros_like(out[dead])), f"{name}: a "
+                "sequence without a live key is not zeros, or a NaN")
+            diff = (out.float() - p_out.float()).abs()
+            check(bool((diff <= attn_limit(p_out)).all()), f"{name}: kernel "
+                  f"differs from its plain version by "
+                  f"{float((diff / attn_limit(p_out)).max())} of the limit")
+            n += 1
+    B, S = 4, SHAPES["decode_32k"].seq_len
+    w = S // 8
+    pos = torch.tensor([5, w - 1, w, S - 1], device=dev)
+    table = attn_mod.identity_pages(B, S, PS, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, H, dh), generator=gen, device=dev).to(dtype)
+        ck, cv = (torch.randn((B, S, H, dh), generator=gen, device=dev)
+                  .to(dtype) for _ in range(2))
+        for window in (None, 4096):
+            parts = [attn_mod.attend_slot_shard(
+                q, ck[:, i * w:(i + 1) * w].contiguous(),
+                cv[:, i * w:(i + 1) * w].contiguous(),
+                (pos + 1 - i * w).int(), window) for i in range(8)]
+            got = attn_mod.merge_by_lse(
+                torch.stack([o for o, _ in parts]),
+                torch.stack([l for _, l in parts]),
+                lambda t: t.amax(0, keepdim=True),
+                lambda t: t.sum(0, keepdim=True))[0]
+            whole = kpaged.paged_mqa(q, ck.reshape(-1, PS, H, dh),
+                                     cv.reshape(-1, PS, H, dh), table,
+                                     (pos + 1).int(), window).float()
+            torch.cuda.synchronize()
+            err = float((got - whole).abs().max())
+            limit = (FP32_TOL if dtype == torch.float32 else 2.0 ** -7) \
+                * float(whole.abs().max())
+            check(not bool(got.isnan().any()) and err <= limit,
+                  f"8 slot shards merged by LSE ({dtype}, window {window}) "
+                  f"differ from the unsharded kernel by {err} (limit "
+                  f"{limit})")
+            say(f"8 slot shards of {w} merged by LSE ({dtype}, window "
+                f"{window}): within {err:.3e} of the unsharded kernel "
+                f"(limit {limit:.3e})")
+            n += 1
+            del parts, got, whole
+        del ck, cv
+    say(f"paged_attention's edges at H = Hk = {H}: {n} calls checked")
+    return n
 
 
 def share_train_kernels(share: dict, gen, dev) -> dict:
@@ -5922,6 +6303,9 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    remat_memory(args.seed, launches)
+    phases["remat memory"] = time.perf_counter() - t0
     reset_counts()
     t0 = time.perf_counter()
     remat = crash_restart_path(args.seed)["remat"]

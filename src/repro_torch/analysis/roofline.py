@@ -32,8 +32,10 @@ What is counted, and how (``count_costs``): the step runs once on
   On ``meta`` a sequence's length has no value, so the paged kernel
   charges every page of its block table, as XLA's einsum over all S
   slots does (a run on the card at pos = S - 1 reads the same);
-* the live bytes of the tensors the step creates, whose peak is the
-  record's ``temp_bytes``;
+* the live bytes of the storages the step creates, each from the op
+  that first returns it until the storage is freed (views, ``detach``
+  aliases, the tensors autograd saves and the gradients it accumulates
+  hold theirs), whose peak is the record's ``temp_bytes``;
 * on a production mesh (``launch.mesh.device_mesh``: the parameters,
   inputs and optimizer state are DTensors over a ``fake`` process group,
   this process rank 0), one device's program: the mode passes every op
@@ -117,16 +119,18 @@ class Work:
 
 
 def paged_work(live: Sequence[int], H: int, Hk: int, dh: int,
-               page_size: int, q_bytes: int = 2, kv_bytes: int = 2) -> Work:
+               page_size: int, q_bytes: int = 2, kv_bytes: int = 2,
+               lse: bool = False) -> Work:
     """The paged decode attention over sequences with ``live`` keys each:
     the live keys and values once (``kv_bytes`` an element: 2 for bf16,
     1 for the int8 cache), q and the output (``q_bytes``), the table's
-    live entries and the length (4 bytes each); 4 FLOPs a (key, query
-    head, channel): the score and the P.V product."""
+    live entries and the length (4 bytes each), and the fp32 log-sum-exp
+    of each query head where it is stored; 4 FLOPs a (key, query head,
+    channel): the score and the P.V product."""
     n_bytes = flops = 0
     for n in live:
         n_bytes += (2 * kv_bytes * n * Hk * dh + 2 * q_bytes * H * dh
-                    + 4 * -(-n // page_size) + 4)
+                    + 4 * -(-n // page_size) + 4 + (4 * H if lse else 0))
         flops += 4 * n * H * dh
     return Work(flops=flops, bytes=n_bytes)
 
@@ -327,6 +331,7 @@ class _Counter(TorchDispatchMode):
         from torch.distributed.tensor import DTensor
         self.costs = Costs()
         self.live = 0
+        self._storages: set = set()  # the live storages' keys
         self._dtensor, self._fake = DTensor, FakeTensor
 
     def charge(self, name: str, work: Work) -> None:
@@ -342,18 +347,27 @@ class _Counter(TorchDispatchMode):
         k["bytes"] += work.bytes
         k["lane_ops"] += work.lane_ops
 
-    def _freed(self, n: int) -> None:
+    def _freed(self, key: int, n: int) -> None:
+        self._storages.discard(key)
         self.live -= n
 
     def _live(self, ins, outs) -> None:
-        seen = {id(t) for t in ins}
+        """Charge each storage that an op's outputs bring into being (not
+        an input's, nor one already live) its bytes until the storage
+        itself is freed: a view, a ``detach`` alias, a tensor that
+        autograd saves or a gradient it accumulates holds the storage
+        after the op's own output object is gone."""
+        given = {t.untyped_storage()._cdata for t in ins}
         for t in outs:
-            if id(t) in seen:
+            s = t.untyped_storage()
+            key = s._cdata
+            if key in given or key in self._storages:
                 continue
-            n = _nbytes(t)
+            n = s.nbytes()
+            self._storages.add(key)
             self.live += n
             self.costs.temp_bytes = max(self.costs.temp_bytes, self.live)
-            weakref.finalize(t, self._freed, n)
+            weakref.finalize(s, self._freed, key, n)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, self._dtensor) for t in types):

@@ -21,6 +21,11 @@
 //   * q and the pages are upcast to fp32; s = (q . k) * scale; softmax
 //     and the P.V product in fp32; out = acc / max(l, 1e-30) in q's
 //     dtype, so len = 0 gives zeros;
+//   * on request (lse not null) the log-sum-exp of each (sequence, query
+//     head)'s live scores, M + log(L) in fp32, -inf where no key is live:
+//     what flash decoding needs to merge attention over slot shards
+//     (models/attention.py _seq_sharded_decode); the output is the same
+//     with or without it;
 //   * the pages hold q's dtype, or int8 (the kv_int8 cache of the JAX
 //     package's src/repro/models/attention.py attn_decode, quantized as
 //     clip(round(x * 32), -127, 127)): each int8 key and value is
@@ -79,11 +84,13 @@
 //     goes through device memory but the inputs and the output, and the
 //     kernel needs no scratch.
 //   * Window: each block computes its sequence's first live key,
-//     max(0, len - w), from the length it reads, and starts its split's
-//     key loop there (its chunks count from that key, not from the split's
-//     first), so no key before the window is read, and no page wholly
-//     before it.  A split that lies wholly before the window has no chunk
-//     and leaves the empty partial, as a split past len does.  The split
+//     max(0, len - w), from the length it reads (unclamped: a slot
+//     shard's length may pass its table, and its window still starts at
+//     len - w), and starts its split's key loop there (its chunks count
+//     from that key, not from the split's first), so no key before the
+//     window is read, and no page wholly before it.  A split that lies
+//     wholly before the window has no chunk and leaves the empty partial,
+//     as a split past len does.  The split
 //     plan stays a function of the table's shape: a windowed call has the
 //     same grid, and its early splits do no work.  Its first rounds wait
 //     for the length; without a window they go out before it, as above.
@@ -253,9 +260,9 @@ paged_attention_kernel(const T* __restrict__ q,
                        const KV* __restrict__ pages_v,
                        const int32_t* __restrict__ table,
                        const int32_t* __restrict__ lens, T* __restrict__ out,
-                       int heads, int kv_heads, int page_size, int max_pages,
-                       int split_pages, int window, float scale,
-                       float kv_scale) {
+                       float* __restrict__ lse, int heads, int kv_heads,
+                       int page_size, int max_pages, int split_pages,
+                       int window, float scale, float kv_scale) {
   using L = Layout<KV, kDh>;
   constexpr int kVec = L::kVec;
   constexpr int kPieces = L::kPieces;
@@ -340,7 +347,7 @@ paged_attention_kernel(const T* __restrict__ q,
   // the split's keys are read from `base` on: its first key, or the
   // sequence's first live key where a window starts inside the split
   // (split_hi where it starts past it, so no chunk is read)
-  const int first = window > 0 ? max(0, len - window) : 0;
+  const int first = window > 0 && len_raw > window ? len_raw - window : 0;
   const int base = max(lo, min(split_hi, first));
   if (window > 0) stage_first(base);
   const int hi = min(split_hi, len);
@@ -516,15 +523,17 @@ paged_attention_kernel(const T* __restrict__ q,
     const int g = split + gl * n_splits;
     out[static_cast<int64_t>(b * heads + h0 + g) * kDh + c] =
         from_f32<T>(num / fmaxf(den, 1e-30f));
+    // M + log(L): -1e30 + log(0) = -inf where no key is live
+    if (lse != nullptr && c == 0) lse[b * heads + h0 + g] = mm + logf(den);
   }
 }
 
 template <typename T, typename KV, int kDh, int kHeads>
 int launch_heads(const void* q, const void* pages_k, const void* pages_v,
-                 const void* table, const void* lens, void* out, int batch,
-                 int heads, int kv_heads, int page_size, int max_pages,
-                 int split_pages, int n_splits, int window, float scale,
-                 float kv_scale, cudaStream_t stream) {
+                 const void* table, const void* lens, void* out, void* lse,
+                 int batch, int heads, int kv_heads, int page_size,
+                 int max_pages, int split_pages, int n_splits, int window,
+                 float scale, float kv_scale, cudaStream_t stream) {
   constexpr int kBlockHeads = kTeamWarps * kHeads;
   const int groups = (heads / kv_heads + kBlockHeads - 1) / kBlockHeads;
   const int smem = Layout<KV, kDh>::bytes(kBlockHeads);
@@ -550,8 +559,8 @@ int launch_heads(const void* q, const void* pages_k, const void* pages_v,
       &config, kernel, static_cast<const T*>(q),
       static_cast<const KV*>(pages_k), static_cast<const KV*>(pages_v),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
-      static_cast<T*>(out), heads, kv_heads, page_size, max_pages,
-      split_pages, window, scale, kv_scale);
+      static_cast<T*>(out), static_cast<float*>(lse), heads, kv_heads,
+      page_size, max_pages, split_pages, window, scale, kv_scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -561,26 +570,26 @@ int launch_heads(const void* q, const void* pages_k, const void* pages_v,
 // a team, any other count rejected
 template <typename T, typename KV, int kDh>
 int launch(const void* q, const void* pages_k, const void* pages_v,
-           const void* table, const void* lens, void* out, int batch,
-           int heads, int kv_heads, int page_size, int max_pages,
+           const void* table, const void* lens, void* out, void* lse,
+           int batch, int heads, int kv_heads, int page_size, int max_pages,
            int split_pages, int n_splits, int block_heads, int window,
            float scale, float kv_scale, cudaStream_t stream) {
   switch (block_heads) {
     case kTeamWarps:
       return launch_heads<T, KV, kDh, 1>(
-          q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
-          page_size, max_pages, split_pages, n_splits, window, scale,
-          kv_scale, stream);
+          q, pages_k, pages_v, table, lens, out, lse, batch, heads,
+          kv_heads, page_size, max_pages, split_pages, n_splits, window,
+          scale, kv_scale, stream);
     case 2 * kTeamWarps:
       return launch_heads<T, KV, kDh, 2>(
-          q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
-          page_size, max_pages, split_pages, n_splits, window, scale,
-          kv_scale, stream);
+          q, pages_k, pages_v, table, lens, out, lse, batch, heads,
+          kv_heads, page_size, max_pages, split_pages, n_splits, window,
+          scale, kv_scale, stream);
     case 8 * kTeamWarps:
       return launch_heads<T, KV, kDh, 8>(
-          q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
-          page_size, max_pages, split_pages, n_splits, window, scale,
-          kv_scale, stream);
+          q, pages_k, pages_v, table, lens, out, lse, batch, heads,
+          kv_heads, page_size, max_pages, split_pages, n_splits, window,
+          scale, kv_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -588,25 +597,25 @@ int launch(const void* q, const void* pages_k, const void* pages_v,
 
 template <typename T, typename KV>
 int launch_dtype(const void* q, const void* pages_k, const void* pages_v,
-                 const void* table, const void* lens, void* out, int batch,
-                 int heads, int kv_heads, int head_dim, int page_size,
-                 int max_pages, int split_pages, int n_splits,
-                 int block_heads, int window, float scale, float kv_scale,
-                 cudaStream_t stream) {
+                 const void* table, const void* lens, void* out, void* lse,
+                 int batch, int heads, int kv_heads, int head_dim,
+                 int page_size, int max_pages, int split_pages,
+                 int n_splits, int block_heads, int window, float scale,
+                 float kv_scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, KV, 32>(q, pages_k, pages_v, table, lens, out, batch,
-                               heads, kv_heads, page_size, max_pages,
+      return launch<T, KV, 32>(q, pages_k, pages_v, table, lens, out, lse,
+                               batch, heads, kv_heads, page_size, max_pages,
                                split_pages, n_splits, block_heads, window,
                                scale, kv_scale, stream);
     case 64:
-      return launch<T, KV, 64>(q, pages_k, pages_v, table, lens, out, batch,
-                               heads, kv_heads, page_size, max_pages,
+      return launch<T, KV, 64>(q, pages_k, pages_v, table, lens, out, lse,
+                               batch, heads, kv_heads, page_size, max_pages,
                                split_pages, n_splits, block_heads, window,
                                scale, kv_scale, stream);
     case 128:
-      return launch<T, KV, 128>(q, pages_k, pages_v, table, lens, out, batch,
-                                heads, kv_heads, page_size, max_pages,
+      return launch<T, KV, 128>(q, pages_k, pages_v, table, lens, out, lse,
+                                batch, heads, kv_heads, page_size, max_pages,
                                 split_pages, n_splits, block_heads, window,
                                 scale, kv_scale, stream);
     default:
@@ -619,21 +628,25 @@ int launch_dtype(const void* q, const void* pages_k, const void* pages_v,
 // C interface, loaded with ctypes.  q: [batch, heads, head_dim]; pages_k,
 // pages_v: [n_pages, page_size, kv_heads, head_dim]; table: [batch,
 // max_pages] int32 (entries below 0 read page 0); lens: [batch] int32;
-// out like q; all contiguous, q of `dtype` (0 float32, 1 bfloat16), the
-// pages of `kv_dtype` (q's, or 2 int8, each element read times kv_scale),
-// 16-byte aligned.  The keys are cut into
-// n_splits (1, 2, 4 or 8) splits of split_pages pages, n_splits *
-// split_pages >= max_pages; a block computes block_heads (4, 8 or 32)
-// query heads of a kv head; window > 0 keeps only the last `window` of a
-// sequence's keys live, 0 keeps all.  Launches on `stream`, does not
-// synchronise, and returns the launch's error or cudaGetLastError() after it
-// (cudaErrorInvalidValue for a head dim other than 32, 64 or 128,
-// another dtype or kv_dtype, heads not a multiple of kv_heads, another block_heads,
-// a negative window, or a split plan that does not cover max_pages).
+// out like q; lse null, or [batch, heads] float32 for each query head's
+// log-sum-exp of its live scores (-inf where none is live); all
+// contiguous, q of `dtype` (0 float32, 1 bfloat16), the pages of
+// `kv_dtype` (q's, or 2 int8, each element read times kv_scale), 16-byte
+// aligned.  The keys are cut into n_splits (1, 2, 4 or 8) splits of
+// split_pages pages, n_splits * split_pages >= max_pages; a block computes
+// block_heads (4, 8 or 32) query heads of a kv head; window > 0 keeps only
+// the last `window` of a sequence's keys live (from len - window, len
+// unclamped), 0 keeps all; a len <= 0 reads nothing.  Launches on
+// `stream`, does not synchronise, and returns the launch's error or
+// cudaGetLastError() after it (cudaErrorInvalidValue for a head dim other
+// than 32, 64 or 128, another dtype or kv_dtype, heads not a multiple of
+// kv_heads, another block_heads, a negative window, or a split plan that
+// does not cover max_pages).
 extern "C" int paged_attention(const void* q, const void* pages_k,
                                const void* pages_v, const void* table,
-                               const void* lens, void* out, int batch,
-                               int heads, int kv_heads, int head_dim,
+                               const void* lens, void* out, void* lse,
+                               int batch, int heads, int kv_heads,
+                               int head_dim,
                                int page_size, int max_pages, int split_pages,
                                int n_splits, int block_heads, int window,
                                int dtype, int kv_dtype, float scale,
@@ -648,22 +661,22 @@ extern "C" int paged_attention(const void* q, const void* pages_k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && kv_dtype == 0)
     return launch_dtype<float, float>(
-        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        q, pages_k, pages_v, table, lens, out, lse, batch, heads, kv_heads,
         head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
         window, scale, kv_scale, s);
   if (dtype == 1 && kv_dtype == 1)
     return launch_dtype<__nv_bfloat16, __nv_bfloat16>(
-        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        q, pages_k, pages_v, table, lens, out, lse, batch, heads, kv_heads,
         head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
         window, scale, kv_scale, s);
   if (dtype == 0 && kv_dtype == 2)
     return launch_dtype<float, int8_t>(
-        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        q, pages_k, pages_v, table, lens, out, lse, batch, heads, kv_heads,
         head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
         window, scale, kv_scale, s);
   if (dtype == 1 && kv_dtype == 2)
     return launch_dtype<__nv_bfloat16, int8_t>(
-        q, pages_k, pages_v, table, lens, out, batch, heads, kv_heads,
+        q, pages_k, pages_v, table, lens, out, lse, batch, heads, kv_heads,
         head_dim, page_size, max_pages, split_pages, n_splits, block_heads,
         window, scale, kv_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);

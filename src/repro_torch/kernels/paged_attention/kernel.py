@@ -19,6 +19,16 @@ and starts at the page that holds it: pages wholly before the window are
 never read, and a split that lies wholly before it stores an empty
 partial.
 
+With ``return_lse`` the kernel also stores each (sequence, query
+head)'s log-sum-exp of its live scores, M + log(L) in fp32 (-inf where
+no key is live), from the block that merges the head's splits: the
+merged output is bit for bit the one without it.  Slot shards of one
+cache merge by it (``models/attention.py`` ``merge_by_lse``).  A
+length past MAXP * PS reads the table's keys with the window starting
+at the unclamped length less the window (a slot shard's length, ``pos +
+1 - off``, passes its table when ``pos`` lies on a later shard), and a
+length of 0 or less reads nothing.
+
 The pages hold q's dtype, or int8 (the ``kv_int8`` cache, q in bf16 or
 fp32): the kernel converts each int8 key and value it loads to fp32 and
 multiplies it by ``kv_scale`` in registers, so no dequantized copy of
@@ -31,7 +41,8 @@ names.  A call on CPU tensors
 launches nothing and counts nothing.  On ``meta`` tensors (the dry run)
 the wrapper launches nothing either: it charges the kernel's work
 (``analysis.roofline.paged_work``, every page of the table, since a
-``meta`` length has no value) and returns an output of q's shape.
+``meta`` length has no value, and the log-sum-exp's store where it is
+asked for) and returns an output of q's shape (and the log-sum-exp's).
 """
 
 from __future__ import annotations
@@ -106,7 +117,7 @@ _I = ctypes.c_int
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
-    lib.paged_attention.argtypes = ([_P] * 6 + [_I] * 12
+    lib.paged_attention.argtypes = ([_P] * 7 + [_I] * 12
                                     + [ctypes.c_float] * 2 + [_P])
     lib.paged_attention.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
@@ -163,7 +174,8 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
                     pages_v: torch.Tensor, block_table: torch.Tensor,
                     seq_lens: torch.Tensor,
                     window: Optional[int] = None, *,
-                    kv_scale: Optional[float] = None) -> torch.Tensor:
+                    kv_scale: Optional[float] = None,
+                    return_lse: bool = False):
     """One-token decode attention over block-table pages.
 
     q: [B, H, dh], float32 or bfloat16; pages_k, pages_v: [NP, PS, Hk,
@@ -173,14 +185,17 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
     j < seq_lens[b] (at most MAXP * PS) are live, and with a ``window``
     (at least 1) only those with j >= seq_lens[b] - window.  fp32
     accumulation; returns [B, H, dh] in q's dtype, zeros for a sequence
-    of length 0."""
+    with no live key, and with ``return_lse`` also the log-sum-exp [B,
+    H] fp32 of the live scores q.k / sqrt(dh), -inf for such a
+    sequence."""
     _check(q, pages_k, pages_v, block_table, seq_lens, window, kv_scale)
     refuse_grad("paged_attention", q, pages_k, pages_v)
     dev = q.device
     int8 = pages_k.dtype == torch.int8
     if dev.type == "cpu":
         return paged_attention_plain(q, pages_k, pages_v, block_table,
-                                     seq_lens, window, kv_scale=kv_scale)
+                                     seq_lens, window, kv_scale=kv_scale,
+                                     return_lse=return_lse)
     B, H, dh = q.shape
     _, PS, Hk, _ = pages_k.shape
     if dev.type == "meta":
@@ -189,8 +204,9 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
         live = min(slots, window) if window is not None else slots
         charge("paged_attention int8" if int8 else "paged_attention",
                paged_work([live] * B, H, Hk, dh, PS, q.element_size(),
-                          pages_k.element_size()))
-        return torch.empty_like(q)
+                          pages_k.element_size(), lse=return_lse))
+        out = torch.empty_like(q)
+        return (out, _lse_of(q)) if return_lse else out
     if dev.type != "cuda":
         raise ValueError(f"paged_attention takes CUDA or CPU tensors, "
                          f"not {dev}")
@@ -206,8 +222,9 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
                              "reads key rows 16 bytes (8 bf16, 4 fp32 or "
                              "16 int8 elements) at a time")
     out = torch.empty_like(q)
+    lse = _lse_of(q) if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _library()
     maxp = block_table.shape[1]
     pages, n_splits = split_plan(maxp, B, H, Hk, _sm_count(dev.index))
@@ -215,10 +232,11 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attention(
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B,
-            H, Hk, dh, PS, maxp, pages, n_splits, heads_per_block(H // Hk),
-            int(window or 0), DTYPES[q.dtype], KV_DTYPES[pages_k.dtype],
-            1.0 / math.sqrt(dh), float(kv_scale or 1.0), stream)
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, B, H, Hk, dh, PS, maxp,
+            pages, n_splits, heads_per_block(H // Hk), int(window or 0),
+            DTYPES[q.dtype], KV_DTYPES[pages_k.dtype], 1.0 / math.sqrt(dh),
+            float(kv_scale or 1.0), stream)
     if err:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + lib.paged_attention_error_string(err).decode())
@@ -226,7 +244,12 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
     LAUNCHES[name] += 1
     if window is not None:
         WINDOWED[name] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _lse_of(q: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp's output for q [B, H, dh]: [B, H] fp32."""
+    return torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
 
 
 __all__ = ["DTYPES", "HEAD_DIMS", "KV_DTYPES", "LAUNCHES", "MAX_SPLITS",

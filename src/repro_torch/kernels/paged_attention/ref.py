@@ -10,6 +10,11 @@ head h // (H // Hk).
 fp32 throughout, output in q's dtype, as in the JAX package's Pallas
 kernel (``kernels/paged_attention/kernel.py``); a sequence of length 0
 gives zeros, where the JAX package's ``paged_attention_ref`` gives NaN.
+With ``return_lse`` it also returns each (sequence, query head)'s
+log-sum-exp of its live scores (-inf where none is live), by which
+attention computed over slot shards merges (``models/attention.py``).
+A length past MAXP * PS reads the table's keys, its window still
+starting at seq_lens[b] - window; a length of 0 or less reads none.
 int8 pages (the ``kv_int8`` cache) are read as int8 * ``kv_scale``, the
 JAX package's dequantization ``k.astype(bf16) * (1 / KV_QSCALE)``: at a
 power-of-two scale the products are exact in bf16 and fp32 alike.
@@ -31,14 +36,17 @@ def paged_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
                           pages_v: torch.Tensor, block_table: torch.Tensor,
                           seq_lens: torch.Tensor,
                           window: Optional[int] = None, *,
-                          kv_scale: Optional[float] = None) -> torch.Tensor:
+                          kv_scale: Optional[float] = None,
+                          return_lse: bool = False):
     """q: [B, H, dh]; pages_k, pages_v: [NP, PS, Hk, dh] with H % Hk == 0,
     in q's dtype, or int8 with ``kv_scale`` (each element read as its
     value times ``kv_scale``); block_table: [B, MAXP] int32 (physical
     page per logical page, -1 unused); seq_lens: [B] int32; ``window``:
     None, or the live keys' count from the end (at least 1).  Returns
-    [B, H, dh] in q's dtype.  The query heads of a kv head are taken as
-    a group, so no copy of the keys is made per query head."""
+    [B, H, dh] in q's dtype, and with ``return_lse`` also the log-sum-exp
+    [B, H] fp32 of the live scores s = q.k / sqrt(dh).  The query heads
+    of a kv head are taken as a group, so no copy of the keys is made per
+    query head."""
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive width, got {window}")
     if (pages_k.dtype == torch.int8) != (kv_scale is not None):
@@ -61,8 +69,11 @@ def paged_attention_plain(q: torch.Tensor, pages_k: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)
     out = torch.einsum("bkgs,bskd->bkgd", p, v)
-    out = out / p.sum(dim=-1)[..., None].clamp_min(1e-30)
-    return out.reshape(B, H, dh).to(q.dtype)
+    l = p.sum(dim=-1)
+    out = (out / l[..., None].clamp_min(1e-30)).reshape(B, H, dh).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m[..., 0] + torch.log(l)).reshape(B, H)  # log 0 = -inf
 
 
 def merge_partials(m: torch.Tensor, l: torch.Tensor,

@@ -39,8 +39,7 @@ weights to bf16; the kernel keeps them in fp32.
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -200,16 +199,55 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     return y, cache
 
 
+def attend_slot_shard(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      lens: torch.Tensor, window: Optional[int], *,
+                      page_size: int = PAGE_SIZE,
+                      kv_scale: Optional[float] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One slot shard's share of a decode step's attention: q [b, H, dh]
+    over the shard's cache ck, cv [b, S, Hk, dh] (S a multiple of
+    ``page_size``) read as contiguous pages through an identity table,
+    with ``lens`` [b] int32 the shard's own lengths, ``pos + 1 - off``
+    for a shard whose first slot is absolute position ``off``: keys j <
+    lens live, and with a ``window`` only j >= lens - window, which is
+    the absolute ``kpos > pos - window``.  A length past S reads the
+    whole shard (the window from the unclamped length), a length of 0 or
+    less nothing.  Returns (out [b, H, dh] in q's dtype, lse [b, H]
+    fp32), both from ``paged_mqa``: on the card the paged kernel, on the
+    CPU its plain version."""
+    b, S, Hk, dh = ck.shape
+    table = identity_pages(b, S, page_size, q.device)
+    return paged_mqa(q, ck.reshape(-1, page_size, Hk, dh),
+                     cv.reshape(-1, page_size, Hk, dh), table, lens, window,
+                     kv_scale=kv_scale, return_lse=True)
+
+
+def merge_by_lse(out: torch.Tensor, lse: torch.Tensor, all_max: Callable,
+                 all_sum: Callable) -> torch.Tensor:
+    """Merge attention over disjoint parts of the keys (slot shards) by
+    their log-sum-exps, as flash decoding merges its splits: ``out``
+    [..., dh] each part's normalised output, ``lse`` [...] its fp32
+    log-sum-exp (-inf where it has no live key); ``all_max`` and
+    ``all_sum`` reduce a tensor over the parts (all-reduces over the
+    slots' mesh dimensions, or a max and a sum over a stacked axis kept
+    as size 1).  Returns sum_p e^(lse_p - M) out_p / sum_p e^(lse_p - M)
+    in fp32, M the largest lse_p: zeros where no part has a live key."""
+    m = all_max(lse).clamp_min(-1e30)  # -inf - (-1e30) = -inf: weight 0
+    w = torch.exp(lse - m)[..., None]
+    nd = all_sum(torch.cat([w * out.float(), w], dim=-1))
+    return nd[..., :-1] / nd[..., -1:].clamp_min(1e-30)
+
+
 def _seq_sharded_decode(args, cfg, quant: bool) -> torch.Tensor:
     """The decode attention over a cache whose slots are sharded (the
-    ``long_500k`` cells' sequence parallelism: the slots over the data
-    axes, the kv heads over "model"), each device on its slots
-    (``local_map``): the new key and value written by the device that
-    holds slot ``pos``, the softmax over its live slots as plain ops
-    (the paged kernel returns no log-sum-exp to combine shards with),
-    then the shards' maxima and sums all-reduced over the slots' mesh
-    dimensions, as flash decoding combines splits.  Returns [B, H, dh]
-    in fp32."""
+    ``long_500k`` cells' sequence parallelism, the slots over the data
+    axes and the kv heads over "model"; the ``kv_seqshard`` variant's,
+    the slots over "model"), each device on its slots (``local_map``):
+    the new key and value written by the device that holds slot ``pos``,
+    the device's slots attended through ``paged_mqa`` with its own
+    lengths (``attend_slot_shard``), then the shards merged by their
+    log-sum-exps over the slots' mesh dimensions (``merge_by_lse``), as
+    flash decoding merges splits.  Returns [B, H, dh] in fp32."""
     from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
@@ -227,8 +265,13 @@ def _seq_sharded_decode(args, cfg, quant: bool) -> torch.Tensor:
     batch = tuple(like(p, None) if p != Shard(2) else Replicate()
                   for p in pl)
 
+    def over_slots(t, op):
+        for i in seq:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
     def attend(q, k_new, v_new, ck, cv, pos):
-        b, S, Hk, dh = ck.shape
+        b, S = ck.shape[:2]
         shard = 0
         for i in seq:
             shard = shard * mesh.size(i) + mesh.get_local_rank(i)
@@ -239,25 +282,13 @@ def _seq_sharded_decode(args, cfg, quant: bool) -> torch.Tensor:
         store = quantize_kv if quant else (lambda t: t.to(ck.dtype))
         for c, new in ((ck, k_new), (cv, v_new)):
             c[rows, slot] = torch.where(mine, store(new[:, 0]), c[rows, slot])
-        scale = 1.0 / KV_QSCALE if quant else 1.0
-        H = q.shape[2]
-        qg = q[:, 0].float().reshape(b, Hk, H // Hk, dh)
-        s = torch.einsum("bkgd,bskd->bkgs", qg, ck.float() * scale) \
-            * (1.0 / math.sqrt(dh))
-        at = off + torch.arange(S, device=q.device)[None, :]
-        live = at <= pos[:, None]
-        if cfg.sliding_window is not None:
-            live &= at > pos[:, None] - cfg.sliding_window
-        s = s.masked_fill(~live[:, None, None, :], float("-inf"))
-        m = s.amax(-1, keepdim=True).clamp_min(-1e30)
-        for i in seq:
-            m = funcol.all_reduce(m, "max", (mesh, i))
-        w = torch.exp(s - m)
-        o = torch.einsum("bkgs,bskd->bkgd", w, cv.float() * scale)
-        ol = torch.cat([o, w.sum(-1, keepdim=True)], dim=-1)
-        for i in seq:
-            ol = funcol.all_reduce(ol, "sum", (mesh, i))
-        return (ol[..., :dh] / ol[..., dh:]).reshape(b, H, dh)
+        q_dtype = q.dtype if quant else ck.dtype
+        out, lse = attend_slot_shard(
+            q[:, 0].to(q_dtype).contiguous(), ck, cv,
+            (pos + 1 - off).to(torch.int32), cfg.sliding_window,
+            kv_scale=1.0 / KV_QSCALE if quant else None)
+        return merge_by_lse(out, lse, lambda t: over_slots(t, "max"),
+                            lambda t: over_slots(t, "sum"))
 
     out_pl = tuple(Shard(1) if p == Shard(2) else p for p in bhd)
     return contiguous_meta(local_map(
@@ -286,6 +317,7 @@ def cross_attn_forward(p: Params, x: torch.Tensor, enc: torch.Tensor,
     return torch.matmul(merge_heads(out), p["wo"])
 
 
-__all__ = ["KV_QSCALE", "PAGE_SIZE", "attn_decode", "attn_forward",
-           "attn_prefill", "cross_attn_forward", "identity_pages",
-           "init_attn", "init_cross_attn", "quantize_kv"]
+__all__ = ["KV_QSCALE", "PAGE_SIZE", "attend_slot_shard", "attn_decode",
+           "attn_forward", "attn_prefill", "cross_attn_forward",
+           "identity_pages", "init_attn", "init_cross_attn", "merge_by_lse",
+           "quantize_kv"]

@@ -292,7 +292,11 @@ def contiguous_meta(t: torch.Tensor) -> torch.Tensor:
     would copy it and a product would not fold into one ``mm``."""
     if not is_placed(t):
         return t
-    stride = torch.empty(t.shape, device="meta").stride()
+    stride, n = [], 1  # a whole tensor's, with no tensor made for them
+    for d in reversed(t.shape):
+        stride.insert(0, n)
+        n *= max(d, 1)
+    stride = tuple(stride)
     if t.stride() == stride:
         return t
     from torch.distributed.tensor import DTensor

@@ -35,7 +35,11 @@ kernel once on the local shard, bit-identical to the kernel on the
 local tensors.  Training runs under the model's remat policy, ``"full"``
 by default: each layer's forward kernel launches again in the backward
 (the backward kernels once), and the loss and gradients equal those
-without remat bit for bit on the card too.
+without remat bit for bit on the card too.  The paged kernel's
+log-sum-exp (``return_lse``) is held within 1e-5 of max(1, |plain|),
+-inf where no key is live, its output bit for bit the call's without
+it; slot shards merged by it match the unsharded kernel (fp32 within
+``ATTN_TOL``, bf16 within 2^-7 of the largest output).
 """
 
 import numpy as np
@@ -1741,6 +1745,142 @@ def test_paged_attention_int8_refusals(card):
     with pytest.raises(TypeError):
         kpaged.paged_attention(q.to(torch.int8), pages, pages, table, lens,
                                kv_scale=1 / 32)
+
+
+PAGE_KINDS = {"fp32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+              "int8": (torch.bfloat16, 1 / 32)}
+LSE_TOL = 1e-5  # of max(1, |plain|): fp32 sums in another order
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_attention_lse_matches_plain_version(card, kind, dh, window):
+    """``return_lse``: the log-sum-exp within ``LSE_TOL`` of the plain
+    version's, -inf (and a zero output, no NaN) where no key is live;
+    the output bit for bit the call's without the flag and within
+    ``ATTN_TOL`` of the plain version.  Lengths 0, -2, 1, across split
+    edges, the table's end and past it (the window from the unclamped
+    length: 600 - 40 reads keys 560..575 of a 576-key table, 700 - 40
+    none)."""
+    rng = np.random.default_rng(dh)
+    qdt, scale = PAGE_KINDS[kind]
+    H, Hk, PS, MAXP = 8, 2, 16, 36
+    lens = np.array([0, -2, 1, 250, 333, MAXP * PS, 600, 700], np.int32)
+    B = lens.size
+    NP = B * MAXP
+    q = normal(rng, (B, H, dh), qdt, card)
+    if scale is None:
+        pk, pv = (normal(rng, (NP, PS, Hk, dh), qdt, card) for _ in range(2))
+    else:
+        pk, pv = (int8_pages(rng, (NP, PS, Hk, dh), card) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(NP).astype(np.int32)
+                             .reshape(B, MAXP)).to(card)
+    lt = torch.from_numpy(lens).to(card)
+    out, lse = kpaged.paged_mqa(q, pk, pv, table, lt, window,
+                                kv_scale=scale, return_lse=True)
+    bare = kpaged.paged_mqa(q, pk, pv, table, lt, window, kv_scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    p_out, p_lse = kpaged.paged_attention_plain(q, pk, pv, table, lt, window,
+                                                kv_scale=scale,
+                                                return_lse=True)
+    live = torch.isfinite(p_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert bool((lse[~live] < 0).all()) and not torch.isnan(lse).any()
+    gap = ((lse - p_lse).abs() / p_lse.abs().clamp_min(1))[live]
+    assert float(gap.max()) <= LSE_TOL
+    assert not torch.isnan(out.float()).any()
+    dead = ~live.all(-1)
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+    err = float((out.float() - p_out.float()).abs().max())
+    assert err < ATTN_TOL[qdt], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [None, 4096])
+def test_eight_slot_shards_merged_match_the_unsharded_kernel(card, dtype,
+                                                             window):
+    """The kv_seqshard cut of a 32,768-slot cache into 8 shards of 4,096
+    (32 kv heads of 128): each shard through the kernel with its own
+    length ``pos + 1 - off`` (``attention.attend_slot_shard``), merged by
+    log-sum-exp (``attention.merge_by_lse``, a max and a sum over the
+    stacked shards), against the kernel over the whole cache: fp32
+    within ``ATTN_TOL``, bf16 within 2 bf16 unit roundoffs (2^-7) of the
+    largest unsharded output (each shard's output is rounded to bf16
+    once before the merge, the unsharded output once; a shard left out
+    moves the output by some 2^-2 of its largest)."""
+    rng = np.random.default_rng(8)
+    B, H, dh, S, n = 4, 32, 128, 32768, 8
+    pos = torch.tensor([5, 4095, 4096, 32767], device=card)
+    q = normal(rng, (B, H, dh), dtype, card)
+    ck, cv = (normal(rng, (B, S, H, dh), dtype, card) for _ in range(2))
+    w = S // n
+    parts = [attention.attend_slot_shard(
+        q, ck[:, i * w:(i + 1) * w].contiguous(),
+        cv[:, i * w:(i + 1) * w].contiguous(), (pos + 1 - i * w).int(),
+        window) for i in range(n)]
+    got = attention.merge_by_lse(
+        torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts]),
+        lambda t: t.amax(0, keepdim=True),
+        lambda t: t.sum(0, keepdim=True))[0]
+    table = attention.identity_pages(B, S, attention.PAGE_SIZE, card)
+    whole = kpaged.paged_mqa(q, ck.reshape(-1, 16, H, dh),
+                             cv.reshape(-1, 16, H, dh), table,
+                             (pos + 1).int(), window)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    diff = (got - whole.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) < ATTN_TOL[dtype]
+    else:
+        assert float(diff.max()) <= 2.0 ** -7 * float(whole.float().abs()
+                                                       .max())
+
+
+def test_slot_sharded_attn_decode_on_card(card):
+    """``attn_decode`` over a cache placed as ``kv_seqshard`` places it
+    (slots over "model") on a (2, 4) fake mesh: rank 0 holds 2 of the 4
+    sequences and the first 64 of 256 slots, and every pos lies in them,
+    so the fake group's all-reduces (which move nothing) lose no shard's
+    keys.  One ``paged_attention`` launch, no plain version, and the
+    local output and written cache within ``ATTN_TOL`` of the unsharded
+    ``attn_decode`` on rank 0's sequences, fp32."""
+    cfg = get_arch("codeqwen1.5-7b").reduced()
+    lm = LM(cfg, seed=5, device="cuda").float()
+    p = {k: v.detach() for k, v in lm.layers[0].attn.items()}
+    rng = np.random.default_rng(6)
+    B, S = 4, 256
+    x = normal(rng, (B, 1, cfg.d_model), torch.float32, card)
+    k, v = (normal(rng, (B, S, cfg.n_kv_heads, cfg.head_dim),
+                   torch.float32, card) for _ in range(2))
+    pos = torch.tensor([0, 63, 17, 40], device=card)
+    want, wc = attention.attn_decode(p, x, {"k": k.clone(), "v": v.clone()},
+                                     cfg, pos=pos)
+    mesh = MeshSpec(("data", "model"), (2, 4))
+    with device_mesh(mesh, "cuda") as dm:
+        def put(t, spec):
+            return steps.place(t.to("meta"), spec, dm,
+                               lambda _, m, shape: t[tuple(
+                                   slice(0, n) for n in shape)].clone())
+        pc = {n: steps.place(t.to("meta"), (None,) * t.dim(), dm,
+                             lambda _, m, shape, t=t: t.clone())
+              for n, t in p.items()}
+        cache = {n: put(t, ("data", "model", None, None))
+                 for n, t in (("k", k), ("v", v))}
+        before = dict(kpaged.LAUNCHES)
+        got, gc_ = steps.spmd(lambda x, c, pos: attention.attn_decode(
+            pc, x, c, cfg, pos=pos))(put(x, ("data", None, None)), cache,
+                                     put(pos, ("data",)))
+        torch.cuda.synchronize()
+        assert kpaged.LAUNCHES["paged_attention"] == \
+            before["paged_attention"] + 1
+        local = got.to_local()
+        assert float((local - want[:2]).abs().max()) < ATTN_TOL[torch.float32]
+        for name in ("k", "v"):
+            assert float((gc_[name].to_local() - wc[name][:2, :64])
+                         .abs().max()) < ATTN_TOL[torch.float32]
 
 
 def test_lm_int8_cache_decode_on_card(card):

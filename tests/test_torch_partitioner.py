@@ -8,11 +8,14 @@ partitioned program and a real 4-process run.
   [B/2, T, D] bf16; a replicated weight's gradient is all-reduced over
   "data"; an all-gather is charged its gathered bytes (the JAX parser's
   convention, ``tests/test_roofline.py``).
-* (b) On the one-card mesh the count is the seed's, FLOPs, bytes, lane
-  operations and temp bytes bit for bit (the numbers below were counted
-  on the tree before the partitioner, which had no remat: they are the
+* (b) On the one-card mesh the count is the seed's, FLOPs, bytes and
+  lane operations bit for bit (the numbers below were counted on the
+  tree before the partitioner, which had no remat: they are the
   ``remat="none"`` step's), for five families; the train step under the
-  default ``"full"`` has its own rows, counted when remat came in.
+  default ``"full"`` has its own rows, counted when remat came in.  The
+  temp bytes are the count's by storage (each storage live from the op
+  that makes it until it is freed, whatever aliases hold it), counted
+  when that replaced the count by tensor object.
 * (c) CodeQwen1.5-7B ``reduced()`` at (2, 4), where no rule falls back:
   per-device FLOPs times 8 equal the one-card FLOPs within 1e-9
   (relative).
@@ -34,18 +37,24 @@ partitioned program and a real 4-process run.
   the body without remat, so it counts one body's recompute: the
   correction adds ``repeat - 1`` times the program's FLOPs under the
   policy less under ``"none"``).  Temp bytes: JAX's are full < dots <
-  none on both meshes; the port's full and dots are below none, and
-  dots reads no higher than full, since the count follows tensor
-  objects and selective checkpointing keeps its saved products as
-  ``detach`` aliases (PERF.md).  The total collective bytes are within
+  none on both meshes; the port's, counted by storage, are equal under
+  the three policies, as the card's peak memory reads them at
+  MiniCPM-2B's one-card training step (PERF.md, F3): at these cells
+  the step peaks where the gradients and AdamW's temporaries are live,
+  after every region's activations are freed, whatever the policy
+  saved; where the activations dominate (T = 512) the port's order is
+  JAX's.  The total collective bytes are within
   a factor of 2 of JAX's (measured: 1.59 train, 2.0 decode); the port's
   reduce-scatter (the ZeRO step's) and XLA's all-to-all are each present
   in one alone (PERF.md).
 * (e) Four ``gloo`` processes on a (2, 2) mesh against the unsharded
   port in one process, fp32: a prefill's logits within 1e-5 of the
   largest; one decode step's logits and caches (each leaf within 1e-5
-  of its largest), with the caches sharded by batch and, as
-  ``long_500k``'s, by slot; and one train step's updated parameters within 1e-6 of the
+  of its largest), with the caches sharded by batch, as ``long_500k``'s
+  by slot over the data axes and as ``kv_seqshard``'s by slot over
+  "model" (each shard attended by the paged kernel's plain version and
+  the shards merged by log-sum-exp over real all-reduces); and one train
+  step's updated parameters within 1e-6 of the
   model's largest parameter and its first moments within 1e-4 of each
   leaf's largest (one AdamW step moves an element by up to the learning
   rate, 3e-6 here, ten times that limit; a gradient summed over one data
@@ -182,34 +191,34 @@ def test_batch_falls_back_to_the_axes_that_divide_it():
 # -- (b) the one-card count is the seed's ------------------------------------
 
 SEED_COUNTS = [  # (arch, kind, FLOPs, bytes, lane ops, temp bytes)
-    ("qwen2-0.5b", "train", 558301184.0, 120404714.0, 0.0, 5683208),
+    ("qwen2-0.5b", "train", 558301184.0, 120404714.0, 0.0, 5684232),
     ("qwen2-0.5b", "prefill", 151650304.0, 15713376.0, 0.0, 917504),
     ("qwen2-0.5b", "decode", 3014656.0, 1030576.0, 0.0, 13424),
-    ("codeqwen1.5-7b", "train", 633798656.0, 147111166.0, 0.0, 5879816),
+    ("codeqwen1.5-7b", "train", 633798656.0, 147111166.0, 0.0, 5880840),
     ("codeqwen1.5-7b", "prefill", 176816128.0, 19353696.0, 0.0, 1114112),
     ("codeqwen1.5-7b", "decode", 3407872.0, 1380784.0, 0.0, 13424),
-    ("deepseek-moe-16b", "train", 2480078848.0, 262318134.0, 0.0, 21542916),
+    ("deepseek-moe-16b", "train", 2480078848.0, 262318134.0, 0.0, 20559876),
     ("deepseek-moe-16b", "prefill", 885915648.0, 83157356.0, 0.0, 15331328),
-    ("deepseek-moe-16b", "decode", 6100992.0, 1606988.0, 0.0, 74288),
-    ("rwkv6-7b", "train", 650117120.0, 156640078.0, 8388608.0, 6893576),
+    ("deepseek-moe-16b", "decode", 6100992.0, 1606988.0, 0.0, 65584),
+    ("rwkv6-7b", "train", 650117120.0, 156640078.0, 8388608.0, 7287816),
     ("rwkv6-7b", "prefill", 168296448.0, 20801120.0, 8388608.0, 1050624),
     ("rwkv6-7b", "decode", 3145728.0, 1670176.0, 131072.0, 144928),
     ("jamba-1.5-large-398b", "train", 9853698048.0, 1011590198.0,
-     14680064.0, 65759620),
+     14680064.0, 64789092),
     ("jamba-1.5-large-398b", "prefill", 3588816896.0, 343155856.0,
      14680064.0, 16291840),
     ("jamba-1.5-large-398b", "decode", 23166976.0, 6251728.0, 229376.0,
-     361008),
+     352304),
 ]
 
 
 FULL_REMAT_COUNTS = [  # the train step under remat="full", as above
-    ("qwen2-0.5b", 675872768.0, 134786282.0, 0.0, 3082252),
-    ("codeqwen1.5-7b", 776536064.0, 164739838.0, 0.0, 3082252),
-    ("deepseek-moe-16b", 3348692992.0, 344536822.0, 0.0, 17317904),
-    ("rwkv6-7b", 817889280.0, 176093006.0, 16777216.0, 3082252),
+    ("qwen2-0.5b", 675872768.0, 134786282.0, 0.0, 3083276),
+    ("codeqwen1.5-7b", 776536064.0, 164739838.0, 0.0, 3083276),
+    ("deepseek-moe-16b", 3348692992.0, 344536822.0, 0.0, 19358224),
+    ("rwkv6-7b", 817889280.0, 176093006.0, 16777216.0, 3189516),
     ("jamba-1.5-large-398b", 13374881792.0, 1349958966.0, 29360128.0,
-     17690656),
+     22480960),
 ]
 
 
@@ -287,16 +296,18 @@ JAX_CELLS = textwrap.dedent("""
     meshes = {"mesh": Mesh(devs.reshape(2, 4), ("data", "model")),
               "card": Mesh(devs[:1].reshape(1, 1), ("data", "model"))}
     out = {}
-    for kind, policies in (("train", ("full", "dots", "none")),
-                           ("decode", ("full",))):
-        shape = ShapeCfg(f"{kind}_small", kind, 64, 4)
+    one = dataclasses.replace(cfg, n_layers=1)
+    for kind, policies, c in (("train", ("full", "dots", "none"), cfg),
+                              ("decode", ("full",), cfg),
+                              ("decode1", ("full",), one)):
+        shape = ShapeCfg(f"{kind}_small", kind[:6], 64, 4)
         for policy in policies:
             steps.build_model = lambda c, _p=policy: LM(c, remat=_p)
             for name, mesh in meshes.items():
-                lowered, _ = steps.lower_cell(cfg, shape, mesh)
+                lowered, _ = steps.lower_cell(c, shape, mesh)
                 compiled = lowered.compile()
-                probes = steps.group_probes(cfg, shape, mesh)
-                rec = roofline.cell_costs(cfg, shape, lowered, compiled,
+                probes = steps.group_probes(c, shape, mesh)
+                rec = roofline.cell_costs(c, shape, lowered, compiled,
                                           probes, mesh)
                 mem = compiled.memory_analysis()
                 key = ".".join([kind, name] + ([policy] * (policy != "full")))
@@ -307,7 +318,7 @@ JAX_CELLS = textwrap.dedent("""
                     "base_gflops": roofline.costs_of(compiled).flops / 1e9,
                     "extra_reps": sum(r for _, r, _ in probes),
                     "collective_by_kind_mb": rec["collective_by_kind_mb"]}
-                if kind == "decode":
+                if kind.startswith("decode"):
                     out[key]["convert_gflops"] = (
                         convert_flops(compiled.as_text()) + sum(
                             r * convert_flops(p.compile().as_text())
@@ -330,13 +341,14 @@ def wide_cfg():
     return dataclasses.replace(get_arch("codeqwen1.5-7b").reduced(), **WIDE)
 
 
-def port_cell(kind, remat="full"):
+def port_cell(kind, remat="full", cfg=None):
+    cfg = cfg or wide_cfg()
     shape = ShapeCfg(f"{kind}_small", kind, 64, 4)
     with device_mesh(MESH):
-        low, _ = steps.lower_cell(wide_cfg(), shape, MESH, remat=remat)
+        low, _ = steps.lower_cell(cfg, shape, MESH, remat=remat)
         costs, _ = roofline.count_costs(low.fn, *low.args)
         args = dryrun.argument_bytes(low.arg_specs, low.shardings, MESH)
-    return args, costs, one_card(wide_cfg(), kind, remat)
+    return args, costs, one_card(cfg, kind, remat)
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])
@@ -361,6 +373,38 @@ def test_per_device_program_against_jax(jax_cells, kind):
     assert only <= {"reduce-scatter", "all-to-all"}, only
 
 
+def r11_products(cfg, tokens):
+    """The FLOPs a device adds where the JAX package's ``param_specs``
+    replicate a layer's column-parallel weights (R11: at one layer the
+    unstacked ``blocks`` group is given the stacked specs): each product
+    of the ``tokens`` a device holds with a weight the port shards on its
+    output over "model" ((None, "model")), run at full width instead of
+    a 1/model share."""
+    model = MESH.sizes[MESH.axis_names.index("model")]
+    specs = steps.lm_specs(steps.meta_model(cfg), MESH)
+    return sum(2 * tokens * p.shape[0] * p.shape[1] * (1 - 1 / model)
+               for n, p in steps.meta_model(cfg).named_parameters()
+               if n.startswith("layers.") and p.dim() == 2
+               and tuple(specs[n]) == (None, "model"))
+
+
+def test_one_layer_decode_share_against_jax_with_r11(jax_cells):
+    """At one layer XLA's decode share, less its converts, is the port's
+    share once R11's full-width products are added to the port's
+    per-device FLOPs, within the 2-layer case's 5%; without them it
+    misses (PERF.md, F2)."""
+    cfg = dataclasses.replace(wide_cfg(), n_layers=1)
+    _, costs, card = port_cell("decode", cfg=cfg)
+    jm, jc = jax_cells["decode1.mesh"], jax_cells["decode1.card"]
+    dots = ((jm["gflops"] - jm["convert_gflops"])
+            / (jc["gflops"] - jc["convert_gflops"]))
+    data = MESH.sizes[MESH.axis_names.index("data")]
+    extra = r11_products(cfg, 4 // data)
+    share = (costs.flops + extra) / card.flops
+    assert abs(dots - share) <= JAX_SHARE_TOL * share, (dots, share)
+    assert dots > (1 + JAX_SHARE_TOL) * costs.flops / card.flops, dots
+
+
 @pytest.mark.parametrize("policy", ["full", "dots", "none"])
 def test_one_card_train_flops_against_jax_per_policy(jax_cells, policy):
     """JAX's count with its scan's ``repeat - 1`` missing recomputes
@@ -381,7 +425,17 @@ def test_temp_bytes_order_per_policy(jax_cells):
     temps = {p: port_cell("train", p) for p in ("full", "dots", "none")}
     for at in (lambda c: c[1].temp_bytes, lambda c: c[2].temp_bytes):
         full, dots, none = (at(temps[p]) for p in ("full", "dots", "none"))
-        assert full <= dots < none and full < none, (full, dots, none)
+        assert full == dots == none, (full, dots, none)
+    # where the activations dominate (T = 512, 8 sequences), JAX's order
+    heavy = []
+    for policy in ("full", "dots", "none"):
+        with device_mesh(MESH):
+            low, _ = steps.lower_cell(get_arch("codeqwen1.5-7b").reduced(),
+                                      ShapeCfg("train_long", "train", 512,
+                                               8), MESH, remat=policy)
+            heavy.append(roofline.count_costs(low.fn, *low.args)[0]
+                         .temp_bytes)
+    assert heavy[0] < heavy[1] < heavy[2], heavy
 
 
 # -- (e) four gloo processes against the unsharded port ----------------------
@@ -442,7 +496,9 @@ WORKER = textwrap.dedent("""
     logit_err = float((got.full_tensor() - want).abs().max()
                       / want.abs().max())
     # one decode step against random caches of 64 slots, the caches
-    # sharded by batch and, as long_500k's, by slot
+    # sharded by batch, by slot over the data axes as long_500k's, and
+    # by slot over "model" as kv_seqshard's (sequences whose pos lies on
+    # the other shard read past their shard's table)
     gen = torch.Generator().manual_seed(2)
     caches = ref.init_caches(B, 64)
     for group in caches.values():
@@ -456,13 +512,13 @@ WORKER = textwrap.dedent("""
     with torch.no_grad():
         want, want_c = ref.decode_step(token, clone(caches), pos)
     decode_err = 0.0
-    for seq_shard in (False, True):
-        cspecs = sharding.cache_specs(caches, spec, seq_shard=seq_shard)
+    for how in ({}, {"seq_shard": True}, {"kv_seq_model": True}):
+        cspecs = sharding.cache_specs(caches, spec, **how)
         placed = {g: {l: {n: put(t.clone(), cspecs[g][l][n])
                           for n, t in leaves.items()}
                       for l, leaves in group.items()}
                   for g, group in caches.items()}
-        tspec = (None,) if seq_shard else ("data",)
+        tspec = (None,) if how.get("seq_shard") else ("data",)
         with torch.no_grad():
             got, got_c = steps.spmd(lm.decode_step)(
                 put(token, tspec), placed, put(pos, tspec))
