@@ -792,10 +792,15 @@ CELL_CHECK_SLOTS = 256
 # some 2.2 s a step, and the whole run must keep to its time limit on
 # slow hosts); the slot-sharded decode then one more at SEQSHARD_POS,
 # a slot of rank 0's own (at pos = 32,767 its slots are all live and it
-# writes nothing, the new key lying on the last "model" rank's shard)
+# writes nothing, the new key lying on the last "model" rank's shard).
+# Then InternVL2-76B's train_4k share on the same mesh, full width and
+# all 80 layers: rank 0 holds 8 of the 64 query heads and 1 of the 8 kv
+# heads, and 8 sequences of 1,025 projected patches and 3,071 tokens
 SHARE_ARCH = "codeqwen1.5-7b"
-SHARE_CELLS = (("decode_32k", ()), ("prefill_32k", ()), ("train_4k", ()),
-               ("decode_32k", ("kv_seqshard",)))
+SHARE_CELLS = ((SHARE_ARCH, "decode_32k", ()), (SHARE_ARCH, "prefill_32k", ()),
+               (SHARE_ARCH, "train_4k", ()),
+               (SHARE_ARCH, "decode_32k", ("kv_seqshard",)),
+               (VLM_ARCH, "train_4k", ()))
 SHARE_STEPS = {"decode_32k": 3, "prefill_32k": 3, "train_4k": 2,
                "decode_32k kv_seqshard": 3}
 SEQSHARD_POS = 2047
@@ -4913,20 +4918,20 @@ def share_init(cfg, shape, gen):
     over the square root of their whole fan-in, the embedding's 0.02;
     fp32 norms 1 and biases 0; AdamW's fp32 master copies drawn as their
     parameters, its moments 0), random tokens and labels, normal caches,
-    and every position at the cache's last slot, on ``gen``'s
-    device."""
+    InternVL's patch embeddings normal, and every position at the
+    cache's last slot, on ``gen``'s device."""
     dev = gen.device
 
     def make(name, t, shape_):
         if name == "pos":
             return torch.full(shape_, shape.seq_len - 1, dtype=t.dtype,
                               device=dev)
-        if name == "token" or name.startswith("batch."):
+        if name == "token" or name in ("batch.tokens", "batch.labels"):
             return torch.randint(0, cfg.vocab, shape_, generator=gen,
                                  dtype=t.dtype, device=dev)
         out = torch.empty(shape_, dtype=t.dtype, device=dev)
         leaf = name.rsplit(".", 1)[-1]
-        if name.startswith("caches."):
+        if name.startswith("caches.") or name == "batch.patches":
             return out.normal_(generator=gen)
         if name.startswith(("opt.m.", "opt.v.")):  # AdamW's init
             return out.zero_()
@@ -4940,9 +4945,17 @@ def share_init(cfg, shape, gen):
     return make
 
 
+def share_heads(cfg, slotted: bool = False) -> tuple:
+    """Rank 0's query and kv heads (H, Hk) in a share on the 32 x 8 mesh:
+    each over "model" (8), or all of them where the slots are sharded
+    over it (``kv_seqshard``)."""
+    n = 1 if slotted else make_production_mesh().shape["model"]
+    return cfg.n_heads // n, cfg.n_kv_heads // n
+
+
 def share_launches(cfg, kind: str, remat: str) -> dict:
-    """The kernels one step of the share launches, by name: each of the
-    32 layers' attention once (the train step: its forward again under
+    """The kernels one step of the share launches, by name: each
+    layer's attention once (the train step: its forward again under
     remat, and its backward)."""
     n = cfg.n_layers
     if kind == "decode":
@@ -4968,35 +4981,39 @@ def first_layer_keys(caches: dict):
 
 
 def share_path(seed: int, launches: dict) -> dict:
-    """One H100's share of CodeQwen1.5-7B on the 32 x 8 mesh
-    (``SHARE_ARCH``): for each of ``SHARE_CELLS`` the dry run's count of
-    the share (``share_count``), whose argument plus temp bytes must fit
-    the card, then the share run on the card under ``device_mesh(mesh,
-    "cuda")`` (the fake group's collectives move nothing) through
-    ``lower_cell`` with its shards drawn on the card (``share_init``):
-    ``SHARE_STEPS`` steps counted, exactly ``share_launches`` a step at
-    the local heads (H = Hk = 4, dh = 128; the slot-sharded decode's H =
-    Hk = 32) and no other kernel, no plain version; the local logits
-    finite and of the share's shape, or the train step's first loss
-    finite (an all-gather over the fake group leaves its output as
-    allocated, so the parameters after the first update, and the losses
-    after it, are not held); host ms, device ms (``event_ms``) and the
+    """One H100's share on the 32 x 8 mesh of CodeQwen1.5-7B
+    (``SHARE_ARCH``) and of InternVL2-76B's ``train_4k``
+    (``VLM_ARCH``): for each of ``SHARE_CELLS`` the dry run's count
+    of the share (``share_count``), whose argument plus temp bytes must
+    fit the card, then the share run on the card under
+    ``device_mesh(mesh, "cuda")`` (the fake group's collectives move
+    nothing) through ``lower_cell`` with its shards drawn on the card
+    (``share_init``): ``SHARE_STEPS`` steps counted, exactly
+    ``share_launches`` a step at the local heads (``share_heads``: H =
+    Hk = 4 for CodeQwen1.5-7B, 32 in its slot-sharded decode; H = 8, Hk =
+    1 for InternVL2-76B; dh = 128) and no other kernel, no plain
+    version; the local logits finite and of the share's shape, or the
+    train step's first loss finite (an all-gather over the fake group
+    leaves its output as allocated, so the parameters after the first
+    update, and the losses after it, are not held); host ms, device ms (``event_ms``) and the
     profiler's busy time a step, which must not be below the count's
     compute and memory bound; the collective term printed beside it as
     what the deployment would add, and the card's peak memory less what
     was held before the share beside the count's argument plus temp
-    bytes.  The slot-sharded decode (``kv_seqshard``) leaves rank 0's
-    cache as it was at pos = 32,767 (held against a copy of its first
-    layer's keys, whose bytes the peak's reading leaves out) and takes
-    one step more at ``SEQSHARD_POS``, counted alike, which writes each
-    sequence's slot there and nothing else.  Adds the launches to
-    ``launches``."""
-    t0 = time.perf_counter()
-    cfg = get_arch(SHARE_ARCH)
+    bytes, which must also fit 80 GB.  The slot-sharded decode
+    (``kv_seqshard``) leaves rank 0's cache as it was at pos = 32,767
+    (held against a copy of its first layer's keys, whose bytes the
+    peak's reading leaves out) and takes one step more at
+    ``SEQSHARD_POS``, counted alike, which writes each sequence's slot
+    there and nothing else.  Adds the launches to ``launches``; returns,
+    by architecture, its config, its cells' readings and its seconds."""
     mesh = make_production_mesh()
-    out = {"cfg": cfg, "shapes": {}}
-    for shape_name, variants in SHARE_CELLS:
+    out = {}
+    for arch, shape_name, variants in SHARE_CELLS:
         t_shape = time.perf_counter()
+        share = out.setdefault(arch, {"cfg": get_arch(arch), "shapes": {},
+                                      "seconds": 0.0})
+        cfg = share["cfg"]
         key = share_key(shape_name, variants)
         shape = SHAPES[shape_name]
         rec = share_count(cfg, shape_name, variants)
@@ -5084,10 +5101,10 @@ def share_path(seed: int, launches: dict) -> dict:
                 del k0, k_before
             host_ms = min(host[1:])
             secs = time.perf_counter() - t_shape
-            heads = cfg.n_heads // (1 if slotted else 8)
+            H, Hk = share_heads(cfg, slotted)
             say(f"{cfg.name} {key} share on {mesh.name} (rank 0 of "
                 f"{mesh.size}, {n_local:,} parameters of its own, "
-                f"{rows} sequences, H = Hk = {heads}, dh = "
+                f"{rows} sequences, H = {H}, Hk = {Hk}, dh = "
                 f"{cfg.head_dim}" + (f", remat {lm.remat}"
                                      if shape.kind == "train" else "")
                 + f"): {what}; host {host_ms:.3f} ms a step (steps "
@@ -5110,7 +5127,10 @@ def share_path(seed: int, launches: dict) -> dict:
             check(busy == 0 or busy >= bound_ms, f"{cfg.name} {key} "
                   f"share: profiler busy {busy} ms a step is below the "
                   f"count's bound {bound_ms} ms: the count is wrong")
-            out["shapes"][key] = {
+            check(peak - held < roofline.HBM_BYTES / 1e9, f"{cfg.name} "
+                  f"{key} share: the card's peak less what was held, "
+                  f"{peak - held:.3f} GB, does not fit 80 GB")
+            share["shapes"][key] = {
                 "host_ms": host_ms, "device_ms": dev_ms, "busy_ms": busy,
                 "bound_ms": bound_ms, "collective_ms": terms["collective"],
                 "launches": got, "peak_gb": peak, "held_gb": held,
@@ -5119,7 +5139,9 @@ def share_path(seed: int, launches: dict) -> dict:
             del low, lm
         gc.collect()
         torch.cuda.empty_cache()
-    say(f"{cfg.name} 32 x 8 share: {time.perf_counter() - t0:.3f} s")
+        share["seconds"] += time.perf_counter() - t_shape
+    for arch, share in out.items():
+        say(f"{arch} 32 x 8 share: {share['seconds']:.3f} s")
     return out
 
 
@@ -5182,17 +5204,20 @@ def chunked_plain(q, k, v, drop: bool = False) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def share_kernels(share: dict, seed: int) -> dict:
-    """Rows 8, 9 and 9b at the share's local shapes (H = Hk = 4, dh =
-    128): paged_attention at decode_32k's (4 sequences of 32,768 live
-    keys, 2,048 pages each), flash_attention at prefill_32k's (B = 1, T
-    = S = 32,768, causal) and, with flash_attention_bwd, at train_4k's
-    (``share_train_kernels``), each within ``ATTN_STEPS`` of its plain
-    version (which a dropped newest key breaks), timed beside its plain
-    version, ``scaled_dot_product_attention`` on the same inputs and its
-    bound.  Returns the ``other_shapes`` entries of each kernel's row."""
+def share_kernels(shares: dict, seed: int) -> dict:
+    """Rows 8, 9 and 9b at the shares' local shapes: CodeQwen1.5-7B's (H
+    = Hk = 4, dh = 128) paged_attention at decode_32k's (4 sequences of
+    32,768 live keys, 2,048 pages each) and flash_attention at
+    prefill_32k's (B = 1, T = S = 32,768, causal), and, with
+    flash_attention_bwd, each share's train_4k (``share_train_kernels``;
+    InternVL2-76B's H = 8, Hk = 1), each within ``ATTN_STEPS`` of its
+    plain version (which a dropped newest key breaks), timed beside its
+    plain version, ``scaled_dot_product_attention`` on the same inputs
+    and its bound.  Returns the ``other_shapes`` entries of each
+    kernel's row."""
+    share = shares[SHARE_ARCH]
     cfg = share["cfg"]
-    H = Hk = cfg.n_heads // 8
+    H, Hk = share_heads(cfg)
     dh = cfg.head_dim
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
@@ -5281,9 +5306,10 @@ def share_kernels(share: dict, seed: int) -> dict:
         del batches, flib, q, k, v, got
     gc.collect()
     torch.cuda.empty_cache()
-    if "train_4k" in share["shapes"]:
-        for name, entry in share_train_kernels(share, gen, dev).items():
-            out.setdefault(name, []).append(entry)
+    for train in shares.values():
+        if "train_4k" in train["shapes"]:
+            for name, entry in share_train_kernels(train, gen, dev).items():
+                out.setdefault(name, []).append(entry)
     return out
 
 
@@ -5487,17 +5513,17 @@ def seqshard_edges(dev) -> int:
 
 
 def share_train_kernels(share: dict, gen, dev) -> dict:
-    """Rows 9 and 9b at train_4k's share (B = 8 sequences, T = S = 4,096,
-    H = Hk = 4, dh = 128, causal, bf16): the forward with its
-    log-sum-exp, as the train step calls it, within ``ATTN_STEPS`` of
-    ``chunked_plain`` (a dropped newest key breaking it) and its LSE
-    within ``LSE_TOL``; the backward's dq, dk, dv each within
-    ``attn_limit`` of ``attention_bwd_plain`` (which the plain version
-    without the D term breaks); each timed beside its plain version,
-    SDPA's forward or autograd backward and its bound.  Returns each
-    row's entry."""
+    """Rows 9 and 9b at a train_4k share's local shape (B = 8 sequences,
+    T = S = 4,096, the share's heads, dh = 128, causal, bf16): the
+    forward with its log-sum-exp, as the train step calls it, within
+    ``ATTN_STEPS`` of ``chunked_plain`` (a dropped newest key breaking
+    it) and its LSE within ``LSE_TOL``; the backward's dq, dk, dv each
+    within ``attn_limit`` of ``attention_bwd_plain`` (which the plain
+    version without the D term breaks); each timed beside its plain
+    version, SDPA's forward or autograd backward (kv heads repeated
+    beforehand) and its bound.  Returns each row's entry."""
     cfg = share["cfg"]
-    H = Hk = cfg.n_heads // 8
+    H, Hk = share_heads(cfg)
     dh = cfg.head_dim
     shape = SHAPES["train_4k"]
     T, B = shape.seq_len, shape.global_batch // 32
@@ -5521,7 +5547,9 @@ def share_train_kernels(share: dict, gen, dev) -> dict:
     ftimed = time_kernel(name, lambda a, b, c, *_: kflash.flash_attention(
         a, b, c, return_lse=True), lambda a, b, c, *_: chunked_plain(a, b, c),
         batches, reps=16)
-    flib = [tuple(t.transpose(1, 2) for t in b[:3]) for b in batches]
+    flib = [(b[0].transpose(1, 2),) + tuple(
+        t.repeat_interleave(H // Hk, dim=2).transpose(1, 2) for t in b[1:3])
+        for b in batches]  # kv heads repeated, as sdpa_bwd's
     flib_ms, flib_call = time_calls(
         lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
             a, b, c, is_causal=True), flib, 16)
@@ -6339,9 +6367,9 @@ def main(argv=None) -> int:
     cell = decode_cell(args.seed, launches)
     phases[f"{CELL_ARCH} {CELL_SHAPE} cell and checks"] = \
         time.perf_counter() - t0
-    t0 = time.perf_counter()
     share = share_path(args.seed, launches)
-    phases[f"{SHARE_ARCH} 32 x 8 share"] = time.perf_counter() - t0
+    for arch, got in share.items():
+        phases[f"{arch} 32 x 8 share"] = got["seconds"]
 
     say(f"paths done: {time.perf_counter() - t_start:.3f} s")
     rows = []

@@ -47,7 +47,7 @@ from ..kernels.flash_attention import mha
 from ..kernels.paged_attention import paged_mqa
 from ..distributed.sharding import is_placed
 from .common import (apply_rope, contiguous_meta, dense_init, local_heads,
-                     merge_heads, split_heads)
+                     merge_heads, row_matmul, split_heads)
 
 Params = Dict[str, torch.Tensor]
 
@@ -109,7 +109,7 @@ def attn_forward(p: Params, x: torch.Tensor, cfg, *,
     k = apply_rope(k, positions, cfg.rope_theta)
     out = _mha(q, k, v, causal=causal,
                window=cfg.sliding_window if causal else None)
-    return torch.matmul(merge_heads(out), p["wo"])
+    return row_matmul(merge_heads(out), p["wo"])
 
 
 _BHD = (0, 2)  # [B, T, H, dh]: the batch and the heads
@@ -133,7 +133,7 @@ def attn_prefill(p: Params, x: torch.Tensor, cfg
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = _mha(q, k, v, causal=True, window=cfg.sliding_window)
-    y = torch.matmul(merge_heads(out), p["wo"])
+    y = row_matmul(merge_heads(out), p["wo"])
     return y, {"k": k, "v": v}
 
 
@@ -195,7 +195,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, cfg, *,
     else:
         out = local_heads(store_and_attend, args, (_BHD,) * 5 + ((0, None),),
                           ((0, 1),), in_place=(3, 4))
-    y = torch.matmul(out.to(x.dtype).reshape(B, 1, -1), p["wo"])
+    y = row_matmul(out.to(x.dtype).reshape(B, 1, -1), p["wo"])
     return y, cache
 
 
@@ -314,7 +314,7 @@ def cross_attn_forward(p: Params, x: torch.Tensor, enc: torch.Tensor,
     k = split_heads(torch.matmul(enc, p["wk"]), cfg.n_kv_heads, dh)
     v = split_heads(torch.matmul(enc, p["wv"]), cfg.n_kv_heads, dh)
     out = _mha(q, k, v, causal=False, window=None)
-    return torch.matmul(merge_heads(out), p["wo"])
+    return row_matmul(merge_heads(out), p["wo"])
 
 
 __all__ = ["KV_QSCALE", "PAGE_SIZE", "attend_slot_shard", "attn_decode",

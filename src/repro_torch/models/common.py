@@ -17,7 +17,9 @@ device's batch and heads (``local_map``, the counterpart of
 ``shard_map``), ``lookup`` and ``softmax_xent`` are vocabulary
 parallel, ``residual`` keeps the residual stream replicated over
 "model", ``split_heads``, ``merge_heads`` and ``reduce_like`` place a
-reshape's or an add's operand where the next op can take it.
+reshape's or an add's operand where the next op can take it, and
+``row_matmul`` gives a row-parallel product its input sharded on the
+weight's rows.
 """
 
 from __future__ import annotations
@@ -171,6 +173,26 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
     split into heads that do not divide its shards."""
     out = t.reshape(*t.shape[:-2], -1)
     return keep_grad(out) if is_placed(out) else out
+
+
+def row_matmul(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``t @ w`` for a row-parallel ``w`` [n, m] (attention's ``wo``).
+    Placed, ``t`` [..., n] is first sharded on its last dimension over
+    each mesh dimension where ``w`` is sharded on its rows and ``t`` is
+    replicated (a local slice, no collective), as Megatron's row-parallel
+    product takes its input: each device multiplies its slice by its
+    rows into partial sums, and ``w``'s gradient comes out placed as
+    ``w``.  ``t`` arrives replicated where the heads fall back to
+    replication (``split_heads``); DTensor would then gather ``w`` and
+    give its gradient whole."""
+    if is_placed(t) and is_placed(w):
+        from torch.distributed.tensor import Replicate, Shard
+
+        want = [Shard(t.ndim - 1) if q == Shard(0) and p == Replicate()
+                else p for p, q in zip(t.placements, w.placements)]
+        if tuple(want) != tuple(t.placements):
+            t = t.redistribute(t.device_mesh, want)
+    return torch.matmul(t, w)
 
 
 def keep_grad(t: torch.Tensor) -> torch.Tensor:
@@ -346,5 +368,5 @@ def _xent_placed(logits: torch.Tensor, labels: torch.Tensor
 __all__ = ["MetaGenerator", "Params", "apply_rope", "causal_mask",
            "contiguous_meta", "dense_init", "keep_grad", "layernorm",
            "local_heads", "lookup", "merge_heads", "norm", "norm_params",
-           "reduce_like", "residual", "rmsnorm", "rope_freqs", "softmax_xent",
-           "split_heads"]
+           "reduce_like", "residual", "rmsnorm", "rope_freqs", "row_matmul",
+           "softmax_xent", "split_heads"]

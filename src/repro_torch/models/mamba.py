@@ -34,8 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan import ssd_heads
-from .common import (dense_init, local_heads, merge_heads, reduce_like,
-                     split_heads)
+from .common import (dense_init, is_placed, keep_grad, local_heads,
+                     merge_heads, reduce_like, split_heads)
 
 Params = Dict[str, torch.Tensor]
 
@@ -101,6 +101,12 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, *,
     d_in = m.expand * D
     H = d_in // m.head_dim
     xz = torch.matmul(x, p["w_in"])
+    if is_placed(xz):
+        # sharded on its columns over "model", as w_in is; x and z each
+        # lie on half of the shards, so slicing them gathers xz, and the
+        # slices' gradient would come back whole and make w_in's whole:
+        # keep_grad returns it at xz's placements
+        xz = keep_grad(xz)
     xs, z = xz[..., :d_in], xz[..., d_in:]
     xs = F.silu(_conv1d(xs, p["w_conv"]))
     B_, C_, dt, A = _ssm_inputs(p, xs)

@@ -108,7 +108,7 @@ from . import ffn as ffn_mod
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
 from .common import (MetaGenerator, dense_init, is_placed, lookup, norm,
-                     norm_params, residual, softmax_xent)
+                     norm_params, placed_as, residual, softmax_xent)
 
 Params = Dict[str, torch.Tensor]
 
@@ -383,7 +383,11 @@ class LM(nn.Module):
         if cfg.vision is not None:
             vis = torch.matmul(batch["patches"].to(self.device, x.dtype),
                                self.projector)
-            x = torch.cat([vis, x], dim=1)
+            # placed, the projected patches come out sharded on D over
+            # "model" (the projector's columns): given the text's
+            # placements first, or the concatenation would take theirs
+            # and the whole residual stream would run sharded on D
+            x = torch.cat([placed_as(vis, x), x], dim=1)
         return x, enc
 
     # ------------------------------------------------------------------

@@ -1265,6 +1265,55 @@ def test_flash_attention_lse_matches_plain_version(card, B, T, S, H, Hk, dh,
         assert float(gap.max()) <= 1e-5
 
 
+# InternVL2-76B's train_4k share on 32 x 8 (chip_smoke.py): rank 0's 8
+# sequences of 4,096 positions, 8 of the 64 query heads and 1 of the 8
+# kv heads, dh = 128, causal, bf16
+GQA_SHARE = (8, 4096, 8, 1, 128)
+
+
+def test_flash_attention_at_the_gqa_train_share(card):
+    """Row 9 with its log-sum-exp, as the train step calls it: the
+    output within ``ATTN_STEPS`` of the plain version elementwise, the
+    LSE within 1e-5 of max(1, |plain|), one launch."""
+    B, T, H, Hk, dh = GQA_SHARE
+    rng = np.random.default_rng(T + H)
+    q = normal(rng, (B, T, H, dh), torch.bfloat16, card)
+    k, v = (normal(rng, (B, T, Hk, dh), torch.bfloat16, card)
+            for _ in range(2))
+    before = kflash.LAUNCHES["flash_attention"]
+    out, lse = kflash.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert kflash.LAUNCHES["flash_attention"] == before + 1
+    plain, plain_lse = kflash.attention_plain(q, k, v, return_lse=True)
+    diff = (out.float() - plain.float()).abs()
+    assert bool((diff <= attn_limit(plain)).all()), \
+        float((diff / attn_limit(plain)).max())
+    gap = (lse - plain_lse).abs() / plain_lse.abs().clamp_min(1.0)
+    assert float(gap.max()) <= 1e-5
+
+
+def test_flash_attention_bwd_at_the_gqa_train_share(card):
+    """Row 9b at the same shape: dq, dk and dv within ``ATTN_STEPS`` of
+    the plain backward elementwise (dk and dv sum the 8 query heads of
+    the one kv head), one launch, two calls the same bits."""
+    B, T, H, Hk, dh = GQA_SHARE
+    q, k, v, out, lse, dout = bwd_inputs(B, T, T, H, Hk, dh, True, None,
+                                         torch.bfloat16, card)
+    before = kflash.LAUNCHES["flash_attention_bwd"]
+    got = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+    torch.cuda.synchronize()
+    assert kflash.LAUNCHES["flash_attention_bwd"] == before + 1
+    plain = kflash.attention_bwd_plain(q, k, v, out, dout)
+    for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+        assert g.shape == p.shape and torch.isfinite(g.float()).all(), name
+        diff = (g.float() - p.float()).abs()
+        assert bool((diff <= attn_limit(p)).all()), \
+            (name, float((diff / attn_limit(p)).max()))
+    del plain
+    again = kflash.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_flash_attention_bwd_needs_aligned_bf16_and_an_lse(card):
     """TMA reads 16-byte-aligned tiles: a bf16 input that is not raises
     (no fallback), and the card needs the forward's log-sum-exp."""
